@@ -1,4 +1,4 @@
-"""Drive the PyTorch/CUDA port's serving path on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's serving and training paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -8,15 +8,26 @@ Phases, one JSON line each (``{"phase": ..., "ok": ...}``):
 2. build: every kernel of the path from ``ray_tpu_torch/ops/csrc``, one
    nvcc per source, all started together.
 3. kernels: each kernel against its plain PyTorch version on the card at
-   the serving path's shapes and at edge cases, then timed with CUDA events
-   beside the plain version, the PyTorch library call that computes the
-   same function, and the card's bound for the work.
+   the main paths' shapes and at edge cases (the flash forward at the 7B
+   prefill shape, the two flash backward kernels at the 1B training
+   shape), then timed with CUDA events beside the plain version, the
+   PyTorch library call that computes the same function, and the card's
+   bound for the work.
 4. serve: Llama-2-7B (``PRESETS["7b"]``, full width and depth, random
    weights from seed 0, ``attention_impl="flash"``) behind
    ``LlamaDecodeDeployment`` answers six requests from several threads,
    one of them a prefix-cache hit. Launch counters are zeroed right before
    and read right after; every kernel of the path must have run. Greedy
    outputs are held against solo runs under the margin rule.
+5. train: the 1B Llama (``PRESETS["1b"]``, full width and depth, fp32
+   masters from seed 0, ``attention_impl="flash"``, full remat,
+   ``loss_chunk=512``) takes four AdamW steps through ``build_train_step``
+   with two microbatches of 4 x 2048 tokens. Launch counters are zeroed
+   before each step and read after it; each step must launch each
+   backward kernel once per layer and microbatch and the forward twice
+   (the remat recompute). Losses must be finite and falling. A 2-layer
+   model of the same width then holds the flash gradients against the
+   plain-attention ones.
 
 Then a ``{"kernels": [...]}`` line, the nvidia-smi name/power-limit line,
 and, last, ``{"ok": true, "device": {...}}``. Any failed phase exits 1
@@ -25,13 +36,16 @@ without that last line; so does a machine without a card.
 
 from __future__ import annotations
 
+import gc
 import json
+import math
 import subprocess
 import sys
 import threading
 import time
 import traceback
 from dataclasses import replace
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -83,32 +97,59 @@ KERNELS = {
         "source": "ray_tpu_torch/ops/csrc/flash_fwd.cu",
         "replaces": "ray_tpu/ops/flash_attention.py:109",
     },
+    "flash_bwd_dkv": {
+        "route": "cuda",
+        "source": "ray_tpu_torch/ops/csrc/flash_bwd.cu",
+        "replaces": "ray_tpu/ops/flash_attention.py:223",
+    },
+    "flash_bwd_dq": {
+        "route": "cuda",
+        "source": "ray_tpu_torch/ops/csrc/flash_bwd.cu",
+        "replaces": "ray_tpu/ops/flash_attention.py:281",
+    },
 }
+# The sources to build: one library (and one nvcc) per .cu file.
+SOURCES = sorted({Path(k["source"]).stem for k in KERNELS.values()})
 
 
 def launch_counts() -> dict:
-    from ray_tpu_torch.ops.flash_attention import flash_attention
+    from ray_tpu_torch.ops.flash_attention import (flash_attention,
+                                                   flash_backward)
 
-    return {"flash_fwd": flash_attention.launches}
+    return {"flash_fwd": flash_attention.launches,
+            "flash_bwd_dkv": flash_backward.dkv_launches,
+            "flash_bwd_dq": flash_backward.dq_launches}
 
 
 def reset_counts() -> None:
-    from ray_tpu_torch.ops.flash_attention import flash_attention
+    from ray_tpu_torch.ops.flash_attention import (flash_attention,
+                                                   flash_backward)
 
     flash_attention.launches = 0
+    flash_backward.dkv_launches = 0
+    flash_backward.dq_launches = 0
 
 
 def phase_build() -> dict:
     from ray_tpu_torch.ops import cuda_build
 
     t0 = time.perf_counter()
-    libs = cuda_build.build(list(KERNELS))
+    libs = cuda_build.build(SOURCES)
     out = {"seconds": round(time.perf_counter() - t0, 3),
            "libraries": [p.name for p in libs]}
-    for name in KERNELS:
-        out[f"{name}_ptxas"] = [
-            line.strip() for line in cuda_build.build_log(name).splitlines()
-            if "registers" in line or "spill" in line]
+    for name in SOURCES:
+        log = cuda_build.build_log(name).splitlines()
+        # One line per instantiation: its name, registers and spills.
+        rows = []
+        for i, line in enumerate(log):
+            if "Function properties for" in line:
+                fn = line.split("for")[-1].strip()
+                fn = fn[fn.find("flash_"):]
+                spill = log[i + 1].strip() if i + 1 < len(log) else ""
+                used = next((x.strip() for x in log[i + 2:i + 4]
+                             if "registers" in x), "")
+                rows.append(f"{fn}: {used}; {spill}")
+        out[f"{name}_ptxas"] = rows
     return out
 
 
@@ -170,17 +211,20 @@ def _time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _live_pairs(sq, sk, q_offset=0, causal=True) -> int:
+    """(q, k) pairs per (batch, head) that the causal mask leaves live."""
+    if not causal:
+        return sq * sk
+    return int(np.clip(q_offset + np.arange(sq) + 1, 0, sk).sum())
+
+
 def _flash_bound(b, sq, sk, h, hkv, d, q_offset=0, causal=True,
                  itemsize=2):
     """Least time for the forward on this card: each input read once and
     each output written once over HBM bandwidth, against the QK^T and PV
     flops of the (q, k) pairs this call's masks leave live over the bf16
     tensor-core peak. Returns (ms, "bytes" | "operations")."""
-    if causal:
-        rows = q_offset + np.arange(sq)
-        pairs = int(np.clip(rows + 1, 0, sk).sum())
-    else:
-        pairs = sq * sk
+    pairs = _live_pairs(sq, sk, q_offset, causal)
     flops = 4.0 * b * h * d * pairs
     nbytes = (itemsize * (2 * b * sq * h * d + 2 * b * sk * hkv * d)
               + 4 * b * h * sq)
@@ -188,6 +232,176 @@ def _flash_bound(b, sq, sk, h, hkv, d, q_offset=0, causal=True,
     t_bytes = nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
+
+
+def _flash_bwd_bounds(b, sq, sk, h, hkv, d, causal=True, itemsize=2):
+    """Least time for each backward kernel on this card: the larger of its
+    bytes (each input read once, each output written once) over HBM
+    bandwidth and its matrix products over the live (q, k) pairs over the
+    bf16 tensor-core peak. dK/dV does 4 products (S, dP, dV, dK), dQ 3 (S,
+    dP, dQ). Returns {kernel: (ms, "bytes" | "operations")}."""
+    pairs = _live_pairs(sq, sk, causal=causal)
+    q_bytes = itemsize * b * sq * h * d          # q, dO or dq
+    kv_bytes = itemsize * b * sk * hkv * d       # k, v, dk or dv
+    stats = 4 * b * h * sq                       # lse or delta (fp32)
+    work = {
+        "flash_bwd_dkv": (8.0 * b * h * d * pairs,
+                          2 * q_bytes + 4 * kv_bytes + 2 * stats),
+        "flash_bwd_dq": (6.0 * b * h * d * pairs,
+                         3 * q_bytes + 2 * kv_bytes + 2 * stats),
+    }
+    out = {}
+    for name, (flops, nbytes) in work.items():
+        t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+        out[name] = (max(t_ops, t_bytes) * 1e3,
+                     "operations" if t_ops >= t_bytes else "bytes")
+    return out
+
+
+def _bwd_inputs(g, b, sq, sk, h, hkv, d, dtype):
+    q, k, v = _inputs(g, b, sq, sk, h, hkv, d, dtype)
+    do = torch.randn(b, sq, h, d, generator=g, device="cuda").to(dtype)
+    return q, k, v, do
+
+
+def _flash_bwd_cases(g):
+    """(name, (q, k, v, dO), kwargs, with_dlse) at the training path's
+    shape and the edges."""
+    bf = torch.bfloat16
+    seg = torch.zeros(2, 1024, dtype=torch.int32, device="cuda")
+    seg[:, 300:] = 1
+    seg[1, 700:] = 2
+    dead_q = torch.zeros(1, 256, dtype=torch.int32, device="cuda")
+    dead_q[:, 128:] = 5          # segment 5 has no keys: dead rows
+    dead_k = torch.zeros(1, 256, dtype=torch.int32, device="cuda")
+    return [
+        ("train_1b_b4_s2048", _bwd_inputs(g, 4, 2048, 2048, 16, 8, 128, bf),
+         dict(causal=True), False),
+        ("gqa_h32_kv8", _bwd_inputs(g, 1, 1024, 1024, 32, 8, 128, bf),
+         dict(causal=True), False),
+        ("mha_h8", _bwd_inputs(g, 2, 1024, 1024, 8, 8, 128, bf),
+         dict(causal=True), False),
+        ("d64", _bwd_inputs(g, 2, 512, 512, 16, 8, 64, bf),
+         dict(causal=True), False),
+        ("d80_padded", _bwd_inputs(g, 2, 512, 512, 8, 4, 80, bf),
+         dict(causal=True), False),
+        ("window256", _bwd_inputs(g, 1, 2048, 2048, 8, 4, 128, bf),
+         dict(causal=True, window=256), False),
+        ("q_offset512", _bwd_inputs(g, 2, 512, 1024, 8, 8, 128, bf),
+         dict(causal=True, q_offset=512), False),
+        ("segment_ids", _bwd_inputs(g, 2, 1024, 1024, 8, 8, 128, bf),
+         dict(causal=True, seg_q=seg, seg_k=seg), False),
+        ("non_causal", _bwd_inputs(g, 2, 1024, 1024, 8, 4, 128, bf),
+         dict(causal=False), False),
+        ("fully_masked_rows", _bwd_inputs(g, 1, 256, 256, 4, 4, 128, bf),
+         dict(causal=False, seg_q=dead_q, seg_k=dead_k), False),
+        ("s400_ragged", _bwd_inputs(g, 2, 400, 400, 8, 4, 128, bf),
+         dict(causal=True), False),
+        ("lse_cotangent_stats", _bwd_inputs(g, 2, 512, 512, 8, 8, 128, bf),
+         dict(causal=True), True),
+        ("f32_s320", _bwd_inputs(g, 1, 320, 320, 4, 2, 128, torch.float32),
+         dict(causal=True), False),
+    ]
+
+
+def _stats_grads(q, k, v, do, dlse, causal):
+    """Gradients through ``flash_attention_stats`` ((B, H, S, D) layout)
+    under cotangents for both outputs: the path ring attention uses."""
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    out, lse = fa.flash_attention_stats(qt, kt, vt, q.shape[-1] ** -0.5,
+                                        causal, None, 0, 64, 64)
+    dq, dk, dv = torch.autograd.grad((out, lse), (qt, kt, vt),
+                                     (do.transpose(1, 2), dlse))
+    return dq.transpose(1, 2), dk.transpose(1, 2), dv.transpose(1, 2)
+
+
+def _check_flash_bwd(g) -> list:
+    """Each backward case: the kernels' dq, dk, dv against the plain
+    version on the same (q, k, v, out, lse, dO). Errors are max |error|
+    relative to the plain gradient's max |value|: at most 2e-2 in bf16
+    (P and dS round to bf16 after sums in another order), 1e-4 in float32
+    (bf16 hi + lo split operands, ~2^-16)."""
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    results = []
+    for name, (q, k, v, do), kw, with_dlse in _flash_bwd_cases(g):
+        out, lse = fa.flash_forward(q, k, v, **kw)
+        dlse = None
+        if with_dlse:
+            dlse = torch.randn(lse.shape, generator=g, device="cuda")
+            got = _stats_grads(q, k, v, do, dlse, kw["causal"])
+        else:
+            got = fa.flash_backward(q, k, v, out, lse, do, **kw)
+        torch.cuda.synchronize()
+        want = fa.flash_backward_reference(q, k, v, out, lse, do, dlse, **kw)
+        tol = 2e-2 if q.dtype == torch.bfloat16 else 1e-4
+        errs, ok = {}, True
+        for gname, a, r in zip(("dq", "dk", "dv"), got, want):
+            scale = float(r.float().abs().max())
+            err = float((a.float() - r.float()).abs().max())
+            errs[gname] = err / max(scale, 1e-30)
+            ok = ok and a.dtype == r.dtype and a.shape == r.shape and (
+                bool(torch.isfinite(a.float()).all())
+                and err <= tol * scale)
+        if name == "fully_masked_rows":
+            ok = ok and not got[0][:, 128:].any()
+        results.append({"case": f"bwd_{name}", "ok": ok,
+                        "rel_max_abs_err": errs, "tol": tol})
+        del q, k, v, do, out, lse, got, want
+    torch.cuda.empty_cache()
+    return results
+
+
+def _time_flash_bwd(g, record: dict) -> dict:
+    """Time each backward kernel at the 1B training shape beside the plain
+    version and the library yardstick (the backward of PyTorch's SDPA,
+    timed only), and compute each kernel's bound."""
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    b, s, h, hkv, d = 4, 2048, 16, 8, 128
+    q, k, v, do = _bwd_inputs(g, b, s, s, h, hkv, d, torch.bfloat16)
+    scale = d ** -0.5
+    out, lse = fa.flash_forward(q, k, v, causal=True)
+    delta = fa.attention_delta(out, do)
+    want = fa.flash_backward_reference(q, k, v, out, lse, do, causal=True)
+    got = fa.flash_backward(q, k, v, out, lse, do, causal=True)
+    errs = [float((a.float() - r.float()).abs().max())
+            for a, r in zip(got, want)]
+    del got, want
+
+    # Timed through the launcher alone: validation and allocation happen
+    # once, so the wrapper's host work does not enter the kernel time.
+    launch, _ = fa._backward_launcher(q, k, v, do, lse, delta, None, None,
+                                      None, scale, True, None, 0)
+    ms = {"flash_bwd_dkv": _time_ms(lambda: launch("dkv"), iters=20),
+          "flash_bwd_dq": _time_ms(lambda: launch("dq"), iters=20)}
+    plain_ms = _time_ms(lambda: fa.flash_backward_reference(
+        q, k, v, out, lse, do, causal=True), iters=3, warmup=1)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    lib_out = torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True)
+    dot = do.transpose(1, 2)
+    lib_ms = _time_ms(lambda: torch.autograd.grad(
+        lib_out, (qt, kt, vt), dot, retain_graph=True), iters=20)
+    bounds = _flash_bwd_bounds(b, s, s, h, hkv, d)
+    max_err = {"flash_bwd_dkv": max(errs[1], errs[2]),
+               "flash_bwd_dq": errs[0]}
+    for name in ("flash_bwd_dkv", "flash_bwd_dq"):
+        record[name] = {"max_abs_err": max_err[name], "ms": ms[name],
+                        "plain_ms": plain_ms, "bound_ms": bounds[name][0],
+                        "bound_by": bounds[name][1], "library_ms": lib_ms}
+    del q, k, v, do, out, lse, delta, qt, kt, vt, lib_out
+    torch.cuda.empty_cache()
+    return {"bwd_timing_shape": {"B": b, "S": s, "H": h, "Hkv": hkv,
+                                 "D": d, "causal": True,
+                                 "dtype": "bfloat16"},
+            "bwd_pair_ms": ms["flash_bwd_dkv"] + ms["flash_bwd_dq"],
+            "bwd_library_is": "SDPA backward (dq, dk, dv together)",
+            "bwd_plain_is": "flash_backward_reference (dq, dk, dv together)"}
 
 
 def phase_kernels(record: dict) -> dict:
@@ -232,7 +446,11 @@ def phase_kernels(record: dict) -> dict:
     # Timing at the serving path's largest prefill shape.
     b, s, h, d = 4, 2048, 32, 128
     q, k, v = _inputs(g, b, s, s, h, h, d, torch.bfloat16)
-    ms = _time_ms(lambda: fa.flash_forward(q, k, v, causal=True), iters=20)
+    # Timed through the launcher alone (as the backward kernels): the
+    # wrapper's host work per call can exceed the kernel's time.
+    launch, _ = fa._forward_launcher(q, k, v, None, None, d ** -0.5, True,
+                                     None, 0)
+    ms = _time_ms(launch, iters=20)
     plain_ms = _time_ms(
         lambda: fa.flash_attention_reference(q, k, v, causal=True), iters=3,
         warmup=1)
@@ -246,12 +464,16 @@ def phase_kernels(record: dict) -> dict:
                            "bound_by": bound_by, "library_ms": lib_ms}
     del q, k, v, qt, kt, vt
     torch.cuda.empty_cache()
+
+    results += _check_flash_bwd(g)
+    bwd = _time_flash_bwd(g, record)
     ok = all(r["ok"] for r in results)
     return {"ok": ok, "cases": results,
             "timing_shape": {"B": b, "S": s, "H": h, "D": d,
                              "causal": True, "dtype": "bfloat16"},
-            **{f"flash_fwd_{key}": val
-               for key, val in record["flash_fwd"].items()}}
+            **bwd,
+            **{f"{name}_{key}": val for name in KERNELS
+               for key, val in record[name].items()}}
 
 
 # ---------------------------------------------------------------- serve
@@ -455,6 +677,127 @@ def phase_serve(cfg, device="cuda") -> dict:
     return out
 
 
+# Flash vs plain-attention gradients of the 2-layer check: the relative L2
+# norm of their difference, per parameter. Both round P (and the flash path
+# dS) to bf16, at other points of the sums, through two layers of bf16
+# activations.
+GRAD_REL_TOL = 5e-2
+
+
+def _grad_check(cfg, device, b, s) -> dict:
+    """The same width at 2 layers: gradients of ``loss_fn`` with
+    ``attention_impl="flash"`` against ``"xla"`` (plain PyTorch)."""
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.ops.optim import tree_leaves
+    from ray_tpu_torch.parallel.train_step import value_and_grad
+
+    cfg2 = replace(cfg, n_layers=2)
+    params = llama.init_params(cfg2, device=device, dtype=torch.float32,
+                               seed=1)
+    g = torch.Generator(device=device).manual_seed(2)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s + 1),
+                                     generator=g, device=device)}
+    def run(impl):
+        c = replace(cfg2, attention_impl=impl)
+        return value_and_grad(lambda p, b_: llama.loss_fn(p, b_, c), params,
+                              batch)
+
+    loss_f, grads_f = run("flash")
+    loss_x, grads_x = run("xla")
+    rel = [float((a - b_).norm() / b_.norm().clamp_min(1e-30))
+           for a, b_ in zip(tree_leaves(grads_f), tree_leaves(grads_x))]
+    return {"shape": {"B": b, "S": s, "n_layers": 2},
+            "loss_flash": float(loss_f), "loss_xla": float(loss_x),
+            "max_grad_rel_norm_diff": max(rel), "tol": GRAD_REL_TOL,
+            "ok": max(rel) <= GRAD_REL_TOL and math.isfinite(sum(rel))}
+
+
+def phase_train(cfg, device="cuda", batch=8, seq=2048, steps=4,
+                accum_steps=2, check_batch=1, check_seq=1024) -> dict:
+    """``steps`` AdamW steps of ``cfg`` through ``build_train_step`` on one
+    fixed batch of ``batch`` x (``seq`` + 1) random tokens, in
+    ``accum_steps`` microbatches, with per-step launch counts; then the
+    flash-vs-plain gradient check."""
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.ops.optim import adamw
+    from ray_tpu_torch.parallel import train_step
+
+    cuda = torch.device(device).type == "cuda"
+    t0 = time.perf_counter()
+    params = train_step.init_sharded_params(
+        lambda seed: llama.init_params(cfg, device=device,
+                                       dtype=torch.float32, seed=seed),
+        llama.param_axes(cfg), key=0)
+    opt = adamw(3e-4, weight_decay=0.1)
+    opt_state = train_step.init_optimizer_state(opt, params)
+    step = train_step.build_train_step(
+        lambda p, b: llama.loss_fn(p, b, cfg), opt, accum_steps=accum_steps)
+    g = torch.Generator(device=device).manual_seed(0)
+    data = {"tokens": torch.randint(0, cfg.vocab_size, (batch, seq + 1),
+                                    generator=g, device=device)}
+    _sync(device)
+    init_s = time.perf_counter() - t0
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    want = {"flash_fwd": 2 * cfg.n_layers * accum_steps,
+            "flash_bwd_dkv": cfg.n_layers * accum_steps,
+            "flash_bwd_dq": cfg.n_layers * accum_steps}
+    losses, norms, times, per_step = [], [], [], []
+    total = {k: 0 for k in want}
+    for _ in range(steps):
+        reset_counts()
+        t = time.perf_counter()
+        params, opt_state, m = step(params, opt_state, data)
+        _sync(device)
+        times.append(time.perf_counter() - t)
+        counts = launch_counts()
+        per_step.append(counts)
+        for k in total:
+            total[k] += counts[k]
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    peak = torch.cuda.max_memory_allocated() if cuda else None
+    del params, opt_state, step, data
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    steady = times[1:] or times
+    step_s = sum(steady) / len(steady)
+    tokens = batch * seq
+    out = {"config": {"preset_width": {"dim": cfg.dim,
+                                       "n_layers": cfg.n_layers,
+                                       "n_heads": cfg.n_heads,
+                                       "n_kv_heads": cfg.n_kv_heads,
+                                       "mlp_dim": cfg.mlp_dim},
+                      "num_params": cfg.num_params(),
+                      "attention_impl": cfg.attention_impl,
+                      "remat_policy": cfg.remat_policy if cfg.remat
+                      else None, "loss_chunk": cfg.loss_chunk,
+                      "batch": batch, "seq": seq,
+                      "accum_steps": accum_steps},
+           "init_s": init_s, "losses": losses, "grad_norms": norms,
+           "step_s": times, "launches": total,
+           "launches_per_step": per_step, "launches_want": want}
+    checks = {
+        "finite": all(math.isfinite(x) for x in losses + norms),
+        "loss_falls": losses[-1] < losses[0],
+        "launches_per_step_exact": all(c == want for c in per_step),
+    }
+    if cuda:
+        out["device"] = smi_line()
+        out["steady_step_s"] = step_s
+        out["tokens_per_s"] = tokens / step_s
+        out["mfu_bf16_peak"] = (llama.flops_per_token(cfg, seq) * tokens
+                                / (step_s * PEAK_BF16_FLOPS))
+        out["peak_memory_bytes"] = peak
+    check = _grad_check(cfg, device, check_batch, check_seq)
+    checks["flash_grads_match_plain"] = check.pop("ok")
+    out["grad_check"] = check
+    out["checks"] = checks
+    out["ok"] = all(checks.values())
+    return out
+
+
 def _sync(device) -> None:
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize()
@@ -472,11 +815,14 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     record: dict = {}
-    serve: dict = {}
+    paths: dict = {}
+    train_cfg = replace(llama.PRESETS["1b"], attention_impl="flash",
+                        remat=True, remat_policy="full", loss_chunk=512)
     for name, fn in (("env", phase_env), ("build", phase_build),
                      ("kernels", lambda: phase_kernels(record)),
                      ("serve", lambda: phase_serve(replace(
-                         llama.PRESETS["7b"], attention_impl="flash")))):
+                         llama.PRESETS["7b"], attention_impl="flash"))),
+                     ("train", lambda: phase_train(train_cfg))):
         t0 = time.perf_counter()
         try:
             res = fn()
@@ -489,10 +835,17 @@ def main() -> int:
         emit(res)
         if not res["ok"]:
             return 1
-        if name == "serve":
-            serve = res
-    launches = serve["launches"]
-    missing = [k for k in KERNELS if launches.get(k, 0) < 1]
+        if name in ("serve", "train"):
+            paths[name] = res["launches"]
+            gc.collect()
+            torch.cuda.empty_cache()
+    # Each main path's counts were zeroed right before it and read right
+    # after it; a kernel counts the launches of both paths.
+    launches = {k: sum(p.get(k, 0) for p in paths.values()) for k in KERNELS}
+    missing = [k for k in KERNELS if launches[k] < 1]
+    missing += [f"{k} on the {p} path" for p, want in
+                (("serve", ["flash_fwd"]), ("train", list(KERNELS)))
+                for k in want if paths[p].get(k, 0) < 1]
     if missing:
         emit({"phase": "launches", "ok": False, "not_launched": missing})
         return 1

@@ -3,7 +3,10 @@ and the chunked online-softmax path, one signature.
 
 * ``impl="xla"``: plain softmax over the full (B, H, Sq, Sk) scores.
 * ``impl="chunked"``: online softmax over KV chunks; never materializes
-  the full score matrix.
+  the full score matrix. Each chunk's step runs under
+  ``torch.utils.checkpoint`` (the JAX package's ``jax.checkpoint``), so the
+  backward recomputes that chunk's probabilities and keeps O(S * chunk)
+  live.
 
 Both keep the JAX package's numerics: scores and the softmax statistics in
 fp32, probabilities rounded to the value dtype before P·V on the plain
@@ -17,6 +20,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 _NEG_INF = -1e30
 
@@ -76,6 +80,22 @@ def _attention_xla(q, k, v, causal, q_offset, kv_offset, kv_valid=None):
     return out.to(q.dtype)
 
 
+def _chunk_step(acc, m, l, q32, k_c, v_c, mask, scale):
+    """One online-softmax update over a KV chunk (checkpointed by the
+    caller)."""
+    scores = torch.einsum("bqhd,bkhd->bhqk", q32, k_c.float()) * scale
+    if mask is not None:
+        scores = scores.masked_fill(~mask, _NEG_INF)
+    m_new = torch.maximum(m, scores.amax(dim=-1))
+    m_safe = m_new.clamp_min(_NEG_INF / 2)
+    p = torch.exp(scores - m_safe[..., None])
+    corr = torch.exp(m.clamp_min(_NEG_INF / 2) - m_safe)
+    l = l * corr + p.sum(dim=-1)
+    acc = acc * corr[..., None] + torch.einsum("bhqk,bkhd->bhqd", p,
+                                               v_c.float())
+    return acc, m_new, l
+
+
 def _attention_chunked(q, k, v, causal, q_offset, kv_offset, chunk_size):
     b, sq, h, d = q.shape
     sk = k.shape[1]
@@ -87,20 +107,16 @@ def _attention_chunked(q, k, v, causal, q_offset, kv_offset, chunk_size):
     acc = torch.zeros((b, h, sq, d), dtype=torch.float32, device=q.device)
     m = torch.full((b, h, sq), _NEG_INF, dtype=torch.float32, device=q.device)
     l = torch.zeros((b, h, sq), dtype=torch.float32, device=q.device)
+    grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v))
     for idx in range(sk // chunk_size):
         sl = slice(idx * chunk_size, (idx + 1) * chunk_size)
-        scores = torch.einsum("bqhd,bkhd->bhqk", q32, k[:, sl].float()) * scale
-        if causal:
-            mask = _mask(sq, chunk_size, q_offset,
-                         kv_offset + idx * chunk_size, q.device)
-            scores = scores.masked_fill(~mask, _NEG_INF)
-        m_new = torch.maximum(m, scores.amax(dim=-1))
-        m_safe = m_new.clamp_min(_NEG_INF / 2)
-        p = torch.exp(scores - m_safe[..., None])
-        corr = torch.exp(m.clamp_min(_NEG_INF / 2) - m_safe)
-        l = l * corr + p.sum(dim=-1)
-        acc = acc * corr[..., None] + torch.einsum(
-            "bhqk,bkhd->bhqd", p, v[:, sl].float())
-        m = m_new
+        mask = (_mask(sq, chunk_size, q_offset, kv_offset + idx * chunk_size,
+                      q.device) if causal else None)
+        args = (acc, m, l, q32, k[:, sl], v[:, sl], mask, scale)
+        if grad:
+            acc, m, l = checkpoint(_chunk_step, *args, use_reentrant=False)
+        else:
+            acc, m, l = _chunk_step(*args)
     l_safe = torch.where(l == 0.0, torch.ones_like(l), l)
     return (acc / l_safe[..., None]).permute(0, 2, 1, 3).to(q.dtype)

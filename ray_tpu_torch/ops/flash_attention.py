@@ -1,16 +1,14 @@
-"""Flash attention forward (port of ``ray_tpu/ops/flash_attention.py``).
+"""Flash attention (port of ``ray_tpu/ops/flash_attention.py``).
 
-``flash_attention`` keeps the JAX package's public signature, its
-(B, S, H, D) layout and its ValueErrors. On a CUDA tensor it launches the
-hand-written Hopper kernel ``ops/csrc/flash_fwd.cu`` (which replaces the
-Pallas ``_fwd_kernel``) or raises; on a CPU tensor it runs
-``flash_attention_reference``, the plain PyTorch version of the same
-function. Nothing else is on either path.
-
-The forward is all the serving slice needs. The backward kernels
-(``_bwd_dq_kernel``, ``_bwd_dkv_kernel``) come with the training slice
-(ROADMAP.md queue 1, item 1); until then a backward through this op
-raises ``NotImplementedError``.
+``flash_attention`` and ``flash_attention_stats`` keep the JAX package's
+public signatures, its (B, S, H, D) layout (``flash_attention_stats``:
+(B, H, S, D)) and its ValueErrors. On a CUDA tensor the forward launches
+the hand-written Hopper kernel ``ops/csrc/flash_fwd.cu`` (which replaces
+the Pallas ``_fwd_kernel``) and the backward launches the two kernels of
+``ops/csrc/flash_bwd.cu`` (``_bwd_dkv_kernel`` then ``_bwd_dq_kernel``), or
+raises; on a CPU tensor both directions run the plain PyTorch versions,
+``flash_attention_reference`` and ``flash_backward_reference``. Nothing
+else is on either path.
 """
 
 from __future__ import annotations
@@ -19,9 +17,9 @@ import ctypes
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 _NEG_INF = -1e30
-_KERNEL = "flash_fwd"
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
 
 
@@ -44,16 +42,8 @@ def flash_attention_reference(q, k, v, causal=True, q_offset=0, scale=None,
     k = k.repeat_interleave(group, dim=2) if group > 1 else k
     v = v.repeat_interleave(group, dim=2) if group > 1 else v
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
-    rows = q_offset + torch.arange(sq, device=q.device)[:, None]
-    cols = torch.arange(sk, device=q.device)[None, :]
-    keep = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
-    if causal:
-        keep = keep & (rows >= cols)
-    if window is not None:
-        keep = keep & (rows - cols < window)
-    keep = keep[None, None]
-    if seg_q is not None:
-        keep = keep & (seg_q[:, None, :, None] == seg_k[:, None, None, :])
+    keep = _keep_mask(sq, sk, causal, q_offset, window, seg_q, seg_k,
+                      q.device)
     s = torch.where(keep, s, torch.full_like(s, _NEG_INF))
     m_safe = s.amax(dim=-1, keepdim=True).clamp_min(_NEG_INF / 2)
     p = torch.exp(s - m_safe)
@@ -66,7 +56,67 @@ def flash_attention_reference(q, k, v, causal=True, q_offset=0, scale=None,
     return out.to(q.dtype), lse[..., 0]
 
 
-# ------------------------------------------------------------------ kernel
+def _keep_mask(sq, sk, causal, q_offset, window, seg_q, seg_k, device):
+    """(1 | B, 1, Sq, Sk) bool: which (query, key) pairs the masks leave."""
+    rows = q_offset + torch.arange(sq, device=device)[:, None]
+    cols = torch.arange(sk, device=device)[None, :]
+    keep = torch.ones((sq, sk), dtype=torch.bool, device=device)
+    if causal:
+        keep = keep & (rows >= cols)
+    if window is not None:
+        keep = keep & (rows - cols < window)
+    keep = keep[None, None]
+    if seg_q is not None:
+        keep = keep & (seg_q[:, None, :, None] == seg_k[:, None, None, :])
+    return keep
+
+
+def attention_delta(out: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """delta = rowsum(dO * O) in fp32, (B, S, H, D) -> (B, H, S): the
+    elementwise pre-pass of both backward kernels (plain PyTorch, as the
+    JAX package leaves it to XLA)."""
+    return (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+
+
+def flash_backward_reference(q, k, v, out, lse, do, dlse=None, causal=True,
+                             q_offset=0, scale=None, window=None, seg_q=None,
+                             seg_k=None) -> Tuple[torch.Tensor, torch.Tensor,
+                                                  torch.Tensor]:
+    """Plain PyTorch flash backward on (B, S, H, D): ``(dq, dk, dv)`` from
+    the forward's ``out`` and ``lse`` (B, H, Sq), the output cotangent
+    ``do`` and, for ``flash_attention_stats``, the lse cotangent ``dlse``
+    (B, H, Sq). Keeps the TPU kernels' rounding points: P = exp(s -
+    max(lse, -5e29)) in fp32, rounded to dO's dtype before Pᵀ·dO; dP in
+    fp32 plus the lse cotangent; dS = P∘(dP − delta)·scale rounded to
+    q's dtype before dSᵀ·Q and to k's before dS·K; dK and dV accumulated
+    per query head in fp32, summed over the GQA group in fp32 and cast
+    once; dq written in q's dtype. Materializes (B, H, Sq, Sk): the CPU
+    path and the kernels' yardstick."""
+    b, sq, hq, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    if scale is None:
+        scale = d ** -0.5
+    group = hq // hkv
+    kr = k.repeat_interleave(group, dim=2) if group > 1 else k
+    vr = v.repeat_interleave(group, dim=2) if group > 1 else v
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kr.float()) * scale
+    keep = _keep_mask(sq, sk, causal, q_offset, window, seg_q, seg_k,
+                      q.device)
+    s = torch.where(keep, s, torch.full_like(s, _NEG_INF))
+    p = torch.exp(s - lse.float().clamp_min(_NEG_INF / 2)[..., None])
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(do.dtype).float(), do.float())
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), vr.float())
+    if dlse is not None:
+        dp = dp + dlse.float()[..., None]
+    ds = p * (dp - attention_delta(out, do)[..., None]) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds.to(q.dtype).float(), q.float())
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds.to(k.dtype).float(), kr.float())
+    dk = dk.view(b, sk, hkv, group, d).sum(3)
+    dv = dv.view(b, sk, hkv, group, d).sum(3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+# ----------------------------------------------------------------- kernels
 
 
 def _check_operand(name: str, t: torch.Tensor, dtype: torch.dtype,
@@ -86,9 +136,9 @@ def _check_operand(name: str, t: torch.Tensor, dtype: torch.dtype,
                          f"(strides {t.stride()})")
 
 
-def _kernel_forward(q, k, v, seg_q, seg_k, scale, causal, window,
-                    q_offset, csrc=None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch ``flash_fwd.cu`` on (B, S, H, D) CUDA tensors, D in {64, 128}."""
+def _check_inputs(q, k, v, seg_q, seg_k):
+    """Validate the kernels' (B, S, H, D) operands; returns
+    (b, sq, sk, hq, hkv, d)."""
     dtype, device = q.dtype, q.device
     if dtype not in _DTYPE_CODES:
         raise ValueError(
@@ -107,16 +157,40 @@ def _kernel_forward(q, k, v, seg_q, seg_k, scale, causal, window,
                          f"({b}, {sk})")
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check_operand(name, t, dtype, device)
-    lib = _library(csrc)
+    return b, sq, sk, hq, hkv, d
+
+
+def _segments(seg_q, seg_k, device):
+    if seg_q is None:
+        return None, None
+    return (seg_q.to(device=device, dtype=torch.int32).contiguous(),
+            seg_k.to(device=device, dtype=torch.int32).contiguous())
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _mask_ints(seg_q, seg_k, causal, window, q_offset):
+    return (seg_q.stride(0) if seg_q is not None else 0,
+            seg_k.stride(0) if seg_k is not None else 0,
+            int(bool(causal)), int(window is not None),
+            int(window) if window is not None else 0, int(q_offset))
+
+
+def _forward_launcher(q, k, v, seg_q, seg_k, scale, causal, window,
+                      q_offset, csrc=None):
+    """Validate and allocate for ``flash_fwd.cu`` on (B, S, H, D) CUDA
+    tensors, D in {64, 128}. Returns ``(launch, (out, lse))``: ``launch()``
+    launches the kernel into those outputs (a timing calls it alone)."""
+    b, sq, sk, hq, hkv, d = _check_inputs(q, k, v, seg_q, seg_k)
+    dtype, device = q.dtype, q.device
+    fn = _library("flash_fwd", "rtt_flash_fwd", csrc)
     out = torch.empty((b, sq, hq, d), dtype=dtype, device=device)
     lse = torch.empty((b, hq, sq), dtype=torch.float32, device=device)
-    if seg_q is not None:
-        seg_q = seg_q.to(device=device, dtype=torch.int32).contiguous()
-        seg_k = seg_k.to(device=device, dtype=torch.int32).contiguous()
+    seg_q, seg_k = _segments(seg_q, seg_k, device)
     ptrs = (ctypes.c_void_p * 7)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        seg_q.data_ptr() if seg_q is not None else None,
-        seg_k.data_ptr() if seg_k is not None else None,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(seg_q), _ptr(seg_k),
         out.data_ptr(), lse.data_ptr())
     ints = (ctypes.c_longlong * 25)(
         _DTYPE_CODES[dtype], b, hq, hkv, sq, sk, d,
@@ -124,31 +198,122 @@ def _kernel_forward(q, k, v, seg_q, seg_k, scale, causal, window,
         k.stride(0), k.stride(1), k.stride(2),
         v.stride(0), v.stride(1), v.stride(2),
         out.stride(0), out.stride(1), out.stride(2),
-        seg_q.stride(0) if seg_q is not None else 0,
-        seg_k.stride(0) if seg_k is not None else 0,
-        int(bool(causal)), int(window is not None),
-        int(window) if window is not None else 0, int(q_offset))
+        *_mask_ints(seg_q, seg_k, causal, window, q_offset))
     stream = torch.cuda.current_stream(device).cuda_stream
-    err = lib.rtt_flash_fwd(ptrs, ints, float(scale), stream)
-    if err:
-        raise RuntimeError(f"flash_fwd launch failed: cudaError {err}")
-    flash_attention.launches += 1
-    return out, lse
+
+    def launch() -> None:
+        err = fn(ptrs, ints, float(scale), stream)
+        if err:
+            raise RuntimeError(f"flash_fwd launch failed: cudaError {err}")
+        flash_attention.launches += 1
+
+    launch.keep = (seg_q, seg_k)  # alive while launches may run
+    return launch, (out, lse)
 
 
-def _library(csrc=None):
-    """The built kernel library (from ``ops/csrc`` unless ``csrc`` names
-    another source directory, as an A/B timing of two versions does)."""
+def _kernel_forward(q, k, v, seg_q, seg_k, scale, causal, window,
+                    q_offset, csrc=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch ``flash_fwd.cu`` (the arguments of ``_forward_launcher``)."""
+    launch, result = _forward_launcher(q, k, v, seg_q, seg_k, scale, causal,
+                                       window, q_offset, csrc)
+    launch()
+    return result
+
+
+def _backward_launcher(q, k, v, do, lse, delta, dlse, seg_q, seg_k, scale,
+                       causal, window, q_offset, csrc=None):
+    """Validate and allocate for ``flash_bwd.cu`` on (B, S, H, D) CUDA
+    tensors, D in {64, 128}; ``lse``, ``delta`` and ``dlse`` (or None) are
+    (B, H, Sq) fp32. Returns ``(launch, (dq, dk, dv))``: ``launch("dkv")``
+    and ``launch("dq")`` launch one kernel each into those outputs (a
+    timing of one kernel calls ``launch`` alone)."""
+    b, sq, sk, hq, hkv, d = _check_inputs(q, k, v, seg_q, seg_k)
+    dtype, device = q.dtype, q.device
+    if do.shape != q.shape:
+        raise ValueError(f"do {tuple(do.shape)} does not match q "
+                         f"{tuple(q.shape)}")
+    _check_operand("do", do, dtype, device)
+    stats = [lse, delta] + ([] if dlse is None else [dlse])
+    lse, delta, *rest = (t.to(device=device, dtype=torch.float32)
+                         .contiguous() for t in stats)
+    dlse = rest[0] if rest else None
+    for name, t in (("lse", lse), ("delta", delta), ("dlse", dlse)):
+        if t is not None and t.shape != (b, hq, sq):
+            raise ValueError(f"{name} {tuple(t.shape)} is not ({b}, {hq}, "
+                             f"{sq})")
+    fns = {name: _library("flash_bwd", f"rtt_flash_bwd_{name}", csrc)
+           for name in ("dkv", "dq")}
+    dq = torch.empty((b, sq, hq, d), dtype=dtype, device=device)
+    dk = torch.empty((b, sk, hkv, d), dtype=dtype, device=device)
+    dv = torch.empty_like(dk)
+    seg_q, seg_k = _segments(seg_q, seg_k, device)
+    ptrs = (ctypes.c_void_p * 12)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), _ptr(dlse), _ptr(seg_q),
+        _ptr(seg_k), dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
+    ints = (ctypes.c_longlong * 31)(
+        _DTYPE_CODES[dtype], b, hq, hkv, sq, sk, d,
+        q.stride(0), q.stride(1), q.stride(2),
+        k.stride(0), k.stride(1), k.stride(2),
+        v.stride(0), v.stride(1), v.stride(2),
+        do.stride(0), do.stride(1), do.stride(2),
+        dq.stride(0), dq.stride(1), dq.stride(2),
+        dk.stride(0), dk.stride(1), dk.stride(2),
+        *_mask_ints(seg_q, seg_k, causal, window, q_offset))
+    stream = torch.cuda.current_stream(device).cuda_stream
+    keep = (lse, delta, dlse, seg_q, seg_k)  # alive while launches may run
+
+    def launch(name: str) -> None:
+        err = fns[name](ptrs, ints, float(scale), stream)
+        if err:
+            raise RuntimeError(
+                f"flash_bwd_{name} launch failed: cudaError {err}")
+        counter = f"{name}_launches"
+        setattr(flash_backward, counter, getattr(flash_backward, counter) + 1)
+
+    launch.keep = keep
+    return launch, (dq, dk, dv)
+
+
+def _kernel_backward(q, k, v, do, lse, delta, dlse, seg_q, seg_k, scale,
+                     causal, window, q_offset, csrc=None
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch ``flash_bwd.cu``'s dK/dV kernel, then its dQ kernel (the
+    arguments of ``_backward_launcher``)."""
+    launch, grads = _backward_launcher(q, k, v, do, lse, delta, dlse, seg_q,
+                                       seg_k, scale, causal, window,
+                                       q_offset, csrc)
+    launch("dkv")
+    launch("dq")
+    return grads
+
+
+def _library(kernel: str, entry: str, csrc=None):
+    """``entry`` of the built library of ``kernel`` (from ``ops/csrc``
+    unless ``csrc`` names another source directory, as an A/B timing of
+    two versions does), with its ctypes signature set."""
     from ray_tpu_torch.ops import cuda_build
 
-    lib = cuda_build.load(_KERNEL, csrc or cuda_build.CSRC)
-    fn = lib.rtt_flash_fwd
+    fn = getattr(cuda_build.load(kernel, csrc or cuda_build.CSRC), entry)
     if fn.argtypes is None:
         fn.argtypes = [ctypes.POINTER(ctypes.c_void_p),
                        ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
                        ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    return lib
+    return fn
+
+
+def _device_kind(q: torch.Tensor) -> str:
+    if q.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"flash_attention runs on cuda or cpu, not "
+                         f"{q.device}")
+    return q.device.type
+
+
+def _pad_d(d: int) -> int:
+    if d > 128:
+        raise ValueError(f"flash kernel head dim must be <= 128, got {d}")
+    return (64 if d <= 64 else 128) - d
 
 
 def flash_forward(q, k, v, causal=True, q_offset=0, scale=None,
@@ -162,46 +327,80 @@ def flash_forward(q, k, v, causal=True, q_offset=0, scale=None,
     kernel masks ragged edges itself."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    if q.device.type == "cpu":
+    if _device_kind(q) == "cpu":
         return flash_attention_reference(q, k, v, causal, q_offset, scale,
                                          window, seg_q, seg_k)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cuda or cpu, not "
-                         f"{q.device}")
     d = q.shape[-1]
-    if d > 128:
-        raise ValueError(f"flash kernel head dim must be <= 128, got {d}")
-    d_pad = (64 if d <= 64 else 128) - d
+    d_pad = _pad_d(d)
     if d_pad:
-        pad = (0, d_pad)
-        q = torch.nn.functional.pad(q, pad)
-        k = torch.nn.functional.pad(k, pad)
-        v = torch.nn.functional.pad(v, pad)
+        q, k, v = (F.pad(t, (0, d_pad)) for t in (q, k, v))
     out, lse = _kernel_forward(q, k, v, seg_q, seg_k, scale, causal, window,
                                q_offset)
     return (out[..., :d] if d_pad else out), lse
 
 
-class _Forward(torch.autograd.Function):
-    """Forward-only autograd node: the backward kernels come with the
-    training slice."""
+def flash_backward(q, k, v, out, lse, do, dlse=None, causal=True,
+                   q_offset=0, scale=None, window=None, seg_q=None,
+                   seg_k=None) -> Tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """``(dq, dk, dv)`` on (B, S, H, D), the arguments of
+    ``flash_backward_reference``, dispatched on the tensors' device: the
+    two Hopper kernels for CUDA tensors, the plain version for CPU
+    tensors. delta = rowsum(dO∘O) is a plain PyTorch pre-pass. Pads D to
+    64 / 128 like the forward (zero columns add nothing to any product)
+    and drops the padded gradient columns."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if _device_kind(q) == "cpu":
+        return flash_backward_reference(q, k, v, out, lse, do, dlse, causal,
+                                        q_offset, scale, window, seg_q,
+                                        seg_k)
+    delta = attention_delta(out, do)
+    d = q.shape[-1]
+    d_pad = _pad_d(d)
+    if d_pad:
+        q, k, v, do = (F.pad(t, (0, d_pad)) for t in (q, k, v, do))
+    grads = _kernel_backward(q, k, v, do, lse, delta, dlse, seg_q, seg_k,
+                             scale, causal, window, q_offset)
+    return tuple(g[..., :d] for g in grads) if d_pad else grads
+
+
+flash_backward.dkv_launches = 0  # dK/dV kernel launches (CUDA only)
+flash_backward.dq_launches = 0   # dQ kernel launches (CUDA only)
+
+
+class _Flash(torch.autograd.Function):
+    """(out, lse) = flash_forward(q, k, v); the backward runs
+    ``flash_backward`` on the saved (q, k, v, out, lse), passing the lse
+    cotangent only where the caller asked for lse as an output
+    (``flash_attention_stats``). Segment ids get no gradient."""
 
     @staticmethod
-    def forward(ctx, q, k, v, fwd):
-        return fwd(q, k, v)
+    def forward(ctx, q, k, v, opts, lse_is_output):
+        out, lse = flash_forward(q, k, v, **opts)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.opts = opts
+        ctx.lse_is_output = lse_is_output
+        ctx.set_materialize_grads(False)
+        if not lse_is_output:
+            ctx.mark_non_differentiable(lse)
+        return out, lse
 
     @staticmethod
-    def backward(ctx, *grads):
-        raise NotImplementedError(
-            "flash attention backward is not ported to ray_tpu_torch yet "
-            "(ROADMAP.md queue 1, item 1: the training slice with kernels "
-            "#2-3, _bwd_dq_kernel and _bwd_dkv_kernel)")
+    def backward(ctx, do, dlse):
+        q, k, v, out, lse = ctx.saved_tensors
+        if do is None:
+            do = torch.zeros_like(out)
+        dq, dk, dv = flash_backward(
+            q, k, v, out, lse, do, dlse if ctx.lse_is_output else None,
+            **ctx.opts)
+        return dq, dk, dv, None, None
 
 
-def _run(q, k, v, fwd):
+def _run(q, k, v, opts, lse_is_output):
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        return _Forward.apply(q, k, v, fwd)
-    return fwd(q, k, v)
+        return _Flash.apply(q, k, v, opts, lse_is_output)
+    return flash_forward(q, k, v, **opts)
 
 
 # ------------------------------------------------------------- public API
@@ -220,13 +419,14 @@ def flash_attention(
     segment_ids: Optional[torch.Tensor] = None,     # (B, S) int
     kv_segment_ids: Optional[torch.Tensor] = None,  # (B, S_kv) int
 ) -> torch.Tensor:
-    """Flash attention over (batch, seq, heads, head_dim) tensors.
+    """Flash attention over (batch, seq, heads, head_dim) tensors,
+    differentiable through the backward kernels.
 
     ``window`` keeps only the last ``window`` positions per query;
     ``segment_ids`` masks cross-segment attention (packed sequences).
     ``block_q``/``block_k`` are validated as in the JAX package (the
-    sequence lengths must divide them); the Hopper kernel picks its own
-    tiles and masks ragged edges itself."""
+    sequence lengths must divide them); the Hopper kernels pick their own
+    tiles and mask ragged edges themselves."""
     b, sq, hq, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     if hq % hkv:
@@ -247,15 +447,12 @@ def flash_attention(
     if segment_ids is not None:
         seg_q = segment_ids
         seg_k = segment_ids if kv_segment_ids is None else kv_segment_ids
-
-    def fwd(q, k, v):
-        return flash_forward(q, k, v, causal, q_offset, scale, window,
-                             seg_q, seg_k)[0]
-
-    return _run(q, k, v, fwd)
+    opts = dict(causal=causal, q_offset=q_offset, scale=scale, window=window,
+                seg_q=seg_q, seg_k=seg_k)
+    return _run(q, k, v, opts, False)[0]
 
 
-flash_attention.launches = 0  # kernel launches (CUDA tensors only)
+flash_attention.launches = 0  # forward kernel launches (CUDA tensors only)
 
 
 def flash_attention_stats(q, k, v, scale, causal, window, q_offset,
@@ -263,17 +460,14 @@ def flash_attention_stats(q, k, v, scale, causal, window, q_offset,
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(out, lse) on (B, H, S, D) tensors, lse shaped (B, H, S): the JAX
     package's signature and layout (the hook ring attention's cross-shard
-    merge uses). Forward only, like ``flash_attention``."""
+    merge uses). Differentiable in both outputs: the backward takes the
+    lse cotangent (``ds += p * g_lse``)."""
     if q.shape[2] % block_q or k.shape[2] % block_k:
         raise ValueError(
             f"seq lengths ({q.shape[2]}, {k.shape[2]}) must divide blocks "
             f"({block_q}, {block_k})")
-
-    def fwd(q, k, v):
-        # The kernel reads through strides: the transposes are views.
-        out, lse = flash_forward(q.transpose(1, 2), k.transpose(1, 2),
-                                 v.transpose(1, 2), causal, q_offset, scale,
-                                 window)
-        return out.transpose(1, 2), lse
-
-    return _run(q, k, v, fwd)
+    opts = dict(causal=causal, q_offset=q_offset, scale=scale, window=window)
+    # The kernels read through strides: the transposes are views.
+    out, lse = _run(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                    opts, True)
+    return out.transpose(1, 2), lse

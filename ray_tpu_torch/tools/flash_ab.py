@@ -1,14 +1,22 @@
-"""Time two versions of the flash kernel on one card, in turns.
+"""Time two versions of the flash kernels on one card, in turns.
 
-    python -m ray_tpu_torch.tools.flash_ab PARENT_CSRC_DIR
+    python -m ray_tpu_torch.tools.flash_ab PARENT_CSRC_DIR [fwd|bwd]
 
-Builds ``flash_fwd.cu`` from ``PARENT_CSRC_DIR`` (e.g. the ``ops/csrc`` of
-the parent commit unpacked into a git-ignored directory) and from this
-checkout's ``ray_tpu_torch/ops/csrc``, holds both against the plain
-version at the serving path's largest prefill shape (B=4, S=2048, H=32,
-D=128, causal, bf16), then times them parent, change, change, parent with
-CUDA events, SDPA alongside. Prints one JSON line with the card's name and
-power limit. Needs one CUDA card.
+Builds the kernel source (``flash_fwd.cu`` for ``fwd``, the default;
+``flash_bwd.cu`` for ``bwd``) from ``PARENT_CSRC_DIR`` (e.g. the
+``ops/csrc`` of the parent commit unpacked into a git-ignored directory)
+and from this checkout's ``ray_tpu_torch/ops/csrc``, holds both against the
+plain version, then times their launches alone (the wrapper's host work
+kept out) parent, change, change, parent with CUDA events, the PyTorch
+library call (SDPA, or its backward) alongside.
+
+- ``fwd``: the serving path's largest prefill shape (B=4, S=2048, H=32,
+  D=128, causal, bf16).
+- ``bwd``: the training path's shape (B=4, S=2048, H=16, Hkv=8, D=128,
+  causal, bf16); the dK/dV and dQ kernels are timed separately.
+
+Prints one JSON line with the card's name and power limit. Needs one CUDA
+card.
 """
 
 from __future__ import annotations
@@ -38,41 +46,95 @@ def _time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def main(parent: str) -> int:
-    if not torch.cuda.is_available():
-        print("flash_ab: no CUDA device is available", file=sys.stderr)
-        return 1
-    torch.backends.cuda.matmul.allow_tf32 = False
-    dirs = {"parent": Path(parent), "change": cuda_build.CSRC}
-    g = torch.Generator(device="cuda").manual_seed(0)
+def _err(a, b) -> float:
+    return float((a.float() - b.float()).abs().max())
+
+
+def _turns(out, dirs, timers) -> None:
+    """Time each named timer parent, change, change, parent."""
+    for label, make in timers.items():
+        turns = [(which, _time_ms(make(which)))
+                 for which in ("parent", "change", "change", "parent")]
+        out[f"{label}_turns_ms"] = turns
+        for which in dirs:
+            ts = [t for w, t in turns if w == which]
+            out[f"{label}_{which}_ms"] = sum(ts) / len(ts)
+
+
+def _ab_fwd(dirs, g) -> dict:
     q, k, v = (torch.randn(4, 2048, 32, 128, generator=g, device="cuda")
                .to(torch.bfloat16) for _ in range(3))
     scale = 128 ** -0.5
     ref, ref_lse = fa.flash_attention_reference(q, k, v, causal=True)
 
-    def run(which):
-        return fa._kernel_forward(q, k, v, None, None, scale, True, None, 0,
-                                  csrc=dirs[which])
-
-    out = {"shape": [4, 2048, 32, 128], "dtype": "bfloat16", "causal": True}
-    for which in dirs:
-        o, lse = run(which)
+    launchers = {which: fa._forward_launcher(
+        q, k, v, None, None, scale, True, None, 0, csrc=dirs[which])
+        for which in dirs}
+    out = {"kernel": "fwd", "shape": [4, 2048, 32, 128],
+           "dtype": "bfloat16", "causal": True}
+    for which, (launch, (o, lse)) in launchers.items():
+        launch()
         torch.cuda.synchronize()
-        out[f"{which}_max_abs_err"] = float((o.float() - ref.float())
-                                            .abs().max())
-        out[f"{which}_lse_max_abs_err"] = float((lse - ref_lse).abs().max())
+        out[f"{which}_max_abs_err"] = _err(o, ref)
+        out[f"{which}_lse_max_abs_err"] = _err(lse, ref_lse)
     del ref, ref_lse
-    turns = []
-    for which in ("parent", "change", "change", "parent"):
-        turns.append((which, _time_ms(lambda: run(which))))
-    out["turns_ms"] = turns
-    for which in dirs:
-        ts = [t for w, t in turns if w == which]
-        out[f"{which}_ms"] = sum(ts) / len(ts)
+    _turns(out, dirs, {"fwd": lambda which: launchers[which][0]})
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     out["sdpa_ms"] = _time_ms(
         lambda: torch.nn.functional.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True))
+    return out
+
+
+def _ab_bwd(dirs, g) -> dict:
+    b, s, h, hkv, d = 4, 2048, 16, 8, 128
+
+    def rnd(heads):
+        return torch.randn(b, s, heads, d, generator=g,
+                           device="cuda").to(torch.bfloat16)
+
+    q, k, v, do = rnd(h), rnd(hkv), rnd(hkv), rnd(h)
+    scale = d ** -0.5
+    o, lse = fa.flash_forward(q, k, v, causal=True)
+    delta = fa.attention_delta(o, do)
+    ref = fa.flash_backward_reference(q, k, v, o, lse, do, causal=True)
+
+    launchers = {which: fa._backward_launcher(
+        q, k, v, do, lse, delta, None, None, None, scale, True, None, 0,
+        csrc=dirs[which]) for which in dirs}
+    out = {"kernel": "bwd", "shape": [b, s, h, hkv, d], "dtype": "bfloat16",
+           "causal": True}
+    for which, (launch, got) in launchers.items():
+        launch("dkv")
+        launch("dq")
+        torch.cuda.synchronize()
+        out[f"{which}_rel_max_abs_err"] = {
+            n: _err(a, r) / float(r.float().abs().max())
+            for n, a, r in zip(("dq", "dk", "dv"), got, ref)}
+    del ref
+    _turns(out, dirs, {
+        name: (lambda which, name=name: lambda: launchers[which][0](name))
+        for name in ("dkv", "dq")})
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    lib = torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True)
+    out["sdpa_bwd_ms"] = _time_ms(lambda: torch.autograd.grad(
+        lib, (qt, kt, vt), do.transpose(1, 2), retain_graph=True))
+    return out
+
+
+def main(parent: str, kernel: str = "fwd") -> int:
+    if not torch.cuda.is_available():
+        print("flash_ab: no CUDA device is available", file=sys.stderr)
+        return 1
+    if kernel not in ("fwd", "bwd"):
+        print(__doc__, file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dirs = {"parent": Path(parent), "change": cuda_build.CSRC}
+    g = torch.Generator(device="cuda").manual_seed(0)
+    out = (_ab_fwd if kernel == "fwd" else _ab_bwd)(dirs, g)
     out["device"] = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -82,7 +144,7 @@ def main(parent: str) -> int:
 
 
 if __name__ == "__main__":
-    if len(sys.argv) != 2:
+    if len(sys.argv) not in (2, 3):
         print(__doc__, file=sys.stderr)
         sys.exit(2)
-    sys.exit(main(sys.argv[1]))
+    sys.exit(main(*sys.argv[1:]))

@@ -137,10 +137,3 @@ def test_flash_value_errors_match():
         tflash.flash_attention(*(torch.zeros(1, 8, 1, 16, device="meta")
                                  for _ in range(3)))
 
-
-def test_flash_backward_not_ported():
-    q, k, v = (torch.from_numpy(a).requires_grad_()
-               for a in _inputs(1, 16, 16, 1, 1, 16))
-    out = tflash.flash_attention(q, k, v)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        out.sum().backward()

@@ -78,6 +78,8 @@ def no_card():
 
 def test_entry_points_refuse_without_card(no_card):
     from ray_tpu_torch.models import llama, llama_decode
+    from ray_tpu_torch.ops.optim import adamw
+    from ray_tpu_torch.parallel import train_step
     from ray_tpu_torch.serve.decode import DecodeEngine, LlamaDecodeDeployment
 
     cfg = llama.PRESETS["debug"]
@@ -92,3 +94,19 @@ def test_entry_points_refuse_without_card(no_card):
         llama_decode.generate(params, [[1, 2]], cfg, max_new_tokens=2)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         DecodeEngine(params, cfg, slots=1, capacity=16)
+    # The train path: params, batches and steps follow the params' device,
+    # which defaults to the card.
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        llama.init_params(cfg, dtype=torch.float32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_step.init_sharded_params(
+            lambda seed: llama.init_params(cfg, seed=seed),
+            llama.param_axes(cfg), key=0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_step.shard_batch({"tokens": torch.zeros(2, 9,
+                                                      dtype=torch.long)})
+    step = train_step.build_train_step(
+        lambda p, b: llama.loss_fn(p, b, cfg), adamw(1e-3))
+    meta = {"w": torch.empty(2, device="meta")}
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        step(meta, None, {})

@@ -8,7 +8,10 @@ also runs on a machine with a card and no JAX:
 
 Tolerances: bf16 at 2e-2 (P is rounded to bf16 at other points of the
 sum than in the plain version), float32 at 1e-4 (the kernel splits each
-float32 operand into a bf16 hi + lo pair, ~2^-16 relative)."""
+float32 operand into a bf16 hi + lo pair, ~2^-16 relative). Gradients
+compare by max |error| relative to the plain version's max |gradient|
+(their scale depends on S and on the cotangent's), at the same two
+tolerances."""
 
 import pytest
 import torch
@@ -87,3 +90,77 @@ def test_engine_on_card_matches_solo(cuda_device):
     for p, r in zip(prompts, reqs):
         solo = llama_decode.generate(params, [p], cfg, max_new_tokens=6)
         assert r.output == solo[0].tolist()
+
+
+def _bwd_case(dev, dtype, b, s, h, hkv, d, kw, with_dlse=False, seed=1):
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=dev).to(dtype)
+
+    q, do = rnd(b, s, h, d), rnd(b, s, h, d)
+    k, v = rnd(b, s, hkv, d), rnd(b, s, hkv, d)
+    out, lse = tflash.flash_attention_reference(q, k, v, **kw)
+    dlse = (torch.randn(b, h, s, generator=g, device=dev)
+            if with_dlse else None)
+    return q, k, v, out, lse, do, dlse
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,s,d,h,hkv,kw,with_dlse", [
+    (torch.bfloat16, 256, 128, 4, 2, dict(causal=True), False),
+    (torch.bfloat16, 200, 64, 4, 4, dict(causal=True, window=50), False),
+    (torch.bfloat16, 192, 16, 4, 1, dict(causal=False), True),
+    (torch.float32, 192, 128, 2, 2, dict(causal=True), True),
+])
+def test_flash_backward_kernels_match_plain(cuda_device, dtype, s, d, h,
+                                            hkv, kw, with_dlse):
+    q, k, v, out, lse, do, dlse = _bwd_case(cuda_device, dtype, 2, s, h, hkv,
+                                            d, kw, with_dlse)
+    dkv0 = tflash.flash_backward.dkv_launches
+    dq0 = tflash.flash_backward.dq_launches
+    got = tflash.flash_backward(q, k, v, out, lse, do, dlse, **kw)
+    torch.cuda.synchronize()
+    assert tflash.flash_backward.dkv_launches == dkv0 + 1
+    assert tflash.flash_backward.dq_launches == dq0 + 1
+    want = tflash.flash_backward_reference(q, k, v, out, lse, do, dlse, **kw)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    for name, a, r in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == r.dtype and a.shape == r.shape, name
+        err = float((a.float() - r.float()).abs().max())
+        assert err <= tol * float(r.float().abs().max()), (name, err)
+
+
+@pytest.mark.cuda
+def test_flash_backward_dead_rows_give_zero(cuda_device):
+    """Query rows whose segment has no key get exactly zero gradient."""
+    q, k, v, _, _, do, _ = _bwd_case(cuda_device, torch.bfloat16, 1, 128, 2,
+                                     2, 128, dict(causal=False))
+    seg_q = torch.zeros(1, 128, dtype=torch.int32, device=cuda_device)
+    seg_q[:, 64:] = 3
+    seg_k = torch.zeros(1, 128, dtype=torch.int32, device=cuda_device)
+    kw = dict(causal=False, seg_q=seg_q, seg_k=seg_k)
+    out, lse = tflash.flash_forward(q, k, v, **kw)
+    dq, dk, dv = tflash.flash_backward(q, k, v, out, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert not dq[:, 64:].any()
+    want = tflash.flash_backward_reference(q, k, v, out, lse, do, **kw)
+    for a, r in zip((dq, dk, dv), want):
+        assert float((a.float() - r.float()).abs().max()) <= \
+            2e-2 * float(r.float().abs().max())
+
+
+@pytest.mark.cuda
+def test_flash_attention_autograd_runs_the_kernels(cuda_device):
+    q, k, v, _, _, do, _ = _bwd_case(cuda_device, torch.bfloat16, 2, 128, 4,
+                                     2, 64, dict(causal=True))
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    dkv0 = tflash.flash_backward.dkv_launches
+    out = tflash.flash_attention(q, k, v)
+    grads = torch.autograd.grad(out, (q, k, v), do)
+    assert tflash.flash_backward.dkv_launches == dkv0 + 1
+    ref = tflash.flash_attention_reference(q, k, v)[0]
+    want = torch.autograd.grad(ref, (q, k, v), do)
+    for a, r in zip(grads, want):
+        assert float((a.float() - r.float()).abs().max()) <= \
+            2e-2 * float(r.float().abs().max())

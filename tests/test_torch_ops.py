@@ -1,7 +1,8 @@
 """Port ops vs the JAX package on the CPU: rms_norm, RoPE, attention.
 
 float32 compares at rtol = atol = 1e-5: both sides run the same fp32 math
-and differ only in reduction order. bfloat16 compares at one bf16 ulp of
+and differ only in reduction order (gradients too: ``jax.grad`` against
+autograd, under the same numpy cotangent). bfloat16 compares at one bf16 ulp of
 the result scale (rtol = atol = 1e-2): a reordered fp32 sum can round to
 the neighbouring bf16 value."""
 
@@ -115,3 +116,51 @@ def test_attention_errors_match():
         tattn.attention(x, x, x, impl="chunked", kv_valid=4)
     with pytest.raises(ValueError, match="not divisible"):
         tattn.attention(x, x, x, impl="chunked", chunk_size=3)
+
+
+def _vjp_pair(fn_j, fn_t, inputs, cotangent):
+    """Gradients of both sides' functions of ``inputs`` (numpy, float32)
+    under the same cotangent: (JAX grads, port grads) as numpy."""
+    import jax
+
+    _, vjp = jax.vjp(fn_j, *(jnp.asarray(a) for a in inputs))
+    want = vjp(jnp.asarray(cotangent))
+    targs = [torch.from_numpy(a).requires_grad_() for a in inputs]
+    got = torch.autograd.grad(fn_t(*targs), targs,
+                              torch.from_numpy(cotangent))
+    return [np.asarray(w) for w in want], [g.numpy() for g in got]
+
+
+@pytest.mark.parametrize("impl", ["xla", "chunked"])
+@pytest.mark.parametrize("causal,hkv", [(True, 4), (False, 2)])
+def test_attention_grads_match(impl, causal, hkv):
+    """The plain and the chunked paths differentiate (the chunked one
+    through its per-chunk checkpoints) to ``jax.grad`` of the JAX ones."""
+    rng = np.random.default_rng(4)
+    q = rng.normal(size=(2, 32, 4, 16)).astype(np.float32)
+    k = rng.normal(size=(2, 32, hkv, 16)).astype(np.float32)
+    v = rng.normal(size=(2, 32, hkv, 16)).astype(np.float32)
+    do = rng.normal(size=(2, 32, 4, 16)).astype(np.float32)
+    kw = dict(causal=causal, impl=impl, chunk_size=8)
+    want, got = _vjp_pair(lambda *a: jattn.attention(*a, **kw),
+                          lambda *a: tattn.attention(*a, **kw), (q, k, v),
+                          do)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w, **TOL["f32"])
+
+
+def test_rms_norm_and_rope_grads_match():
+    rng = np.random.default_rng(5)
+    x = rng.normal(size=(2, 7, 3, 16)).astype(np.float32)
+    w = rng.normal(size=(16,)).astype(np.float32)
+    dy = rng.normal(size=x.shape).astype(np.float32)
+    want, got = _vjp_pair(lambda a, b: jnorms.rms_norm(a, b, 1e-5),
+                          lambda a, b: tnorms.rms_norm(a, b, 1e-5), (x, w),
+                          dy)
+    for g, w_ in zip(got, want):
+        np.testing.assert_allclose(g, w_, **TOL["f32"])
+    cj, sj = jrot.rope_frequencies(16, 64)
+    ct, st = trot.rope_frequencies(16, 64)
+    want, got = _vjp_pair(lambda a: jrot.apply_rope(a, cj, sj),
+                          lambda a: trot.apply_rope(a, ct, st), (x,), dy)
+    np.testing.assert_allclose(got[0], want[0], **TOL["f32"])
