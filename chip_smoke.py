@@ -1,4 +1,5 @@
-"""Drive the PyTorch/CUDA port's serving and training paths on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's splash, serving and training paths on one
+NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -7,19 +8,32 @@ Phases, one JSON line each (``{"phase": ..., "ok": ...}``):
 1. env: torch, CUDA and nvcc versions, and the card (nvidia-smi).
 2. build: every kernel of the path from ``ray_tpu_torch/ops/csrc``, one
    nvcc per source, all started together.
-3. kernels: each kernel against its plain PyTorch version on the card at
-   the main paths' shapes and at edge cases (the flash forward at the 7B
-   prefill shape, the two flash backward kernels at the 1B training
-   shape), then timed with CUDA events beside the plain version, the
-   PyTorch library call that computes the same function, and the card's
-   bound for the work.
-4. serve: Llama-2-7B (``PRESETS["7b"]``, full width and depth, random
+3. kernels: each flash kernel against its plain PyTorch version on the
+   card at the main paths' shapes and at edge cases (the forward at the
+   7B prefill shape, the two backward kernels at the 1B training shape),
+   then timed with CUDA events beside the plain version, the PyTorch
+   library call that computes the same function, and the card's bound
+   for the work.
+4. splash: ``splash_attention`` forward and backward at the 1B preset's
+   attention width (16 q heads on 8 kv heads, head_dim 128), B=1,
+   S=8192, bf16, default 256 blocks, on a GQA-aligned head stack (heads
+   0-7 ``LocalMask(1024)``, 8-11 ``ChunkedMask(2048)``, 12-13
+   ``CausalMask``, 14-15 ``FullMask``): four head groups, so exactly four
+   launches of each splash kernel, counted between a reset right before
+   and a read right after. Out and gradients against the plain version
+   (one kv head at a time) and, on the local, causal and full heads,
+   against the flash kernels; six edge cases (float32, D=64, D=80 padded,
+   ragged S=100, rows that see nothing, Sq != Sk); then each kernel timed
+   launch-only beside the plain version, SDPA with the dense boolean
+   mask and the bound over the call's 297,824,256 live pairs, and on each
+   head group alone beside the flash kernel on the same heads.
+5. serve: Llama-2-7B (``PRESETS["7b"]``, full width and depth, random
    weights from seed 0, ``attention_impl="flash"``) behind
    ``LlamaDecodeDeployment`` answers six requests from several threads,
    one of them a prefix-cache hit. Launch counters are zeroed right before
    and read right after; every kernel of the path must have run. Greedy
    outputs are held against solo runs under the margin rule.
-5. train: the 1B Llama (``PRESETS["1b"]``, full width and depth, fp32
+6. train: the 1B Llama (``PRESETS["1b"]``, full width and depth, fp32
    masters from seed 0, ``attention_impl="flash"``, full remat,
    ``loss_chunk=512``) takes four AdamW steps through ``build_train_step``
    with two microbatches of 4 x 2048 tokens. Launch counters are zeroed
@@ -29,9 +43,11 @@ Phases, one JSON line each (``{"phase": ..., "ok": ...}``):
    model of the same width then holds the flash gradients against the
    plain-attention ones.
 
-Then a ``{"kernels": [...]}`` line, the nvidia-smi name/power-limit line,
-and, last, ``{"ok": true, "device": {...}}``. Any failed phase exits 1
-without that last line; so does a machine without a card.
+Each main path (splash, serve, train) must have launched each of its
+kernels at least once. Then a ``{"kernels": [...]}`` line with all six
+kernels, the nvidia-smi name/power-limit line, and, last, ``{"ok": true,
+"device": {...}}``. Any failed phase exits 1 without that last line; so
+does a machine without a card.
 """
 
 from __future__ import annotations
@@ -39,6 +55,7 @@ from __future__ import annotations
 import gc
 import json
 import math
+import re
 import subprocess
 import sys
 import threading
@@ -107,27 +124,54 @@ KERNELS = {
         "source": "ray_tpu_torch/ops/csrc/flash_bwd.cu",
         "replaces": "ray_tpu/ops/flash_attention.py:281",
     },
+    "splash_fwd": {
+        "route": "cuda",
+        "source": "ray_tpu_torch/ops/csrc/splash.cu",
+        "replaces": "ray_tpu/ops/splash_attention.py:204",
+    },
+    "splash_bwd_dq": {
+        "route": "cuda",
+        "source": "ray_tpu_torch/ops/csrc/splash.cu",
+        "replaces": "ray_tpu/ops/splash_attention.py:311",
+    },
+    "splash_bwd_dkv": {
+        "route": "cuda",
+        "source": "ray_tpu_torch/ops/csrc/splash.cu",
+        "replaces": "ray_tpu/ops/splash_attention.py:350",
+    },
+}
+# The kernels each main path must launch at least once.
+PATH_KERNELS = {
+    "serve": ["flash_fwd"],
+    "train": ["flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"],
+    "splash": ["splash_fwd", "splash_bwd_dq", "splash_bwd_dkv"],
 }
 # The sources to build: one library (and one nvcc) per .cu file.
 SOURCES = sorted({Path(k["source"]).stem for k in KERNELS.values()})
 
 
-def launch_counts() -> dict:
+def _counters() -> dict:
+    """Kernel name -> (wrapper, attribute) of its launch counter."""
     from ray_tpu_torch.ops.flash_attention import (flash_attention,
                                                    flash_backward)
+    from ray_tpu_torch.ops.splash_attention import (splash_attention,
+                                                    splash_backward)
 
-    return {"flash_fwd": flash_attention.launches,
-            "flash_bwd_dkv": flash_backward.dkv_launches,
-            "flash_bwd_dq": flash_backward.dq_launches}
+    return {"flash_fwd": (flash_attention, "launches"),
+            "flash_bwd_dkv": (flash_backward, "dkv_launches"),
+            "flash_bwd_dq": (flash_backward, "dq_launches"),
+            "splash_fwd": (splash_attention, "launches"),
+            "splash_bwd_dq": (splash_backward, "dq_launches"),
+            "splash_bwd_dkv": (splash_backward, "dkv_launches")}
+
+
+def launch_counts() -> dict:
+    return {k: getattr(fn, attr) for k, (fn, attr) in _counters().items()}
 
 
 def reset_counts() -> None:
-    from ray_tpu_torch.ops.flash_attention import (flash_attention,
-                                                   flash_backward)
-
-    flash_attention.launches = 0
-    flash_backward.dkv_launches = 0
-    flash_backward.dq_launches = 0
+    for fn, attr in _counters().values():
+        setattr(fn, attr, 0)
 
 
 def phase_build() -> dict:
@@ -144,7 +188,11 @@ def phase_build() -> dict:
         for i, line in enumerate(log):
             if "Function properties for" in line:
                 fn = line.split("for")[-1].strip()
-                fn = fn[fn.find("flash_"):]
+                # The kernel's name and template arguments, past the
+                # mangled anonymous namespace (which names the file).
+                m = re.search(r"(?:splash|flash)_(?:fwd|bwd_dq|bwd_dkv)"
+                              r"_kernel\w*", fn)
+                fn = m.group(0) if m else fn
                 spill = log[i + 1].strip() if i + 1 < len(log) else ""
                 used = next((x.strip() for x in log[i + 2:i + 4]
                              if "registers" in x), "")
@@ -156,8 +204,7 @@ def phase_build() -> dict:
 # -------------------------------------------------------------- kernels
 
 
-def _inputs(g, b, sq, sk, h, hkv, d, dtype):
-    dev = torch.device("cuda")
+def _inputs(g, b, sq, sk, h, hkv, d, dtype, dev="cuda"):
     q = torch.randn(b, sq, h, d, generator=g, device=dev).to(dtype)
     k = torch.randn(b, sk, hkv, d, generator=g, device=dev).to(dtype)
     v = torch.randn(b, sk, hkv, d, generator=g, device=dev).to(dtype)
@@ -219,13 +266,15 @@ def _live_pairs(sq, sk, q_offset=0, causal=True) -> int:
 
 
 def _flash_bound(b, sq, sk, h, hkv, d, q_offset=0, causal=True,
-                 itemsize=2):
+                 itemsize=2, head_pairs=None):
     """Least time for the forward on this card: each input read once and
     each output written once over HBM bandwidth, against the QK^T and PV
-    flops of the (q, k) pairs this call's masks leave live over the bf16
-    tensor-core peak. Returns (ms, "bytes" | "operations")."""
-    pairs = _live_pairs(sq, sk, q_offset, causal)
-    flops = 4.0 * b * h * d * pairs
+    flops of the (q, k) pairs this call's masks leave live (``head_pairs``,
+    summed over the heads; by default the causal mask's on every head)
+    over the bf16 tensor-core peak. Returns (ms, "bytes" | "operations")."""
+    if head_pairs is None:
+        head_pairs = h * _live_pairs(sq, sk, q_offset, causal)
+    flops = 4.0 * b * d * head_pairs
     nbytes = (itemsize * (2 * b * sq * h * d + 2 * b * sk * hkv * d)
               + 4 * b * h * sq)
     t_ops = flops / PEAK_BF16_FLOPS
@@ -234,21 +283,25 @@ def _flash_bound(b, sq, sk, h, hkv, d, q_offset=0, causal=True,
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def _flash_bwd_bounds(b, sq, sk, h, hkv, d, causal=True, itemsize=2):
+def _flash_bwd_bounds(b, sq, sk, h, hkv, d, causal=True, itemsize=2,
+                      head_pairs=None, prefix="flash"):
     """Least time for each backward kernel on this card: the larger of its
     bytes (each input read once, each output written once) over HBM
-    bandwidth and its matrix products over the live (q, k) pairs over the
-    bf16 tensor-core peak. dK/dV does 4 products (S, dP, dV, dK), dQ 3 (S,
-    dP, dQ). Returns {kernel: (ms, "bytes" | "operations")}."""
-    pairs = _live_pairs(sq, sk, causal=causal)
+    bandwidth and its matrix products over the live (q, k) pairs (as in
+    ``_flash_bound``) over the bf16 tensor-core peak. dK/dV does 4 products
+    (S, dP, dV, dK), dQ 3 (S, dP, dQ). Returns {kernel: (ms, "bytes" |
+    "operations")}, the kernels named ``<prefix>_bwd_dkv`` and
+    ``<prefix>_bwd_dq``."""
+    if head_pairs is None:
+        head_pairs = h * _live_pairs(sq, sk, causal=causal)
     q_bytes = itemsize * b * sq * h * d          # q, dO or dq
     kv_bytes = itemsize * b * sk * hkv * d       # k, v, dk or dv
     stats = 4 * b * h * sq                       # lse or delta (fp32)
     work = {
-        "flash_bwd_dkv": (8.0 * b * h * d * pairs,
-                          2 * q_bytes + 4 * kv_bytes + 2 * stats),
-        "flash_bwd_dq": (6.0 * b * h * d * pairs,
-                         3 * q_bytes + 2 * kv_bytes + 2 * stats),
+        f"{prefix}_bwd_dkv": (8.0 * b * d * head_pairs,
+                              2 * q_bytes + 4 * kv_bytes + 2 * stats),
+        f"{prefix}_bwd_dq": (6.0 * b * d * head_pairs,
+                             3 * q_bytes + 2 * kv_bytes + 2 * stats),
     }
     out = {}
     for name, (flops, nbytes) in work.items():
@@ -258,9 +311,9 @@ def _flash_bwd_bounds(b, sq, sk, h, hkv, d, causal=True, itemsize=2):
     return out
 
 
-def _bwd_inputs(g, b, sq, sk, h, hkv, d, dtype):
-    q, k, v = _inputs(g, b, sq, sk, h, hkv, d, dtype)
-    do = torch.randn(b, sq, h, d, generator=g, device="cuda").to(dtype)
+def _bwd_inputs(g, b, sq, sk, h, hkv, d, dtype, dev="cuda"):
+    q, k, v = _inputs(g, b, sq, sk, h, hkv, d, dtype, dev)
+    do = torch.randn(b, sq, h, d, generator=g, device=dev).to(dtype)
     return q, k, v, do
 
 
@@ -472,8 +525,369 @@ def phase_kernels(record: dict) -> dict:
             "timing_shape": {"B": b, "S": s, "H": h, "D": d,
                              "causal": True, "dtype": "bfloat16"},
             **bwd,
-            **{f"{name}_{key}": val for name in KERNELS
+            **{f"{name}_{key}": val for name in PATH_KERNELS["train"]
                for key, val in record[name].items()}}
+
+
+# --------------------------------------------------------------- splash
+
+# The splash path: splash attention forward and backward at the 1B
+# preset's attention width (16 q heads on 8 kv heads, head_dim 128) on a
+# GQA-aligned local / chunked / causal / global head stack. Live (q, k)
+# pairs per head at S = 8192: local 7,864,832, chunked 8,392,704, causal
+# 33,558,528, full 67,108,864; 297,824,256 for the call.
+SPLASH_SHAPE = dict(b=1, s=8192, h=16, hkv=8, d=128)
+SPLASH_PAIRS = 297_824_256
+
+
+def _splash_masks():
+    from ray_tpu_torch.ops import splash_attention as ss
+
+    return ([ss.LocalMask(1024)] * 8 + [ss.ChunkedMask(2048)] * 4
+            + [ss.CausalMask()] * 2 + [ss.FullMask()] * 2)
+
+
+def _rel_err(got, want) -> float:
+    """max |got - want| relative to max |want|."""
+    scale = float(want.float().abs().max())
+    return float((got.float() - want.float()).abs().max()) / max(scale, 1e-30)
+
+
+def _kv_head_slices(q, k):
+    """(query-head slice, kv-head slice) of each kv head."""
+    group = q.shape[2] // k.shape[2]
+    return [(slice(i * group, (i + 1) * group), slice(i, i + 1))
+            for i in range(k.shape[2])]
+
+
+def _splash_plain(q, k, v, do, masks):
+    """The plain forward and backward of the splash call, one kv head (and
+    its query heads) at a time to keep the (S, S) scores small: ((out,
+    lse), (dq, dk, dv)) in the kernels' layouts."""
+    from ray_tpu_torch.ops import splash_attention as ss
+
+    outs, lses, grads = [], [], []
+    for qs, ks in _kv_head_slices(q, k):
+        args = (q[:, :, qs], k[:, :, ks], v[:, :, ks])
+        out, lse = ss.splash_attention_reference(*args, masks[qs])
+        grads.append(ss.splash_backward_reference(*args, out, lse,
+                                                  do[:, :, qs], masks[qs]))
+        outs.append(out)
+        lses.append(lse)
+    return ((torch.cat(outs, 2), torch.cat(lses, 1)),
+            tuple(torch.cat(g, 2) for g in zip(*grads)))
+
+
+def _splash_cases(g, dev):
+    """(name, (q, k, v, dO), masks) at the edges of the splash kernels."""
+    from ray_tpu_torch.ops import splash_attention as ss
+
+    def inputs(*shape, dtype=torch.bfloat16):
+        return _bwd_inputs(g, *shape, dtype, dev)
+
+    return [
+        ("f32_mixed", inputs(1, 512, 512, 4, 2, 128, dtype=torch.float32),
+         [ss.LocalMask(100)] * 2 + [ss.ChunkedMask(192)] * 2),
+        ("d64", inputs(2, 1024, 1024, 8, 4, 64),
+         [ss.CausalMask()] * 4 + [ss.LocalMask(256)] * 2
+         + [ss.FullMask()] * 2),
+        ("d80_padded", inputs(1, 512, 512, 4, 2, 80),
+         [ss.ChunkedMask(128)] * 2 + [ss.FullMask()] * 2),
+        ("s100_ragged", inputs(2, 100, 100, 8, 4, 128),
+         [ss.LocalMask(30)] * 2 + [ss.ChunkedMask(40)] * 2
+         + [ss.CausalMask()] * 2 + [ss.FullMask()] * 2),
+        # Queries 95.. see no key within the window: out 0, lse -1e30,
+        # zero gradients; q tiles 2-3 have no live kv tile at all.
+        ("degenerate_rows", inputs(1, 256, 64, 2, 1, 128),
+         [ss.LocalMask(32)] * 2),
+        ("sq200_sk328_full", inputs(1, 200, 328, 4, 2, 128),
+         [ss.FullMask()] * 4),
+    ]
+
+
+def _check_splash_cases(g, dev) -> list:
+    """Each edge case: the forward kernel's out and lse against the plain
+    forward, and the backward kernels' dq, dk, dv against the plain
+    backward on the same (out, lse). Tolerances as the flash checks: out
+    at rtol = atol = 2e-2 in bf16 and 1e-4 in float32, gradients by max
+    |error| relative to the plain gradient's max at the same two."""
+    from ray_tpu_torch.ops import splash_attention as ss
+
+    results = []
+    for name, (q, k, v, do), masks in _splash_cases(g, dev):
+        out, lse = ss.splash_forward(q, k, v, masks)
+        got = ss.splash_backward(q, k, v, out, lse, do, masks)
+        _sync(dev)
+        ref, ref_lse = ss.splash_attention_reference(q, k, v, masks)
+        want = ss.splash_backward_reference(q, k, v, out, lse, do, masks)
+        tol = 2e-2 if q.dtype == torch.bfloat16 else 1e-4
+        live = ref_lse > -1e29
+        ok = (torch.allclose(out.float(), ref.float(), rtol=tol, atol=tol)
+              and torch.allclose(lse[live], ref_lse[live], rtol=1e-3,
+                                 atol=1e-3)
+              and bool((lse[~live] == -1e30).all()))
+        errs = {"out": float((out.float() - ref.float()).abs().max())}
+        for gname, a, r in zip(("dq", "dk", "dv"), got, want):
+            errs[gname] = _rel_err(a, r)
+            ok = ok and a.dtype == r.dtype and a.shape == r.shape and (
+                bool(torch.isfinite(a.float()).all()) and errs[gname] <= tol)
+        if name == "degenerate_rows":
+            ok = ok and not out[:, 95:].any() and not got[0][:, 95:].any() \
+                and bool((lse[:, :, 95:] == -1e30).all())
+        results.append({"case": f"splash_{name}", "ok": ok,
+                        "max_abs_err_out": errs.pop("out"),
+                        "rel_max_abs_err": errs, "tol": tol})
+    torch.cuda.empty_cache()
+    return results
+
+
+def _sdpa_backend(qt, kt, vt, mask):
+    """The first SDPA backend that takes this boolean mask, forward and
+    backward."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    for backend in (SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        try:
+            with sdpa_kernel([backend]):
+                out = torch.nn.functional.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=mask)
+                torch.autograd.grad(out, (qt, kt, vt), torch.ones_like(out),
+                                    retain_graph=True)
+            torch.cuda.synchronize()
+            return backend
+        except RuntimeError:
+            continue
+    raise RuntimeError("no SDPA backend takes a boolean mask here")
+
+
+def _splash_keep(masks, s, dev):
+    """Each distinct mask's (S, S) boolean keep matrix, from its own
+    ``apply``."""
+    rows = torch.arange(s, device=dev)[:, None]
+    cols = torch.arange(s, device=dev)[None, :]
+    return {m: m.apply(torch.zeros(s, s, device=dev), rows, cols) == 0
+            for m in set(masks)}
+
+
+def _time_splash(q, k, v, do, masks, keep, errs, record) -> dict:
+    """Time each splash kernel at the path's shape (launches alone, all
+    head groups per call) beside the plain version, SDPA with the dense
+    boolean mask ``keep`` gives, and the card's bound over this call's
+    live pairs."""
+    from torch.nn.attention import sdpa_kernel
+
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.ops import splash_attention as ss
+
+    b, s, h, d = q.shape[0], q.shape[1], q.shape[2], q.shape[3]
+    hkv = k.shape[2]
+    scale = d ** -0.5
+    head_pairs = sum(int(keep[m].sum()) for m in masks)
+    launch, (out, lse) = ss._splash_forward_launcher(q, k, v, masks, scale)
+    ms = {"splash_fwd": _time_ms(launch, iters=20)}
+    delta = fa.attention_delta(out, do)
+    launch_b, _ = ss._splash_backward_launcher(q, k, v, do, lse, delta,
+                                               masks, scale)
+    ms["splash_bwd_dkv"] = _time_ms(lambda: launch_b("dkv"), iters=20)
+    ms["splash_bwd_dq"] = _time_ms(lambda: launch_b("dq"), iters=20)
+    heads = _kv_head_slices(q, k)
+    plain_fwd_ms = _time_ms(lambda: [ss.splash_attention_reference(
+        q[:, :, qs], k[:, :, ks], v[:, :, ks], masks[qs])
+        for qs, ks in heads], iters=2, warmup=1)
+    plain_bwd_ms = _time_ms(lambda: [ss.splash_backward_reference(
+        q[:, :, qs], k[:, :, ks], v[:, :, ks], out[:, :, qs], lse[:, qs],
+        do[:, :, qs], masks[qs]) for qs, ks in heads], iters=2, warmup=1)
+    del launch, launch_b, delta
+
+    # Library yardstick: SDPA with the dense (H, S, S) boolean mask, k and
+    # v expanded to the 16 query heads.
+    dense = torch.stack([keep[m] for m in masks])[None]
+    qt = q.transpose(1, 2).detach().requires_grad_()
+    kt, vt = (x.repeat_interleave(h // hkv, dim=2).transpose(1, 2).detach()
+              .requires_grad_() for x in (k, v))
+    backend = _sdpa_backend(qt, kt, vt, dense)
+    dot = do.transpose(1, 2)
+    with sdpa_kernel([backend]):
+        lib_fwd_ms = _time_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=dense), iters=10)
+        lib_out = torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=dense)
+        lib_bwd_ms = _time_ms(lambda: torch.autograd.grad(
+            lib_out, (qt, kt, vt), dot, retain_graph=True), iters=10)
+    del dense, qt, kt, vt, lib_out
+    torch.cuda.empty_cache()
+
+    bound_fwd = _flash_bound(b, s, s, h, hkv, d, head_pairs=head_pairs)
+    bounds = {"splash_fwd": bound_fwd,
+              **_flash_bwd_bounds(b, s, s, h, hkv, d, head_pairs=head_pairs,
+                                  prefix="splash")}
+    plain = {"splash_fwd": plain_fwd_ms, "splash_bwd_dkv": plain_bwd_ms,
+             "splash_bwd_dq": plain_bwd_ms}
+    lib = {"splash_fwd": lib_fwd_ms, "splash_bwd_dkv": lib_bwd_ms,
+           "splash_bwd_dq": lib_bwd_ms}
+    for name in ms:
+        record[name] = {"max_abs_err": errs[name], "ms": ms[name],
+                        "plain_ms": plain[name], "bound_ms": bounds[name][0],
+                        "bound_by": bounds[name][1], "library_ms": lib[name]}
+    return {"bwd_pair_ms": ms["splash_bwd_dkv"] + ms["splash_bwd_dq"],
+            "library_is": f"SDPA ({backend.name}) with a dense ({h}, S, S) "
+                          f"boolean mask, k/v expanded to {h} heads; "
+                          "backward gives dq, dk, dv together",
+            "plain_is": "splash_attention_reference / "
+                        "splash_backward_reference, one kv head at a time"}
+
+
+# The head groups of the splash stack that a flash mask also describes:
+# (name, q heads, flash_forward's keywords).
+FLASH_TWINS = (("local", (0, 8), dict(causal=True, window=1024)),
+               ("causal", (12, 14), dict(causal=True)),
+               ("full", (14, 16), dict(causal=False)))
+
+
+def _time_groups(q, k, v, do, masks) -> dict:
+    """Launch-only times (CUDA events, 20 launches after warm-up) of each
+    splash kernel on each head group alone, beside the flash kernel on the
+    same heads where a flash mask describes the group: where the call's
+    time goes, and the cost of walking a tile list instead of a range."""
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.ops import splash_attention as ss
+
+    scale = q.shape[-1] ** -0.5
+    group = q.shape[2] // k.shape[2]
+    twins = {heads: kw for _, heads, kw in FLASH_TWINS}
+    res = {}
+    for a, c, m in ss._group_heads(masks):
+        qs, ks = slice(a, a + c), slice(a // group, (a + c) // group)
+        args = (q[:, :, qs], k[:, :, ks], v[:, :, ks])
+        s_fwd, (out, lse) = ss._splash_forward_launcher(*args, masks[qs],
+                                                        scale)
+        s_fwd()
+        delta = fa.attention_delta(out, do[:, :, qs])
+        s_bwd, _ = ss._splash_backward_launcher(*args, do[:, :, qs], lse,
+                                                delta, masks[qs], scale)
+        times = {"fwd_ms": {"splash": _time_ms(s_fwd, 20)},
+                 "bwd_dkv_ms": {"splash": _time_ms(lambda: s_bwd("dkv"), 20)},
+                 "bwd_dq_ms": {"splash": _time_ms(lambda: s_bwd("dq"), 20)}}
+        kw = twins.get((a, a + c))
+        if kw is not None:
+            mask_args = (kw["causal"], kw.get("window"), 0)
+            f_fwd, _ = fa._forward_launcher(*args, None, None, scale,
+                                            *mask_args)
+            f_bwd, _ = fa._backward_launcher(*args, do[:, :, qs], lse, delta,
+                                             None, None, None, scale,
+                                             *mask_args)
+            times["fwd_ms"]["flash"] = _time_ms(f_fwd, 20)
+            times["bwd_dkv_ms"]["flash"] = _time_ms(lambda: f_bwd("dkv"), 20)
+            times["bwd_dq_ms"]["flash"] = _time_ms(lambda: f_bwd("dq"), 20)
+        res[f"{type(m).__name__} heads {a}-{a + c - 1}"] = times
+    return res
+
+
+def _against_flash(q, k, v, do, out, grads) -> dict:
+    """The splash kernels' out and gradients on the local, causal and full
+    heads against the flash kernels on the same heads (window=1024,
+    causal, non-causal): two hand-written kernels agree or one is wrong.
+    Max |error| relative to the flash value's max; at most 2e-2 (bf16)."""
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    res = {}
+    for name, heads, kw in FLASH_TWINS:
+        qs, ks = slice(*heads), slice(heads[0] // 2, heads[1] // 2)
+        args = (q[:, :, qs], k[:, :, ks], v[:, :, ks])
+        f_out, f_lse = fa.flash_forward(*args, **kw)
+        f_grads = fa.flash_backward(*args, f_out, f_lse, do[:, :, qs], **kw)
+        errs = {"out": _rel_err(out[:, :, qs], f_out)}
+        for gname, a, r, sl in zip(("dq", "dk", "dv"), grads, f_grads,
+                                   (qs, ks, ks)):
+            errs[gname] = _rel_err(a[:, :, sl], r)
+        res[name] = {"rel_max_abs_err": errs,
+                     "ok": max(errs.values()) <= 2e-2}
+    return res
+
+
+def phase_splash(record: dict, device="cuda", shape=None) -> dict:
+    """The splash path: ``splash_attention`` forward and backward through
+    the autograd Function at the 1B attention width, S = 8192, bf16, the
+    default 256 blocks, with exact launch counts; the result against the
+    plain version and against the flash kernels; the edge cases; on the
+    card, the timings. ``shape`` (a ``SPLASH_SHAPE`` dict) shrinks it for
+    a rehearsal on the CPU, where the kernels' plain versions run."""
+    from ray_tpu_torch.ops import splash_attention as ss
+
+    shape = shape or SPLASH_SHAPE
+    b, s, h, hkv, d = (shape[x] for x in ("b", "s", "h", "hkv", "d"))
+    cuda = torch.device(device).type == "cuda"
+    g = torch.Generator(device=device).manual_seed(3)
+    q, k, v, do = _bwd_inputs(g, b, s, s, h, hkv, d, torch.bfloat16, device)
+    masks = _splash_masks()
+    keep = _splash_keep(masks, s, device)
+    head_pairs = sum(int(keep[m].sum()) for m in masks)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    reset_counts()
+    t0 = time.perf_counter()
+    out = ss.splash_attention(*leaves, mask=masks)
+    out.backward(do)
+    _sync(device)
+    wall_s = [time.perf_counter() - t0]
+    counts = launch_counts()
+    grads = tuple(x.grad for x in leaves)
+    out = out.detach()
+    # A second call: the schedules come from the cache and the kernels are
+    # loaded, so its wall time is the op's steady cost on the host clock.
+    t0 = time.perf_counter()
+    torch.autograd.grad(ss.splash_attention(*leaves, mask=masks), leaves,
+                        do)
+    _sync(device)
+    wall_s.append(time.perf_counter() - t0)
+    del leaves
+
+    (ref, _), ref_grads = _splash_plain(q, k, v, do, masks)
+    tol = 2e-2
+    errs = {"out": float((out.float() - ref.float()).abs().max())}
+    errs.update({n: _rel_err(a, r) for n, a, r in
+                 zip(("dq", "dk", "dv"), grads, ref_grads)})
+    checks = {
+        "launches_4_each": counts == {
+            k_: 4 if k_ in PATH_KERNELS["splash"] else 0 for k_ in KERNELS},
+        "out_matches_plain": torch.allclose(out.float(), ref.float(),
+                                            rtol=tol, atol=tol),
+        "grads_match_plain": max(errs["dq"], errs["dk"], errs["dv"]) <= tol,
+        "finite": all(bool(torch.isfinite(t.float()).all())
+                      for t in (out, *grads)),
+    }
+    if shape == SPLASH_SHAPE:
+        checks["live_pairs_297824256"] = head_pairs == SPLASH_PAIRS
+    del ref, ref_grads
+    flash = _against_flash(q, k, v, do, out, grads)
+    checks["matches_flash_kernels"] = all(r["ok"] for r in flash.values())
+    cases = _check_splash_cases(g, device)
+    checks["edge_cases"] = all(r["ok"] for r in cases)
+    res = {"shape": {**shape, "dtype": "bfloat16", "block_q": 256,
+                     "block_k": 256,
+                     "masks": "heads 0-7 LocalMask(1024), 8-11 "
+                              "ChunkedMask(2048), 12-13 CausalMask, "
+                              "14-15 FullMask"},
+           "launches": counts, "fwd_bwd_wall_s_first_second": wall_s,
+           "live_pairs_per_head": {type(m).__name__: int(keep[m].sum())
+                                   for m in keep},
+           "live_pairs": head_pairs, "max_err_vs_plain": errs, "tol": tol,
+           "vs_flash": flash, "cases": cases}
+    if cuda:
+        torch.cuda.empty_cache()
+        res.update(_time_splash(
+            q, k, v, do, masks, keep,
+            {"splash_fwd": errs["out"], "splash_bwd_dq": errs["dq"],
+             "splash_bwd_dkv": max(errs["dk"], errs["dv"])}, record))
+        res["group_ms"] = _time_groups(q, k, v, do, masks)
+        res.update({f"{name}_{key}": val for name in PATH_KERNELS["splash"]
+                    for key, val in record[name].items()})
+        res["device"] = smi_line()
+    del q, k, v, do, out, grads, keep
+    res["checks"] = checks
+    res["ok"] = all(checks.values())
+    return res
 
 
 # ---------------------------------------------------------------- serve
@@ -739,7 +1153,8 @@ def phase_train(cfg, device="cuda", batch=8, seq=2048, steps=4,
     init_s = time.perf_counter() - t0
     if cuda:
         torch.cuda.reset_peak_memory_stats()
-    want = {"flash_fwd": 2 * cfg.n_layers * accum_steps,
+    want = {**{k: 0 for k in KERNELS},
+            "flash_fwd": 2 * cfg.n_layers * accum_steps,
             "flash_bwd_dkv": cfg.n_layers * accum_steps,
             "flash_bwd_dq": cfg.n_layers * accum_steps}
     losses, norms, times, per_step = [], [], [], []
@@ -820,6 +1235,7 @@ def main() -> int:
                         remat=True, remat_policy="full", loss_chunk=512)
     for name, fn in (("env", phase_env), ("build", phase_build),
                      ("kernels", lambda: phase_kernels(record)),
+                     ("splash", lambda: phase_splash(record)),
                      ("serve", lambda: phase_serve(replace(
                          llama.PRESETS["7b"], attention_impl="flash"))),
                      ("train", lambda: phase_train(train_cfg))):
@@ -835,16 +1251,15 @@ def main() -> int:
         emit(res)
         if not res["ok"]:
             return 1
-        if name in ("serve", "train"):
+        if name in PATH_KERNELS:
             paths[name] = res["launches"]
             gc.collect()
             torch.cuda.empty_cache()
     # Each main path's counts were zeroed right before it and read right
-    # after it; a kernel counts the launches of both paths.
+    # after it; a kernel counts the launches of every path.
     launches = {k: sum(p.get(k, 0) for p in paths.values()) for k in KERNELS}
     missing = [k for k in KERNELS if launches[k] < 1]
-    missing += [f"{k} on the {p} path" for p, want in
-                (("serve", ["flash_fwd"]), ("train", list(KERNELS)))
+    missing += [f"{k} on the {p} path" for p, want in PATH_KERNELS.items()
                 for k in want if paths[p].get(k, 0) < 1]
     if missing:
         emit({"phase": "launches", "ok": False, "not_launched": missing})

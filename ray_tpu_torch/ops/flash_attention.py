@@ -34,17 +34,27 @@ def flash_attention_reference(q, k, v, causal=True, q_offset=0, scale=None,
     dtype before P·V as the kernels do; masked scores are -1e30 and a row
     with nothing live gets out 0 and lse -1e30. Materializes the
     (B, H, Sq, Sk) scores: the CPU path and the kernel's yardstick."""
-    b, sq, hq, d = q.shape
-    sk, hkv = k.shape[1], k.shape[2]
     if scale is None:
-        scale = d ** -0.5
-    group = hq // hkv
+        scale = q.shape[-1] ** -0.5
+    keep = _keep_mask(q.shape[1], k.shape[1], causal, q_offset, window,
+                      seg_q, seg_k, q.device)
+    return _reference_forward(q, k, v, scale, _where_kept(keep))
+
+
+def _where_kept(keep):
+    return lambda s: torch.where(keep, s, torch.full_like(s, _NEG_INF))
+
+
+def _reference_forward(q, k, v, scale, mask_scores
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain forward on (B, S, H, D) once ``mask_scores`` has set the
+    masked entries of the fp32 (B, H, Sq, Sk) scores to -1e30: shared by
+    the flash and splash plain versions."""
+    group = q.shape[2] // k.shape[2]
     k = k.repeat_interleave(group, dim=2) if group > 1 else k
     v = v.repeat_interleave(group, dim=2) if group > 1 else v
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
-    keep = _keep_mask(sq, sk, causal, q_offset, window, seg_q, seg_k,
-                      q.device)
-    s = torch.where(keep, s, torch.full_like(s, _NEG_INF))
+    s = mask_scores(s)
     m_safe = s.amax(dim=-1, keepdim=True).clamp_min(_NEG_INF / 2)
     p = torch.exp(s - m_safe)
     l = p.sum(dim=-1, keepdim=True)
@@ -92,17 +102,26 @@ def flash_backward_reference(q, k, v, out, lse, do, dlse=None, causal=True,
     per query head in fp32, summed over the GQA group in fp32 and cast
     once; dq written in q's dtype. Materializes (B, H, Sq, Sk): the CPU
     path and the kernels' yardstick."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    keep = _keep_mask(q.shape[1], k.shape[1], causal, q_offset, window,
+                      seg_q, seg_k, q.device)
+    return _reference_backward(q, k, v, out, lse, do, dlse, scale,
+                               _where_kept(keep))
+
+
+def _reference_backward(q, k, v, out, lse, do, dlse, scale, mask_scores
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain backward on (B, S, H, D) with the scores masked by
+    ``mask_scores`` as in ``_reference_forward``: shared by the flash and
+    splash plain versions."""
     b, sq, hq, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
-    if scale is None:
-        scale = d ** -0.5
     group = hq // hkv
     kr = k.repeat_interleave(group, dim=2) if group > 1 else k
     vr = v.repeat_interleave(group, dim=2) if group > 1 else v
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kr.float()) * scale
-    keep = _keep_mask(sq, sk, causal, q_offset, window, seg_q, seg_k,
-                      q.device)
-    s = torch.where(keep, s, torch.full_like(s, _NEG_INF))
+    s = mask_scores(s)
     p = torch.exp(s - lse.float().clamp_min(_NEG_INF / 2)[..., None])
     dv = torch.einsum("bhqk,bqhd->bkhd", p.to(do.dtype).float(), do.float())
     dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), vr.float())
@@ -136,17 +155,18 @@ def _check_operand(name: str, t: torch.Tensor, dtype: torch.dtype,
                          f"(strides {t.stride()})")
 
 
-def _check_inputs(q, k, v, seg_q, seg_k):
+def _check_inputs(q, k, v, seg_q, seg_k, kernel="flash"):
     """Validate the kernels' (B, S, H, D) operands; returns
     (b, sq, sk, hq, hkv, d)."""
     dtype, device = q.dtype, q.device
     if dtype not in _DTYPE_CODES:
         raise ValueError(
-            f"flash kernel takes bfloat16 or float32, not {dtype}")
+            f"{kernel} kernel takes bfloat16 or float32, not {dtype}")
     b, sq, hq, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     if d not in (64, 128):
-        raise ValueError(f"flash kernel head dim must be 64 or 128, got {d}")
+        raise ValueError(
+            f"{kernel} kernel head dim must be 64 or 128, got {d}")
     if k.shape != (b, sk, hkv, d) or v.shape != k.shape or hq % hkv:
         raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not "
                          f"match q {tuple(q.shape)}")
@@ -303,16 +323,15 @@ def _library(kernel: str, entry: str, csrc=None):
     return fn
 
 
-def _device_kind(q: torch.Tensor) -> str:
+def _device_kind(q: torch.Tensor, op: str = "flash_attention") -> str:
     if q.device.type not in ("cuda", "cpu"):
-        raise ValueError(f"flash_attention runs on cuda or cpu, not "
-                         f"{q.device}")
+        raise ValueError(f"{op} runs on cuda or cpu, not {q.device}")
     return q.device.type
 
 
-def _pad_d(d: int) -> int:
+def _pad_d(d: int, kernel: str = "flash") -> int:
     if d > 128:
-        raise ValueError(f"flash kernel head dim must be <= 128, got {d}")
+        raise ValueError(f"{kernel} kernel head dim must be <= 128, got {d}")
     return (64 if d <= 64 else 128) - d
 
 

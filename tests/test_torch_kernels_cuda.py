@@ -164,3 +164,119 @@ def test_flash_attention_autograd_runs_the_kernels(cuda_device):
     for a, r in zip(grads, want):
         assert float((a.float() - r.float()).abs().max()) <= \
             2e-2 * float(r.float().abs().max())
+
+
+def _splash_inputs(dev, dtype, b, sq, sk, h, hkv, d, seed=2):
+    """(q, k, v, dO) from a seeded generator on the card."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=dev).to(dtype)
+
+    return rnd(b, sq, h, d), rnd(b, sk, hkv, d), rnd(b, sk, hkv, d), \
+        rnd(b, sq, h, d)
+
+
+def _splash_masks(spec):
+    from ray_tpu_torch.ops import splash_attention as ss
+
+    kinds = {"full": ss.FullMask, "causal": ss.CausalMask,
+             "local": ss.LocalMask, "chunked": ss.ChunkedMask}
+    return [kinds[kind](*arg) for kind, *arg in spec]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,b,sq,sk,h,hkv,d,spec", [
+    (torch.bfloat16, 2, 192, 192, 4, 2, 128,
+     [("local", 50)] * 2 + [("chunked", 64)] * 2),
+    (torch.bfloat16, 1, 100, 100, 4, 2, 64,
+     [("causal",)] * 2 + [("full",)] * 2),
+    (torch.bfloat16, 1, 256, 64, 2, 1, 80, [("local", 32)] * 2),
+    (torch.float32, 1, 200, 328, 2, 2, 128, [("full",)] * 2),
+])
+def test_splash_kernels_match_plain(cuda_device, dtype, b, sq, sk, h, hkv, d,
+                                    spec):
+    """The three splash kernels, one launch per head group each, against
+    the plain versions: a mixed local / chunked stack, a ragged S=100 with
+    D=64, rows that see nothing (S=256 queries on 64 keys under a 32
+    window) with D=80 padded, and float32 with Sq != Sk."""
+    from ray_tpu_torch.ops import splash_attention as ss
+
+    masks = _splash_masks(spec)
+    groups = len(ss._group_heads(masks))
+    q, k, v, do = _splash_inputs(cuda_device, dtype, b, sq, sk, h, hkv, d)
+    before = (ss.splash_attention.launches, ss.splash_backward.dkv_launches,
+              ss.splash_backward.dq_launches)
+    out, lse = ss.splash_forward(q, k, v, masks)
+    got = ss.splash_backward(q, k, v, out, lse, do, masks)
+    torch.cuda.synchronize()
+    after = (ss.splash_attention.launches, ss.splash_backward.dkv_launches,
+             ss.splash_backward.dq_launches)
+    assert [a - b_ for a, b_ in zip(after, before)] == [groups] * 3
+    ref, ref_lse = ss.splash_attention_reference(q, k, v, masks)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(lse, ref_lse, rtol=1e-3, atol=1e-3)
+    want = ss.splash_backward_reference(q, k, v, out, lse, do, masks)
+    for name, a, r in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == r.dtype and a.shape == r.shape, name
+        err = float((a.float() - r.float()).abs().max())
+        assert err <= tol * float(r.float().abs().max()), (name, err)
+
+
+@pytest.mark.cuda
+def test_splash_dead_rows_give_exact_zeros(cuda_device):
+    """Queries 95.. see no key inside their window (q tiles 2-3 have no
+    live kv tile and visit tile 0 fully masked): out, lse and dq are
+    exactly 0, -1e30 and 0 there."""
+    from ray_tpu_torch.ops import splash_attention as ss
+
+    q, k, v, do = _splash_inputs(cuda_device, torch.bfloat16, 1, 256, 64, 2,
+                                 1, 128)
+    masks = [ss.LocalMask(32)] * 2
+    out, lse = ss.splash_forward(q, k, v, masks)
+    dq, dk, dv = ss.splash_backward(q, k, v, out, lse, do, masks)
+    torch.cuda.synchronize()
+    assert not out[:, 95:].any() and not dq[:, 95:].any()
+    assert bool((lse[:, :, 95:] == -1e30).all())
+    assert bool((lse[:, :, :95] > -1e29).all())
+
+
+@pytest.mark.cuda
+def test_splash_attention_autograd_runs_the_kernels(cuda_device):
+    from ray_tpu_torch.ops import splash_attention as ss
+
+    masks = _splash_masks([("local", 96)] * 2 + [("causal",)] * 2
+                          + [("chunked", 128)] * 2 + [("full",)] * 2)
+    q, k, v, do = _splash_inputs(cuda_device, torch.bfloat16, 1, 512, 512, 8,
+                                 4, 128)
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    fwd0, dkv0 = ss.splash_attention.launches, ss.splash_backward.dkv_launches
+    out = ss.splash_attention(q, k, v, mask=masks)
+    grads = torch.autograd.grad(out, (q, k, v), do)
+    assert ss.splash_attention.launches == fwd0 + 4
+    assert ss.splash_backward.dkv_launches == dkv0 + 4
+    ref = ss.splash_attention_reference(q, k, v, masks)[0]
+    want = torch.autograd.grad(ref, (q, k, v), do)
+    for a, r in zip(grads, want):
+        assert float((a.float() - r.float()).abs().max()) <= \
+            2e-2 * float(r.float().abs().max())
+
+
+@pytest.mark.cuda
+def test_splash_kernels_refuse_masks_they_do_not_know(cuda_device):
+    from ray_tpu_torch.ops import splash_attention as ss
+
+    class Diagonal(ss.Mask):
+        def live_tile(self, i, j, bq, bk):
+            return i * bq < (j + 1) * bk and j * bk < (i + 1) * bq
+
+        def full_tile(self, i, j, bq, bk):
+            return False
+
+        def apply(self, s, rows, cols):
+            return torch.where(rows == cols, s, -1e30)
+
+    q = torch.randn(1, 64, 2, 64, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="FullMask, CausalMask"):
+        ss.splash_attention(q, q, q, mask=Diagonal())
