@@ -10,10 +10,14 @@ Phases, one JSON line each (``{"phase": ..., "ok": ...}``):
    nvcc per source, all started together.
 3. kernels: each flash kernel against its plain PyTorch version on the
    card at the main paths' shapes and at edge cases (the forward at the
-   7B prefill shape, the two backward kernels at the 1B training shape),
+   7B prefill and 1B training shapes and at the edges of its 128 x 128
+   tiles, each case naming the kernel the C entry counted itself
+   launching, which must be ``wgmma`` for bf16 and ``mma_sync_f32`` for
+   float32; the two backward kernels at the 1B training shape),
    then timed with CUDA events beside the plain version, the PyTorch
    library call that computes the same function, and the card's bound
-   for the work.
+   for the work (the forward at both shapes, launch-only and through its
+   wrapper, with the wrapper's host time a call).
 4. splash: ``splash_attention`` forward and backward at the 1B preset's
    attention width (16 q heads on 8 kv heads, head_dim 128), B=1,
    S=8192, bf16, default 256 blocks, on a GQA-aligned head stack (heads
@@ -43,11 +47,18 @@ Phases, one JSON line each (``{"phase": ..., "ok": ...}``):
    model of the same width then holds the flash gradients against the
    plain-attention ones.
 
+Serve and train also read the forward's C entry's own launch count of
+each of its kernels over the same window: every forward launch there
+must have taken the wgmma kernel.
+
 Each main path (splash, serve, train) must have launched each of its
 kernels at least once. Then a ``{"kernels": [...]}`` line with all six
-kernels, the nvidia-smi name/power-limit line, and, last, ``{"ok": true,
-"device": {...}}``. Any failed phase exits 1 without that last line; so
-does a machine without a card.
+kernels (the forward's with its main-path launches by kernel and its
+ptxas lines: registers, shared memory and spills of each
+instantiation), the nvidia-smi name/power-limit line, and, last,
+``{"ok": true, "device": {...}}``.
+Any failed phase exits 1 without that last line; so does a machine
+without a card.
 """
 
 from __future__ import annotations
@@ -174,6 +185,49 @@ def reset_counts() -> None:
         setattr(fn, attr, 0)
 
 
+def fwd_kernel_counts(device="cuda") -> dict:
+    """Launches of each kernel behind ``flash_fwd.cu``'s entry, as the C
+    entry counts them (none off the card)."""
+    if torch.device(device).type != "cuda":
+        return {}
+    from ray_tpu_torch.ops.flash_attention import forward_kernel_launches
+
+    return forward_kernel_launches()
+
+
+def fwd_kernels_since(before: dict, device="cuda") -> dict:
+    return {k: n - before.get(k, 0)
+            for k, n in fwd_kernel_counts(device).items()}
+
+
+def all_on_wgmma(by_kernel: dict, flash_launches: int, device) -> bool:
+    """Every forward launch of a bf16 path took the wgmma kernel (off the
+    card nothing launches)."""
+    if torch.device(device).type != "cuda":
+        return True
+    return by_kernel == {"wgmma": flash_launches, "mma_sync_f32": 0}
+
+
+def cuda_build_rows(cuda_build, name: str) -> list:
+    """One line per kernel instantiation in the build log of ``name``: its
+    name, registers and shared memory, and spills."""
+    log = cuda_build.build_log(name).splitlines()
+    rows = []
+    for i, line in enumerate(log):
+        if "Function properties for" in line:
+            fn = line.split("for")[-1].strip()
+            # The kernel's name and template arguments, past the mangled
+            # anonymous namespace (which names the file).
+            m = re.search(r"(?:splash|flash)_(?:fwd|bwd_dq|bwd_dkv)"
+                          r"(?:_wgmma|_f32)?_kernel\w*", fn)
+            fn = m.group(0) if m else fn
+            spill = log[i + 1].strip() if i + 1 < len(log) else ""
+            used = next((x.strip() for x in log[i + 2:i + 4]
+                         if "registers" in x), "")
+            rows.append(f"{fn}: {used}; {spill}")
+    return rows
+
+
 def phase_build() -> dict:
     from ray_tpu_torch.ops import cuda_build
 
@@ -182,22 +236,7 @@ def phase_build() -> dict:
     out = {"seconds": round(time.perf_counter() - t0, 3),
            "libraries": [p.name for p in libs]}
     for name in SOURCES:
-        log = cuda_build.build_log(name).splitlines()
-        # One line per instantiation: its name, registers and spills.
-        rows = []
-        for i, line in enumerate(log):
-            if "Function properties for" in line:
-                fn = line.split("for")[-1].strip()
-                # The kernel's name and template arguments, past the
-                # mangled anonymous namespace (which names the file).
-                m = re.search(r"(?:splash|flash)_(?:fwd|bwd_dq|bwd_dkv)"
-                              r"_kernel\w*", fn)
-                fn = m.group(0) if m else fn
-                spill = log[i + 1].strip() if i + 1 < len(log) else ""
-                used = next((x.strip() for x in log[i + 2:i + 4]
-                             if "registers" in x), "")
-                rows.append(f"{fn}: {used}; {spill}")
-        out[f"{name}_ptxas"] = rows
+        out[f"{name}_ptxas"] = cuda_build_rows(cuda_build, name)
     return out
 
 
@@ -212,7 +251,9 @@ def _inputs(g, b, sq, sk, h, hkv, d, dtype, dev="cuda"):
 
 
 def _flash_cases(g):
-    """(name, tensors, kwargs) at the slice's prefill shape and the edges."""
+    """(name, tensors, kwargs) at the slice's prefill and training shapes
+    and the edges (of the bf16 kernel's 128-row q tiles and 128-key kv
+    tiles among them)."""
     bf = torch.bfloat16
     seg = torch.zeros(2, 1024, dtype=torch.int32, device="cuda")
     seg[:, 300:] = 1
@@ -220,9 +261,22 @@ def _flash_cases(g):
     dead_q = torch.zeros(1, 256, dtype=torch.int32, device="cuda")
     dead_q[:, 128:] = 5          # segment 5 has no keys: dead rows
     dead_k = torch.zeros(1, 256, dtype=torch.int32, device="cuda")
+    off_grid = torch.zeros(2, 512, dtype=torch.int32, device="cuda")
+    off_grid[:, 77:] = 1
+    off_grid[:, 200:] = 2
+    off_grid[0, 450:] = 3
+    off_grid[1, 333:] = 4
+
+    def bhsd(x):
+        """(B, S, H, D) views of a (B, H, S, D) tensor, as
+        ``flash_attention_stats`` passes them."""
+        return x.transpose(1, 2).contiguous().transpose(1, 2)
+
     return [
         ("prefill_7b_b4_s2048", _inputs(g, 4, 2048, 2048, 32, 32, 128, bf),
          dict(causal=True)),
+        ("train_1b_b4_s2048_gqa16_8",
+         _inputs(g, 4, 2048, 2048, 16, 8, 128, bf), dict(causal=True)),
         ("gqa_h32_kv8", _inputs(g, 1, 2048, 2048, 32, 8, 128, bf),
          dict(causal=True)),
         ("d64", _inputs(g, 2, 512, 512, 16, 16, 64, bf), dict(causal=True)),
@@ -239,6 +293,24 @@ def _flash_cases(g):
         ("s384", _inputs(g, 2, 384, 384, 8, 8, 128, bf), dict(causal=True)),
         ("s400_ragged_d80", _inputs(g, 2, 400, 400, 8, 4, 80, bf),
          dict(causal=True)),
+        ("s129_ragged", _inputs(g, 2, 129, 129, 4, 4, 128, bf),
+         dict(causal=True)),
+        ("s255_ragged", _inputs(g, 2, 255, 255, 4, 2, 128, bf),
+         dict(causal=True)),
+        ("sq200_sk328_q_offset128", _inputs(g, 2, 200, 328, 4, 4, 128, bf),
+         dict(causal=True, q_offset=128)),
+        ("window100", _inputs(g, 1, 1024, 1024, 4, 4, 128, bf),
+         dict(causal=True, window=100)),
+        ("window100_non_causal", _inputs(g, 1, 512, 512, 4, 4, 128, bf),
+         dict(causal=False, window=100)),
+        ("segments_off_grid", _inputs(g, 2, 512, 512, 4, 2, 128, bf),
+         dict(causal=True, seg_q=off_grid, seg_k=off_grid)),
+        ("gqa32_8_s300", _inputs(g, 1, 300, 300, 32, 8, 128, bf),
+         dict(causal=True)),
+        ("d64_s200", _inputs(g, 2, 200, 200, 4, 4, 64, bf),
+         dict(causal=True)),
+        ("bhsd_views", tuple(bhsd(x) for x in _inputs(
+            g, 2, 256, 256, 4, 2, 128, bf)), dict(causal=True)),
         ("f32_s320", _inputs(g, 1, 320, 320, 4, 4, 128, torch.float32),
          dict(causal=True)),
     ]
@@ -457,30 +529,83 @@ def _time_flash_bwd(g, record: dict) -> dict:
             "bwd_plain_is": "flash_backward_reference (dq, dk, dv together)"}
 
 
+def _host_ms(fn, iters: int = 20) -> float:
+    """Host time a call of ``fn``: ``iters`` calls enqueued, no sync."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    ms = (time.perf_counter() - t0) / iters * 1e3
+    torch.cuda.synchronize()
+    return ms
+
+
+def _time_flash_fwd(g, b, s, h, hkv, d, plain=True) -> dict:
+    """The forward at one causal bf16 shape: the kernel timed through the
+    launcher alone (the wrapper's host work per call can exceed the
+    kernel's time), the full wrapper per call, the plain version, SDPA on
+    the same call (``enable_gqa`` where hkv < h) and the card's bound."""
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    q, k, v = _inputs(g, b, s, s, h, hkv, d, torch.bfloat16)
+    launch, _ = fa._forward_launcher(q, k, v, None, None, d ** -0.5, True,
+                                     None, 0)
+    res = {"shape": {"B": b, "S": s, "H": h, "Hkv": hkv, "D": d,
+                     "causal": True, "dtype": "bfloat16"},
+           "ms": _time_ms(launch, iters=20),
+           "wrapper_ms": _time_ms(
+               lambda: fa.flash_forward(q, k, v, causal=True), iters=20)}
+    # Host time a call: the C entry alone (three tensor maps encoded and
+    # the launch) and the whole wrapper.
+    res["launch_host_ms"] = _host_ms(launch)
+    res["wrapper_host_ms"] = _host_ms(
+        lambda: fa.flash_forward(q, k, v, causal=True))
+    if plain:
+        res["plain_ms"] = _time_ms(
+            lambda: fa.flash_attention_reference(q, k, v, causal=True),
+            iters=3, warmup=1)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    res["library_ms"] = _time_ms(
+        lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=hkv != h), iters=20)
+    res["bound_ms"], res["bound_by"] = _flash_bound(b, s, s, h, hkv, d)
+    del q, k, v, qt, kt, vt, launch
+    torch.cuda.empty_cache()
+    return res
+
+
 def phase_kernels(record: dict) -> dict:
     from ray_tpu_torch.models import llama
+    from ray_tpu_torch.ops import cuda_build
     from ray_tpu_torch.ops import flash_attention as fa
 
     g = torch.Generator(device="cuda").manual_seed(0)
     results = []
-    main_err = None
+    errs = {}
     for name, (q, k, v), kw in _flash_cases(g):
+        before = fwd_kernel_counts()
         out, lse = fa.flash_forward(q, k, v, **kw)
         torch.cuda.synchronize()
+        # The kernel the C entry launched, read from its own counts.
+        route = "+".join(k_ for k_, n in fwd_kernels_since(before).items()
+                         if n)
         ref, ref_lse = fa.flash_attention_reference(q, k, v, **kw)
         tol = 2e-2 if q.dtype == torch.bfloat16 else 1e-4
         err = float((out.float() - ref.float()).abs().max())
         lse_err = float((lse - ref_lse).abs().max())
         ok = (torch.allclose(out.float(), ref.float(), rtol=tol, atol=tol)
               and torch.allclose(lse, ref_lse, rtol=1e-3, atol=1e-3)
-              and bool(torch.isfinite(out.float()).all()))
+              and bool(torch.isfinite(out.float()).all())
+              and route == ("wgmma" if q.dtype == torch.bfloat16
+                            else "mma_sync_f32"))
         if name == "fully_masked_rows":
             ok = ok and not out[:, 128:].any() and bool(
                 (lse[:, :, 128:] == -1e30).all())
-        results.append({"case": name, "ok": ok, "max_abs_err": err,
+        results.append({"case": name, "route": route,
+                        "ok": ok, "max_abs_err": err,
                         "lse_max_abs_err": lse_err, "tol": tol})
-        if name == "prefill_7b_b4_s2048":
-            main_err = err
+        errs[name] = err
         del out, lse, ref, ref_lse
     torch.cuda.empty_cache()
 
@@ -491,39 +616,38 @@ def phase_kernels(record: dict) -> dict:
     toks = torch.randint(0, cfg.vocab_size, (2, 64), generator=g,
                          device="cuda")
     plain = llama.forward(params, toks, replace(cfg, attention_impl="xla"))
+    before = fwd_kernel_counts()
     flash = llama.forward(params, toks, replace(cfg, attention_impl="flash"))
+    by_kernel = fwd_kernels_since(before)
     model_err = float((plain - flash).abs().max())
-    results.append({"case": "debug_model_logits_f32", "ok": model_err < 1e-3,
+    results.append({"case": "debug_model_logits_f32",
+                    "route": "+".join(k_ for k_, n in by_kernel.items() if n),
+                    "ok": model_err < 1e-3 and by_kernel["wgmma"] == 0
+                    and by_kernel["mma_sync_f32"] > 0,
                     "max_abs_err": model_err, "tol": 1e-3})
 
-    # Timing at the serving path's largest prefill shape.
-    b, s, h, d = 4, 2048, 32, 128
-    q, k, v = _inputs(g, b, s, s, h, h, d, torch.bfloat16)
-    # Timed through the launcher alone (as the backward kernels): the
-    # wrapper's host work per call can exceed the kernel's time.
-    launch, _ = fa._forward_launcher(q, k, v, None, None, d ** -0.5, True,
-                                     None, 0)
-    ms = _time_ms(launch, iters=20)
-    plain_ms = _time_ms(
-        lambda: fa.flash_attention_reference(q, k, v, causal=True), iters=3,
-        warmup=1)
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    lib_ms = _time_ms(
-        lambda: torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True), iters=20)
-    bound_ms, bound_by = _flash_bound(b, s, s, h, h, d)
-    record["flash_fwd"] = {"max_abs_err": main_err, "ms": ms,
-                           "plain_ms": plain_ms, "bound_ms": bound_ms,
-                           "bound_by": bound_by, "library_ms": lib_ms}
-    del q, k, v, qt, kt, vt
-    torch.cuda.empty_cache()
+    # Timing at the serving path's largest prefill shape (the kernels
+    # line's numbers) and at the 1B training shape.
+    prefill = _time_flash_fwd(g, 4, 2048, 32, 32, 128)
+    train = _time_flash_fwd(g, 4, 2048, 16, 8, 128, plain=False)
+    train["max_abs_err"] = errs["train_1b_b4_s2048_gqa16_8"]
+    record["flash_fwd"] = {
+        "max_abs_err": errs["prefill_7b_b4_s2048"],
+        **{key: prefill[key] for key in ("ms", "plain_ms", "bound_ms",
+                                         "bound_by", "library_ms")},
+        "wrapper_ms": prefill["wrapper_ms"],
+        "wrapper_host_ms": prefill["wrapper_host_ms"],
+        "launch_host_ms": prefill["launch_host_ms"],
+        "at_train_1b": {key: train[key] for key in (
+            "shape", "ms", "wrapper_ms", "wrapper_host_ms", "launch_host_ms",
+            "bound_ms", "bound_by", "library_ms", "max_abs_err")},
+        "ptxas": cuda_build_rows(cuda_build, "flash_fwd")}
 
     results += _check_flash_bwd(g)
     bwd = _time_flash_bwd(g, record)
     ok = all(r["ok"] for r in results)
     return {"ok": ok, "cases": results,
-            "timing_shape": {"B": b, "S": s, "H": h, "D": d,
-                             "causal": True, "dtype": "bfloat16"},
+            "timing_shape": prefill["shape"],
             **bwd,
             **{f"{name}_{key}": val for name in PATH_KERNELS["train"]
                for key, val in record[name].items()}}
@@ -1028,6 +1152,7 @@ def phase_serve(cfg, device="cuda") -> dict:
             first_token.set()
 
     reset_counts()
+    fwd0 = fwd_kernel_counts(device)
     t_start = time.perf_counter()
     threads = [threading.Thread(target=run, args=(n,))
                for n in ("r1_shared_src", "r2_short", "r3", "r4")]
@@ -1045,11 +1170,12 @@ def phase_serve(cfg, device="cuda") -> dict:
     _sync(device)
     t_end = time.perf_counter()
     counts = launch_counts()
+    by_kernel = fwd_kernels_since(fwd0, device)
     stats = eng.stats()
     hung = [t.name for t in threads + later if t.is_alive()]
     out = {"init_s": init_s, "wall_s": t_end - t_start,
-           "launches": counts, "engine": stats, "errors": errors,
-           "hung_threads": hung}
+           "launches": counts, "flash_fwd_by_kernel": by_kernel,
+           "engine": stats, "errors": errors, "hung_threads": hung}
     checks = {}
     checks["all_answered"] = (not errors and not hung
                               and set(results) == set(plan))
@@ -1061,6 +1187,8 @@ def phase_serve(cfg, device="cuda") -> dict:
     checks["flash_launches_32_per_miss_wave"] = (
         stats["prefill_waves"] > 0
         and counts["flash_fwd"] == cfg.n_layers * stats["prefill_waves"])
+    checks["flash_fwd_on_wgmma"] = all_on_wgmma(by_kernel, counts["flash_fwd"],
+                                                device)
     if checks["all_answered"]:
         out["ttft_s"] = {n: results[n]["ttft_s"] for n in plan}
         out["stream_decode_tok_s"] = {
@@ -1086,7 +1214,7 @@ def phase_serve(cfg, device="cuda") -> dict:
     out["checks"] = checks
     if torch.device(device).type == "cuda":
         out["device"] = smi_line()
-    out["ok"] = all(checks.values()) and len(checks) == 6
+    out["ok"] = all(checks.values()) and len(checks) == 7
     dep.shutdown()
     return out
 
@@ -1159,16 +1287,24 @@ def phase_train(cfg, device="cuda", batch=8, seq=2048, steps=4,
             "flash_bwd_dq": cfg.n_layers * accum_steps}
     losses, norms, times, per_step = [], [], [], []
     total = {k: 0 for k in want}
+    by_kernel: dict = {}
+    on_wgmma = True
     for _ in range(steps):
         reset_counts()
+        fwd0 = fwd_kernel_counts(device)
         t = time.perf_counter()
         params, opt_state, m = step(params, opt_state, data)
         _sync(device)
         times.append(time.perf_counter() - t)
         counts = launch_counts()
+        step_by_kernel = fwd_kernels_since(fwd0, device)
+        on_wgmma = on_wgmma and all_on_wgmma(step_by_kernel,
+                                             counts["flash_fwd"], device)
         per_step.append(counts)
         for k in total:
             total[k] += counts[k]
+        for k, n in step_by_kernel.items():
+            by_kernel[k] = by_kernel.get(k, 0) + n
         losses.append(float(m["loss"]))
         norms.append(float(m["grad_norm"]))
     peak = torch.cuda.max_memory_allocated() if cuda else None
@@ -1192,11 +1328,13 @@ def phase_train(cfg, device="cuda", batch=8, seq=2048, steps=4,
                       "accum_steps": accum_steps},
            "init_s": init_s, "losses": losses, "grad_norms": norms,
            "step_s": times, "launches": total,
+           "flash_fwd_by_kernel": by_kernel,
            "launches_per_step": per_step, "launches_want": want}
     checks = {
         "finite": all(math.isfinite(x) for x in losses + norms),
         "loss_falls": losses[-1] < losses[0],
         "launches_per_step_exact": all(c == want for c in per_step),
+        "flash_fwd_on_wgmma": on_wgmma,
     }
     if cuda:
         out["device"] = smi_line()
@@ -1231,6 +1369,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     record: dict = {}
     paths: dict = {}
+    by_kernel: dict = {}
     train_cfg = replace(llama.PRESETS["1b"], attention_impl="flash",
                         remat=True, remat_policy="full", loss_chunk=512)
     for name, fn in (("env", phase_env), ("build", phase_build),
@@ -1253,6 +1392,8 @@ def main() -> int:
             return 1
         if name in PATH_KERNELS:
             paths[name] = res["launches"]
+            for k, n in res.get("flash_fwd_by_kernel", {}).items():
+                by_kernel[k] = by_kernel.get(k, 0) + n
             gc.collect()
             torch.cuda.empty_cache()
     # Each main path's counts were zeroed right before it and read right
@@ -1264,6 +1405,9 @@ def main() -> int:
     if missing:
         emit({"phase": "launches", "ok": False, "not_launched": missing})
         return 1
+    # The forward's launches on the serve and train paths by the kernel
+    # its C entry launched (every one bf16, so all on wgmma).
+    record["flash_fwd"]["launches_by_kernel"] = by_kernel
     emit({"kernels": [
         {"name": k, **KERNELS[k], "launches": launches[k], **record[k]}
         for k in KERNELS]})

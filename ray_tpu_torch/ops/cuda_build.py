@@ -91,8 +91,10 @@ def build(names: Iterable[str], csrc: Path = CSRC) -> List[Path]:
 
 def load(name: str, csrc: Path = CSRC) -> ctypes.CDLL:
     """The loaded library of kernel ``name`` (from ``csrc``), building it
-    first if needed."""
-    key = f"{Path(csrc).resolve()}/{name}"
+    first if needed. Every launch calls this: the cache is keyed by the
+    directory as given, since resolving it costs file-system calls, which
+    are slow on some hosts."""
+    key = f"{csrc}/{name}"
     lib = _loaded.get(key)
     if lib is None:
         path = build([name], csrc)[0]

@@ -4,9 +4,12 @@
 public signatures, its (B, S, H, D) layout (``flash_attention_stats``:
 (B, H, S, D)) and its ValueErrors. On a CUDA tensor the forward launches
 the hand-written Hopper kernel ``ops/csrc/flash_fwd.cu`` (which replaces
-the Pallas ``_fwd_kernel``) and the backward launches the two kernels of
-``ops/csrc/flash_bwd.cu`` (``_bwd_dkv_kernel`` then ``_bwd_dq_kernel``), or
-raises; on a CPU tensor both directions run the plain PyTorch versions,
+the Pallas ``_fwd_kernel``; the C entry sends bf16 to its wgmma kernel
+and float32 to its mma.sync kernel, and ``forward_kernel_launches``
+reads which it launched) and the backward launches the
+two kernels of ``ops/csrc/flash_bwd.cu`` (``_bwd_dkv_kernel`` then
+``_bwd_dq_kernel``), or raises; on a CPU tensor both directions run the
+plain PyTorch versions,
 ``flash_attention_reference`` and ``flash_backward_reference``. Nothing
 else is on either path.
 """
@@ -21,6 +24,9 @@ import torch.nn.functional as F
 
 _NEG_INF = -1e30
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
+# The kernels behind ``flash_fwd.cu``'s entry, in the order of the counts
+# ``rtt_flash_fwd_launches`` reports (see ``forward_kernel_launches``).
+FORWARD_KERNELS = ("wgmma", "mma_sync_f32")
 
 
 # ------------------------------------------------------------ plain version
@@ -321,6 +327,21 @@ def _library(kernel: str, entry: str, csrc=None):
                        ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
+
+
+def forward_kernel_launches(csrc=None) -> dict:
+    """Kernel name (``FORWARD_KERNELS``) -> launches of it by
+    ``flash_fwd.cu``'s entry since its library was loaded, counted in C
+    where the launch succeeds: which kernel the calls took. Loads (and if
+    needed builds) the library, so it needs the CUDA toolkit."""
+    from ray_tpu_torch.ops import cuda_build
+
+    fn = cuda_build.load("flash_fwd",
+                         csrc or cuda_build.CSRC).rtt_flash_fwd_launches
+    fn.restype = None
+    counts = (ctypes.c_longlong * len(FORWARD_KERNELS))()
+    fn(counts)
+    return dict(zip(FORWARD_KERNELS, counts))
 
 
 def _device_kind(q: torch.Tensor, op: str = "flash_attention") -> str:

@@ -88,6 +88,46 @@ def test_flash_kv_segments_with_dead_rows():
     assert not got[0, 32:].any()
 
 
+def _off_grid_segments(b, s):
+    seg = np.zeros((b, s), np.int32)
+    seg[:, 77:] = 1
+    seg[:, 200:] = 2
+    seg[-1, 150:] = 3
+    return seg
+
+
+# The bf16 Hopper kernel works in 128-row q tiles and 128-key kv tiles;
+# these shapes put ragged ends, the causal and window frontiers, a q
+# offset with Sq != Sk and segment boundaries inside and across such
+# tiles. The JAX side takes blocks that divide the lengths, as it
+# requires: (name, (B, Sq, Sk, H, Hkv, D), (block_q, block_k), kwargs,
+# dtype).
+TILE_EDGES = [
+    ("s129_ragged", (2, 129, 129, 2, 2, 64), (129, 129), dict(causal=True),
+     "f32"),
+    ("s255_ragged_gqa", (1, 255, 255, 4, 2, 64), (85, 85), dict(causal=True),
+     "f32"),
+    ("sq200_sk328_q_offset128", (1, 200, 328, 2, 2, 64), (100, 164),
+     dict(causal=True, q_offset=128), "f32"),
+    ("window100", (1, 256, 256, 2, 2, 64), (128, 128),
+     dict(causal=True, window=100), "f32"),
+    ("segments_off_grid", (2, 256, 256, 2, 1, 64), (128, 128),
+     dict(causal=True, segment_ids=_off_grid_segments(2, 256)), "f32"),
+    ("gqa32_8", (1, 64, 64, 32, 8, 16), (64, 64), dict(causal=True), "f32"),
+    ("d64_s200_bf16", (1, 200, 200, 2, 2, 64), (200, 200),
+     dict(causal=True), "bf16"),
+]
+
+
+@pytest.mark.parametrize("name,shape,blocks,kw,dtype", TILE_EDGES,
+                         ids=[c[0] for c in TILE_EDGES])
+def test_flash_forward_tile_edges(name, shape, blocks, kw, dtype):
+    q, k, v = _inputs(*shape, seed=6)
+    want, got = _both(q, k, v, dtype=dtype, block_q=blocks[0],
+                      block_k=blocks[1], **kw)
+    np.testing.assert_allclose(got, want, **(F32 if dtype == "f32" else BF16))
+
+
 def test_flash_bf16_matches():
     q, k, v = _inputs(1, 128, 128, 4, 4, 64, seed=4)
     want, got = _both(q, k, v, dtype="bf16", causal=True, block_q=64,

@@ -50,6 +50,58 @@ def test_flash_kernel_matches_plain(cuda_device, dtype, s, d, hkv, kw):
     torch.testing.assert_close(lse, ref_lse, rtol=1e-3, atol=1e-3)
 
 
+# Edges of the bf16 kernel's 128-row q tiles and 128-key kv tiles:
+# (name, B, Sq, Sk, H, Hkv, D, kwargs); "segments" puts segment
+# boundaries at 77, 200 and (last batch) 150.
+BF16_TILE_EDGES = [
+    ("s129_ragged", 2, 129, 129, 4, 4, 128, dict(causal=True)),
+    ("s255_ragged", 2, 255, 255, 4, 2, 128, dict(causal=True)),
+    ("sq200_sk328_q_offset128", 2, 200, 328, 4, 4, 128,
+     dict(causal=True, q_offset=128)),
+    ("window100", 1, 512, 512, 4, 4, 128, dict(causal=True, window=100)),
+    ("segments_off_grid", 2, 384, 384, 4, 2, 128,
+     dict(causal=True, segments=True)),
+    ("gqa32_8", 1, 300, 300, 32, 8, 128, dict(causal=True)),
+    ("d64_s200", 2, 200, 200, 4, 4, 64, dict(causal=True)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,b,sq,sk,h,hkv,d,kw", BF16_TILE_EDGES,
+                         ids=[c[0] for c in BF16_TILE_EDGES])
+def test_flash_bf16_kernel_tile_edges(cuda_device, name, b, sq, sk, h, hkv,
+                                      d, kw):
+    """The wgmma kernel (the bf16 route) against the plain version where
+    ragged ends, frontiers, a q offset and segment boundaries fall inside
+    its tiles."""
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+
+    def rnd(s, heads):
+        return torch.randn(b, s, heads, d, generator=g,
+                           device=cuda_device).to(torch.bfloat16)
+
+    q, k, v = rnd(sq, h), rnd(sk, hkv), rnd(sk, hkv)
+    kw = dict(kw)
+    if kw.pop("segments", False):
+        seg = torch.zeros(b, sq, dtype=torch.int32, device=cuda_device)
+        seg[:, 77:] = 1
+        seg[:, 200:] = 2
+        seg[-1, 150:] = 3
+        kw.update(seg_q=seg, seg_k=seg)
+    before = tflash.flash_attention.launches
+    kernels_before = tflash.forward_kernel_launches()
+    out, lse = tflash.flash_forward(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert tflash.flash_attention.launches == before + 1
+    kernels = tflash.forward_kernel_launches()
+    assert {k_: kernels[k_] - kernels_before[k_] for k_ in kernels} == {
+        "wgmma": 1, "mma_sync_f32": 0}
+    ref, ref_lse = tflash.flash_attention_reference(q, k, v, **kw)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2,
+                               atol=2e-2)
+    torch.testing.assert_close(lse, ref_lse, rtol=1e-3, atol=1e-3)
+
+
 @pytest.mark.cuda
 def test_flash_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
     q = torch.randn(1, 64, 2, 256, device=cuda_device, dtype=torch.bfloat16)
