@@ -13,11 +13,16 @@ Phases, one JSON line each (``{"phase": ..., "ok": ...}``):
    7B prefill and 1B training shapes and at the edges of its 128 x 128
    tiles, each case naming the kernel the C entry counted itself
    launching, which must be ``wgmma`` for bf16 and ``mma_sync_f32`` for
-   float32; the two backward kernels at the 1B training shape),
-   then timed with CUDA events beside the plain version, the PyTorch
-   library call that computes the same function, and the card's bound
-   for the work (the forward at both shapes, launch-only and through its
-   wrapper, with the wrapper's host time a call).
+   float32; the two backward kernels at the 1B training shape and at
+   the edges of their tiles, each case naming the kernels the C entries
+   counted, ``dkv_wgmma+dq_wgmma`` for bf16 and the ``mma_sync_f32`` pair
+   for float32), then timed with CUDA events beside the plain version,
+   the PyTorch library call that computes the same function, and the
+   card's bound for the work (the forward at both shapes, launch-only and
+   through its wrapper, with the wrapper's host time a call; the backward
+   at the 1B shape with the delta pre-pass, the unit delta + dK/dV + dQ,
+   SDPA's backward on each backend that takes it, and the host time a
+   call).
 4. splash: ``splash_attention`` forward and backward at the 1B preset's
    attention width (16 q heads on 8 kv heads, head_dim 128), B=1,
    S=8192, bf16, default 256 blocks, on a GQA-aligned head stack (heads
@@ -49,12 +54,13 @@ Phases, one JSON line each (``{"phase": ..., "ok": ...}``):
 
 Serve and train also read the forward's C entry's own launch count of
 each of its kernels over the same window: every forward launch there
-must have taken the wgmma kernel.
+must have taken the wgmma kernel; train reads the backward's entries the
+same way, and every backward launch must have taken a wgmma kernel.
 
 Each main path (splash, serve, train) must have launched each of its
 kernels at least once. Then a ``{"kernels": [...]}`` line with all six
-kernels (the forward's with its main-path launches by kernel and its
-ptxas lines: registers, shared memory and spills of each
+kernels (the flash kernels' with their main-path launches by kernel
+and their ptxas lines: registers, shared memory and spills of each
 instantiation), the nvidia-smi name/power-limit line, and, last,
 ``{"ok": true, "device": {...}}``.
 Any failed phase exits 1 without that last line; so does a machine
@@ -208,6 +214,36 @@ def all_on_wgmma(by_kernel: dict, flash_launches: int, device) -> bool:
     return by_kernel == {"wgmma": flash_launches, "mma_sync_f32": 0}
 
 
+def bwd_kernel_counts(device="cuda") -> dict:
+    """Launches of each kernel behind ``flash_bwd.cu``'s two entries, as
+    the C entries count them (none off the card)."""
+    if torch.device(device).type != "cuda":
+        return {}
+    from ray_tpu_torch.ops.flash_attention import backward_kernel_launches
+
+    return backward_kernel_launches()
+
+
+def bwd_kernels_since(before: dict, device="cuda") -> dict:
+    return {k: n - before.get(k, 0)
+            for k, n in bwd_kernel_counts(device).items()}
+
+
+def all_bwd_on_wgmma(by_kernel: dict, dkv_launches: int, dq_launches: int,
+                     device) -> bool:
+    """Every backward launch of a bf16 path took a wgmma kernel (off the
+    card nothing launches)."""
+    if torch.device(device).type != "cuda":
+        return True
+    return by_kernel == {"dkv_wgmma": dkv_launches, "dq_wgmma": dq_launches,
+                         "dkv_mma_sync_f32": 0, "dq_mma_sync_f32": 0}
+
+
+def _route(by_kernel: dict) -> str:
+    """The kernels a window launched, joined by "+"."""
+    return "+".join(k for k, n in by_kernel.items() if n)
+
+
 def cuda_build_rows(cuda_build, name: str) -> list:
     """One line per kernel instantiation in the build log of ``name``: its
     name, registers and shared memory, and spills."""
@@ -250,6 +286,22 @@ def _inputs(g, b, sq, sk, h, hkv, d, dtype, dev="cuda"):
     return q, k, v
 
 
+def _off_grid_segments():
+    """(2, 512) segment ids whose boundaries fall off every tile grid."""
+    seg = torch.zeros(2, 512, dtype=torch.int32, device="cuda")
+    seg[:, 77:] = 1
+    seg[:, 200:] = 2
+    seg[0, 450:] = 3
+    seg[1, 333:] = 4
+    return seg
+
+
+def _bhsd(x):
+    """(B, S, H, D) views of a (B, H, S, D) tensor, as
+    ``flash_attention_stats`` passes them."""
+    return x.transpose(1, 2).contiguous().transpose(1, 2)
+
+
 def _flash_cases(g):
     """(name, tensors, kwargs) at the slice's prefill and training shapes
     and the edges (of the bf16 kernel's 128-row q tiles and 128-key kv
@@ -261,17 +313,7 @@ def _flash_cases(g):
     dead_q = torch.zeros(1, 256, dtype=torch.int32, device="cuda")
     dead_q[:, 128:] = 5          # segment 5 has no keys: dead rows
     dead_k = torch.zeros(1, 256, dtype=torch.int32, device="cuda")
-    off_grid = torch.zeros(2, 512, dtype=torch.int32, device="cuda")
-    off_grid[:, 77:] = 1
-    off_grid[:, 200:] = 2
-    off_grid[0, 450:] = 3
-    off_grid[1, 333:] = 4
-
-    def bhsd(x):
-        """(B, S, H, D) views of a (B, H, S, D) tensor, as
-        ``flash_attention_stats`` passes them."""
-        return x.transpose(1, 2).contiguous().transpose(1, 2)
-
+    off_grid = _off_grid_segments()
     return [
         ("prefill_7b_b4_s2048", _inputs(g, 4, 2048, 2048, 32, 32, 128, bf),
          dict(causal=True)),
@@ -309,7 +351,7 @@ def _flash_cases(g):
          dict(causal=True)),
         ("d64_s200", _inputs(g, 2, 200, 200, 4, 4, 64, bf),
          dict(causal=True)),
-        ("bhsd_views", tuple(bhsd(x) for x in _inputs(
+        ("bhsd_views", tuple(_bhsd(x) for x in _inputs(
             g, 2, 256, 256, 4, 2, 128, bf)), dict(causal=True)),
         ("f32_s320", _inputs(g, 1, 320, 320, 4, 4, 128, torch.float32),
          dict(causal=True)),
@@ -399,6 +441,7 @@ def _flash_bwd_cases(g):
     dead_q = torch.zeros(1, 256, dtype=torch.int32, device="cuda")
     dead_q[:, 128:] = 5          # segment 5 has no keys: dead rows
     dead_k = torch.zeros(1, 256, dtype=torch.int32, device="cuda")
+    off_grid = _off_grid_segments()
     return [
         ("train_1b_b4_s2048", _bwd_inputs(g, 4, 2048, 2048, 16, 8, 128, bf),
          dict(causal=True), False),
@@ -426,6 +469,27 @@ def _flash_bwd_cases(g):
          dict(causal=True), True),
         ("f32_s320", _bwd_inputs(g, 1, 320, 320, 4, 2, 128, torch.float32),
          dict(causal=True), False),
+        # Edges of the bf16 kernels' tiles: 128-row dQ tiles, 64-key
+        # dK/dV tiles and their 64-row q tiles.
+        ("s129_ragged", _bwd_inputs(g, 2, 129, 129, 4, 4, 128, bf),
+         dict(causal=True), False),
+        ("s255_ragged", _bwd_inputs(g, 2, 255, 255, 4, 2, 128, bf),
+         dict(causal=True), False),
+        ("sq200_sk328_q_offset128",
+         _bwd_inputs(g, 2, 200, 328, 4, 4, 128, bf),
+         dict(causal=True, q_offset=128), False),
+        ("window100", _bwd_inputs(g, 1, 1024, 1024, 4, 4, 128, bf),
+         dict(causal=True, window=100), False),
+        ("segments_off_grid", _bwd_inputs(g, 2, 512, 512, 4, 2, 128, bf),
+         dict(causal=True, seg_q=off_grid, seg_k=off_grid), False),
+        ("gqa32_8_s300", _bwd_inputs(g, 1, 300, 300, 32, 8, 128, bf),
+         dict(causal=True), False),
+        ("d64_s200", _bwd_inputs(g, 2, 200, 200, 4, 4, 64, bf),
+         dict(causal=True), False),
+        ("lse_cotangent_gqa8_2", _bwd_inputs(g, 2, 512, 512, 8, 2, 128, bf),
+         dict(causal=True), True),
+        ("bhsd_views", tuple(_bhsd(x) for x in _bwd_inputs(
+            g, 2, 256, 256, 4, 2, 128, bf)), dict(causal=True), False),
     ]
 
 
@@ -455,12 +519,15 @@ def _check_flash_bwd(g) -> list:
     for name, (q, k, v, do), kw, with_dlse in _flash_bwd_cases(g):
         out, lse = fa.flash_forward(q, k, v, **kw)
         dlse = None
+        before = bwd_kernel_counts()
         if with_dlse:
             dlse = torch.randn(lse.shape, generator=g, device="cuda")
             got = _stats_grads(q, k, v, do, dlse, kw["causal"])
         else:
             got = fa.flash_backward(q, k, v, out, lse, do, **kw)
         torch.cuda.synchronize()
+        # The kernels the C entries launched, read from their own counts.
+        route = _route(bwd_kernels_since(before))
         want = fa.flash_backward_reference(q, k, v, out, lse, do, dlse, **kw)
         tol = 2e-2 if q.dtype == torch.bfloat16 else 1e-4
         errs, ok = {}, True
@@ -471,9 +538,11 @@ def _check_flash_bwd(g) -> list:
             ok = ok and a.dtype == r.dtype and a.shape == r.shape and (
                 bool(torch.isfinite(a.float()).all())
                 and err <= tol * scale)
+        ok = ok and route == ("dkv_wgmma+dq_wgmma" if q.dtype == torch.bfloat16
+                              else "dkv_mma_sync_f32+dq_mma_sync_f32")
         if name == "fully_masked_rows":
             ok = ok and not got[0][:, 128:].any()
-        results.append({"case": f"bwd_{name}", "ok": ok,
+        results.append({"case": f"bwd_{name}", "route": route, "ok": ok,
                         "rel_max_abs_err": errs, "tol": tol})
         del q, k, v, do, out, lse, got, want
     torch.cuda.empty_cache()
@@ -483,8 +552,12 @@ def _check_flash_bwd(g) -> list:
 def _time_flash_bwd(g, record: dict) -> dict:
     """Time each backward kernel at the 1B training shape beside the plain
     version and the library yardstick (the backward of PyTorch's SDPA,
-    timed only), and compute each kernel's bound."""
+    timed only, on each backend that takes the call, the fastest used),
+    with the delta pre-pass and the unit (delta + dK/dV + dQ, what SDPA's
+    backward computes), the host time a call, and each kernel's bound."""
+    from ray_tpu_torch.ops import cuda_build
     from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.tools.flash_ab import sdpa_backward_ms
 
     b, s, h, hkv, d = 4, 2048, 16, 8, 128
     q, k, v, do = _bwd_inputs(g, b, s, s, h, hkv, d, torch.bfloat16)
@@ -501,31 +574,48 @@ def _time_flash_bwd(g, record: dict) -> dict:
     # once, so the wrapper's host work does not enter the kernel time.
     launch, _ = fa._backward_launcher(q, k, v, do, lse, delta, None, None,
                                       None, scale, True, None, 0)
+
+    def pair():
+        launch("dkv")
+        launch("dq")
+
     ms = {"flash_bwd_dkv": _time_ms(lambda: launch("dkv"), iters=20),
           "flash_bwd_dq": _time_ms(lambda: launch("dq"), iters=20)}
+    pair_ms = _time_ms(pair, iters=20)
+    delta_ms = _time_ms(lambda: fa.attention_delta(out, do), iters=20)
     plain_ms = _time_ms(lambda: fa.flash_backward_reference(
         q, k, v, out, lse, do, causal=True), iters=3, warmup=1)
-    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
-                  for x in (q, k, v))
-    lib_out = torch.nn.functional.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True)
-    dot = do.transpose(1, 2)
-    lib_ms = _time_ms(lambda: torch.autograd.grad(
-        lib_out, (qt, kt, vt), dot, retain_graph=True), iters=20)
+    lib = sdpa_backward_ms(q, k, v, do)
+    # Host time a backward call: the two C entries alone (seven and four
+    # tensor maps encoded, two launches) and the whole wrapper (delta,
+    # validation, allocation).
+    launch_host_ms = _host_ms(pair)
+    wrapper_host_ms = _host_ms(lambda: fa.flash_backward(
+        q, k, v, out, lse, do, causal=True))
     bounds = _flash_bwd_bounds(b, s, s, h, hkv, d)
     max_err = {"flash_bwd_dkv": max(errs[1], errs[2]),
                "flash_bwd_dq": errs[0]}
-    for name in ("flash_bwd_dkv", "flash_bwd_dq"):
+    ptxas = cuda_build_rows(cuda_build, "flash_bwd")
+    for name, kernel in (("flash_bwd_dkv", "flash_bwd_dkv_wgmma_kernel"),
+                         ("flash_bwd_dq", "flash_bwd_dq_wgmma_kernel")):
         record[name] = {"max_abs_err": max_err[name], "ms": ms[name],
                         "plain_ms": plain_ms, "bound_ms": bounds[name][0],
-                        "bound_by": bounds[name][1], "library_ms": lib_ms}
-    del q, k, v, do, out, lse, delta, qt, kt, vt, lib_out
+                        "bound_by": bounds[name][1],
+                        "library_ms": lib["sdpa_bwd_ms"],
+                        "ptxas": [r for r in ptxas if r.startswith(kernel)]}
+    del q, k, v, do, out, lse, delta, launch
     torch.cuda.empty_cache()
     return {"bwd_timing_shape": {"B": b, "S": s, "H": h, "Hkv": hkv,
                                  "D": d, "causal": True,
                                  "dtype": "bfloat16"},
-            "bwd_pair_ms": ms["flash_bwd_dkv"] + ms["flash_bwd_dq"],
-            "bwd_library_is": "SDPA backward (dq, dk, dv together)",
+            "bwd_pair_ms": pair_ms, "bwd_delta_ms": delta_ms,
+            "bwd_unit_ms": delta_ms + pair_ms,
+            "bwd_launch_host_ms": launch_host_ms,
+            "bwd_wrapper_host_ms": wrapper_host_ms,
+            "bwd_library_is": f"SDPA backward ({lib['sdpa_backend']}, the "
+                              "fastest backend that takes the call; dq, dk, "
+                              "dv together)",
+            "bwd_sdpa_ms_by_backend": lib["sdpa_bwd_ms_by_backend"],
             "bwd_plain_is": "flash_backward_reference (dq, dk, dv together)"}
 
 
@@ -588,8 +678,7 @@ def phase_kernels(record: dict) -> dict:
         out, lse = fa.flash_forward(q, k, v, **kw)
         torch.cuda.synchronize()
         # The kernel the C entry launched, read from its own counts.
-        route = "+".join(k_ for k_, n in fwd_kernels_since(before).items()
-                         if n)
+        route = _route(fwd_kernels_since(before))
         ref, ref_lse = fa.flash_attention_reference(q, k, v, **kw)
         tol = 2e-2 if q.dtype == torch.bfloat16 else 1e-4
         err = float((out.float() - ref.float()).abs().max())
@@ -621,7 +710,7 @@ def phase_kernels(record: dict) -> dict:
     by_kernel = fwd_kernels_since(before)
     model_err = float((plain - flash).abs().max())
     results.append({"case": "debug_model_logits_f32",
-                    "route": "+".join(k_ for k_, n in by_kernel.items() if n),
+                    "route": _route(by_kernel),
                     "ok": model_err < 1e-3 and by_kernel["wgmma"] == 0
                     and by_kernel["mma_sync_f32"] > 0,
                     "max_abs_err": model_err, "tol": 1e-3})
@@ -1288,23 +1377,31 @@ def phase_train(cfg, device="cuda", batch=8, seq=2048, steps=4,
     losses, norms, times, per_step = [], [], [], []
     total = {k: 0 for k in want}
     by_kernel: dict = {}
-    on_wgmma = True
+    bwd_by_kernel: dict = {}
+    on_wgmma = bwd_on_wgmma = True
     for _ in range(steps):
         reset_counts()
         fwd0 = fwd_kernel_counts(device)
+        bwd0 = bwd_kernel_counts(device)
         t = time.perf_counter()
         params, opt_state, m = step(params, opt_state, data)
         _sync(device)
         times.append(time.perf_counter() - t)
         counts = launch_counts()
         step_by_kernel = fwd_kernels_since(fwd0, device)
+        step_bwd = bwd_kernels_since(bwd0, device)
         on_wgmma = on_wgmma and all_on_wgmma(step_by_kernel,
                                              counts["flash_fwd"], device)
+        bwd_on_wgmma = bwd_on_wgmma and all_bwd_on_wgmma(
+            step_bwd, counts["flash_bwd_dkv"], counts["flash_bwd_dq"],
+            device)
         per_step.append(counts)
         for k in total:
             total[k] += counts[k]
         for k, n in step_by_kernel.items():
             by_kernel[k] = by_kernel.get(k, 0) + n
+        for k, n in step_bwd.items():
+            bwd_by_kernel[k] = bwd_by_kernel.get(k, 0) + n
         losses.append(float(m["loss"]))
         norms.append(float(m["grad_norm"]))
     peak = torch.cuda.max_memory_allocated() if cuda else None
@@ -1329,12 +1426,14 @@ def phase_train(cfg, device="cuda", batch=8, seq=2048, steps=4,
            "init_s": init_s, "losses": losses, "grad_norms": norms,
            "step_s": times, "launches": total,
            "flash_fwd_by_kernel": by_kernel,
+           "flash_bwd_by_kernel": bwd_by_kernel,
            "launches_per_step": per_step, "launches_want": want}
     checks = {
         "finite": all(math.isfinite(x) for x in losses + norms),
         "loss_falls": losses[-1] < losses[0],
         "launches_per_step_exact": all(c == want for c in per_step),
         "flash_fwd_on_wgmma": on_wgmma,
+        "flash_bwd_on_wgmma": bwd_on_wgmma,
     }
     if cuda:
         out["device"] = smi_line()
@@ -1370,6 +1469,7 @@ def main() -> int:
     record: dict = {}
     paths: dict = {}
     by_kernel: dict = {}
+    bwd_by_kernel: dict = {}
     train_cfg = replace(llama.PRESETS["1b"], attention_impl="flash",
                         remat=True, remat_policy="full", loss_chunk=512)
     for name, fn in (("env", phase_env), ("build", phase_build),
@@ -1394,6 +1494,8 @@ def main() -> int:
             paths[name] = res["launches"]
             for k, n in res.get("flash_fwd_by_kernel", {}).items():
                 by_kernel[k] = by_kernel.get(k, 0) + n
+            for k, n in res.get("flash_bwd_by_kernel", {}).items():
+                bwd_by_kernel[k] = bwd_by_kernel.get(k, 0) + n
             gc.collect()
             torch.cuda.empty_cache()
     # Each main path's counts were zeroed right before it and read right
@@ -1408,6 +1510,11 @@ def main() -> int:
     # The forward's launches on the serve and train paths by the kernel
     # its C entry launched (every one bf16, so all on wgmma).
     record["flash_fwd"]["launches_by_kernel"] = by_kernel
+    # The backward's launches on the train path by the kernel its C entries
+    # launched (every one bf16, so all on wgmma).
+    for name, prefix in (("flash_bwd_dkv", "dkv_"), ("flash_bwd_dq", "dq_")):
+        record[name]["launches_by_kernel"] = {
+            k: n for k, n in bwd_by_kernel.items() if k.startswith(prefix)}
     emit({"kernels": [
         {"name": k, **KERNELS[k], "launches": launches[k], **record[k]}
         for k in KERNELS]})

@@ -8,7 +8,9 @@ the Pallas ``_fwd_kernel``; the C entry sends bf16 to its wgmma kernel
 and float32 to its mma.sync kernel, and ``forward_kernel_launches``
 reads which it launched) and the backward launches the
 two kernels of ``ops/csrc/flash_bwd.cu`` (``_bwd_dkv_kernel`` then
-``_bwd_dq_kernel``), or raises; on a CPU tensor both directions run the
+``_bwd_dq_kernel``; the C entries send bf16 to their wgmma kernels and
+float32 to their mma.sync kernels, and ``backward_kernel_launches`` reads
+which they launched), or raises; on a CPU tensor both directions run the
 plain PyTorch versions,
 ``flash_attention_reference`` and ``flash_backward_reference``. Nothing
 else is on either path.
@@ -27,6 +29,11 @@ _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
 # The kernels behind ``flash_fwd.cu``'s entry, in the order of the counts
 # ``rtt_flash_fwd_launches`` reports (see ``forward_kernel_launches``).
 FORWARD_KERNELS = ("wgmma", "mma_sync_f32")
+# The kernels behind ``flash_bwd.cu``'s two entries, in the order of the
+# counts ``rtt_flash_bwd_launches`` reports (see
+# ``backward_kernel_launches``).
+BACKWARD_KERNELS = ("dkv_wgmma", "dq_wgmma", "dkv_mma_sync_f32",
+                    "dq_mma_sync_f32")
 
 
 # ------------------------------------------------------------ plain version
@@ -260,8 +267,8 @@ def _backward_launcher(q, k, v, do, lse, delta, dlse, seg_q, seg_k, scale,
                          f"{tuple(q.shape)}")
     _check_operand("do", do, dtype, device)
     stats = [lse, delta] + ([] if dlse is None else [dlse])
-    lse, delta, *rest = (t.to(device=device, dtype=torch.float32)
-                         .contiguous() for t in stats)
+    lse, delta, *rest = (_aligned(t.to(device=device, dtype=torch.float32)
+                                  .contiguous()) for t in stats)
     dlse = rest[0] if rest else None
     for name, t in (("lse", lse), ("delta", delta), ("dlse", dlse)):
         if t is not None and t.shape != (b, hq, sq):
@@ -301,6 +308,12 @@ def _backward_launcher(q, k, v, do, lse, delta, dlse, seg_q, seg_k, scale,
     return launch, (dq, dk, dv)
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, copied if its data does not start on 16 bytes (the backward
+    kernels load the (B, H, Sq) statistics by TMA, which needs that)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _kernel_backward(q, k, v, do, lse, delta, dlse, seg_q, seg_k, scale,
                      causal, window, q_offset, csrc=None
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -329,19 +342,31 @@ def _library(kernel: str, entry: str, csrc=None):
     return fn
 
 
-def forward_kernel_launches(csrc=None) -> dict:
-    """Kernel name (``FORWARD_KERNELS``) -> launches of it by
-    ``flash_fwd.cu``'s entry since its library was loaded, counted in C
-    where the launch succeeds: which kernel the calls took. Loads (and if
-    needed builds) the library, so it needs the CUDA toolkit."""
+def _kernel_launches(kernel: str, names, csrc=None) -> dict:
+    """Kernel name -> launches of it by the entries of ``<kernel>.cu``
+    since its library was loaded, counted in C where the launch succeeds
+    (``rtt_<kernel>_launches`` fills them in the order of ``names``):
+    which kernel the calls took. Loads (and if needed builds) the library,
+    so it needs the CUDA toolkit."""
     from ray_tpu_torch.ops import cuda_build
 
-    fn = cuda_build.load("flash_fwd",
-                         csrc or cuda_build.CSRC).rtt_flash_fwd_launches
+    fn = getattr(cuda_build.load(kernel, csrc or cuda_build.CSRC),
+                 f"rtt_{kernel}_launches")
     fn.restype = None
-    counts = (ctypes.c_longlong * len(FORWARD_KERNELS))()
+    counts = (ctypes.c_longlong * len(names))()
     fn(counts)
-    return dict(zip(FORWARD_KERNELS, counts))
+    return dict(zip(names, counts))
+
+
+def forward_kernel_launches(csrc=None) -> dict:
+    """``FORWARD_KERNELS`` -> launches by ``flash_fwd.cu``'s entry."""
+    return _kernel_launches("flash_fwd", FORWARD_KERNELS, csrc)
+
+
+def backward_kernel_launches(csrc=None) -> dict:
+    """``BACKWARD_KERNELS`` -> launches by ``flash_bwd.cu``'s two
+    entries."""
+    return _kernel_launches("flash_bwd", BACKWARD_KERNELS, csrc)
 
 
 def _device_kind(q: torch.Tensor, op: str = "flash_attention") -> str:

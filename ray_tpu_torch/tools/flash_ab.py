@@ -1,7 +1,7 @@
 """Time two versions of the flash kernels on one card, in turns.
 
     python -m ray_tpu_torch.tools.flash_ab PARENT_CSRC_DIR [fwd|bwd]
-    python -m ray_tpu_torch.tools.flash_ab LABEL=DIR [LABEL=DIR ...] [fwd]
+    python -m ray_tpu_torch.tools.flash_ab LABEL=DIR [LABEL=DIR ...] [fwd|bwd]
 
 Builds the kernel source (``flash_fwd.cu`` for ``fwd``, the default;
 ``flash_bwd.cu`` for ``bwd``) from ``PARENT_CSRC_DIR`` (e.g. the
@@ -18,7 +18,10 @@ there and back: a, b, ..., change, change, ..., b, a.
   path's (B=4, S=2048, 16 q heads on 8 kv heads, D=128), with SDPA on
   the same call (``enable_gqa`` for the second).
 - ``bwd``: the training path's shape (B=4, S=2048, H=16, Hkv=8, D=128,
-  causal, bf16); the dK/dV and dQ kernels are timed separately.
+  causal, bf16): the dK/dV and dQ kernels each, the two back to back
+  ("pair"), their sum, the delta pre-pass and the unit (delta + pair),
+  beside SDPA's backward pinned to each backend that takes the call
+  (``SDPA_BACKENDS``), the fastest named as the yardstick.
 
 Prints one JSON line with the card's name and power limit. Needs one CUDA
 card.
@@ -101,6 +104,53 @@ def _ab_fwd(dirs, g) -> dict:
     return out
 
 
+# The SDPA backends the backward yardstick is timed on, each pinned with
+# ``sdpa_kernel``.
+SDPA_BACKENDS = ("FLASH_ATTENTION", "CUDNN_ATTENTION", "EFFICIENT_ATTENTION")
+
+
+def sdpa_backward_ms(q, k, v, do) -> dict:
+    """The backward of causal SDPA (``enable_gqa`` where the heads differ)
+    on (B, S, H, D) bf16 tensors, dq, dk and dv together (what the delta
+    pre-pass and both backward kernels compute), pinned with
+    ``sdpa_kernel`` to each backend of ``SDPA_BACKENDS`` that takes the
+    call and timed in turns, there and back (``sdpa_bwd_turns_ms``): each
+    backend's mean (``sdpa_bwd_ms_by_backend``) and the fastest
+    (``sdpa_backend``, ``sdpa_bwd_ms``), the yardstick."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    dot = do.transpose(1, 2)
+    gqa = q.shape[2] != k.shape[2]
+    timers = {}
+    for name in SDPA_BACKENDS:
+        backend = getattr(SDPBackend, name)
+        try:
+            with sdpa_kernel([backend]):
+                out = torch.nn.functional.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=gqa)
+                torch.autograd.grad(out, (qt, kt, vt), dot,
+                                    retain_graph=True)
+            torch.cuda.synchronize()
+        except RuntimeError:
+            continue
+
+        def run(backend=backend, out=out):
+            with sdpa_kernel([backend]):
+                torch.autograd.grad(out, (qt, kt, vt), dot,
+                                    retain_graph=True)
+        timers[name] = run
+    if not timers:
+        raise RuntimeError("no SDPA backend takes the causal backward here")
+    order = list(timers) + list(timers)[::-1]
+    turns = [(name, _time_ms(timers[name], warmup=5)) for name in order]
+    by = {name: sum(t for n, t in turns if n == name) / 2 for name in timers}
+    best = min(by, key=by.get)
+    return {"sdpa_bwd_turns_ms": turns, "sdpa_bwd_ms_by_backend": by,
+            "sdpa_backend": best, "sdpa_bwd_ms": by[best]}
+
+
 def _ab_bwd(dirs, g) -> dict:
     b, s, h, hkv, d = 4, 2048, 16, 8, 128
 
@@ -127,15 +177,24 @@ def _ab_bwd(dirs, g) -> dict:
             n: _err(a, r) / float(r.float().abs().max())
             for n, a, r in zip(("dq", "dk", "dv"), got, ref)}
     del ref
-    _turns(out, dirs, {
-        name: (lambda which, name=name: lambda: launchers[which][0](name))
-        for name in ("dkv", "dq")})
-    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
-                  for x in (q, k, v))
-    lib = torch.nn.functional.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True)
-    out["sdpa_bwd_ms"] = _time_ms(lambda: torch.autograd.grad(
-        lib, (qt, kt, vt), do.transpose(1, 2), retain_graph=True))
+
+    def pair(which):
+        def run():
+            launchers[which][0]("dkv")
+            launchers[which][0]("dq")
+        return run
+
+    timers = {name: (lambda which, name=name: lambda: launchers[which][0](name))
+              for name in ("dkv", "dq")}
+    timers["pair"] = pair
+    _turns(out, dirs, timers)
+    # The delta pre-pass is the same plain PyTorch in every version; the
+    # unit (delta + dK/dV + dQ) is what SDPA's backward call computes.
+    out["delta_ms"] = _time_ms(lambda: fa.attention_delta(o, do))
+    for which in dirs:
+        out[f"sum_{which}_ms"] = out[f"dkv_{which}_ms"] + out[f"dq_{which}_ms"]
+        out[f"unit_{which}_ms"] = out["delta_ms"] + out[f"pair_{which}_ms"]
+    out.update(sdpa_backward_ms(q, k, v, do))
     return out
 
 

@@ -87,6 +87,51 @@ def test_flash_grads_match(case, dtype):
         _close(g, w, TOL[dtype], "d" + name)
 
 
+# Edges of the Hopper kernels' tiles (128-row dQ tiles, 64-key dK/dV tiles
+# and their 64-row q tiles) at a small width: (shape, kwargs, (block_q,
+# block_k)), the blocks dividing the lengths as the JAX package requires.
+EDGE_CASES = {
+    "s129_ragged": (dict(b=1, sq=129, sk=129, h=2, hkv=2, d=16),
+                    dict(causal=True), (129, 129)),
+    "s255_ragged": (dict(b=1, sq=255, sk=255, h=2, hkv=1, d=16),
+                    dict(causal=True), (85, 51)),
+    "sq200_sk328_q_offset128": (dict(b=1, sq=200, sk=328, h=2, hkv=2, d=16),
+                                dict(causal=True, q_offset=128), (40, 41)),
+    "window100": (dict(b=1, sq=256, sk=256, h=2, hkv=2, d=16),
+                  dict(causal=True, window=100), (64, 64)),
+    "gqa_group4": (dict(b=1, sq=192, sk=192, h=8, hkv=2, d=16),
+                   dict(causal=True), (64, 64)),
+    "d64_s200": (dict(b=1, sq=200, sk=200, h=2, hkv=2, d=64),
+                 dict(causal=True), (40, 50)),
+}
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("case", sorted(EDGE_CASES))
+def test_flash_grads_match_at_tile_edges(case, dtype):
+    shape, kw, (bq, bk) = EDGE_CASES[case]
+    q, k, v, do = _inputs(**shape, seed=len(case) + 20)
+    want, got = _grads(q, k, v, do, dtype, block_q=bq, block_k=bk, **kw)
+    for name, g, w in zip("qkv", got, want):
+        _close(g, w, TOL[dtype], "d" + name)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_flash_grads_segments_off_the_tile_grid(dtype):
+    """Segment boundaries that fall inside 64-key and 128-row tiles, with
+    GQA; the second batch row has its own boundaries."""
+    q, k, v, do = _inputs(2, 256, 256, 4, 2, 16, seed=31)
+    seg = np.zeros((2, 256), np.int32)
+    seg[:, 77:] = 1
+    seg[:, 200:] = 2
+    seg[1, 150:] = 3
+    seg[1, 230:] = 4
+    want, got = _grads(q, k, v, do, dtype, causal=True, segment_ids=seg,
+                       block_q=64, block_k=64)
+    for name, g, w in zip("qkv", got, want):
+        _close(g, w, TOL[dtype], "d" + name)
+
+
 def test_flash_grads_segments_with_dead_rows():
     """Packed segments; query rows whose segment has no key anywhere get
     exactly zero gradient, on both sides."""
@@ -113,6 +158,31 @@ def test_flash_stats_grads_with_lse_cotangent(dtype):
     dlse = np.random.default_rng(12).normal(size=(1, 2, 128)).astype(
         np.float32)
     args = (64 ** -0.5, True, 48, 0, 64, 64)   # scale, causal, window, ...
+    _, vjp = jax.vjp(lambda *a: jflash.flash_attention_stats(*a, *args),
+                     *(jnp.asarray(a, jdt) for a in (qt, kt, vt)))
+    want = vjp((jnp.asarray(dot, jdt), jnp.asarray(dlse)))
+    targs = [torch.from_numpy(a).to(tdt).requires_grad_()
+             for a in (qt, kt, vt)]
+    out, lse = tflash.flash_attention_stats(*targs, *args)
+    got = torch.autograd.grad((out, lse), targs,
+                              (torch.from_numpy(dot).to(tdt),
+                               torch.from_numpy(dlse)))
+    for name, g, w in zip("qkv", got, want):
+        _close(g.float().numpy(), w.astype(jnp.float32), TOL[dtype],
+               "d" + name)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_flash_stats_grads_with_lse_cotangent_gqa(dtype):
+    """The lse cotangent with a GQA group of 4 and ragged 64-row tiles:
+    the group sum of dK / dV carries the cotangent's term of every head."""
+    jdt, tdt = DT[dtype]
+    q, _, _, do = _inputs(1, 96, 96, 8, 8, 64, seed=13)
+    _, k, v, _ = _inputs(1, 96, 96, 8, 2, 64, seed=14)
+    qt, kt, vt, dot = (a.transpose(0, 2, 1, 3).copy() for a in (q, k, v, do))
+    dlse = np.random.default_rng(15).normal(size=(1, 8, 96)).astype(
+        np.float32)
+    args = (64 ** -0.5, True, None, 0, 32, 32)
     _, vjp = jax.vjp(lambda *a: jflash.flash_attention_stats(*a, *args),
                      *(jnp.asarray(a, jdt) for a in (qt, kt, vt)))
     want = vjp((jnp.asarray(dot, jdt), jnp.asarray(dlse)))

@@ -202,6 +202,111 @@ def test_flash_backward_dead_rows_give_zero(cuda_device):
             2e-2 * float(r.float().abs().max())
 
 
+def _backward_kernels_since(before):
+    now = tflash.backward_kernel_launches()
+    return {k_: now[k_] - before[k_] for k_ in now}
+
+
+def _segments(dev, b, s):
+    """Segment ids with boundaries at 77, 200 and (last batch) 150."""
+    seg = torch.zeros(b, s, dtype=torch.int32, device=dev)
+    seg[:, 77:] = 1
+    seg[:, 200:] = 2
+    seg[-1, 150:] = 3
+    return seg
+
+
+# Edges of the bf16 backward kernels' tiles (128-row dQ tiles, 64-key
+# dK/dV tiles and their 64-row q tiles): (name, B, S, H, Hkv, D, kwargs,
+# with_dlse); equal Sq and Sk except where kwargs set sk.
+BF16_BWD_TILE_EDGES = [
+    ("s129_ragged", 2, 129, 4, 4, 128, dict(causal=True), False),
+    ("s255_ragged", 2, 255, 4, 2, 128, dict(causal=True), False),
+    ("sq200_sk328_q_offset128", 2, 200, 4, 4, 128,
+     dict(causal=True, q_offset=128, sk=328), False),
+    ("window100", 1, 512, 4, 4, 128, dict(causal=True, window=100), False),
+    ("segments_off_grid", 2, 384, 4, 2, 128,
+     dict(causal=True, segments=True), False),
+    ("gqa32_8", 1, 300, 32, 8, 128, dict(causal=True), False),
+    ("d64_s200", 2, 200, 4, 4, 64, dict(causal=True), False),
+    ("lse_cotangent_gqa", 2, 256, 8, 2, 128, dict(causal=True), True),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,b,s,h,hkv,d,kw,with_dlse",
+                         BF16_BWD_TILE_EDGES,
+                         ids=[c[0] for c in BF16_BWD_TILE_EDGES])
+def test_flash_backward_bf16_kernels_tile_edges(cuda_device, name, b, s, h,
+                                                hkv, d, kw, with_dlse):
+    """The wgmma backward kernels against the plain version where ragged
+    ends, frontiers, a q offset, segment boundaries and the lse cotangent
+    fall inside their tiles; both launches took the wgmma kernels."""
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    kw = dict(kw)
+    sk = kw.pop("sk", s)
+
+    def rnd(n, heads):
+        return torch.randn(b, n, heads, d, generator=g,
+                           device=cuda_device).to(torch.bfloat16)
+
+    q, do, k, v = rnd(s, h), rnd(s, h), rnd(sk, hkv), rnd(sk, hkv)
+    if kw.pop("segments", False):
+        seg = _segments(cuda_device, b, s)
+        kw.update(seg_q=seg, seg_k=seg)
+    out, lse = tflash.flash_attention_reference(q, k, v, **kw)
+    dlse = (torch.randn(b, h, s, generator=g, device=cuda_device)
+            if with_dlse else None)
+    before = tflash.backward_kernel_launches()
+    got = tflash.flash_backward(q, k, v, out, lse, do, dlse, **kw)
+    torch.cuda.synchronize()
+    assert _backward_kernels_since(before) == {
+        "dkv_wgmma": 1, "dq_wgmma": 1, "dkv_mma_sync_f32": 0,
+        "dq_mma_sync_f32": 0}
+    want = tflash.flash_backward_reference(q, k, v, out, lse, do, dlse, **kw)
+    for gname, a, r in zip(("dq", "dk", "dv"), got, want):
+        err = float((a.float() - r.float()).abs().max())
+        assert err <= 2e-2 * float(r.float().abs().max()), (gname, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,want", [
+    (torch.bfloat16, ("dkv_wgmma", "dq_wgmma")),
+    (torch.float32, ("dkv_mma_sync_f32", "dq_mma_sync_f32")),
+])
+def test_flash_backward_kernel_chosen_by_dtype(cuda_device, dtype, want):
+    """A bf16 call launches the wgmma kernels and a float32 call the
+    mma.sync hi/lo kernels, as the C entries count them."""
+    q, k, v, out, lse, do, _ = _bwd_case(cuda_device, dtype, 1, 128, 2, 2,
+                                         128, dict(causal=True))
+    before = tflash.backward_kernel_launches()
+    tflash.flash_backward(q, k, v, out, lse, do)
+    torch.cuda.synchronize()
+    assert _backward_kernels_since(before) == {
+        k_: int(k_ in want) for k_ in tflash.BACKWARD_KERNELS}
+
+
+@pytest.mark.cuda
+def test_flash_backward_dead_rows_at_tile_edge_give_zero(cuda_device):
+    """Rows from 128 on (a 128-row dQ tile's edge) whose segment has no
+    key get exactly zero gradient from the bf16 kernels, and add nothing
+    to dK / dV."""
+    q, k, v, _, _, do, _ = _bwd_case(cuda_device, torch.bfloat16, 1, 256, 4,
+                                     2, 128, dict(causal=True))
+    seg_q = torch.zeros(1, 256, dtype=torch.int32, device=cuda_device)
+    seg_q[:, 128:] = 7
+    seg_k = torch.zeros(1, 256, dtype=torch.int32, device=cuda_device)
+    kw = dict(causal=True, seg_q=seg_q, seg_k=seg_k)
+    out, lse = tflash.flash_forward(q, k, v, **kw)
+    dq, dk, dv = tflash.flash_backward(q, k, v, out, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert not dq[:, 128:].any()
+    want = tflash.flash_backward_reference(q, k, v, out, lse, do, **kw)
+    for a, r in zip((dq, dk, dv), want):
+        assert float((a.float() - r.float()).abs().max()) <= \
+            2e-2 * float(r.float().abs().max())
+
+
 @pytest.mark.cuda
 def test_flash_attention_autograd_runs_the_kernels(cuda_device):
     q, k, v, _, _, do, _ = _bwd_case(cuda_device, torch.bfloat16, 2, 128, 4,
