@@ -27,15 +27,19 @@ Phases, one JSON line each (``{"phase": ..., "ok": ...}``):
    attention width (16 q heads on 8 kv heads, head_dim 128), B=1,
    S=8192, bf16, default 256 blocks, on a GQA-aligned head stack (heads
    0-7 ``LocalMask(1024)``, 8-11 ``ChunkedMask(2048)``, 12-13
-   ``CausalMask``, 14-15 ``FullMask``): four head groups, so exactly four
-   launches of each splash kernel, counted between a reset right before
-   and a read right after. Out and gradients against the plain version
-   (one kv head at a time) and, on the local, causal and full heads,
-   against the flash kernels; six edge cases (float32, D=64, D=80 padded,
-   ragged S=100, rows that see nothing, Sq != Sk); then each kernel timed
-   launch-only beside the plain version, SDPA with the dense boolean
-   mask and the bound over the call's 297,824,256 live pairs, and on each
-   head group alone beside the flash kernel on the same heads.
+   ``CausalMask``, 14-15 ``FullMask``): four head groups, so exactly one
+   forward and one dK/dV launch over all groups (both on their wgmma
+   kernels, by the C entries' own counts) and four dQ launches, counted
+   between a reset right before and a read right after. Out and gradients
+   against the plain version (one kv head at a time) and, on the local,
+   causal and full heads, against the flash kernels; twelve edge cases
+   (float32, D=64, D=80 padded, ragged S=100, 129 and 255, rows that see
+   nothing, Sq != Sk, GQA 1, 2 and 4, B=2, eight alternating head groups),
+   each with the kernels it launched; then each kernel timed launch-only
+   beside the plain version, SDPA with the dense boolean mask and the
+   bound over the call's 297,824,256 live pairs, the host time a call
+   (C entries and wrappers), and on each head group alone beside the
+   flash kernel on the same heads.
 5. serve: Llama-2-7B (``PRESETS["7b"]``, full width and depth, random
    weights from seed 0, ``attention_impl="flash"``) behind
    ``LlamaDecodeDeployment`` answers six requests from several threads,
@@ -751,6 +755,9 @@ def phase_kernels(record: dict) -> dict:
 # 33,558,528, full 67,108,864; 297,824,256 for the call.
 SPLASH_SHAPE = dict(b=1, s=8192, h=16, hkv=8, d=128)
 SPLASH_PAIRS = 297_824_256
+# Launches of each splash kernel a forward + backward call over the four
+# head groups: the forward and dK/dV once over all groups, dQ per group.
+SPLASH_LAUNCHES = {"splash_fwd": 1, "splash_bwd_dkv": 1, "splash_bwd_dq": 4}
 
 
 def _splash_masks():
@@ -815,22 +822,72 @@ def _splash_cases(g, dev):
          [ss.LocalMask(32)] * 2),
         ("sq200_sk328_full", inputs(1, 200, 328, 4, 2, 128),
          [ss.FullMask()] * 4),
+        # Edges of the wgmma kernels' tiles (128-row q tiles in the
+        # forward, 64-key tiles and 64-row q tiles in dK/dV, statistics
+        # rows that start off a multiple of 4) and their one launch over
+        # every head group: GQA 1, 2 and 4, B=2, D 64 and 128.
+        ("s129_gqa1", inputs(2, 129, 129, 4, 4, 128),
+         [ss.LocalMask(70)] * 2 + [ss.CausalMask()] * 2),
+        ("s255_gqa4_d64", inputs(2, 255, 255, 8, 2, 64),
+         [ss.ChunkedMask(100)] * 4 + [ss.FullMask()] * 4),
+        ("sq200_sk328_gqa2_b2", inputs(2, 200, 328, 4, 2, 128),
+         [ss.CausalMask()] * 2 + [ss.LocalMask(64)] * 2),
+        ("degenerate_rows_d64_gqa2", inputs(2, 256, 64, 4, 2, 64),
+         [ss.LocalMask(32)] * 4),
+        ("alternating_8_groups", inputs(1, 512, 512, 8, 8, 128),
+         [ss.LocalMask(96), ss.FullMask()] * 4),
+        ("f32_s129_gqa2", inputs(1, 129, 129, 4, 2, 64, dtype=torch.float32),
+         [ss.CausalMask()] * 2 + [ss.LocalMask(40)] * 2),
     ]
+
+
+def splash_kernel_counts(device="cuda") -> dict:
+    """Launches of each kernel behind ``splash.cu``'s entries, as the C
+    entries count them (none off the card)."""
+    if torch.device(device).type != "cuda":
+        return {}
+    from ray_tpu_torch.ops.splash_attention import kernel_launches
+
+    return kernel_launches()
+
+
+def splash_kernels_since(before: dict, device="cuda") -> dict:
+    return {k: n - before.get(k, 0)
+            for k, n in splash_kernel_counts(device).items()}
+
+
+def splash_calls_on(by_kernel: dict, calls: int, groups: int, dtype,
+                    device) -> bool:
+    """``calls`` forward + backward splash calls over ``groups`` head
+    groups launched one forward and one dK/dV kernel a call, on wgmma for
+    bf16 and mma.sync for float32, and one dQ kernel a group (off the card
+    nothing launches)."""
+    if torch.device(device).type != "cuda":
+        return True
+    route = "wgmma" if dtype == torch.bfloat16 else "mma_sync_f32"
+    want = {k: 0 for k in by_kernel}
+    want.update({f"fwd_{route}": calls, f"dkv_{route}": calls,
+                 "dq_mma_sync": calls * groups})
+    return by_kernel == want
 
 
 def _check_splash_cases(g, dev) -> list:
     """Each edge case: the forward kernel's out and lse against the plain
     forward, and the backward kernels' dq, dk, dv against the plain
-    backward on the same (out, lse). Tolerances as the flash checks: out
-    at rtol = atol = 2e-2 in bf16 and 1e-4 in float32, gradients by max
-    |error| relative to the plain gradient's max at the same two."""
+    backward on the same (out, lse), with the kernels the C entries
+    counted (one forward and one dK/dV launch, on wgmma for bf16, and one
+    dQ launch a head group). Tolerances as the flash checks: out at rtol =
+    atol = 2e-2 in bf16 and 1e-4 in float32, gradients by max |error|
+    relative to the plain gradient's max at the same two."""
     from ray_tpu_torch.ops import splash_attention as ss
 
     results = []
     for name, (q, k, v, do), masks in _splash_cases(g, dev):
+        before = splash_kernel_counts(dev)
         out, lse = ss.splash_forward(q, k, v, masks)
         got = ss.splash_backward(q, k, v, out, lse, do, masks)
         _sync(dev)
+        by_kernel = splash_kernels_since(before, dev)
         ref, ref_lse = ss.splash_attention_reference(q, k, v, masks)
         want = ss.splash_backward_reference(q, k, v, out, lse, do, masks)
         tol = 2e-2 if q.dtype == torch.bfloat16 else 1e-4
@@ -844,10 +901,13 @@ def _check_splash_cases(g, dev) -> list:
             errs[gname] = _rel_err(a, r)
             ok = ok and a.dtype == r.dtype and a.shape == r.shape and (
                 bool(torch.isfinite(a.float()).all()) and errs[gname] <= tol)
-        if name == "degenerate_rows":
+        if name.startswith("degenerate_rows"):
             ok = ok and not out[:, 95:].any() and not got[0][:, 95:].any() \
                 and bool((lse[:, :, 95:] == -1e30).all())
+        ok = ok and splash_calls_on(by_kernel, 1, len(ss._group_heads(masks)),
+                                    q.dtype, dev)
         results.append({"case": f"splash_{name}", "ok": ok,
+                        "route": _route(by_kernel),
                         "max_abs_err_out": errs.pop("out"),
                         "rel_max_abs_err": errs, "tol": tol})
     torch.cuda.empty_cache()
@@ -904,6 +964,22 @@ def _time_splash(q, k, v, do, masks, keep, errs, record) -> dict:
                                                masks, scale)
     ms["splash_bwd_dkv"] = _time_ms(lambda: launch_b("dkv"), iters=20)
     ms["splash_bwd_dq"] = _time_ms(lambda: launch_b("dq"), iters=20)
+
+    def launches():
+        launch()
+        launch_b("dkv")
+        launch_b("dq")
+
+    def wrapper():
+        o, l_ = ss.splash_forward(q, k, v, masks)
+        ss.splash_backward(q, k, v, o, l_, do, masks)
+
+    # Host time a forward + backward call: the C entries alone (one
+    # forward, one dK/dV and four dQ launches) and the whole wrappers
+    # (delta, validation, allocation, the cached schedules' lookup).
+    host = {"launch_host_ms": _host_ms(launches),
+            "wrapper_host_ms": _host_ms(wrapper),
+            "fwd_bwd_ms": _time_ms(wrapper, iters=10)}
     heads = _kv_head_slices(q, k)
     plain_fwd_ms = _time_ms(lambda: [ss.splash_attention_reference(
         q[:, :, qs], k[:, :, ks], v[:, :, ks], masks[qs])
@@ -940,11 +1016,16 @@ def _time_splash(q, k, v, do, masks, keep, errs, record) -> dict:
              "splash_bwd_dq": plain_bwd_ms}
     lib = {"splash_fwd": lib_fwd_ms, "splash_bwd_dkv": lib_bwd_ms,
            "splash_bwd_dq": lib_bwd_ms}
+    from ray_tpu_torch.ops import cuda_build
+
+    ptxas = cuda_build_rows(cuda_build, "splash")
     for name in ms:
         record[name] = {"max_abs_err": errs[name], "ms": ms[name],
                         "plain_ms": plain[name], "bound_ms": bounds[name][0],
-                        "bound_by": bounds[name][1], "library_ms": lib[name]}
+                        "bound_by": bounds[name][1], "library_ms": lib[name],
+                        "ptxas": [r for r in ptxas if r.startswith(name)]}
     return {"bwd_pair_ms": ms["splash_bwd_dkv"] + ms["splash_bwd_dq"],
+            **host,
             "library_is": f"SDPA ({backend.name}) with a dense ({h}, S, S) "
                           f"boolean mask, k/v expanded to {h} heads; "
                           "backward gives dq, dk, dv together",
@@ -1039,12 +1120,14 @@ def phase_splash(record: dict, device="cuda", shape=None) -> dict:
     head_pairs = sum(int(keep[m].sum()) for m in masks)
     leaves = [x.clone().requires_grad_() for x in (q, k, v)]
     reset_counts()
+    before = splash_kernel_counts(device)
     t0 = time.perf_counter()
     out = ss.splash_attention(*leaves, mask=masks)
     out.backward(do)
     _sync(device)
     wall_s = [time.perf_counter() - t0]
     counts = launch_counts()
+    by_kernel = splash_kernels_since(before, device)
     grads = tuple(x.grad for x in leaves)
     out = out.detach()
     # A second call: the schedules come from the cache and the kernels are
@@ -1062,8 +1145,12 @@ def phase_splash(record: dict, device="cuda", shape=None) -> dict:
     errs.update({n: _rel_err(a, r) for n, a, r in
                  zip(("dq", "dk", "dv"), grads, ref_grads)})
     checks = {
-        "launches_4_each": counts == {
-            k_: 4 if k_ in PATH_KERNELS["splash"] else 0 for k_ in KERNELS},
+        # One forward and one dK/dV launch over all four head groups, one
+        # dQ launch a group; bf16, so the first two on wgmma.
+        "launches_1_1_4": counts == {
+            k_: SPLASH_LAUNCHES.get(k_, 0) for k_ in KERNELS},
+        "splash_on_wgmma": splash_calls_on(by_kernel, 1, 4, torch.bfloat16,
+                                           device),
         "out_matches_plain": torch.allclose(out.float(), ref.float(),
                                             rtol=tol, atol=tol),
         "grads_match_plain": max(errs["dq"], errs["dk"], errs["dv"]) <= tol,
@@ -1082,7 +1169,8 @@ def phase_splash(record: dict, device="cuda", shape=None) -> dict:
                      "masks": "heads 0-7 LocalMask(1024), 8-11 "
                               "ChunkedMask(2048), 12-13 CausalMask, "
                               "14-15 FullMask"},
-           "launches": counts, "fwd_bwd_wall_s_first_second": wall_s,
+           "launches": counts, "splash_by_kernel": by_kernel,
+           "fwd_bwd_wall_s_first_second": wall_s,
            "live_pairs_per_head": {type(m).__name__: int(keep[m].sum())
                                    for m in keep},
            "live_pairs": head_pairs, "max_err_vs_plain": errs, "tol": tol,
@@ -1094,6 +1182,11 @@ def phase_splash(record: dict, device="cuda", shape=None) -> dict:
             {"splash_fwd": errs["out"], "splash_bwd_dq": errs["dq"],
              "splash_bwd_dkv": max(errs["dk"], errs["dv"])}, record))
         res["group_ms"] = _time_groups(q, k, v, do, masks)
+        for name, prefix in (("splash_fwd", "fwd_"),
+                             ("splash_bwd_dkv", "dkv_"),
+                             ("splash_bwd_dq", "dq_")):
+            record[name]["launches_by_kernel"] = {
+                k_: n for k_, n in by_kernel.items() if k_.startswith(prefix)}
         res.update({f"{name}_{key}": val for name in PATH_KERNELS["splash"]
                     for key, val in record[name].items()})
         res["device"] = smi_line()

@@ -3,9 +3,10 @@
 Each ``ops/csrc/<name>.cu`` has a plain ``extern "C"`` interface and is
 compiled by ``nvcc`` into its own shared library, loaded with ``ctypes``.
 Builds happen at first use, never at import, into ``ray_tpu_torch/_build/``
-(listed in ``.gitignore``), keyed by a hash of the source and the flags, so
-an edited kernel is rebuilt and an unchanged one is reused. ``build`` starts
-one ``nvcc`` per source, all at once.
+(listed in ``.gitignore``), keyed by a hash of the source, the headers of
+``csrc`` it includes (``hopper.cuh``) and the flags, so an edited kernel or
+header is rebuilt and an unchanged one is reused. ``build`` starts one
+``nvcc`` per source, all at once.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -44,10 +46,29 @@ def nvcc_path() -> str:
         "use and need the CUDA toolkit")
 
 
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
+
+
+def _sources(name: str, csrc: Path) -> List[Path]:
+    """``<name>.cu`` and every file of ``csrc`` it includes by a quoted
+    ``#include``, directly or through another such header, each once, in
+    the order first reached."""
+    csrc = Path(csrc)
+    seen = [csrc / f"{name}.cu"]
+    for path in seen:
+        for inc in _INCLUDE.findall(path.read_bytes()):
+            dep = csrc / inc.decode()
+            if dep.exists() and dep not in seen:
+                seen.append(dep)
+    return seen
+
+
 def _artifact(name: str, csrc: Path = CSRC) -> Path:
-    src = (Path(csrc) / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
+    h = hashlib.sha256()
+    for path in _sources(name, csrc):
+        h.update(path.name.encode() + b"\0" + path.read_bytes() + b"\0")
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
 def build_log(name: str) -> str:

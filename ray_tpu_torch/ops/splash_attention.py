@@ -10,17 +10,21 @@ never loaded.
 ``splash_attention`` keeps the JAX package's signature, its (B, S, H, D)
 layout and its ValueErrors. On a CUDA tensor the forward launches
 ``ops/csrc/splash.cu``'s ``rtt_splash_fwd`` (which replaces the Pallas
-``_sfwd_kernel``) once per head group and the backward its
-``rtt_splash_bwd_dkv`` and ``rtt_splash_bwd_dq`` (``_sbwd_dkv_kernel`` and
-``_sbwd_dq_kernel``), or raises; on a CPU tensor both directions run the
-plain versions ``splash_attention_reference`` and
+``_sfwd_kernel``) once over all head groups and the backward its
+``rtt_splash_bwd_dkv`` (``_sbwd_dkv_kernel``) once over all head groups,
+then ``rtt_splash_bwd_dq`` (``_sbwd_dq_kernel``) once per head group, or
+raises: bf16 runs the wgmma forward and dK/dV kernels, float32 their
+mma.sync kernels (``kernel_launches`` counts which ran). On a CPU tensor
+both directions run the plain versions ``splash_attention_reference`` and
 ``splash_backward_reference``. ``mask=None`` delegates to the port's
 ``flash_attention``, as in JAX.
 
 The kernels walk schedules built by the same :class:`_Schedule` at their
-own 64 x 64 tiles (the caller's ``block_q``/``block_k`` are validated and
-reported, as in JAX, but do not change the function computed), uploaded
-once per (mask, lengths, device) and cached.
+own tiles (the caller's ``block_q``/``block_k`` are validated and
+reported, as in JAX, but do not change the function computed): the
+forward and dK/dV a call schedule of every group's lists with one block
+order, heaviest first across all heads (``_call_schedule``), dQ each
+group's own (``_kernel_schedule``); both are uploaded once and cached.
 """
 
 from __future__ import annotations
@@ -280,24 +284,45 @@ def splash_backward_reference(q, k, v, out, lse, do, mask, scale=None
 
 # ----------------------------------------------------------------- kernels
 
-_TILE = 64  # the kernels' q and kv tile (kBM = kBN in splash.cu)
+_TILE = 64  # the dQ kernel's q and kv tile (kBM = kBN in splash.cu)
+# The tiles the forward kernel walks its call schedule at, by dtype: the
+# bf16 wgmma kernel's 128 x 128, the float32 mma.sync kernel's 64 x 64.
+_FWD_TILE = {torch.bfloat16: 128, torch.float32: 64}
+_DKV_TILE = 64  # both dK/dV kernels: 64-key tiles and 64-row q tiles
+_GROUP_INTS = 8  # a group's row of a call schedule (kGroupInts)
+
+# The kernels behind splash.cu's entries, in the order of the counts
+# ``rtt_splash_launches`` reports (see ``kernel_launches``).
+SPLASH_KERNELS = ("fwd_wgmma", "fwd_mma_sync_f32", "dkv_wgmma",
+                  "dkv_mma_sync_f32", "dq_mma_sync")
+
+
+def _full_flags(mask: Mask, s: _Schedule, sq: int, sk: int, bq: int,
+                bk: int) -> Tuple[np.ndarray, np.ndarray]:
+    """``(kv_full, q_full)`` of a schedule at (bq, bk) tiles, int32: the
+    q schedule's full flags and the transposed one's. A ragged last tile is
+    never full (its padding rows and columns must be masked), and the
+    dK/dV kernels skip the mask where ``full_tile`` holds, as the forward
+    does."""
+    nq, nk = len(s.kv_lens), len(s.q_lens)
+    ragged_q = np.arange(nq) * bq + bq > sq
+    ragged_k = np.arange(nk) * bk + bk > sk
+    kv_full = s.kv_full * ~(ragged_q[:, None] | ragged_k[s.kv_ids])
+    q_full = np.asarray([[mask.full_tile(int(i), j, bq, bk) for i in row]
+                         for j, row in enumerate(s.q_ids)], bool)
+    q_full &= ~(ragged_k[:, None] | ragged_q[s.q_ids])
+    return kv_full.astype(np.int32), q_full.astype(np.int32)
 
 
 class _DeviceSchedule(NamedTuple):
-    """A group's schedule at the kernels' tiles as int32 device tensors:
-    the q schedule (``kv_ids``, ``kv_lens``, ``kv_full``), the transposed
-    one (``q_ids``, ``q_lens``, ``q_full``) and the order the blocks take
-    their tiles in (most work first)."""
+    """A group's q schedule at the dQ kernel's tiles as int32 device
+    tensors: ``kv_ids``, ``kv_lens``, ``kv_full`` and the order its
+    blocks take their q tiles in (most work first)."""
     kv_ids: torch.Tensor
     kv_lens: torch.Tensor
     kv_full: torch.Tensor
     q_order: torch.Tensor
-    q_ids: torch.Tensor
-    q_lens: torch.Tensor
-    q_full: torch.Tensor
-    k_order: torch.Tensor
     q_len: int
-    k_len: int
 
 
 _schedules: Dict[tuple, _DeviceSchedule] = {}
@@ -305,34 +330,102 @@ _schedules: Dict[tuple, _DeviceSchedule] = {}
 
 def _kernel_schedule(mask: Mask, sq: int, sk: int,
                      device: torch.device) -> _DeviceSchedule:
-    """The group schedule at 64 x 64 tiles, built by ``_Schedule`` and
-    uploaded once per (mask, lengths, device). A ragged last tile is never
-    full (its padding rows and columns must be masked), and the dK/dV
-    kernel skips the mask where ``full_tile`` holds, as the forward does."""
+    """The group schedule at 64 x 64 tiles for the dQ kernel, built by
+    ``_Schedule`` and uploaded once per (mask, lengths, device)."""
     key = (mask, sq, sk, _TILE, str(device))
     hit = _schedules.get(key)
     if hit is not None:
         return hit
     t = _TILE
-    nq, nk = -(-sq // t), -(-sk // t)
-    s = _Schedule(mask, nq, nk, t, t)
-    ragged_q = np.arange(nq) * t + t > sq
-    ragged_k = np.arange(nk) * t + t > sk
-    kv_full = s.kv_full * ~(ragged_q[:, None] | ragged_k[s.kv_ids])
-    q_full = np.asarray([[mask.full_tile(int(i), j, t, t) for i in row]
-                         for j, row in enumerate(s.q_ids)], bool)
-    q_full &= ~(ragged_k[:, None] | ragged_q[s.q_ids])
+    s = _Schedule(mask, -(-sq // t), -(-sk // t), t, t)
+    kv_full, _ = _full_flags(mask, s, sq, sk, t, t)
     parts = [s.kv_ids, s.kv_lens, kv_full,
-             np.argsort(-s.kv_lens, kind="stable"),
-             s.q_ids, s.q_lens, q_full,
-             np.argsort(-s.q_lens, kind="stable")]
+             np.argsort(-s.kv_lens, kind="stable")]
     flat = torch.from_numpy(np.concatenate(
         [p.astype(np.int32).ravel() for p in parts])).to(device)
     views, off = [], 0
     for p in parts:
         views.append(flat[off:off + p.size].view(p.shape))
         off += p.size
-    hit = _schedules[key] = _DeviceSchedule(*views, s.q_len, s.k_len)
+    hit = _schedules[key] = _DeviceSchedule(*views, s.q_len)
+    return hit
+
+
+class _CallSchedule(NamedTuple):
+    """The schedules of one call's head groups as ``splash.cu``'s forward
+    and dK/dV kernels walk them in one launch each: an int32 device buffer
+    per direction (``fwd`` over (q head, q tile), ``dkv`` over (kv head,
+    kv tile); see ``_pack_side``) and its number of blocks."""
+    fwd: torch.Tensor
+    fwd_blocks: int
+    dkv: torch.Tensor
+    dkv_blocks: int
+
+
+_call_schedules: Dict[tuple, _CallSchedule] = {}
+
+
+def _pack_side(groups, n_heads: int, n_tiles: int, lists) -> np.ndarray:
+    """One direction of a call schedule as ``splash.cu`` reads it, int32:
+    the block order (``n_heads * n_tiles`` entries ``tile << 16 | head``,
+    by live-tile count, most first, stable over head-major order), each
+    head's group, a row of ``_GROUP_INTS`` per group (mask code, mask
+    param, the buffer offsets of its ids, lens and full arrays, their row
+    length, its first head and head count), then each group's arrays.
+    ``groups`` holds (first head, head count, code, param), ``lists``
+    (ids, lens, full) per group."""
+    if n_heads >= 1 << 16 or n_tiles >= 1 << 15:
+        raise ValueError(f"the splash kernels take < 65536 heads and < "
+                         f"32768 tiles, not {n_heads} and {n_tiles}")
+    counts = np.zeros((n_heads, n_tiles), np.int64)
+    head_group = np.zeros(n_heads, np.int64)
+    table = np.zeros((len(groups), _GROUP_INTS), np.int64)
+    off = n_heads * n_tiles + n_heads + table.size
+    arrays = []
+    for gi, ((start, count, code, param), (ids, lens, full)) in enumerate(
+            zip(groups, lists)):
+        head_group[start:start + count] = gi
+        counts[start:start + count] = lens
+        table[gi] = (code, param, off, off + ids.size,
+                     off + ids.size + lens.size, ids.shape[1], start, count)
+        arrays += [ids.ravel(), lens, full.ravel()]
+        off += 2 * ids.size + lens.size
+    order = np.argsort(-counts.ravel(), kind="stable")
+    entries = (order % n_tiles) << 16 | order // n_tiles
+    buf = np.concatenate([entries, head_group, table.ravel(), *arrays])
+    if len(buf) >= 1 << 31:
+        raise ValueError("splash call schedule too large for int32 offsets")
+    return buf.astype(np.int32)
+
+
+def _call_schedule(masks: Sequence[Mask], group: int, sq: int, sk: int,
+                   bq: int, bk: int, device: torch.device) -> _CallSchedule:
+    """The call schedule of a per-head mask list (GQA group size
+    ``group``) at (bq, bk) tiles: every head group's ``_Schedule`` at
+    those tiles, with ``_full_flags``, packed by ``_pack_side`` in both
+    directions and uploaded once per (masks, group, lengths, tiles,
+    device). Masks the kernels do not know raise here."""
+    masks = tuple(masks)
+    key = (masks, group, sq, sk, bq, bk, str(device))
+    hit = _call_schedules.get(key)
+    if hit is not None:
+        return hit
+    nq, nk = -(-sq // bq), -(-sk // bk)
+    fwd_groups, fwd_lists, dkv_groups, dkv_lists = [], [], [], []
+    for a, c, m in _aligned_groups(masks, group):
+        code, param = _kernel_mask(m)
+        s = _Schedule(m, nq, nk, bq, bk)
+        kv_full, q_full = _full_flags(m, s, sq, sk, bq, bk)
+        fwd_groups.append((a, c, code, param))
+        fwd_lists.append((s.kv_ids, s.kv_lens, kv_full))
+        dkv_groups.append((a // group, c // group, code, param))
+        dkv_lists.append((s.q_ids, s.q_lens, q_full))
+    fwd = _pack_side(fwd_groups, len(masks), nq, fwd_lists)
+    dkv = _pack_side(dkv_groups, len(masks) // group, nk, dkv_lists)
+    flat = torch.from_numpy(np.concatenate([fwd, dkv])).to(device)
+    hit = _call_schedules[key] = _CallSchedule(
+        flat[:len(fwd)], len(masks) * nq, flat[len(fwd):],
+        len(masks) // group * nk)
     return hit
 
 
@@ -340,24 +433,28 @@ def _strides(t: Optional[torch.Tensor]) -> Tuple[int, int, int]:
     return (0, 0, 0) if t is None else t.stride()[:3]
 
 
-def _group_args(dtype, q, k, v, sched, code, param, out=None, lse=None,
-                do=None, delta=None, dq=None, dk=None, dv=None):
-    """ctypes (ptrs, ints) of one head group for ``splash.cu`` (its
-    ``parse`` lists the layout); absent operands are null."""
+def _kernel_args(dtype, q, k, v, *, sched=None, code=0, param=0, call=None,
+                 n_blocks=0, out=None, lse=None, do=None, delta=None,
+                 dq=None, dk=None, dv=None):
+    """ctypes (ptrs, ints) for ``splash.cu`` (its ``parse`` lists the
+    layout): one head group's dQ schedule ``sched`` with its mask, or a
+    call schedule ``call`` of ``n_blocks`` blocks; absent operands are
+    null."""
     def ptr(t):
         return None if t is None else t.data_ptr()
 
+    lists = (None,) * 4 if sched is None else sched[:4]
     stats = lse if lse is not None else delta
-    ptrs = (ctypes.c_void_p * 18)(
+    ptrs = (ctypes.c_void_p * 15)(
         ptr(q), ptr(k), ptr(v), ptr(out), ptr(lse), ptr(do), ptr(delta),
-        ptr(dq), ptr(dk), ptr(dv), *(ptr(x) for x in sched[:8]))
+        ptr(dq), ptr(dk), ptr(dv), *(ptr(x) for x in lists), ptr(call))
     b, sq, h, d = q.shape
     ints = (ctypes.c_longlong * 34)(
         _flash._DTYPE_CODES[dtype], b, h, k.shape[2], sq, k.shape[1], d,
         *_strides(q), *_strides(k), *_strides(v), *_strides(out),
         *_strides(do), *_strides(dq), *_strides(dk),
-        stats.stride(0), stats.stride(1), code, param, sched.q_len,
-        sched.k_len)
+        stats.stride(0), stats.stride(1), code, param,
+        0 if sched is None else sched.q_len, n_blocks)
     return ptrs, ints
 
 
@@ -373,31 +470,25 @@ def _groups_for_kernel(q, k, masks):
 def _splash_forward_launcher(q, k, v, masks, scale, csrc=None):
     """Validate and allocate for ``rtt_splash_fwd`` on (B, S, H, D) CUDA
     tensors, D in {64, 128}, with a per-head list of masks. Returns
-    ``(launch, (out, lse))``: ``launch()`` launches the kernel once per
-    head group into those outputs (a timing calls it alone)."""
+    ``(launch, (out, lse))``: ``launch()`` launches the kernel once, over
+    every head group, into those outputs (a timing calls it alone)."""
     b, sq, sk, hq, hkv, d = _flash._check_inputs(q, k, v, None, None,
                                                  "splash")
     dtype, device = q.dtype, q.device
-    groups = _groups_for_kernel(q, k, masks)
+    tile = _FWD_TILE[dtype]
+    call = _call_schedule(masks, hq // hkv, sq, sk, tile, tile, device)
     fn = _flash._library("splash", "rtt_splash_fwd", csrc)
     out = torch.empty((b, sq, hq, d), dtype=dtype, device=device)
     lse = torch.empty((b, hq, sq), dtype=torch.float32, device=device)
-    calls = []
-    for a, ka, c, kc, m, code, param in groups:
-        sched = _kernel_schedule(m, sq, sk, device)
-        calls.append(_group_args(
-            dtype, q[:, :, a:a + c], k[:, :, ka:ka + kc],
-            v[:, :, ka:ka + kc], sched, code, param,
-            out=out[:, :, a:a + c], lse=lse[:, a:a + c]))
+    ptrs, ints = _kernel_args(dtype, q, k, v, call=call.fwd,
+                              n_blocks=call.fwd_blocks, out=out, lse=lse)
     stream = torch.cuda.current_stream(device).cuda_stream
 
     def launch() -> None:
-        for ptrs, ints in calls:
-            err = fn(ptrs, ints, float(scale), stream)
-            if err:
-                raise RuntimeError(
-                    f"splash_fwd launch failed: cudaError {err}")
-            splash_attention.launches += 1
+        err = fn(ptrs, ints, float(scale), stream)
+        if err:
+            raise RuntimeError(f"splash_fwd launch failed: cudaError {err}")
+        splash_attention.launches += 1
 
     return launch, (out, lse)
 
@@ -407,8 +498,9 @@ def _splash_backward_launcher(q, k, v, do, lse, delta, masks, scale,
     """Validate and allocate for ``rtt_splash_bwd_dkv`` and
     ``rtt_splash_bwd_dq`` on (B, S, H, D) CUDA tensors, D in {64, 128};
     ``lse`` and ``delta`` are (B, H, Sq) fp32. Returns ``(launch, (dq, dk,
-    dv))``: ``launch("dkv")`` and ``launch("dq")`` launch one kernel once
-    per head group into those outputs."""
+    dv))``: ``launch("dkv")`` launches the dK/dV kernel once over every
+    head group, ``launch("dq")`` the dQ kernel once per head group, into
+    those outputs."""
     b, sq, sk, hq, hkv, d = _flash._check_inputs(q, k, v, None, None,
                                                  "splash")
     dtype, device = q.dtype, q.device
@@ -416,30 +508,37 @@ def _splash_backward_launcher(q, k, v, do, lse, delta, masks, scale,
         raise ValueError(f"do {tuple(do.shape)} does not match q "
                          f"{tuple(q.shape)}")
     _flash._check_operand("do", do, dtype, device)
-    lse, delta = (t.to(device=device, dtype=torch.float32).contiguous()
-                  for t in (lse, delta))
+    # The dK/dV kernels read the statistics contiguous (TMA: 16-byte
+    # aligned).
+    lse, delta = (_flash._aligned(t.to(device=device, dtype=torch.float32)
+                                  .contiguous()) for t in (lse, delta))
     for name, t in (("lse", lse), ("delta", delta)):
         if t.shape != (b, hq, sq):
             raise ValueError(f"{name} {tuple(t.shape)} is not ({b}, {hq}, "
                              f"{sq})")
     groups = _groups_for_kernel(q, k, masks)
+    call = _call_schedule(masks, hq // hkv, sq, sk, _DKV_TILE, _DKV_TILE,
+                          device)
     fns = {name: _flash._library("splash", f"rtt_splash_bwd_{name}", csrc)
            for name in ("dkv", "dq")}
     dq = torch.empty((b, sq, hq, d), dtype=dtype, device=device)
     dk = torch.empty((b, sk, hkv, d), dtype=dtype, device=device)
     dv = torch.empty_like(dk)
-    calls = []
+    calls = {"dkv": [_kernel_args(dtype, q, k, v, call=call.dkv,
+                                  n_blocks=call.dkv_blocks, lse=lse, do=do,
+                                  delta=delta, dk=dk, dv=dv)],
+             "dq": []}
     for a, ka, c, kc, m, code, param in groups:
-        sched = _kernel_schedule(m, sq, sk, device)
         qs, ks = slice(a, a + c), slice(ka, ka + kc)
-        calls.append(_group_args(
-            dtype, q[:, :, qs], k[:, :, ks], v[:, :, ks], sched, code,
-            param, lse=lse[:, qs], do=do[:, :, qs], delta=delta[:, qs],
-            dq=dq[:, :, qs], dk=dk[:, :, ks], dv=dv[:, :, ks]))
+        calls["dq"].append(_kernel_args(
+            dtype, q[:, :, qs], k[:, :, ks], v[:, :, ks],
+            sched=_kernel_schedule(m, sq, sk, device), code=code,
+            param=param, lse=lse[:, qs], do=do[:, :, qs],
+            delta=delta[:, qs], dq=dq[:, :, qs]))
     stream = torch.cuda.current_stream(device).cuda_stream
 
     def launch(name: str) -> None:
-        for ptrs, ints in calls:
+        for ptrs, ints in calls[name]:
             err = fns[name](ptrs, ints, float(scale), stream)
             if err:
                 raise RuntimeError(
@@ -450,6 +549,12 @@ def _splash_backward_launcher(q, k, v, do, lse, delta, masks, scale,
 
     launch.keep = (lse, delta)  # alive while launches may run
     return launch, (dq, dk, dv)
+
+
+def kernel_launches(csrc=None) -> dict:
+    """``SPLASH_KERNELS`` -> launches by ``splash.cu``'s three entries, as
+    the C entries count them."""
+    return _flash._kernel_launches("splash", SPLASH_KERNELS, csrc)
 
 
 def splash_forward(q, k, v, mask, scale=None
@@ -542,9 +647,10 @@ def splash_attention(
     differentiable through the backward kernels.
 
     ``mask`` is one :class:`Mask` for all heads or a per-head sequence
-    (heads with equal masks share one kernel launch — e.g.
+    (consecutive heads with equal masks form a head group — e.g.
     ``[LocalMask(1024)] * 6 + [FullMask()] * 2`` for a local/global
-    stack). With ``mask=None`` the causal/window algebra (and data-
+    stack; the forward and dK/dV kernels take every group in one launch,
+    dQ one launch a group). With ``mask=None`` the causal/window algebra (and data-
     dependent ``segment_ids``) delegates to the port's flash attention;
     with a mask, ``causal`` and ``window`` are ignored, as in JAX."""
     if mask is None:

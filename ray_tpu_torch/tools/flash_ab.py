@@ -1,10 +1,11 @@
-"""Time two versions of the flash kernels on one card, in turns.
+"""Time two versions of the flash or splash kernels on one card, in turns.
 
-    python -m ray_tpu_torch.tools.flash_ab PARENT_CSRC_DIR [fwd|bwd]
-    python -m ray_tpu_torch.tools.flash_ab LABEL=DIR [LABEL=DIR ...] [fwd|bwd]
+    python -m ray_tpu_torch.tools.flash_ab PARENT_CSRC_DIR [fwd|bwd|splash]
+    python -m ray_tpu_torch.tools.flash_ab LABEL=DIR [LABEL=DIR ...] [MODE]
 
 Builds the kernel source (``flash_fwd.cu`` for ``fwd``, the default;
-``flash_bwd.cu`` for ``bwd``) from ``PARENT_CSRC_DIR`` (e.g. the
+``flash_bwd.cu`` for ``bwd``; ``splash.cu`` for ``splash``) from
+``PARENT_CSRC_DIR`` (e.g. the
 ``ops/csrc`` of the parent commit unpacked into a git-ignored directory)
 and from this checkout's ``ray_tpu_torch/ops/csrc``, holds both against the
 plain version, then times their launches alone (the wrapper's host work
@@ -22,6 +23,18 @@ there and back: a, b, ..., change, change, ..., b, a.
   ("pair"), their sum, the delta pre-pass and the unit (delta + pair),
   beside SDPA's backward pinned to each backend that takes the call
   (``SDPA_BACKENDS``), the fastest named as the yardstick.
+- ``splash``: ``chip_smoke.py``'s splash shape (B=1, S=8192, 16 q heads
+  on 8 kv heads, D=128, bf16, heads 0-7 ``LocalMask(1024)``, 8-11
+  ``ChunkedMask(2048)``, 12-13 ``CausalMask``, 14-15 ``FullMask``): the
+  forward, dK/dV and dQ kernels each, dK/dV + dQ back to back ("pair")
+  and the call's kernels with the delta pre-pass ("call": forward,
+  delta, dK/dV, dQ), beside SDPA with the dense boolean mask and
+  ``flex_attention`` with a ``create_block_mask`` of the same stack
+  (compiled once, outside the timed window; its error instead where it
+  does not compile), forward and backward. A directory whose
+  ``splash.cu`` has no ``rtt_splash_launches`` speaks the older
+  per-head-group interface (one launch of each kernel per head group,
+  each group's own schedules) and is launched that way.
 
 Prints one JSON line with the card's name and power limit. Needs one CUDA
 card.
@@ -29,15 +42,19 @@ card.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import subprocess
 import sys
 from pathlib import Path
+from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ray_tpu_torch.ops import cuda_build
 from ray_tpu_torch.ops import flash_attention as fa
+from ray_tpu_torch.ops import splash_attention as ss
 
 
 def _time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -198,11 +215,255 @@ def _ab_bwd(dirs, g) -> dict:
     return out
 
 
+# ----------------------------------------------------------------- splash
+
+SPLASH_SHAPE = (1, 8192, 16, 8, 128)  # B, S, H, Hkv, D
+
+
+def splash_masks():
+    return ([ss.LocalMask(1024)] * 8 + [ss.ChunkedMask(2048)] * 4
+            + [ss.CausalMask()] * 2 + [ss.FullMask()] * 2)
+
+
+class _GroupSchedule(NamedTuple):
+    """One head group's schedules in the per-group interface: the q
+    schedule and the order of its q tiles (as ``_kernel_schedule``), and
+    the transposed schedule with the order of its kv tiles, at 64 x 64."""
+    kv_ids: torch.Tensor
+    kv_lens: torch.Tensor
+    kv_full: torch.Tensor
+    q_order: torch.Tensor
+    q_len: int
+    transposed: tuple
+    k_len: int
+
+
+def _group_schedule(mask, sq, sk, device) -> _GroupSchedule:
+    t = ss._TILE
+    s = ss._Schedule(mask, -(-sq // t), -(-sk // t), t, t)
+    kv_full, q_full = ss._full_flags(mask, s, sq, sk, t, t)
+    arrays = [torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
+              for a in (s.kv_ids, s.kv_lens, kv_full,
+                        np.argsort(-s.kv_lens, kind="stable"), s.q_ids,
+                        s.q_lens, q_full,
+                        np.argsort(-s.q_lens, kind="stable"))]
+    return _GroupSchedule(*arrays[:4], s.q_len, tuple(arrays[4:]), s.k_len)
+
+
+def _per_group_launchers(csrc, q, k, v, do, masks, scale):
+    """``{"fwd", "dkv", "dq"}`` -> a launch of that kernel once per head
+    group through the per-group interface of ``csrc``'s ``splash.cu``,
+    into outputs allocated here; and ``(out, lse, delta)``."""
+    dtype = q.dtype
+    b, s_, h, d = q.shape
+    hkv = k.shape[2]
+    fns = {name: fa._library("splash", f"rtt_splash_{name}", csrc)
+           for name in ("fwd", "bwd_dkv", "bwd_dq")}
+    out = torch.empty_like(q)
+    lse = torch.empty((b, h, s_), dtype=torch.float32, device=q.device)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    args = {"fwd": [], "bwd_dkv": [], "bwd_dq": []}
+    keep = []
+    for a, ka, c, kc, m, code, param in ss._groups_for_kernel(q, k, masks):
+        sched = _group_schedule(m, s_, s_, q.device)
+        keep.append(sched)
+        qs, ks = slice(a, a + c), slice(ka, ka + kc)
+        views = (q[:, :, qs], k[:, :, ks], v[:, :, ks])
+        for name, kw in (("fwd", dict(out=out[:, :, qs], lse=lse[:, qs])),
+                         ("bwd", dict(lse=lse[:, qs], do=do[:, :, qs],
+                                      dq=dq[:, :, qs], dk=dk[:, :, ks],
+                                      dv=dv[:, :, ks]))):
+            ptrs, ints = ss._kernel_args(dtype, *views, sched=sched,
+                                         code=code, param=param, **kw)
+            # That interface's layout: the transposed schedule follows the
+            # q schedule's four arrays, and k_len follows q_len.
+            ptrs = (ctypes.c_void_p * 18)(
+                *ptrs[:14], *(x.data_ptr() for x in sched.transposed))
+            ints[33] = sched.k_len
+            if name == "fwd":
+                args["fwd"].append((ptrs, ints))
+            else:
+                args["bwd_dkv"].append((ptrs, ints))
+                args["bwd_dq"].append((ptrs, ints))
+    stream = torch.cuda.current_stream().cuda_stream
+    hold = [keep]  # the schedules and delta, alive while launches may run
+
+    def run(name):
+        def go():
+            for ptrs, ints in args[name]:
+                err = fns[name](ptrs, ints, float(scale), stream)
+                if err:
+                    raise RuntimeError(f"splash {name}: cudaError {err}")
+        go.keep = hold
+        return go
+
+    launches = {"fwd": run("fwd"), "dkv": run("bwd_dkv"), "dq": run("bwd_dq")}
+    launches["fwd"]()
+    delta = fa.attention_delta(out, do)
+    # The backward's delta: each group's view of it (both backward entries
+    # share one argument set a group).
+    for (ptrs, _), (a, _, c, *_rest) in zip(
+            args["bwd_dkv"], ss._groups_for_kernel(q, k, masks)):
+        ptrs[6] = delta[:, a:a + c].data_ptr()
+    hold.append(delta)
+    return launches, (out, lse, delta), (dq, dk, dv)
+
+
+def _splash_launchers(csrc, q, k, v, do, masks, scale):
+    """The launchers of ``csrc``'s splash kernels, in the interface its
+    library speaks: ``({"fwd", "dkv", "dq"} -> launch, (out, lse, delta),
+    (dq, dk, dv))``."""
+    lib = cuda_build.load("splash", csrc)
+    if not hasattr(lib, "rtt_splash_launches"):
+        return _per_group_launchers(csrc, q, k, v, do, masks, scale)
+    fwd, (out, lse) = ss._splash_forward_launcher(q, k, v, masks, scale,
+                                                  csrc)
+    fwd()
+    delta = fa.attention_delta(out, do)
+    bwd, grads = ss._splash_backward_launcher(q, k, v, do, lse, delta, masks,
+                                              scale, csrc)
+    return ({"fwd": fwd, "dkv": lambda: bwd("dkv"), "dq": lambda: bwd("dq")},
+            (out, lse, delta), grads)
+
+
+def _splash_plain(q, k, v, do, masks):
+    """The plain forward and backward, one kv head (and its q heads) at a
+    time: ((out, lse), (dq, dk, dv))."""
+    group = q.shape[2] // k.shape[2]
+    outs, lses, grads = [], [], []
+    for i in range(k.shape[2]):
+        qs, ks = slice(i * group, (i + 1) * group), slice(i, i + 1)
+        args = (q[:, :, qs], k[:, :, ks], v[:, :, ks])
+        out, lse = ss.splash_attention_reference(*args, masks[qs])
+        grads.append(ss.splash_backward_reference(*args, out, lse,
+                                                  do[:, :, qs], masks[qs]))
+        outs.append(out)
+        lses.append(lse)
+    return ((torch.cat(outs, 2), torch.cat(lses, 1)),
+            tuple(torch.cat(g, 2) for g in zip(*grads)))
+
+
+def _flex_ms(q, k, v, do, masks) -> dict:
+    """``flex_attention`` on the same call with a ``create_block_mask`` of
+    the mask stack (each head's ``apply`` as its mask_mod), compiled once
+    outside the timed window: forward and backward ms, or the error."""
+    try:
+        from torch.nn.attention.flex_attention import (create_block_mask,
+                                                       flex_attention)
+
+        groups = ss._group_heads(masks)
+
+        def mask_mod(b, h, q_idx, kv_idx):
+            keep = q_idx < 0
+            for a, c, m in groups:
+                live = m.apply(torch.zeros_like(q_idx, dtype=torch.float32),
+                               q_idx, kv_idx) == 0
+                keep = keep | ((h >= a) & (h < a + c) & live)
+            return keep
+
+        s_ = q.shape[1]
+        block_mask = create_block_mask(mask_mod, None, q.shape[2], s_, s_,
+                                       device="cuda")
+        flex = torch.compile(flex_attention)
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                      for x in (q, k, v))
+        dot = do.transpose(1, 2)
+
+        def fwd():
+            return flex(qt, kt, vt, block_mask=block_mask, enable_gqa=True)
+
+        out = fwd()
+        torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True)
+        torch.cuda.synchronize()
+        return {"flex_fwd_ms": _time_ms(fwd),
+                "flex_bwd_ms": _time_ms(lambda: torch.autograd.grad(
+                    out, (qt, kt, vt), dot, retain_graph=True)),
+                "flex_out": out.detach().transpose(1, 2)}
+    except Exception as e:  # the yardstick only; its error is the result
+        return {"flex_error": f"{type(e).__name__}: {e}"[:2000]}
+
+
+def _ab_splash(dirs, g) -> dict:
+    b, s_, h, hkv, d = SPLASH_SHAPE
+    masks = splash_masks()
+
+    def rnd(heads):
+        return torch.randn(b, s_, heads, d, generator=g,
+                           device="cuda").to(torch.bfloat16)
+
+    q, k, v, do = rnd(h), rnd(hkv), rnd(hkv), rnd(h)
+    scale = d ** -0.5
+    (ref, ref_lse), ref_grads = _splash_plain(q, k, v, do, masks)
+    versions = {w: _splash_launchers(dirs[w], q, k, v, do, masks, scale)
+                for w in dirs}
+    out = {"kernel": "splash", "shape": list(SPLASH_SHAPE),
+           "dtype": "bfloat16",
+           "masks": "heads 0-7 LocalMask(1024), 8-11 ChunkedMask(2048), "
+                    "12-13 CausalMask, 14-15 FullMask"}
+    for which, (launch, (o, lse, _), grads) in versions.items():
+        launch["dkv"]()
+        launch["dq"]()
+        torch.cuda.synchronize()
+        out[f"{which}_max_abs_err"] = _err(o, ref)
+        out[f"{which}_rel_max_abs_err"] = {
+            n: _err(a, r) / float(r.float().abs().max())
+            for n, a, r in zip(("dq", "dk", "dv"), grads, ref_grads)}
+    del ref, ref_lse, ref_grads
+
+    def seq(*names, delta=False):
+        def make(which):
+            launch, (o, _, _), _ = versions[which]
+
+            def run():
+                for n in names:
+                    launch[n]()
+                    if delta and n == "fwd":
+                        fa.attention_delta(o, do)
+            return run
+        return make
+
+    _turns(out, dirs, {"fwd": seq("fwd"), "dkv": seq("dkv"), "dq": seq("dq"),
+                       "pair": seq("dkv", "dq"),
+                       "call": seq("fwd", "dkv", "dq", delta=True)})
+    # Library yardsticks: SDPA with the dense (H, S, S) boolean mask (k and
+    # v expanded to the q heads), and flex_attention with a block mask.
+    rows = torch.arange(s_, device="cuda")[:, None]
+    cols = torch.arange(s_, device="cuda")[None, :]
+    dense = torch.stack([m.apply(torch.zeros(s_, s_, device="cuda"), rows,
+                                 cols) == 0 for m in masks])[None]
+    qt = q.transpose(1, 2).detach().requires_grad_()
+    kt, vt = (x.repeat_interleave(h // hkv, dim=2).transpose(1, 2).detach()
+              .requires_grad_() for x in (k, v))
+    dot = do.transpose(1, 2)
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=dense)
+
+    out["sdpa_dense_fwd_ms"] = _time_ms(sdpa, iters=10)
+    lib_out = sdpa()
+    out["sdpa_dense_bwd_ms"] = _time_ms(lambda: torch.autograd.grad(
+        lib_out, (qt, kt, vt), dot, retain_graph=True), iters=10)
+    del dense, qt, kt, vt, lib_out
+    torch.cuda.empty_cache()
+    flex = _flex_ms(q, k, v, do, masks)
+    flex_out = flex.pop("flex_out", None)
+    if flex_out is not None:
+        out["flex_max_abs_err_vs_change"] = _err(
+            flex_out, versions["change"][1][0])
+    out.update(flex)
+    return out
+
+
+MODES = ("fwd", "bwd", "splash")
+
+
 def main(*args: str) -> int:
     """``args``: one or more source directories, each ``DIR`` (labelled
-    "parent") or ``LABEL=DIR``, then optionally ``fwd`` or ``bwd``."""
-    kernel = args[-1] if args and args[-1] in ("fwd", "bwd") else "fwd"
-    sources = [a for a in args if a not in ("fwd", "bwd")]
+    "parent") or ``LABEL=DIR``, then optionally ``fwd``, ``bwd`` or
+    ``splash``."""
+    kernel = args[-1] if args and args[-1] in MODES else "fwd"
+    sources = [a for a in args if a not in MODES]
     if not sources:
         print(__doc__, file=sys.stderr)
         return 2
@@ -216,7 +477,8 @@ def main(*args: str) -> int:
         dirs[label or "parent"] = Path(path)
     dirs["change"] = cuda_build.CSRC
     g = torch.Generator(device="cuda").manual_seed(0)
-    out = (_ab_fwd if kernel == "fwd" else _ab_bwd)(dirs, g)
+    out = {"fwd": _ab_fwd, "bwd": _ab_bwd, "splash": _ab_splash}[kernel](
+        dirs, g)
     out["device"] = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

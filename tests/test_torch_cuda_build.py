@@ -43,3 +43,30 @@ def test_load_builds_once_per_source_directory(monkeypatch, tmp_path):
     assert built == [(["flash_fwd"], str(parent)),
                      (["flash_fwd"], str(change))]
     assert len(opened) == 2
+
+
+def test_artifact_follows_the_headers_a_source_includes(tmp_path):
+    """Editing a header that a kernel includes (directly or through another
+    header) changes its build's path, so the kernel is rebuilt; a header it
+    does not include does not."""
+    (tmp_path / "kern.cu").write_text('#include "hopper.cuh"\nint x;\n')
+    (tmp_path / "hopper.cuh").write_text('#include "inner.cuh"\nint y;\n')
+    (tmp_path / "inner.cuh").write_text("int z;\n")
+    (tmp_path / "other.cuh").write_text("int w;\n")
+    first = cuda_build._artifact("kern", tmp_path)
+    assert cuda_build._artifact("kern", tmp_path) == first
+    (tmp_path / "other.cuh").write_text("int w2;\n")
+    assert cuda_build._artifact("kern", tmp_path) == first
+    (tmp_path / "hopper.cuh").write_text('#include "inner.cuh"\nint y2;\n')
+    second = cuda_build._artifact("kern", tmp_path)
+    assert second != first
+    (tmp_path / "inner.cuh").write_text("int z2;\n")
+    assert cuda_build._artifact("kern", tmp_path) not in (first, second)
+    assert [p.name for p in cuda_build._sources("kern", tmp_path)] == [
+        "kern.cu", "hopper.cuh", "inner.cuh"]
+
+
+def test_every_kernel_source_hashes_the_shared_header():
+    for name in ("flash_fwd", "flash_bwd", "splash"):
+        names = [p.name for p in cuda_build._sources(name, cuda_build.CSRC)]
+        assert names == [f"{name}.cu", "hopper.cuh"], names

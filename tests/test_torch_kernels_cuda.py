@@ -342,6 +342,9 @@ def _splash_masks(spec):
     return [kinds[kind](*arg) for kind, *arg in spec]
 
 
+_ALTERNATING = [("local", 96), ("full",)] * 4  # eight head groups
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,b,sq,sk,h,hkv,d,spec", [
     (torch.bfloat16, 2, 192, 192, 4, 2, 128,
@@ -350,13 +353,33 @@ def _splash_masks(spec):
      [("causal",)] * 2 + [("full",)] * 2),
     (torch.bfloat16, 1, 256, 64, 2, 1, 80, [("local", 32)] * 2),
     (torch.float32, 1, 200, 328, 2, 2, 128, [("full",)] * 2),
+    # The wgmma kernels' tile edges (128-row q tiles in the forward,
+    # 64-key and 64-row tiles in dK/dV, statistics rows off a multiple of
+    # 4), GQA 1, 2 and 4, B=2, D 64 and 128, and eight head groups in one
+    # launch.
+    (torch.bfloat16, 2, 129, 129, 4, 4, 128,
+     [("local", 70)] * 2 + [("causal",)] * 2),
+    (torch.bfloat16, 2, 255, 255, 8, 2, 64,
+     [("chunked", 100)] * 4 + [("full",)] * 4),
+    (torch.bfloat16, 2, 100, 100, 8, 2, 128,
+     [("causal",)] * 4 + [("local", 30)] * 4),
+    (torch.bfloat16, 2, 200, 328, 4, 2, 128,
+     [("causal",)] * 2 + [("local", 64)] * 2),
+    (torch.bfloat16, 2, 200, 328, 8, 2, 64, [("full",)] * 8),
+    (torch.bfloat16, 2, 256, 64, 4, 2, 64, [("local", 32)] * 4),
+    (torch.bfloat16, 1, 512, 512, 8, 8, 128, _ALTERNATING),
+    (torch.float32, 1, 129, 129, 4, 2, 64,
+     [("causal",)] * 2 + [("local", 40)] * 2),
+    (torch.float32, 2, 255, 255, 8, 8, 128, _ALTERNATING),
 ])
 def test_splash_kernels_match_plain(cuda_device, dtype, b, sq, sk, h, hkv, d,
                                     spec):
-    """The three splash kernels, one launch per head group each, against
-    the plain versions: a mixed local / chunked stack, a ragged S=100 with
-    D=64, rows that see nothing (S=256 queries on 64 keys under a 32
-    window) with D=80 padded, and float32 with Sq != Sk."""
+    """The three splash kernels against the plain versions: the forward
+    and dK/dV kernels once over all head groups (on wgmma for bf16, on
+    mma.sync for float32, by the C entries' own counts), dQ once per
+    group. Mixed local / chunked stacks, ragged S=100, 129 and 255, rows
+    that see nothing (S=256 queries on 64 keys under a 32 window), D=80
+    padded, Sq != Sk, GQA 1, 2 and 4, eight alternating head groups."""
     from ray_tpu_torch.ops import splash_attention as ss
 
     masks = _splash_masks(spec)
@@ -364,12 +387,18 @@ def test_splash_kernels_match_plain(cuda_device, dtype, b, sq, sk, h, hkv, d,
     q, k, v, do = _splash_inputs(cuda_device, dtype, b, sq, sk, h, hkv, d)
     before = (ss.splash_attention.launches, ss.splash_backward.dkv_launches,
               ss.splash_backward.dq_launches)
+    by_kernel = ss.kernel_launches()
     out, lse = ss.splash_forward(q, k, v, masks)
     got = ss.splash_backward(q, k, v, out, lse, do, masks)
     torch.cuda.synchronize()
     after = (ss.splash_attention.launches, ss.splash_backward.dkv_launches,
              ss.splash_backward.dq_launches)
-    assert [a - b_ for a, b_ in zip(after, before)] == [groups] * 3
+    assert [a - b_ for a, b_ in zip(after, before)] == [1, 1, groups]
+    route = "wgmma" if dtype == torch.bfloat16 else "mma_sync_f32"
+    want = {k_: 0 for k_ in ss.SPLASH_KERNELS}
+    want.update({f"fwd_{route}": 1, f"dkv_{route}": 1, "dq_mma_sync": groups})
+    assert {k_: n - by_kernel[k_]
+            for k_, n in ss.kernel_launches().items()} == want
     ref, ref_lse = ss.splash_attention_reference(q, k, v, masks)
     tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
     torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
@@ -397,6 +426,8 @@ def test_splash_dead_rows_give_exact_zeros(cuda_device):
     assert not out[:, 95:].any() and not dq[:, 95:].any()
     assert bool((lse[:, :, 95:] == -1e30).all())
     assert bool((lse[:, :, :95] > -1e29).all())
+    assert bool(torch.isfinite(dk.float()).all())
+    assert bool(torch.isfinite(dv.float()).all())
 
 
 @pytest.mark.cuda
@@ -409,10 +440,14 @@ def test_splash_attention_autograd_runs_the_kernels(cuda_device):
                                  4, 128)
     q, k, v = (t.requires_grad_() for t in (q, k, v))
     fwd0, dkv0 = ss.splash_attention.launches, ss.splash_backward.dkv_launches
+    dq0 = ss.splash_backward.dq_launches
     out = ss.splash_attention(q, k, v, mask=masks)
     grads = torch.autograd.grad(out, (q, k, v), do)
-    assert ss.splash_attention.launches == fwd0 + 4
-    assert ss.splash_backward.dkv_launches == dkv0 + 4
+    # One forward and one dK/dV launch over the four head groups, one dQ
+    # launch a group.
+    assert ss.splash_attention.launches == fwd0 + 1
+    assert ss.splash_backward.dkv_launches == dkv0 + 1
+    assert ss.splash_backward.dq_launches == dq0 + 4
     ref = ss.splash_attention_reference(q, k, v, masks)[0]
     want = torch.autograd.grad(ref, (q, k, v), do)
     for a, r in zip(grads, want):

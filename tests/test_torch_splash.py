@@ -12,9 +12,12 @@ plain version in one pass); bfloat16 at 2e-2 (P and dS are rounded to bf16
 on both sides after sums taken in another order, so a rounded value may
 land one bf16 ulp away).
 
-The kernels' own schedule at 64 x 64 tiles is checked here by replaying
-the rule ``splash.cu`` applies (visit the listed tiles, mask per element
-where the tile is not full) against each mask's dense definition. The
+The kernels' own schedules are checked here: the call schedule's lists
+(the forward's at 128 x 128, dK/dV's at 64 x 64) against the JAX
+``_Schedule`` array for array, its block order, and a replay of the rule
+``splash.cu`` applies (visit the listed tiles, mask per element where the
+tile is not full) against each head's dense mask; likewise dQ's per-group
+schedule at 64 x 64. The
 Hopper kernels themselves are held against the plain versions on a card by
 ``tests/test_torch_kernels_cuda.py`` and ``chip_smoke.py``."""
 
@@ -388,15 +391,38 @@ def _query_range(code, param, col, sq):
     return lo, hi
 
 
+def _side(buf, n_blocks, n_heads):
+    """One direction of a call schedule (``_pack_side``'s layout), decoded:
+    (order as (head, tile) pairs, head -> group, per group (code, param,
+    ids, lens, full, first head, head count))."""
+    buf = buf.numpy() if isinstance(buf, torch.Tensor) else buf
+    order = buf[:n_blocks]
+    head_group = buf[n_blocks:n_blocks + n_heads]
+    n_groups = int(head_group.max()) + 1
+    base = n_blocks + n_heads
+    table = buf[base:base + n_groups * tsplash._GROUP_INTS].reshape(
+        n_groups, tsplash._GROUP_INTS)
+    groups = []
+    for code, param, ids_off, lens_off, full_off, row, start, count in table:
+        n_tiles = (lens_off - ids_off) // row
+        groups.append((int(code), int(param),
+                       buf[ids_off:lens_off].reshape(n_tiles, row),
+                       buf[lens_off:lens_off + n_tiles],
+                       buf[full_off:full_off + n_tiles * row].reshape(
+                           n_tiles, row), int(start), int(count)))
+    pairs = [(int(e) & 0xffff, int(e) >> 16) for e in order]
+    return pairs, head_group, groups
+
+
 def _replay(mask, sq, sk):
     """The (query, key) pairs each kernel lets through, over the 64-padded
-    grid: the q schedule (forward, dQ) and the transposed one (dK/dV)."""
+    grid: the dQ kernel's q schedule and the dK/dV kernel's call schedule
+    (its transposed lists at 64 x 64)."""
     t = tsplash._TILE
     sched = tsplash._kernel_schedule(mask, sq, sk, torch.device("cpu"))
     code, param = tsplash._kernel_mask(mask)
     nq, nk = -(-sq // t), -(-sk // t)
     fwd = np.zeros((nq * t, nk * t), bool)
-    dkv = np.zeros_like(fwd)
     kv_ids, kv_full = sched.kv_ids.numpy(), sched.kv_full.numpy()
     for i, n in enumerate(sched.kv_lens.numpy()):
         for j, full in zip(kv_ids[i, :n], kv_full[i, :n]):
@@ -404,14 +430,18 @@ def _replay(mask, sq, sk):
                 lo, hi = _key_range(code, param, r, sk)
                 c = np.arange(j * t, j * t + t)
                 fwd[r, c] = True if full else (c >= lo) & (c <= hi)
-    q_ids, q_full = sched.q_ids.numpy(), sched.q_full.numpy()
-    for j, n in enumerate(sched.q_lens.numpy()):
+    call = tsplash._call_schedule([mask], 1, sq, sk, t, t,
+                                  torch.device("cpu"))
+    _, _, ((_, _, q_ids, q_lens, q_full, _, _),) = _side(
+        call.dkv, call.dkv_blocks, 1)
+    dkv = np.zeros_like(fwd)
+    for j, n in enumerate(q_lens):
         for i, full in zip(q_ids[j, :n], q_full[j, :n]):
             for c in range(j * t, j * t + t):
                 lo, hi = _query_range(code, param, c, sq)
                 r = np.arange(i * t, i * t + t)
                 dkv[r, c] = True if full else (r >= lo) & (r <= hi)
-    return sched, fwd, dkv
+    return sched, call, fwd, dkv
 
 
 @pytest.mark.parametrize("spec,sq,sk", [
@@ -423,20 +453,173 @@ def _replay(mask, sq, sk):
 def test_kernel_schedule_replays_to_the_mask(spec, sq, sk):
     """Visiting the listed 64 x 64 tiles and masking the non-full ones per
     element, as ``splash.cu`` does, keeps exactly the mask's pairs on the
-    real grid and nothing in the padding, in both directions; the blocks'
-    order puts the longest lists first."""
+    real grid and nothing in the padding, in both directions (dQ's q
+    schedule, dK/dV's call schedule); the blocks' order puts the longest
+    lists first."""
     (m,) = _pair([spec])[1]
-    sched, fwd, dkv = _replay(m, sq, sk)
+    sched, call, fwd, dkv = _replay(m, sq, sk)
     rows, cols = np.arange(sq)[:, None], np.arange(sk)[None, :]
     want = m.apply(torch.zeros(sq, sk), torch.from_numpy(rows),
                    torch.from_numpy(cols)).numpy() == 0
     np.testing.assert_array_equal(fwd[:sq, :sk], want)
     np.testing.assert_array_equal(dkv[:sq, :sk], want)
     assert not fwd[:sq, sk:].any() and not dkv[sq:, :sk].any()
-    for lens, order in ((sched.kv_lens, sched.q_order),
-                        (sched.q_lens, sched.k_order)):
-        lens, order = lens.numpy(), order.numpy()
-        assert sorted(order.tolist()) == list(range(len(lens)))
-        assert (np.diff(lens[order]) <= 0).all()
-    assert sched.kv_ids.dtype == torch.int32
+    lens, order = sched.kv_lens.numpy(), sched.q_order.numpy()
+    assert sorted(order.tolist()) == list(range(len(lens)))
+    assert (np.diff(lens[order]) <= 0).all()
+    pairs, _, ((_, _, _, q_lens, _, _, _),) = _side(call.dkv,
+                                                    call.dkv_blocks, 1)
+    assert sorted(t for _, t in pairs) == list(range(len(q_lens)))
+    assert (np.diff(q_lens[[t for _, t in pairs]]) <= 0).all()
+    assert sched.kv_ids.dtype == torch.int32 and call.dkv.dtype == torch.int32
     assert tsplash._kernel_schedule(m, sq, sk, torch.device("cpu")) is sched
+
+
+# The smoke's 16 q heads on 8 kv heads: local / chunked / causal / full.
+SMOKE_STACK = ([("local", 1024)] * 8 + [("chunked", 2048)] * 4
+               + [("causal",)] * 2 + [("full",)] * 2)
+STACKS = {
+    **{name: ([spec] * 4, 2) for name, spec in (
+        ("full", ("full",)), ("causal", ("causal",)),
+        ("local100", ("local", 100)), ("chunked96", ("chunked", 96)))},
+    "mixed_gqa2": ([("local", 50)] * 2 + [("chunked", 64)] * 2
+                   + [("causal",)] * 2 + [("full",)] * 2, 2),
+    "alternating_8_groups": ([("local", 40), ("full",)] * 4, 1),
+    "smoke_16_8": (SMOKE_STACK, 2),
+}
+
+
+def _ragged(n, tile, length):
+    return np.arange(n) * tile + tile > length
+
+
+@pytest.mark.parametrize("stack,sq,sk", [
+    (stack, sq, sk) for stack in sorted(STACKS)
+    for sq, sk in ((4096, 4096), (1000, 1000), (200, 328))
+    if stack != "smoke_16_8" or sq == 4096])  # its windows need the length
+def test_call_schedule_lists_match_jax(stack, sq, sk):
+    """Each head group's lists in the call schedule, the forward's at its
+    128 x 128 tiles and dK/dV's at 64 x 64, are the JAX ``_Schedule``'s at
+    the same tiles, array for array; full flags are JAX's with ragged
+    tiles cleared; the group table names each group's mask and heads."""
+    spec, group = STACKS[stack]
+    jmasks, tmasks = _pair(spec)
+    cpu = torch.device("cpu")
+    groups = tsplash._group_heads(tmasks)
+    for side, (bq, bk) in (("fwd", (128, 128)), ("dkv", (64, 64))):
+        call = tsplash._call_schedule(tmasks, group, sq, sk, bq, bk, cpu)
+        nq, nk = -(-sq // bq), -(-sk // bk)
+        n_heads = len(tmasks) if side == "fwd" else len(tmasks) // group
+        _, head_group, decoded = _side(getattr(call, side),
+                                       getattr(call, f"{side}_blocks"),
+                                       n_heads)
+        assert len(decoded) == len(groups)
+        for gi, ((a, c, m), (code, param, ids, lens, full, start,
+                             count)) in enumerate(zip(groups, decoded)):
+            jm = jmasks[a]
+            js = jsplash._Schedule(jm, nq, nk, bq, bk)
+            assert (code, param) == tsplash._kernel_mask(m)
+            rq, rk = _ragged(nq, bq, sq), _ragged(nk, bk, sk)
+            if side == "fwd":
+                assert (start, count) == (a, c)
+                np.testing.assert_array_equal(ids, js.kv_ids)
+                np.testing.assert_array_equal(lens, js.kv_lens)
+                np.testing.assert_array_equal(
+                    full, js.kv_full * ~(rq[:, None] | rk[js.kv_ids]))
+            else:
+                assert (start, count) == (a // group, c // group)
+                np.testing.assert_array_equal(ids, js.q_ids)
+                np.testing.assert_array_equal(lens, js.q_lens)
+                want = np.asarray([[jm.full_tile(int(i), j, bq, bk)
+                                    for i in row]
+                                   for j, row in enumerate(js.q_ids)])
+                np.testing.assert_array_equal(
+                    full, want & ~(rk[:, None] | rq[js.q_ids]))
+            assert (head_group[start:start + count] == gi).all()
+
+
+@pytest.mark.parametrize("stack", sorted(STACKS))
+def test_call_schedule_block_order_is_heaviest_first(stack):
+    """The block order of each direction is a permutation of every (head,
+    tile), with the blocks' live-tile counts non-increasing across all
+    heads and groups."""
+    spec, group = STACKS[stack]
+    tmasks = _pair(spec)[1]
+    for side, tile in (("fwd", 128), ("dkv", 64)):
+        call = tsplash._call_schedule(tmasks, group, 2048, 2048, tile, tile,
+                                      torch.device("cpu"))
+        n_heads = len(tmasks) if side == "fwd" else len(tmasks) // group
+        n_tiles = 2048 // tile
+        pairs, head_group, decoded = _side(getattr(call, side),
+                                           getattr(call, f"{side}_blocks"),
+                                           n_heads)
+        assert getattr(call, f"{side}_blocks") == n_heads * n_tiles
+        assert sorted(pairs) == [(h, t) for h in range(n_heads)
+                                 for t in range(n_tiles)]
+        counts = [decoded[head_group[h]][3][t] for h, t in pairs]
+        assert all(x >= y for x, y in zip(counts, counts[1:]))
+
+
+@pytest.mark.parametrize("stack", ["mixed_gqa2", "alternating_8_groups"])
+@pytest.mark.parametrize("sq,sk", [(200, 200), (256, 64), (200, 328)])
+def test_call_schedule_replays_to_each_heads_mask(stack, sq, sk):
+    """Walking the call schedule as the kernels do (a block visits its
+    group's listed tiles, masking the non-full ones by the per-row key
+    range in the forward and the per-key query range in dK/dV, for every
+    q head of its kv head) keeps exactly each head's ``apply`` on the
+    real grid and nothing in the padding."""
+    spec, group = STACKS[stack]
+    tmasks = _pair(spec)[1]
+    cpu = torch.device("cpu")
+    rows, cols = np.arange(sq)[:, None], np.arange(sk)[None, :]
+    want = np.stack([m.apply(torch.zeros(sq, sk), torch.from_numpy(rows),
+                             torch.from_numpy(cols)).numpy() == 0
+                     for m in tmasks])
+    # Forward: blocks over (q head, 128-row q tile).
+    t = 128
+    call = tsplash._call_schedule(tmasks, group, sq, sk, t, t, cpu)
+    pairs, head_group, decoded = _side(call.fwd, call.fwd_blocks,
+                                       len(tmasks))
+    nq, nk = -(-sq // t), -(-sk // t)
+    fwd = np.zeros((len(tmasks), nq * t, nk * t), bool)
+    for h, i in pairs:
+        code, param, ids, lens, full, _, _ = decoded[head_group[h]]
+        for j, f in zip(ids[i, :lens[i]], full[i, :lens[i]]):
+            for r in range(i * t, i * t + t):
+                lo, hi = _key_range(code, param, r, sk)
+                c = np.arange(j * t, j * t + t)
+                fwd[h, r, c] = True if f else (c >= lo) & (c <= hi)
+    np.testing.assert_array_equal(fwd[:, :sq, :sk], want)
+    assert not fwd[:, :sq, sk:].any()
+    # dK/dV: blocks over (kv head, 64-key tile), each walking its group's
+    # q heads.
+    t = 64
+    call = tsplash._call_schedule(tmasks, group, sq, sk, t, t, cpu)
+    pairs, head_group, decoded = _side(call.dkv, call.dkv_blocks,
+                                       len(tmasks) // group)
+    nq, nk = -(-sq // t), -(-sk // t)
+    dkv = np.zeros((len(tmasks), nq * t, nk * t), bool)
+    for hk, j in pairs:
+        code, param, ids, lens, full, _, _ = decoded[head_group[hk]]
+        for h in range(hk * group, hk * group + group):
+            for i, f in zip(ids[j, :lens[j]], full[j, :lens[j]]):
+                for c in range(j * t, j * t + t):
+                    lo, hi = _query_range(code, param, c, sq)
+                    r = np.arange(i * t, i * t + t)
+                    dkv[h, r, c] = True if f else (r >= lo) & (r <= hi)
+    np.testing.assert_array_equal(dkv[:, :sq, :sk], want)
+    assert not dkv[:, sq:, :sk].any()
+
+
+def test_call_schedule_cache_keys_on_the_tile():
+    masks = _pair(STACKS["mixed_gqa2"][0])[1]
+    cpu = torch.device("cpu")
+    a = tsplash._call_schedule(masks, 2, 512, 512, 128, 128, cpu)
+    b = tsplash._call_schedule(masks, 2, 512, 512, 64, 64, cpu)
+    assert a is not b and a.fwd_blocks == 8 * 4 and b.fwd_blocks == 8 * 8
+    assert tsplash._call_schedule(list(masks), 2, 512, 512, 128, 128,
+                                  cpu) is a
+    assert tsplash._call_schedule(masks, 2, 512, 512, 64, 64, cpu) is b
+    assert tsplash._call_schedule(masks, 1, 512, 512, 64, 64, cpu) is not b
+    with pytest.raises(ValueError, match="FullMask, CausalMask"):
+        tsplash._call_schedule([_Diagonal()] * 2, 1, 64, 64, 64, 64, cpu)
