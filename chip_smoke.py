@@ -22,24 +22,30 @@ Phases, one JSON line each (``{"phase": ..., "ok": ...}``):
    through its wrapper, with the wrapper's host time a call; the backward
    at the 1B shape with the delta pre-pass, the unit delta + dK/dV + dQ,
    SDPA's backward on each backend that takes it, and the host time a
-   call).
+   call); then the delta pre-pass kernel (``delta.cu``) against its plain
+   version on the shapes and layouts both backward paths hand it (the 1B
+   training and splash shapes, S=129, D=64, D=80, float32, a (B, H, S, D)
+   view), timed at the 1B and splash shapes beside its bound.
 4. splash: ``splash_attention`` forward and backward at the 1B preset's
    attention width (16 q heads on 8 kv heads, head_dim 128), B=1,
    S=8192, bf16, default 256 blocks, on a GQA-aligned head stack (heads
    0-7 ``LocalMask(1024)``, 8-11 ``ChunkedMask(2048)``, 12-13
    ``CausalMask``, 14-15 ``FullMask``): four head groups, so exactly one
-   forward and one dK/dV launch over all groups (both on their wgmma
-   kernels, by the C entries' own counts) and four dQ launches, counted
-   between a reset right before and a read right after. Out and gradients
-   against the plain version (one kv head at a time) and, on the local,
-   causal and full heads, against the flash kernels; twelve edge cases
+   forward, one dK/dV and one dQ launch over all groups (each on its
+   wgmma kernel, by the C entries' own counts) and one delta launch,
+   counted between a reset right before and a read right after. Out and
+   gradients against the plain version (one kv head at a time) and, on
+   the local, causal and full heads, against the flash kernels; twelve
+   edge cases
    (float32, D=64, D=80 padded, ragged S=100, 129 and 255, rows that see
    nothing, Sq != Sk, GQA 1, 2 and 4, B=2, eight alternating head groups),
    each with the kernels it launched; then each kernel timed launch-only
    beside the plain version, SDPA with the dense boolean mask and the
-   bound over the call's 297,824,256 live pairs, the host time a call
-   (C entries and wrappers), and on each head group alone beside the
-   flash kernel on the same heads.
+   bound over the call's 297,824,256 live pairs (dQ also with its rate),
+   the host time a call (C entries and wrappers, beside the per-group dQ
+   design's),
+   and on each head group alone beside the flash kernel on the same
+   heads.
 5. serve: Llama-2-7B (``PRESETS["7b"]``, full width and depth, random
    weights from seed 0, ``attention_impl="flash"``) behind
    ``LlamaDecodeDeployment`` answers six requests from several threads,
@@ -51,10 +57,10 @@ Phases, one JSON line each (``{"phase": ..., "ok": ...}``):
    ``loss_chunk=512``) takes four AdamW steps through ``build_train_step``
    with two microbatches of 4 x 2048 tokens. Launch counters are zeroed
    before each step and read after it; each step must launch each
-   backward kernel once per layer and microbatch and the forward twice
-   (the remat recompute). Losses must be finite and falling. A 2-layer
-   model of the same width then holds the flash gradients against the
-   plain-attention ones.
+   backward kernel and the delta pre-pass once per layer and microbatch
+   and the forward twice (the remat recompute). Losses must be finite
+   and falling. A 2-layer model of the same width then holds the flash
+   gradients against the plain-attention ones.
 
 Serve and train also read the forward's C entry's own launch count of
 each of its kernels over the same window: every forward launch there
@@ -62,11 +68,11 @@ must have taken the wgmma kernel; train reads the backward's entries the
 same way, and every backward launch must have taken a wgmma kernel.
 
 Each main path (splash, serve, train) must have launched each of its
-kernels at least once. Then a ``{"kernels": [...]}`` line with all six
-kernels (the flash kernels' with their main-path launches by kernel
-and their ptxas lines: registers, shared memory and spills of each
-instantiation), the nvidia-smi name/power-limit line, and, last,
-``{"ok": true, "device": {...}}``.
+kernels at least once. Then a ``{"kernels": [...]}`` line with all seven
+kernels (the six attention kernels with their main-path launches by
+kernel, and each with its ptxas lines: registers, shared memory and
+spills of each instantiation), the nvidia-smi name/power-limit line,
+and, last, ``{"ok": true, "device": {...}}``.
 Any failed phase exits 1 without that last line; so does a machine
 without a card.
 """
@@ -90,6 +96,7 @@ import torch
 
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
+PEAK_F32_FLOPS = 67e12     # H100 SXM float32 outside the tensor cores
 # Greedy-agreement margin for bf16 7B logits: tokens are compared while
 # the solo run's top-2 logit margin exceeds it. The serve phase measures
 # how far batch shape and the prefix-hit path move logits and fails if
@@ -160,12 +167,20 @@ KERNELS = {
         "source": "ray_tpu_torch/ops/csrc/splash.cu",
         "replaces": "ray_tpu/ops/splash_attention.py:350",
     },
+    # Not a TPU kernel: the JAX package leaves this expression to XLA.
+    "attention_delta": {
+        "route": "cuda",
+        "source": "ray_tpu_torch/ops/csrc/delta.cu",
+        "replaces": "ray_tpu/ops/flash_attention.py:343",
+    },
 }
 # The kernels each main path must launch at least once.
 PATH_KERNELS = {
     "serve": ["flash_fwd"],
-    "train": ["flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"],
-    "splash": ["splash_fwd", "splash_bwd_dq", "splash_bwd_dkv"],
+    "train": ["flash_fwd", "flash_bwd_dkv", "flash_bwd_dq",
+              "attention_delta"],
+    "splash": ["splash_fwd", "splash_bwd_dq", "splash_bwd_dkv",
+               "attention_delta"],
 }
 # The sources to build: one library (and one nvcc) per .cu file.
 SOURCES = sorted({Path(k["source"]).stem for k in KERNELS.values()})
@@ -173,7 +188,8 @@ SOURCES = sorted({Path(k["source"]).stem for k in KERNELS.values()})
 
 def _counters() -> dict:
     """Kernel name -> (wrapper, attribute) of its launch counter."""
-    from ray_tpu_torch.ops.flash_attention import (flash_attention,
+    from ray_tpu_torch.ops.flash_attention import (attention_delta,
+                                                   flash_attention,
                                                    flash_backward)
     from ray_tpu_torch.ops.splash_attention import (splash_attention,
                                                     splash_backward)
@@ -183,7 +199,8 @@ def _counters() -> dict:
             "flash_bwd_dq": (flash_backward, "dq_launches"),
             "splash_fwd": (splash_attention, "launches"),
             "splash_bwd_dq": (splash_backward, "dq_launches"),
-            "splash_bwd_dkv": (splash_backward, "dkv_launches")}
+            "splash_bwd_dkv": (splash_backward, "dkv_launches"),
+            "attention_delta": (attention_delta, "launches")}
 
 
 def launch_counts() -> dict:
@@ -258,8 +275,8 @@ def cuda_build_rows(cuda_build, name: str) -> list:
             fn = line.split("for")[-1].strip()
             # The kernel's name and template arguments, past the mangled
             # anonymous namespace (which names the file).
-            m = re.search(r"(?:splash|flash)_(?:fwd|bwd_dq|bwd_dkv)"
-                          r"(?:_wgmma|_f32)?_kernel\w*", fn)
+            m = re.search(r"(?:(?:splash|flash)_(?:fwd|bwd_dq|bwd_dkv)"
+                          r"(?:_wgmma|_f32)?|attention_delta)_kernel\w*", fn)
             fn = m.group(0) if m else fn
             spill = log[i + 1].strip() if i + 1 < len(log) else ""
             used = next((x.strip() for x in log[i + 2:i + 4]
@@ -586,7 +603,9 @@ def _time_flash_bwd(g, record: dict) -> dict:
     ms = {"flash_bwd_dkv": _time_ms(lambda: launch("dkv"), iters=20),
           "flash_bwd_dq": _time_ms(lambda: launch("dq"), iters=20)}
     pair_ms = _time_ms(pair, iters=20)
-    delta_ms = _time_ms(lambda: fa.attention_delta(out, do), iters=20)
+    delta_ms = _time_ms(fa._delta_launcher(out, do)[0], iters=20)
+    delta_plain_ms = _time_ms(lambda: fa.attention_delta_reference(out, do),
+                              iters=20)
     plain_ms = _time_ms(lambda: fa.flash_backward_reference(
         q, k, v, out, lse, do, causal=True), iters=3, warmup=1)
     lib = sdpa_backward_ms(q, k, v, do)
@@ -613,6 +632,7 @@ def _time_flash_bwd(g, record: dict) -> dict:
                                  "D": d, "causal": True,
                                  "dtype": "bfloat16"},
             "bwd_pair_ms": pair_ms, "bwd_delta_ms": delta_ms,
+            "bwd_delta_plain_ms": delta_plain_ms,
             "bwd_unit_ms": delta_ms + pair_ms,
             "bwd_launch_host_ms": launch_host_ms,
             "bwd_wrapper_host_ms": wrapper_host_ms,
@@ -621,6 +641,79 @@ def _time_flash_bwd(g, record: dict) -> dict:
                               "dv together)",
             "bwd_sdpa_ms_by_backend": lib["sdpa_bwd_ms_by_backend"],
             "bwd_plain_is": "flash_backward_reference (dq, dk, dv together)"}
+
+
+def _delta_cases(g):
+    """(name, (out, dO)) at the shapes and layouts the two backward paths
+    hand the delta pre-pass, before D is padded: the 1B training and the
+    splash shapes, a ragged S, D 64 and 80, float32, and the (B, S, H, D)
+    view of a (B, H, S, D) tensor that ``flash_attention_stats`` passes."""
+    def pair(b, s, h, d, dtype=torch.bfloat16):
+        return tuple(torch.randn(b, s, h, d, generator=g, device="cuda")
+                     .to(dtype) for _ in range(2))
+
+    return [("train_1b_b4_s2048", pair(4, 2048, 16, 128)),
+            ("splash_b1_s8192", pair(1, 8192, 16, 128)),
+            ("s129", pair(2, 129, 4, 128)),
+            ("d64", pair(2, 512, 16, 64)),
+            ("d80_unpadded", pair(2, 512, 8, 80)),
+            ("f32_s320", pair(1, 320, 4, 128, torch.float32)),
+            ("bhsd_view", tuple(_bhsd(x) for x in pair(2, 256, 4, 128)))]
+
+
+def _delta_bound(out):
+    """Least time for the delta pre-pass on this card: O and dO read once
+    and delta written once over HBM bandwidth, against its 2 fp32 flops an
+    element over the fp32 peak outside the tensor cores."""
+    b, s, h, _ = out.shape
+    t_bytes = (2 * out.numel() * out.element_size() + 4 * b * h * s) \
+        / PEAK_BYTES
+    t_ops = 2.0 * out.numel() / PEAK_F32_FLOPS
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def _check_delta(g, record) -> list:
+    """Each delta case: ``delta.cu``'s kernel (one launch) against
+    ``attention_delta_reference``, within 1e-5 of the largest |delta| (the
+    same fp32 products summed in another order); at the 1B training and
+    splash shapes also timed (launch only) beside the plain version and
+    the bound. No single PyTorch call computes it (an fp32 sum of bf16
+    products into (B, H, S)), so it has no library time."""
+    from ray_tpu_torch.ops import cuda_build
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    results = []
+    for name, (out, do) in _delta_cases(g):
+        before = fa.attention_delta.launches
+        got = fa.attention_delta(out, do)
+        torch.cuda.synchronize()
+        launched = fa.attention_delta.launches - before
+        want = fa.attention_delta_reference(out, do)
+        err = float((got - want).abs().max())
+        tol = 1e-5 * float(want.abs().max())
+        res = {"case": f"delta_{name}",
+               "ok": launched == 1 and got.shape == want.shape
+               and got.is_contiguous() and err <= tol,
+               "max_abs_err": err, "tol": tol}
+        if name in ("train_1b_b4_s2048", "splash_b1_s8192"):
+            launch, _ = fa._delta_launcher(out, do)
+            res["ms"] = _time_ms(launch, iters=50)
+            res["plain_ms"] = _time_ms(
+                lambda: fa.attention_delta_reference(out, do), iters=20)
+            res["bound_ms"], res["bound_by"] = _delta_bound(out)
+        results.append(res)
+        del out, do, got, want
+    torch.cuda.empty_cache()
+    train, splash = results[0], results[1]
+    record["attention_delta"] = {
+        **{k: train[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                 "bound_ms", "bound_by")},
+        "library_ms": None,
+        "at_splash": {k: splash[k] for k in ("ms", "plain_ms", "bound_ms",
+                                             "max_abs_err")},
+        "ptxas": cuda_build_rows(cuda_build, "delta")}
+    return results
 
 
 def _host_ms(fn, iters: int = 20) -> float:
@@ -738,6 +831,7 @@ def phase_kernels(record: dict) -> dict:
 
     results += _check_flash_bwd(g)
     bwd = _time_flash_bwd(g, record)
+    results += _check_delta(g, record)
     ok = all(r["ok"] for r in results)
     return {"ok": ok, "cases": results,
             "timing_shape": prefill["shape"],
@@ -755,9 +849,15 @@ def phase_kernels(record: dict) -> dict:
 # 33,558,528, full 67,108,864; 297,824,256 for the call.
 SPLASH_SHAPE = dict(b=1, s=8192, h=16, hkv=8, d=128)
 SPLASH_PAIRS = 297_824_256
-# Launches of each splash kernel a forward + backward call over the four
-# head groups: the forward and dK/dV once over all groups, dQ per group.
-SPLASH_LAUNCHES = {"splash_fwd": 1, "splash_bwd_dkv": 1, "splash_bwd_dq": 4}
+# Launches of each kernel a splash forward + backward call over the four
+# head groups: each splash kernel once over all groups, after one delta.
+SPLASH_LAUNCHES = {"splash_fwd": 1, "splash_bwd_dkv": 1, "splash_bwd_dq": 1,
+                   "attention_delta": 1}
+# The splash wrappers' host time a forward + backward call when dQ launched
+# once per head group (six kernel-argument sets a call): 0.461 ms, read by
+# this script on an NVIDIA H100 80GB HBM3 at 700 W. The phase prints this
+# run's beside it.
+SPLASH_WRAPPER_HOST_MS_PER_GROUP_DQ = 0.461
 
 
 def _splash_masks():
@@ -856,18 +956,15 @@ def splash_kernels_since(before: dict, device="cuda") -> dict:
             for k, n in splash_kernel_counts(device).items()}
 
 
-def splash_calls_on(by_kernel: dict, calls: int, groups: int, dtype,
-                    device) -> bool:
-    """``calls`` forward + backward splash calls over ``groups`` head
-    groups launched one forward and one dK/dV kernel a call, on wgmma for
-    bf16 and mma.sync for float32, and one dQ kernel a group (off the card
-    nothing launches)."""
+def splash_calls_on(by_kernel: dict, calls: int, dtype, device) -> bool:
+    """``calls`` forward + backward splash calls launched one forward, one
+    dK/dV and one dQ kernel a call, over all their head groups, on wgmma
+    for bf16 and mma.sync for float32 (off the card nothing launches)."""
     if torch.device(device).type != "cuda":
         return True
     route = "wgmma" if dtype == torch.bfloat16 else "mma_sync_f32"
     want = {k: 0 for k in by_kernel}
-    want.update({f"fwd_{route}": calls, f"dkv_{route}": calls,
-                 "dq_mma_sync": calls * groups})
+    want.update({f"{kind}_{route}": calls for kind in ("fwd", "dkv", "dq")})
     return by_kernel == want
 
 
@@ -875,10 +972,11 @@ def _check_splash_cases(g, dev) -> list:
     """Each edge case: the forward kernel's out and lse against the plain
     forward, and the backward kernels' dq, dk, dv against the plain
     backward on the same (out, lse), with the kernels the C entries
-    counted (one forward and one dK/dV launch, on wgmma for bf16, and one
-    dQ launch a head group). Tolerances as the flash checks: out at rtol =
-    atol = 2e-2 in bf16 and 1e-4 in float32, gradients by max |error|
-    relative to the plain gradient's max at the same two."""
+    counted (one forward, one dK/dV and one dQ launch, on wgmma for bf16
+    and mma.sync for float32; ``dq_kernel`` names dQ's). Tolerances as the
+    flash checks: out at rtol = atol = 2e-2 in bf16 and 1e-4 in float32,
+    gradients by max |error| relative to the plain gradient's max at the
+    same two."""
     from ray_tpu_torch.ops import splash_attention as ss
 
     results = []
@@ -904,10 +1002,12 @@ def _check_splash_cases(g, dev) -> list:
         if name.startswith("degenerate_rows"):
             ok = ok and not out[:, 95:].any() and not got[0][:, 95:].any() \
                 and bool((lse[:, :, 95:] == -1e30).all())
-        ok = ok and splash_calls_on(by_kernel, 1, len(ss._group_heads(masks)),
-                                    q.dtype, dev)
+        ok = ok and splash_calls_on(by_kernel, 1, q.dtype, dev)
         results.append({"case": f"splash_{name}", "ok": ok,
                         "route": _route(by_kernel),
+                        "dq_kernel": _route({k_: n for k_, n in
+                                             by_kernel.items()
+                                             if k_.startswith("dq_")}),
                         "max_abs_err_out": errs.pop("out"),
                         "rel_max_abs_err": errs, "tol": tol})
     torch.cuda.empty_cache()
@@ -975,10 +1075,12 @@ def _time_splash(q, k, v, do, masks, keep, errs, record) -> dict:
         ss.splash_backward(q, k, v, o, l_, do, masks)
 
     # Host time a forward + backward call: the C entries alone (one
-    # forward, one dK/dV and four dQ launches) and the whole wrappers
-    # (delta, validation, allocation, the cached schedules' lookup).
+    # launch each) and the whole wrappers (delta, validation, allocation,
+    # the cached schedules' lookup), beside the per-group dQ design's.
     host = {"launch_host_ms": _host_ms(launches),
             "wrapper_host_ms": _host_ms(wrapper),
+            "wrapper_host_ms_per_group_dq":
+                SPLASH_WRAPPER_HOST_MS_PER_GROUP_DQ,
             "fwd_bwd_ms": _time_ms(wrapper, iters=10)}
     heads = _kv_head_slices(q, k)
     plain_fwd_ms = _time_ms(lambda: [ss.splash_attention_reference(
@@ -1024,7 +1126,13 @@ def _time_splash(q, k, v, do, masks, keep, errs, record) -> dict:
                         "plain_ms": plain[name], "bound_ms": bounds[name][0],
                         "bound_by": bounds[name][1], "library_ms": lib[name],
                         "ptxas": [r for r in ptxas if r.startswith(name)]}
+    dq_flops = 6.0 * b * d * head_pairs
     return {"bwd_pair_ms": ms["splash_bwd_dkv"] + ms["splash_bwd_dq"],
+            "dq_ms": ms["splash_bwd_dq"],
+            "dq_bound_ms": bounds["splash_bwd_dq"][0],
+            "dq_tflops": dq_flops / ms["splash_bwd_dq"] / 1e9,
+            "dq_share_of_bound_rate": bounds["splash_bwd_dq"][0]
+            / ms["splash_bwd_dq"],
             **host,
             "library_is": f"SDPA ({backend.name}) with a dense ({h}, S, S) "
                           f"boolean mask, k/v expanded to {h} heads; "
@@ -1145,11 +1253,11 @@ def phase_splash(record: dict, device="cuda", shape=None) -> dict:
     errs.update({n: _rel_err(a, r) for n, a, r in
                  zip(("dq", "dk", "dv"), grads, ref_grads)})
     checks = {
-        # One forward and one dK/dV launch over all four head groups, one
-        # dQ launch a group; bf16, so the first two on wgmma.
-        "launches_1_1_4": counts == {
+        # One forward, one dK/dV and one dQ launch over all four head
+        # groups, after one delta; bf16, so all three on wgmma.
+        "launches_1_1_1": counts == {
             k_: SPLASH_LAUNCHES.get(k_, 0) for k_ in KERNELS},
-        "splash_on_wgmma": splash_calls_on(by_kernel, 1, 4, torch.bfloat16,
+        "splash_on_wgmma": splash_calls_on(by_kernel, 1, torch.bfloat16,
                                            device),
         "out_matches_plain": torch.allclose(out.float(), ref.float(),
                                             rtol=tol, atol=tol),
@@ -1188,6 +1296,7 @@ def phase_splash(record: dict, device="cuda", shape=None) -> dict:
             record[name]["launches_by_kernel"] = {
                 k_: n for k_, n in by_kernel.items() if k_.startswith(prefix)}
         res.update({f"{name}_{key}": val for name in PATH_KERNELS["splash"]
+                    if name.startswith("splash")
                     for key, val in record[name].items()})
         res["device"] = smi_line()
     del q, k, v, do, out, grads, keep
@@ -1466,7 +1575,8 @@ def phase_train(cfg, device="cuda", batch=8, seq=2048, steps=4,
     want = {**{k: 0 for k in KERNELS},
             "flash_fwd": 2 * cfg.n_layers * accum_steps,
             "flash_bwd_dkv": cfg.n_layers * accum_steps,
-            "flash_bwd_dq": cfg.n_layers * accum_steps}
+            "flash_bwd_dq": cfg.n_layers * accum_steps,
+            "attention_delta": cfg.n_layers * accum_steps}
     losses, norms, times, per_step = [], [], [], []
     total = {k: 0 for k in want}
     by_kernel: dict = {}

@@ -7,7 +7,7 @@
 //     over a compacted per-q-tile list of live kv tiles; out in the input
 //     dtype, lse in fp32, out 0 and lse -1e30 for a row nothing live reaches.
 //   * _sbwd_dq_kernel (:311; _sched_call at :415) -> rtt_splash_bwd_dq:
-//     dQ over the same q schedule. P = exp(s - max(lse, -5e29)),
+//     dQ over the same q-major lists. P = exp(s - max(lse, -5e29)),
 //     dS = P (dP - delta) scale, rounded to k's dtype before dS K.
 //   * _sbwd_dkv_kernel (:350; _sched_call at :434) -> rtt_splash_bwd_dkv:
 //     dV += P^T dO (P rounded to dO's dtype) and dK += dS^T Q (dS rounded to
@@ -15,18 +15,18 @@
 //     tiles). The TPU kernel writes fp32 per query head and sums the GQA
 //     group outside; here the group sum happens in the fp32 accumulators and
 //     dK/dV are written once in the input dtype, with no atomics.
-// delta = rowsum(dO * O) comes from a plain PyTorch pre-pass, as in JAX.
+// delta = rowsum(dO * O) comes from the pre-pass kernel of delta.cu.
 //
 // Kernels, chosen by the dtype code and nothing else:
-//   * bfloat16 (the main path): splash_fwd_wgmma_kernel and
-//     splash_bwd_dkv_wgmma_kernel (below), and splash_bwd_dq_kernel
-//     (mma.sync, one launch per head group);
+//   * bfloat16 (the main path): splash_fwd_wgmma_kernel,
+//     splash_bwd_dkv_wgmma_kernel and splash_bwd_dq_wgmma_kernel (below);
 //   * float32 (no main path): splash_fwd_f32_kernel,
-//     splash_bwd_dkv_f32_kernel and splash_bwd_dq_kernel, mma.sync
+//     splash_bwd_dkv_f32_kernel and splash_bwd_dq_f32_kernel, mma.sync
 //     m16n8k16 on bf16 hi + lo operand pairs (x = hi + lo to ~2^-16
 //     relative; hi*hi + hi*lo + lo*hi per product keeps fp32 accuracy),
 //     64 x 64 tiles, 4 warps.
-// The entries count their launches of each (rtt_splash_launches).
+// Each runs ONE launch over all head groups of a call, and the entries
+// count their launches of each kernel (rtt_splash_launches).
 //
 // Masks (the `(code, param)` of splash_attention._kernel_mask): 0 full,
 // 1 causal, 2 local (row >= col and row - col < window), 3 chunked (row >=
@@ -35,29 +35,31 @@
 // is two compares. It runs only on tiles whose schedule `full` flag is 0
 // (the host clears the flag on a ragged last tile); full tiles skip it.
 //
-// The call schedule (splash_attention._call_schedule). The forward and
-// dK/dV kernels run ONE launch over all head groups of a call: block x of
-// the grid takes entry x of the schedule's block order (tile << 16 | head,
-// the q head and q tile for the forward, the kv head and key tile for
-// dK/dV), sorted by live-tile count, heaviest first across all heads and
-// groups, so no heavy block starts in the last wave; grid y is the batch.
-// One int32 buffer holds, from its start:
+// The call schedule (splash_attention._call_schedule). Block x of the grid
+// takes entry x of the schedule's block order (tile << 16 | head: the q
+// head and q tile for the forward and dQ, which walk its q-major side, the
+// kv head and key tile for dK/dV, which walk its transposed side), sorted
+// by live-tile count, heaviest first across all heads and groups, so no
+// heavy block starts in the last wave; grid y is the batch. One int32
+// buffer holds, from its start:
 //   [0, n_blocks)                  the block order;
 //   [n_blocks, n_blocks + heads)   each head's group (heads: H for the
-//                                  forward, Hkv for dK/dV);
+//                                  q-major side, Hkv for the transposed);
 //   then a row of kGroupInts per group: mask code, mask param, and the
 //   offsets into the buffer of the group's tile lists (ids, lens, full)
 //   with their row length, then the group's first head and head count;
 //   then the lists: ids and full flags (n_tiles x row length), lens
 //   (n_tiles), the _Schedule arrays at the kernel's tiles.
-// dQ still launches once per head group over that group's own schedule
-// (Params' kv_ids .. q_order and mask fields), on views of its heads.
+// Each kernel walks the schedule built at its own tiles: the bf16 forward
+// 128 x 128 (q rows x keys), bf16 dQ 128 x 64, dK/dV and every float32
+// kernel 64 x 64.
 //
 // What bounds the bf16 kernels on an H100: the tensor cores. At the splash
 // path's shape (B=1, S=8192, 16 q heads on 8 kv heads, D=128, local /
 // chunked / causal / full heads, 297,824,256 live (q, k) pairs a call) the
-// forward does 4*D flops per live pair (0.154 ms at 989 TFLOP/s) and dK/dV
-// 8*D (0.308 ms) against ~0.1-0.2 GB moved (0.03-0.06 ms at 3.35 TB/s).
+// forward does 4*D flops per live pair (0.154 ms at 989 TFLOP/s), dK/dV
+// 8*D (0.308 ms) and dQ 6*D (0.231 ms) against ~0.1-0.2 GB moved
+// (0.03-0.06 ms at 3.35 TB/s).
 // What the design does (PR 4 and PR 5's flash skeletons, on tile lists):
 //   * Every product runs on wgmma (bf16 in, fp32 accumulate). 384 threads
 //     in three warpgroups: WG0 is the producer (setmaxnreg.dec 40; one
@@ -79,7 +81,16 @@
 //     double-buffered shared slot) and dV += P^T dO; WG2 dP^T = V dO^T,
 //     dS^T and dK += dS^T Q. Each issues its gradient product of q tile i
 //     with its score product of tile i + 1.
+//   * dQ: one block per (128-row q tile, q head); Q and dO loaded once,
+//     the listed 64-key K/V tiles streamed. Each consumer owns 64 rows
+//     (lse and delta in registers, plain loads) and per tile issues S = Q
+//     K^T and dP = dO V^T together (m64n64k16), forms P and dS in
+//     registers, then dQ += dS K (m64n{D}k16, K through the B-transpose
+//     bit): dQ 64 + S 32 + dP 32 = 128 accumulator registers in flight.
 //   * The softmax runs in log2 units: one FMA and one ex2.approx a score.
+//   * A q tile that nothing reaches has a one-tile list, fully masked: it
+//     gets P = 0 and so exactly zero dQ. An empty list (n = 0) issues no
+//     load and waits on no barrier; its rows are stored as zeros.
 //
 // Layout: q/dO/out/dq (B, Sq, H, D), k/v/dk/dv (B, Sk, Hkv, D) or any
 // layout reachable by (batch, seq, head) strides with the head dim
@@ -112,18 +123,11 @@ struct Params {
   void* dq;
   void* dk;
   void* dv;
-  // A head group's q schedule (dQ): (nq, q_len) kv tile ids and full
-  // flags, (nq) lengths, and the order its blocks take q tiles in.
-  const int* kv_ids;
-  const int* kv_lens;
-  const int* kv_full;
-  const int* q_order;
-  const int* sched;  // the call schedule (forward, dK/dV), see above
+  const int* sched;  // one side of the call schedule, see above
   long long B, H, Hkv, Sq, Sk;
   long long q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh;
   long long o_sb, o_ss, o_sh, do_sb, do_ss, do_sh, dq_sb, dq_ss, dq_sh;
   long long dk_sb, dk_ss, dk_sh, lse_sb, lse_sh;
-  long long mask_code, mask_param, q_len;
   long long n_blocks;  // entries of the call schedule's block order
   float scale;
 };
@@ -138,7 +142,7 @@ struct Group {
 };
 
 // Block x's head and tile from the call schedule's order, and its list.
-// `n_heads` is H for the forward's schedule, Hkv for dK/dV's.
+// `n_heads` is H for the q-major side (forward, dQ), Hkv for dK/dV's.
 __device__ __forceinline__ Group block_group(const Params& p, int n_heads,
                                              int& head, int& tile) {
   const int* const s = p.sched;
@@ -222,67 +226,29 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
       : "r"(smem_u32(p)));
 }
 
-template <typename T>
-__device__ __forceinline__ float2 load2(const T* p);
-
-template <>
-__device__ __forceinline__ float2 load2<__nv_bfloat16>(const __nv_bfloat16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
-
-template <>
-__device__ __forceinline__ float2 load2<float>(const float* p) {
-  return *reinterpret_cast<const float2*>(p);
-}
-
-__device__ __forceinline__ void cp_async_16(uint16_t* dst, const void* src,
-                                            bool valid) {
-  const uint32_t d = smem_u32(dst);
-  // src-size 0 zero-fills the 16 destination bytes and reads nothing.
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Stage rows [row0, row0 + 64) of one head of a (seq, D) operand into shared
-// memory as bf16 bits (hi) and, for float32 input, the bf16 residual (lo).
-// Rows past `valid` are zero. bf16 rows are copied with cp.async (the caller
-// commits and waits); float32 rows are converted through registers.
-template <typename T, int D, bool kSplit>
-__device__ __forceinline__ void load_tile(const T* base, long long row_stride,
-                                          int row0, int valid, uint16_t* hi,
+// Stage rows [row0, row0 + 64) of one head of a (seq, D) float32 operand
+// into shared memory as bf16 bits (hi) and the bf16 residual (lo), through
+// registers. Rows past `valid` are zero.
+template <int D>
+__device__ __forceinline__ void load_tile(const float* base,
+                                          long long row_stride, int row0,
+                                          int valid, uint16_t* hi,
                                           uint16_t* lo) {
   constexpr int kLd = D + 8;
-  constexpr int kVec = 16 / sizeof(T);
-  constexpr int kPerRow = D / kVec;
+  constexpr int kPerRow = D / 4;
   for (int idx = threadIdx.x; idx < 64 * kPerRow; idx += kMmaThreads) {
     const int r = idx / kPerRow;
-    const int c = (idx % kPerRow) * kVec;
-    uint16_t* dh = hi + r * kLd + c;
-    if constexpr (kSplit) {
-      uint16_t* dl = lo + r * kLd + c;
-      float4 f = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (r < valid)
-        f = *reinterpret_cast<const float4*>(base + (row0 + r) * row_stride + c);
-      uint2 h, l;
-      h.x = pack_bf16(f.x, f.y);
-      h.y = pack_bf16(f.z, f.w);
-      l.x = pack_bf16(bf16_residual(f.x), bf16_residual(f.y));
-      l.y = pack_bf16(bf16_residual(f.z), bf16_residual(f.w));
-      *reinterpret_cast<uint2*>(dh) = h;
-      *reinterpret_cast<uint2*>(dl) = l;
-    } else {
-      cp_async_16(dh, base + (row0 + (r < valid ? r : 0)) * row_stride + c,
-                  r < valid);
-    }
+    const int c = (idx % kPerRow) * 4;
+    float4 f = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r < valid)
+      f = *reinterpret_cast<const float4*>(base + (row0 + r) * row_stride + c);
+    uint2 h, l;
+    h.x = pack_bf16(f.x, f.y);
+    h.y = pack_bf16(f.z, f.w);
+    l.x = pack_bf16(bf16_residual(f.x), bf16_residual(f.y));
+    l.y = pack_bf16(bf16_residual(f.z), bf16_residual(f.w));
+    *reinterpret_cast<uint2*>(hi + r * kLd + c) = h;
+    *reinterpret_cast<uint2*>(lo + r * kLd + c) = l;
   }
 }
 
@@ -375,18 +341,6 @@ __device__ __forceinline__ void mma_c_kd(float (&acc)[D / 8][4],
   }
 }
 
-// Resident blocks per SM to budget registers for (dQ): 2 for bf16 (its
-// fp32 accumulators need ~200 registers); the float32 route needs more
-// registers for its hi/lo operands and takes what it needs.
-template <typename T, int kBf16Blocks>
-struct MinBlocks {
-  static constexpr int value = kBf16Blocks;
-};
-template <int kBf16Blocks>
-struct MinBlocks<float, kBf16Blocks> {
-  static constexpr int value = 1;
-};
-
 template <int D>
 constexpr size_t tile_bytes() {
   return (size_t)64 * (D + 8) * sizeof(uint16_t);
@@ -447,7 +401,7 @@ __global__ void __launch_bounds__(kMmaThreads, 1)
       const int rr = row[r & 1];
       const int col = ks * 16 + tg * 2 + (r >> 1) * 8;
       float2 x = make_float2(0.f, 0.f);
-      if (rr < Sq) x = load2<T>(Q + rr * p.q_ss + col);
+      if (rr < Sq) x = *reinterpret_cast<const float2*>(Q + rr * p.q_ss + col);
       qh[ks][r] = pack_bf16(x.x, x.y);
       if constexpr (kSplit)
         ql[ks][r] = pack_bf16(bf16_residual(x.x), bf16_residual(x.y));
@@ -473,28 +427,22 @@ __global__ void __launch_bounds__(kMmaThreads, 1)
     const int kv0 = ids[t] * kBN;
     const int valid = min(kBN, Sk - kv0);
     uint16_t* base = smem + st * kStage;
-    load_tile<T, D, kSplit>(K, p.k_ss, kv0, valid, base, base + 2 * kTile);
-    load_tile<T, D, kSplit>(V, p.v_ss, kv0, valid, base + kTile,
-                            base + 3 * kTile);
-    cp_async_commit();
+    load_tile<D>(K, p.k_ss, kv0, valid, base, base + 2 * kTile);
+    load_tile<D>(V, p.v_ss, kv0, valid, base + kTile, base + 3 * kTile);
   };
 
-  // Two-stage pipeline: tile t + 1 is in flight while tile t is computed.
+  // Two stages: tile t + 1 is staged before tile t is computed.
   if (n_tiles > 0) fetch(0, 0);
   for (int t = 0; t < n_tiles; ++t) {
     const int st = t & 1;
     const int kv0 = ids[t] * kBN;
     const bool need_mask = full[t] == 0;
-    if (t + 1 < n_tiles) {
-      fetch(t + 1, st ^ 1);  // its stage was released by the last barrier
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
+    // Tile t + 1 into the other stage, released by the last barrier.
+    if (t + 1 < n_tiles) fetch(t + 1, st ^ 1);
     __syncthreads();
     const uint16_t* Kh = smem + st * kStage;
     const uint16_t* Vh = Kh + kTile;
-    const uint16_t* Kl = Kh + 2 * kTile;  // float32 input only
+    const uint16_t* Kl = Kh + 2 * kTile;
     const uint16_t* Vl = Kh + 3 * kTile;
 
     // S = Q K^T (fp32 accumulate in registers). One ldmatrix.x4 brings
@@ -579,7 +527,6 @@ __global__ void __launch_bounds__(kMmaThreads, 1)
     mma_c_kd<kBN / 16, D, kLd, kSplit>(o, s, Vh, Vl, 0);
     __syncthreads();  // stage st may be refilled by the next fetch
   }
-  cp_async_wait<0>();
 
   // Finalize: reduce the partial sums over the quad, normalize, write.
   T* out = static_cast<T*>(p.out) + b * p.o_sb + h * p.o_sh;
@@ -650,9 +597,8 @@ __global__ void __launch_bounds__(kMmaThreads, 1)
 
   const T* K = static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh;
   const T* V = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh;
-  load_tile<T, D, kSplit>(K, p.k_ss, k0, min(kBN, Sk - k0), sK, sK + kTile);
-  load_tile<T, D, kSplit>(V, p.v_ss, k0, min(kBN, Sk - k0), sV, sV + kTile);
-  cp_async_commit();
+  load_tile<D>(K, p.k_ss, k0, min(kBN, Sk - k0), sK, sK + kTile);
+  load_tile<D>(V, p.v_ss, k0, min(kBN, Sk - k0), sV, sV + kTile);
 
   // This kv tile's q tile list, walked once per query head of the group.
   const int* ids = grp.ids;
@@ -669,9 +615,8 @@ __global__ void __launch_bounds__(kMmaThreads, 1)
     const T* Q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
     const T* DO = static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh;
     uint16_t* base = sQD + st * kStage;
-    load_tile<T, D, kSplit>(Q, p.q_ss, r0, valid, base, base + 2 * kTile);
-    load_tile<T, D, kSplit>(DO, p.do_ss, r0, valid, base + kTile,
-                            base + 3 * kTile);
+    load_tile<D>(Q, p.q_ss, r0, valid, base, base + 2 * kTile);
+    load_tile<D>(DO, p.do_ss, r0, valid, base + kTile, base + 3 * kTile);
     const long long bh = b * p.lse_sb + h * p.lse_sh;
     for (int i = threadIdx.x; i < kBM; i += kMmaThreads) {
       float l2 = 0.f, dd = 0.f;
@@ -682,7 +627,6 @@ __global__ void __launch_bounds__(kMmaThreads, 1)
       s_lse[st * kBM + i] = l2;
       s_dd[st * kBM + i] = dd;
     }
-    cp_async_commit();
   };
 
   float dk[kDT][4], dv[kDT][4];
@@ -698,16 +642,12 @@ __global__ void __launch_bounds__(kMmaThreads, 1)
     const int st = it & 1;
     const int r0 = ids[it % n_qt] * kBM;
     const bool need_mask = full[it % n_qt] == 0;
-    if (it + 1 < n_it) {
-      fetch(it + 1, st ^ 1);  // its stage was released by the last barrier
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
+    // Tile it + 1 into the other stage, released by the last barrier.
+    if (it + 1 < n_it) fetch(it + 1, st ^ 1);
     __syncthreads();
     const uint16_t* Qh = sQD + st * kStage;
     const uint16_t* DOh = Qh + kTile;
-    const uint16_t* Ql = Qh + 2 * kTile;  // float32 input only
+    const uint16_t* Ql = Qh + 2 * kTile;
     const uint16_t* DOl = Qh + 3 * kTile;
     const float* lse_s = s_lse + st * kBM;
     const float* dd_s = s_dd + st * kBM;
@@ -747,7 +687,6 @@ __global__ void __launch_bounds__(kMmaThreads, 1)
     }
     __syncthreads();  // stage st may be refilled by the next fetch
   }
-  cp_async_wait<0>();  // the K/V copies, when no q tile was visited
 
   T* DK = static_cast<T*>(p.dk) + b * p.dk_sb + hk * p.dk_sh;
   T* DV = static_cast<T*>(p.dv) + b * p.dk_sb + hk * p.dk_sh;
@@ -763,18 +702,21 @@ __global__ void __launch_bounds__(kMmaThreads, 1)
   }
 }
 
-// ------------------------------------------------- dQ (mma.sync)
+// ------------------------------------------------- float32 dQ
 
 // Q and dO (hi, lo), two stages of K and V (hi, lo).
-template <bool kSplit, int D>
+template <int D>
 constexpr size_t dq_smem_bytes() {
-  return (kSplit ? 4 : 2) * tile_bytes<D>() * 3;
+  return 4 * tile_bytes<D>() * 3;
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kMmaThreads, (MinBlocks<T, 2>::value))
-    splash_bwd_dq_kernel(const Params p) {
-  constexpr bool kSplit = std::is_same<T, float>::value;
+// float32 only, one launch over all head groups: block x takes entry x of
+// the call schedule's order (q head, 64-row q tile), batch blockIdx.y.
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads, 1)
+    splash_bwd_dq_f32_kernel(const Params p) {
+  using T = float;
+  constexpr bool kSplit = true;
   constexpr int kLd = D + 8;
   constexpr int kKS = D / 16;
   constexpr int kNT = kBN / 8;
@@ -787,9 +729,9 @@ __global__ void __launch_bounds__(kMmaThreads, (MinBlocks<T, 2>::value))
   uint16_t* const sDO = sQ + kParts * kTile;                     // hi, lo
   uint16_t* const sKV = sDO + kParts * kTile;  // stages of [K, V] (hi, lo)
 
-  const int qtile = p.q_order[blockIdx.x];  // most live tiles first
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+  int h, qtile;  // most live tiles first
+  const Group grp = block_group(p, (int)p.H, h, qtile);
+  const int b = blockIdx.y;
   const int hk = h / (int)(p.H / p.Hkv);
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -800,17 +742,15 @@ __global__ void __launch_bounds__(kMmaThreads, (MinBlocks<T, 2>::value))
   const int r0 = qtile * kBM;
   const int row[2] = {r0 + warp * 16 + g, r0 + warp * 16 + g + 8};
   int lo[2], hi[2];
-  key_range(p.mask_code, p.mask_param, p.Sk, row[0], lo[0], hi[0]);
-  key_range(p.mask_code, p.mask_param, p.Sk, row[1], lo[1], hi[1]);
+  key_range(grp.code, grp.param, p.Sk, row[0], lo[0], hi[0]);
+  key_range(grp.code, grp.param, p.Sk, row[1], lo[1], hi[1]);
 
   const T* Q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
   const T* DO = static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh;
   const T* K = static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh;
   const T* V = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh;
-  load_tile<T, D, kSplit>(Q, p.q_ss, r0, min(kBM, Sq - r0), sQ, sQ + kTile);
-  load_tile<T, D, kSplit>(DO, p.do_ss, r0, min(kBM, Sq - r0), sDO,
-                          sDO + kTile);
-  cp_async_commit();
+  load_tile<D>(Q, p.q_ss, r0, min(kBM, Sq - r0), sQ, sQ + kTile);
+  load_tile<D>(DO, p.do_ss, r0, min(kBM, Sq - r0), sDO, sDO + kTile);
 
   float lse2[2] = {0.f, 0.f}, dd[2] = {0.f, 0.f};
   const long long bh = b * p.lse_sb + h * p.lse_sh;
@@ -826,17 +766,15 @@ __global__ void __launch_bounds__(kMmaThreads, (MinBlocks<T, 2>::value))
   for (int i = 0; i < kDT; ++i) dq[i][0] = dq[i][1] = dq[i][2] = dq[i][3] = 0.f;
 
   const float scale_log2 = p.scale * kLog2e;
-  const int* ids = p.kv_ids + qtile * p.q_len;
-  const int* full = p.kv_full + qtile * p.q_len;
-  const int n_tiles = p.kv_lens[qtile];
+  const int* ids = grp.ids;
+  const int* full = grp.full;
+  const int n_tiles = grp.n;
   auto fetch = [&](int t, int st) {
     const int kv0 = ids[t] * kBN;
     const int valid = min(kBN, Sk - kv0);
     uint16_t* base = sKV + st * kStage;
-    load_tile<T, D, kSplit>(K, p.k_ss, kv0, valid, base, base + 2 * kTile);
-    load_tile<T, D, kSplit>(V, p.v_ss, kv0, valid, base + kTile,
-                            base + 3 * kTile);
-    cp_async_commit();
+    load_tile<D>(K, p.k_ss, kv0, valid, base, base + 2 * kTile);
+    load_tile<D>(V, p.v_ss, kv0, valid, base + kTile, base + 3 * kTile);
   };
 
   if (n_tiles > 0) fetch(0, 0);
@@ -844,16 +782,11 @@ __global__ void __launch_bounds__(kMmaThreads, (MinBlocks<T, 2>::value))
     const int st = t & 1;
     const int kv0 = ids[t] * kBN;
     const bool need_mask = full[t] == 0;
-    if (t + 1 < n_tiles) {
-      fetch(t + 1, st ^ 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
+    if (t + 1 < n_tiles) fetch(t + 1, st ^ 1);
     __syncthreads();
     const uint16_t* Kh = sKV + st * kStage;
     const uint16_t* Vh = Kh + kTile;
-    const uint16_t* Kl = Kh + 2 * kTile;  // float32 input only
+    const uint16_t* Kl = Kh + 2 * kTile;
     const uint16_t* Vl = Kh + 3 * kTile;
 
     float s[kNT][4], dp[kNT][4];
@@ -882,7 +815,6 @@ __global__ void __launch_bounds__(kMmaThreads, (MinBlocks<T, 2>::value))
     mma_c_kd<kBN / 16, D, kLd, kSplit>(dq, s, Kh, Kl, 0);
     __syncthreads();  // stage st may be refilled by the next fetch
   }
-  cp_async_wait<0>();  // the Q/dO copies, when no kv tile was visited
 
   T* out = static_cast<T*>(p.dq) + b * p.dq_sb + h * p.dq_sh;
 #pragma unroll
@@ -1404,6 +1336,189 @@ __global__ void __launch_bounds__(kThreads, 1)
   store_rows(out, p.dk_ss, key, (int)p.Sk, tg, acc);
 }
 
+// ---------------------------------------------------------- bf16 dQ
+
+constexpr int kDqRows = 128;                   // q rows of a q tile
+constexpr int kDqKeys = 64;                    // keys of a streamed kv tile
+constexpr int kDqBoxQ = kDqRows * kRowBytes;   // a (64 col, 128 row) box
+constexpr int kDqBoxKv = kDqKeys * kRowBytes;  // a (64 col, 64 row) box
+
+// Shared memory of the dQ kernel, as byte offsets from a 1024-byte aligned
+// base: Q and dO (D / 64 boxes of 128 rows each), kStages of K and of V
+// (D / 64 boxes of 64 rows), barriers.
+template <int D>
+struct DqSmem {
+  static constexpr int kQBytes = kDqRows * D * 2;
+  static constexpr int kKvBytes = kDqKeys * D * 2;
+  static constexpr int q = 0;
+  static constexpr int dout = q + kQBytes;
+  static constexpr int k = dout + kQBytes;
+  static constexpr int v = k + kStages * kKvBytes;
+  static constexpr int bar = v + kStages * kKvBytes;  // qd_full, kv_full[],
+  static constexpr int total = bar + (1 + 2 * kStages) * 8;  // empty[]
+};
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    splash_bwd_dq_wgmma_kernel(const __grid_constant__ Params p,
+                               const __grid_constant__ CUtensorMap tq,
+                               const __grid_constant__ CUtensorMap tdo,
+                               const __grid_constant__ CUtensorMap tk,
+                               const __grid_constant__ CUtensorMap tv) {
+  using L = DqSmem<D>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* const smem =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* const qd_full = reinterpret_cast<uint64_t*>(smem + L::bar);
+  uint64_t* const kv_full = qd_full + 1;
+  uint64_t* const empty = kv_full + kStages;
+
+  int h, qtile;  // heaviest first across all heads and groups
+  const Group grp = block_group(p, (int)p.H, h, qtile);
+  const int b = blockIdx.y;
+  const int r0 = qtile * kDqRows;
+  const int n_tiles = grp.n;
+
+  if (threadIdx.x == 0) {
+    mbar_init(qd_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(kv_full + s, 1);
+      mbar_init(empty + s, 2 * kWg);  // every consumer thread arrives
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // Warp-uniform as far as the compiler can tell (a shuffle from lane 0),
+  // so each branch's setmaxnreg governs the registers of all its code.
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / kWg, 0);
+  if (wg == 0) {
+    // Producer: one thread issues every load, the kv tiles from the list.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (threadIdx.x != 0 || n_tiles == 0) return;
+    const int hk = h / (int)(p.H / p.Hkv);
+    mbar_expect_tx(qd_full, 2 * L::kQBytes);
+#pragma unroll
+    for (int c = 0; c < D / 64; ++c) {
+      tma_load_4d(smem + L::q + c * kDqBoxQ, &tq, qd_full, c * 64, r0, h, b);
+      tma_load_4d(smem + L::dout + c * kDqBoxQ, &tdo, qd_full, c * 64, r0, h,
+                  b);
+    }
+    for (int t = 0; t < n_tiles; ++t) {
+      const int st = t % kStages;
+      const int kv0 = grp.ids[t] * kDqKeys;
+      mbar_wait(empty + st, ((t / kStages) & 1) ^ 1);  // round 0 passes
+      mbar_expect_tx(kv_full + st, 2 * L::kKvBytes);
+#pragma unroll
+      for (int c = 0; c < D / 64; ++c) {
+        tma_load_4d(smem + L::k + st * L::kKvBytes + c * kDqBoxKv, &tk,
+                    kv_full + st, c * 64, kv0, hk, b);
+        tma_load_4d(smem + L::v + st * L::kKvBytes + c * kDqBoxKv, &tv,
+                    kv_full + st, c * 64, kv0, hk, b);
+      }
+    }
+    return;
+  }
+
+  // Consumers: warpgroup c owns q rows [64c, 64c + 64) of the tile.
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+  const int c = wg - 1;
+  const int tid = threadIdx.x - wg * kWg;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;  // row within the warp's 16 (and +8)
+  const int tg = lane & 3;  // column pair within an 8-wide tile
+  const int row[2] = {r0 + 64 * c + warp * 16 + g,
+                      r0 + 64 * c + warp * 16 + g + 8};
+  // Each row's keys [klo, khi) under the group's mask, less 2tg, and its
+  // lse (log2 units, floored at -5e29) and delta; rows past Sq are never
+  // stored.
+  int klo[2], khi[2];
+  float lse2[2] = {0.f, 0.f}, dd[2] = {0.f, 0.f};
+  const long long bh = b * p.lse_sb + h * p.lse_sh;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    key_range(grp.code, grp.param, p.Sk, row[r], klo[r], khi[r]);
+    klo[r] -= 2 * tg;
+    khi[r] += 1 - 2 * tg;
+    if (row[r] >= p.Sq) continue;
+    lse2[r] = fmaxf(p.lse[bh + row[r]], kNegInf / 2) * kLog2e;
+    dd[r] = p.delta[bh + row[r]];
+  }
+  const float scale_log2 = p.scale * kLog2e;
+
+  float dq[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+  float s[32], dp[32];  // S and dP of tile t; S becomes P, then dS
+  uint32_t da[16];      // dS of tile t, bf16: dQ's A operand
+  const uint32_t q_base = smem_u32(smem + L::q) + c * 64 * kRowBytes;
+  const uint32_t do_base = smem_u32(smem + L::dout) + c * 64 * kRowBytes;
+  const uint32_t k_base = smem_u32(smem + L::k);
+  const uint32_t v_base = smem_u32(smem + L::v);
+
+  auto wait_all = [&] {
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dq);
+    fence_regs(s);
+    fence_regs(dp);
+  };
+  // S(t) = Q K(t)^T, once tile t has landed.
+  auto issue_s = [&](int t) {
+    const int st = t % kStages;
+    mbar_wait(kv_full + st, (t / kStages) & 1);
+    ss_product<D>(s, q_base, kDqBoxQ, k_base + st * L::kKvBytes, kDqBoxKv);
+  };
+  // dP(t) = dO V(t)^T.
+  auto issue_dp = [&](int t) {
+    ss_product<D>(dp, do_base, kDqBoxQ, v_base + (t % kStages) * L::kKvBytes,
+                  kDqBoxKv);
+  };
+  // dQ += dS(t) K(t).
+  auto issue_dq = [&](int t) {
+    rs_product<D>(dq, da, k_base + (t % kStages) * L::kKvBytes);
+  };
+  // P(t) in s from the scores, masked where the tile is not full.
+  auto form_p = [&](int t) {
+    const int kv0 = grp.ids[t] * kDqKeys;
+    const int lo[2] = {klo[0] - kv0, klo[1] - kv0};
+    const int hi[2] = {khi[0] - kv0, khi[1] - kv0};
+    const float f = mask_range(s, grp.full[t] == 0, lo, hi, scale_log2);
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      s[i] = fast_exp2(fmaf(s[i], f, -lse2[(i >> 1) & 1]));
+  };
+  // dS(t) = P (dP - delta) scale, rounded to bf16 into da.
+  auto form_ds = [&] {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int r = (i >> 1) & 1;
+      s[i] = s[i] * (dp[i] - dd[r]) * p.scale;
+    }
+    pack_a(da, s);
+  };
+
+  // Per listed kv tile: S(t) and dP(t) issued together and waited for, P
+  // and dS in registers, then dQ += dS(t) K(t), waited for before the
+  // stage is released.
+  if (n_tiles > 0) mbar_wait(qd_full, 0);
+  for (int t = 0; t < n_tiles; ++t) {
+    wgmma_fence();
+    issue_s(t);
+    issue_dp(t);
+    wait_all();
+    form_p(t);
+    form_ds();
+    wgmma_fence();
+    issue_dq(t);
+    wait_all();
+    mbar_arrive(empty + t % kStages);  // this stage may be refilled
+  }
+  store_rows(static_cast<__nv_bfloat16*>(p.dq) + b * p.dq_sb + h * p.dq_sh,
+             p.dq_ss, row, (int)p.Sq, tg, dq);
+}
+
 // ---------------------------------------------------------------- host
 
 // Launches of each kernel behind the three entries since the library was
@@ -1414,8 +1529,9 @@ enum {
   kFwdF32 = 1,
   kDkvWgmma = 2,
   kDkvF32 = 3,
-  kDqMmaSync = 4,
-  kKernels = 5
+  kDqWgmma = 4,
+  kDqF32 = 5,
+  kKernels = 6
 };
 std::atomic<long long> g_launches[kKernels];
 
@@ -1504,26 +1620,46 @@ int launch_dkv_f32(const Params& p, cudaStream_t stream) {
   return counted_launch(kDkvF32);
 }
 
-// dQ: one head group's launch, one block per (64-row q tile, q head, batch)
-// of that group, its q tiles in the order q_order gives (most work first).
-template <typename T, int D>
-int launch_dq(const Params& p, cudaStream_t stream) {
-  constexpr size_t smem = dq_smem_bytes<std::is_same<T, float>::value, D>();
-  static const cudaError_t attr = set_smem(splash_bwd_dq_kernel<T, D>, smem);
+template <int D>
+int launch_dq_wgmma(const Params& p, cudaStream_t stream) {
+  CUtensorMap tq, tdo, tk, tv;
+  int e = encode_4d(&tq, p.q, D, p.Sq, p.H, p.B, p.q_ss, p.q_sh, p.q_sb,
+                    kDqRows);
+  if (!e)
+    e = encode_4d(&tdo, p.dout, D, p.Sq, p.H, p.B, p.do_ss, p.do_sh, p.do_sb,
+                  kDqRows);
+  if (!e)
+    e = encode_4d(&tk, p.k, D, p.Sk, p.Hkv, p.B, p.k_ss, p.k_sh, p.k_sb,
+                  kDqKeys);
+  if (!e)
+    e = encode_4d(&tv, p.v, D, p.Sk, p.Hkv, p.B, p.v_ss, p.v_sh, p.v_sb,
+                  kDqKeys);
+  if (e) return e;
+  constexpr int smem = DqSmem<D>::total + 1024;  // + alignment slack
+  static const cudaError_t attr =
+      set_smem(splash_bwd_dq_wgmma_kernel<D>, smem);
   if (attr != cudaSuccess) return (int)attr;
-  const dim3 grid((unsigned)((p.Sq + kBM - 1) / kBM), (unsigned)p.H,
-                  (unsigned)p.B);
-  splash_bwd_dq_kernel<T, D><<<grid, kMmaThreads, smem, stream>>>(p);
-  return counted_launch(kDqMmaSync);
+  splash_bwd_dq_wgmma_kernel<D><<<call_grid(p), kThreads, smem, stream>>>(
+      p, tq, tdo, tk, tv);
+  return counted_launch(kDqWgmma);
 }
 
-// ptrs: q, k, v, out, lse, do, delta, dq, dk, dv, kv_ids, kv_lens, kv_full,
-//       q_order, sched (null where unused).
+template <int D>
+int launch_dq_f32(const Params& p, cudaStream_t stream) {
+  constexpr size_t smem = dq_smem_bytes<D>();
+  static const cudaError_t attr = set_smem(splash_bwd_dq_f32_kernel<D>, smem);
+  if (attr != cudaSuccess) return (int)attr;
+  splash_bwd_dq_f32_kernel<D><<<call_grid(p), kMmaThreads, smem, stream>>>(p);
+  return counted_launch(kDqF32);
+}
+
+// ptrs: q, k, v, out, lse, do, delta, dq, dk, dv, sched (null where
+//       unused).
 // ints: dtype (0 bf16, 1 f32), B, H, Hkv, Sq, Sk, D,
 //       q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
 //       o_sb, o_ss, o_sh, do_sb, do_ss, do_sh, dq_sb, dq_ss, dq_sh,
 //       dk_sb, dk_ss, dk_sh (dv has dk's strides), lse_sb, lse_sh (delta
-//       has lse's strides), mask code, mask param, q_len, n_blocks.
+//       has lse's strides), n_blocks.
 Params parse(void* const* ptrs, const long long* ints, float scale) {
   Params p;
   p.q = ptrs[0];
@@ -1536,32 +1672,29 @@ Params parse(void* const* ptrs, const long long* ints, float scale) {
   p.dq = ptrs[7];
   p.dk = ptrs[8];
   p.dv = ptrs[9];
-  const int** const sched[5] = {&p.kv_ids, &p.kv_lens, &p.kv_full,
-                                &p.q_order, &p.sched};
-  for (int i = 0; i < 5; ++i) *sched[i] = static_cast<const int*>(ptrs[10 + i]);
+  p.sched = static_cast<const int*>(ptrs[10]);
   p.B = ints[1];
   p.H = ints[2];
   p.Hkv = ints[3];
   p.Sq = ints[4];
   p.Sk = ints[5];
-  long long* const rest[27] = {
-      &p.q_sb,  &p.q_ss,  &p.q_sh,  &p.k_sb,      &p.k_ss,     &p.k_sh,
-      &p.v_sb,  &p.v_ss,  &p.v_sh,  &p.o_sb,      &p.o_ss,     &p.o_sh,
-      &p.do_sb, &p.do_ss, &p.do_sh, &p.dq_sb,     &p.dq_ss,    &p.dq_sh,
-      &p.dk_sb, &p.dk_ss, &p.dk_sh, &p.lse_sb,    &p.lse_sh,   &p.mask_code,
-      &p.mask_param, &p.q_len, &p.n_blocks};
-  for (int i = 0; i < 27; ++i) *rest[i] = ints[7 + i];
+  long long* const rest[24] = {
+      &p.q_sb,  &p.q_ss,  &p.q_sh,  &p.k_sb,  &p.k_ss,  &p.k_sh,
+      &p.v_sb,  &p.v_ss,  &p.v_sh,  &p.o_sb,  &p.o_ss,  &p.o_sh,
+      &p.do_sb, &p.do_ss, &p.do_sh, &p.dq_sb, &p.dq_ss, &p.dq_sh,
+      &p.dk_sb, &p.dk_ss, &p.dk_sh, &p.lse_sb, &p.lse_sh, &p.n_blocks};
+  for (int i = 0; i < 24; ++i) *rest[i] = ints[7 + i];
   p.scale = scale;
   return p;
 }
 
 }  // namespace
 
-// The three entries take the same arguments (see `parse`). The forward and
-// dK/dV entries launch once over all head groups from the call schedule
-// (`sched`, `n_blocks`); dQ launches over one head group's schedule. Each
-// returns the cudaError_t of the launch (0 on success), or kEncodeError
-// (10000) + the CUresult of a tensor map that could not be made.
+// The three entries take the same arguments (see `parse`) and launch once
+// over all head groups from the call schedule (`sched`, `n_blocks`; a null
+// schedule is refused). Each returns the cudaError_t of the launch (0 on
+// success), or kEncodeError (10000) + the CUresult of a tensor map that
+// could not be made.
 extern "C" int rtt_splash_fwd(void* const* ptrs, const long long* ints,
                               float scale, void* stream) {
   const Params p = parse(ptrs, ints, scale);
@@ -1593,16 +1726,18 @@ extern "C" int rtt_splash_bwd_dq(void* const* ptrs, const long long* ints,
   const Params p = parse(ptrs, ints, scale);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const long long dtype = ints[0], D = ints[6];
-  if (dtype == 0 && D == 128) return launch_dq<__nv_bfloat16, 128>(p, st);
-  if (dtype == 0 && D == 64) return launch_dq<__nv_bfloat16, 64>(p, st);
-  if (dtype == 1 && D == 128) return launch_dq<float, 128>(p, st);
-  if (dtype == 1 && D == 64) return launch_dq<float, 64>(p, st);
+  if (p.sched == nullptr) return (int)cudaErrorInvalidValue;
+  if (dtype == 0 && D == 128) return launch_dq_wgmma<128>(p, st);
+  if (dtype == 0 && D == 64) return launch_dq_wgmma<64>(p, st);
+  if (dtype == 1 && D == 128) return launch_dq_f32<128>(p, st);
+  if (dtype == 1 && D == 64) return launch_dq_f32<64>(p, st);
   return (int)cudaErrorInvalidValue;
 }
 
 // The launches the three entries have made of each kernel since the
 // library was loaded: out[0] forward wgmma, out[1] forward mma.sync f32,
-// out[2] dK/dV wgmma, out[3] dK/dV mma.sync f32, out[4] dQ mma.sync.
+// out[2] dK/dV wgmma, out[3] dK/dV mma.sync f32, out[4] dQ wgmma, out[5]
+// dQ mma.sync f32.
 extern "C" void rtt_splash_launches(long long* out) {
   for (int i = 0; i < kKernels; ++i) out[i] = g_launches[i].load();
 }

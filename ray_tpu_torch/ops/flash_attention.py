@@ -12,8 +12,11 @@ two kernels of ``ops/csrc/flash_bwd.cu`` (``_bwd_dkv_kernel`` then
 float32 to their mma.sync kernels, and ``backward_kernel_launches`` reads
 which they launched), or raises; on a CPU tensor both directions run the
 plain PyTorch versions,
-``flash_attention_reference`` and ``flash_backward_reference``. Nothing
-else is on either path.
+``flash_attention_reference`` and ``flash_backward_reference``. The
+backward's pre-pass ``attention_delta`` (delta = rowsum(dO∘O), shared
+with splash) launches ``ops/csrc/delta.cu`` on a CUDA tensor and runs
+``attention_delta_reference`` on a CPU tensor. Nothing else is on either
+path.
 """
 
 from __future__ import annotations
@@ -94,10 +97,11 @@ def _keep_mask(sq, sk, causal, q_offset, window, seg_q, seg_k, device):
     return keep
 
 
-def attention_delta(out: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
-    """delta = rowsum(dO * O) in fp32, (B, S, H, D) -> (B, H, S): the
-    elementwise pre-pass of both backward kernels (plain PyTorch, as the
-    JAX package leaves it to XLA)."""
+def attention_delta_reference(out: torch.Tensor,
+                              do: torch.Tensor) -> torch.Tensor:
+    """delta = rowsum(dO * O) in fp32, (B, S, H, D) -> (B, H, S)
+    contiguous: the plain version of the backward kernels' pre-pass (the
+    JAX package's expression, which it leaves to XLA)."""
     return (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
 
 
@@ -140,7 +144,7 @@ def _reference_backward(q, k, v, out, lse, do, dlse, scale, mask_scores
     dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), vr.float())
     if dlse is not None:
         dp = dp + dlse.float()[..., None]
-    ds = p * (dp - attention_delta(out, do)[..., None]) * scale
+    ds = p * (dp - attention_delta_reference(out, do)[..., None]) * scale
     dk = torch.einsum("bhqk,bqhd->bkhd", ds.to(q.dtype).float(), q.float())
     dq = torch.einsum("bhqk,bkhd->bqhd", ds.to(k.dtype).float(), kr.float())
     dk = dk.view(b, sk, hkv, group, d).sum(3)
@@ -327,19 +331,76 @@ def _kernel_backward(q, k, v, do, lse, delta, dlse, seg_q, seg_k, scale,
     return grads
 
 
-def _library(kernel: str, entry: str, csrc=None):
+# The attention entries' C signature: (ptrs, ints, scale, stream).
+_ENTRY_ARGTYPES = [ctypes.POINTER(ctypes.c_void_p),
+                   ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
+                   ctypes.c_void_p]
+
+
+def _library(kernel: str, entry: str, csrc=None, argtypes=None):
     """``entry`` of the built library of ``kernel`` (from ``ops/csrc``
     unless ``csrc`` names another source directory, as an A/B timing of
-    two versions does), with its ctypes signature set."""
+    two versions does), with its ctypes signature set (``argtypes``, by
+    default the attention entries')."""
     from ray_tpu_torch.ops import cuda_build
 
     fn = getattr(cuda_build.load(kernel, csrc or cuda_build.CSRC), entry)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.POINTER(ctypes.c_void_p),
-                       ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
-                       ctypes.c_void_p]
+        fn.argtypes = argtypes or _ENTRY_ARGTYPES
         fn.restype = ctypes.c_int
     return fn
+
+
+def _delta_launcher(out, do, csrc=None):
+    """Validate and allocate for ``delta.cu``'s ``rtt_attention_delta`` on
+    (B, S, H, D) CUDA tensors of one dtype (bf16 or float32), any D and
+    any strides. Returns ``(launch, delta)``: ``launch()`` launches the
+    kernel into the (B, H, S) fp32 ``delta`` (a timing calls it alone)."""
+    if out.dim() != 4 or do.shape != out.shape:
+        raise ValueError(f"do {tuple(do.shape)} does not match out "
+                         f"{tuple(out.shape)} (B, S, H, D)")
+    if out.dtype not in _DTYPE_CODES or do.dtype != out.dtype:
+        raise ValueError(f"attention_delta takes bfloat16 or float32 out "
+                         f"and do of one dtype, not {out.dtype} and "
+                         f"{do.dtype}")
+    if do.device != out.device:
+        raise ValueError(f"do is on {do.device}, out on {out.device}")
+    b, s, h, d = out.shape
+    fn = _library("delta", "rtt_attention_delta", csrc,
+                  [ctypes.POINTER(ctypes.c_void_p),
+                   ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p])
+    delta = torch.empty((b, h, s), dtype=torch.float32, device=out.device)
+    ptrs = (ctypes.c_void_p * 3)(out.data_ptr(), do.data_ptr(),
+                                 delta.data_ptr())
+    ints = (ctypes.c_longlong * 13)(_DTYPE_CODES[out.dtype], b, s, h, d,
+                                    *out.stride(), *do.stride())
+    stream = torch.cuda.current_stream(out.device).cuda_stream
+
+    def launch() -> None:
+        err = fn(ptrs, ints, stream)
+        if err:
+            raise RuntimeError(f"attention_delta launch failed: cudaError "
+                               f"{err}")
+        attention_delta.launches += 1
+
+    launch.keep = delta  # alive while launches may run
+    return launch, delta
+
+
+def attention_delta(out: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """delta = rowsum(dO * O) in fp32, (B, S, H, D) -> (B, H, S)
+    contiguous: the pre-pass of both backward kernels, dispatched on the
+    tensors' device: ``delta.cu``'s kernel for CUDA tensors (or it
+    raises), ``attention_delta_reference`` for CPU tensors."""
+    if _device_kind(out, "attention_delta") == "cpu":
+        return attention_delta_reference(out, do)
+    launch, delta = _delta_launcher(out, do)
+    if delta.numel():
+        launch()
+    return delta
+
+
+attention_delta.launches = 0  # delta kernel launches (CUDA tensors only)
 
 
 def _kernel_launches(kernel: str, names, csrc=None) -> dict:
@@ -411,9 +472,10 @@ def flash_backward(q, k, v, out, lse, do, dlse=None, causal=True,
     """``(dq, dk, dv)`` on (B, S, H, D), the arguments of
     ``flash_backward_reference``, dispatched on the tensors' device: the
     two Hopper kernels for CUDA tensors, the plain version for CPU
-    tensors. delta = rowsum(dO∘O) is a plain PyTorch pre-pass. Pads D to
-    64 / 128 like the forward (zero columns add nothing to any product)
-    and drops the padded gradient columns."""
+    tensors. delta = rowsum(dO∘O) comes first, from ``attention_delta``
+    on the unpadded tensors. Pads D to 64 / 128 like the forward (zero
+    columns add nothing to any product) and drops the padded gradient
+    columns."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if _device_kind(q) == "cpu":

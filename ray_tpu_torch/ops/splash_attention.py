@@ -10,21 +10,20 @@ never loaded.
 ``splash_attention`` keeps the JAX package's signature, its (B, S, H, D)
 layout and its ValueErrors. On a CUDA tensor the forward launches
 ``ops/csrc/splash.cu``'s ``rtt_splash_fwd`` (which replaces the Pallas
-``_sfwd_kernel``) once over all head groups and the backward its
-``rtt_splash_bwd_dkv`` (``_sbwd_dkv_kernel``) once over all head groups,
-then ``rtt_splash_bwd_dq`` (``_sbwd_dq_kernel``) once per head group, or
-raises: bf16 runs the wgmma forward and dK/dV kernels, float32 their
-mma.sync kernels (``kernel_launches`` counts which ran). On a CPU tensor
-both directions run the plain versions ``splash_attention_reference`` and
+``_sfwd_kernel``) and the backward the delta pre-pass kernel, then its
+``rtt_splash_bwd_dkv`` (``_sbwd_dkv_kernel``) and ``rtt_splash_bwd_dq``
+(``_sbwd_dq_kernel``), each once over all head groups, or raises: bf16
+runs the wgmma kernels, float32 the mma.sync kernels
+(``kernel_launches`` counts which ran). On a CPU tensor both directions
+run the plain versions ``splash_attention_reference`` and
 ``splash_backward_reference``. ``mask=None`` delegates to the port's
 ``flash_attention``, as in JAX.
 
-The kernels walk schedules built by the same :class:`_Schedule` at their
-own tiles (the caller's ``block_q``/``block_k`` are validated and
-reported, as in JAX, but do not change the function computed): the
-forward and dK/dV a call schedule of every group's lists with one block
-order, heaviest first across all heads (``_call_schedule``), dQ each
-group's own (``_kernel_schedule``); both are uploaded once and cached.
+The kernels walk call schedules (``_call_schedule``: every group's
+``_Schedule`` lists with one block order, heaviest first across all
+heads) at their own tiles; the caller's ``block_q``/``block_k`` are
+validated and reported, as in JAX, but do not change the function
+computed. Each schedule is uploaded once and cached.
 """
 
 from __future__ import annotations
@@ -284,17 +283,18 @@ def splash_backward_reference(q, k, v, out, lse, do, mask, scale=None
 
 # ----------------------------------------------------------------- kernels
 
-_TILE = 64  # the dQ kernel's q and kv tile (kBM = kBN in splash.cu)
-# The tiles the forward kernel walks its call schedule at, by dtype: the
-# bf16 wgmma kernel's 128 x 128, the float32 mma.sync kernel's 64 x 64.
-_FWD_TILE = {torch.bfloat16: 128, torch.float32: 64}
-_DKV_TILE = 64  # both dK/dV kernels: 64-key tiles and 64-row q tiles
+# The (q rows, keys) tiles each kernel walks its call schedule at, by
+# dtype: the bf16 wgmma forward's 128 x 128 and dQ's 128 x 64, and 64 x 64
+# for both dK/dV kernels and every float32 mma.sync kernel.
+_FWD_TILE = {torch.bfloat16: (128, 128), torch.float32: (64, 64)}
+_DQ_TILE = {torch.bfloat16: (128, 64), torch.float32: (64, 64)}
+_DKV_TILE = (64, 64)
 _GROUP_INTS = 8  # a group's row of a call schedule (kGroupInts)
 
 # The kernels behind splash.cu's entries, in the order of the counts
 # ``rtt_splash_launches`` reports (see ``kernel_launches``).
 SPLASH_KERNELS = ("fwd_wgmma", "fwd_mma_sync_f32", "dkv_wgmma",
-                  "dkv_mma_sync_f32", "dq_mma_sync")
+                  "dkv_mma_sync_f32", "dq_wgmma", "dq_mma_sync_f32")
 
 
 def _full_flags(mask: Mask, s: _Schedule, sq: int, sk: int, bq: int,
@@ -314,48 +314,12 @@ def _full_flags(mask: Mask, s: _Schedule, sq: int, sk: int, bq: int,
     return kv_full.astype(np.int32), q_full.astype(np.int32)
 
 
-class _DeviceSchedule(NamedTuple):
-    """A group's q schedule at the dQ kernel's tiles as int32 device
-    tensors: ``kv_ids``, ``kv_lens``, ``kv_full`` and the order its
-    blocks take their q tiles in (most work first)."""
-    kv_ids: torch.Tensor
-    kv_lens: torch.Tensor
-    kv_full: torch.Tensor
-    q_order: torch.Tensor
-    q_len: int
-
-
-_schedules: Dict[tuple, _DeviceSchedule] = {}
-
-
-def _kernel_schedule(mask: Mask, sq: int, sk: int,
-                     device: torch.device) -> _DeviceSchedule:
-    """The group schedule at 64 x 64 tiles for the dQ kernel, built by
-    ``_Schedule`` and uploaded once per (mask, lengths, device)."""
-    key = (mask, sq, sk, _TILE, str(device))
-    hit = _schedules.get(key)
-    if hit is not None:
-        return hit
-    t = _TILE
-    s = _Schedule(mask, -(-sq // t), -(-sk // t), t, t)
-    kv_full, _ = _full_flags(mask, s, sq, sk, t, t)
-    parts = [s.kv_ids, s.kv_lens, kv_full,
-             np.argsort(-s.kv_lens, kind="stable")]
-    flat = torch.from_numpy(np.concatenate(
-        [p.astype(np.int32).ravel() for p in parts])).to(device)
-    views, off = [], 0
-    for p in parts:
-        views.append(flat[off:off + p.size].view(p.shape))
-        off += p.size
-    hit = _schedules[key] = _DeviceSchedule(*views, s.q_len)
-    return hit
-
-
 class _CallSchedule(NamedTuple):
-    """The schedules of one call's head groups as ``splash.cu``'s forward
-    and dK/dV kernels walk them in one launch each: an int32 device buffer
-    per direction (``fwd`` over (q head, q tile), ``dkv`` over (kv head,
-    kv tile); see ``_pack_side``) and its number of blocks."""
+    """The schedules of one call's head groups as ``splash.cu``'s kernels
+    walk them in one launch each: an int32 device buffer per direction
+    (``fwd``, the q-major side over (q head, q tile) that the forward and
+    dQ walk, and ``dkv`` over (kv head, kv tile); see ``_pack_side``) and
+    its number of blocks."""
     fwd: torch.Tensor
     fwd_blocks: int
     dkv: torch.Tensor
@@ -433,38 +397,25 @@ def _strides(t: Optional[torch.Tensor]) -> Tuple[int, int, int]:
     return (0, 0, 0) if t is None else t.stride()[:3]
 
 
-def _kernel_args(dtype, q, k, v, *, sched=None, code=0, param=0, call=None,
-                 n_blocks=0, out=None, lse=None, do=None, delta=None,
-                 dq=None, dk=None, dv=None):
+def _kernel_args(dtype, q, k, v, call, n_blocks, *, out=None, lse=None,
+                 do=None, delta=None, dq=None, dk=None, dv=None):
     """ctypes (ptrs, ints) for ``splash.cu`` (its ``parse`` lists the
-    layout): one head group's dQ schedule ``sched`` with its mask, or a
-    call schedule ``call`` of ``n_blocks`` blocks; absent operands are
-    null."""
+    layout): one side ``call`` of a call schedule, of ``n_blocks`` blocks;
+    absent operands are null."""
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    lists = (None,) * 4 if sched is None else sched[:4]
     stats = lse if lse is not None else delta
-    ptrs = (ctypes.c_void_p * 15)(
+    ptrs = (ctypes.c_void_p * 11)(
         ptr(q), ptr(k), ptr(v), ptr(out), ptr(lse), ptr(do), ptr(delta),
-        ptr(dq), ptr(dk), ptr(dv), *(ptr(x) for x in lists), ptr(call))
+        ptr(dq), ptr(dk), ptr(dv), ptr(call))
     b, sq, h, d = q.shape
-    ints = (ctypes.c_longlong * 34)(
+    ints = (ctypes.c_longlong * 31)(
         _flash._DTYPE_CODES[dtype], b, h, k.shape[2], sq, k.shape[1], d,
         *_strides(q), *_strides(k), *_strides(v), *_strides(out),
         *_strides(do), *_strides(dq), *_strides(dk),
-        stats.stride(0), stats.stride(1), code, param,
-        0 if sched is None else sched.q_len, n_blocks)
+        stats.stride(0), stats.stride(1), n_blocks)
     return ptrs, ints
-
-
-def _groups_for_kernel(q, k, masks):
-    """Per head group: (start, kv start, count, kv count, mask, code,
-    param). Unknown masks raise before anything is allocated."""
-    hq, hkv = q.shape[2], k.shape[2]
-    group = hq // hkv
-    return [(a, a // group, c, c // group, m, *_kernel_mask(m))
-            for a, c, m in _aligned_groups(masks, group)]
 
 
 def _splash_forward_launcher(q, k, v, masks, scale, csrc=None):
@@ -475,13 +426,13 @@ def _splash_forward_launcher(q, k, v, masks, scale, csrc=None):
     b, sq, sk, hq, hkv, d = _flash._check_inputs(q, k, v, None, None,
                                                  "splash")
     dtype, device = q.dtype, q.device
-    tile = _FWD_TILE[dtype]
-    call = _call_schedule(masks, hq // hkv, sq, sk, tile, tile, device)
+    call = _call_schedule(masks, hq // hkv, sq, sk, *_FWD_TILE[dtype],
+                          device)
     fn = _flash._library("splash", "rtt_splash_fwd", csrc)
     out = torch.empty((b, sq, hq, d), dtype=dtype, device=device)
     lse = torch.empty((b, hq, sq), dtype=torch.float32, device=device)
-    ptrs, ints = _kernel_args(dtype, q, k, v, call=call.fwd,
-                              n_blocks=call.fwd_blocks, out=out, lse=lse)
+    ptrs, ints = _kernel_args(dtype, q, k, v, call.fwd, call.fwd_blocks,
+                              out=out, lse=lse)
     stream = torch.cuda.current_stream(device).cuda_stream
 
     def launch() -> None:
@@ -498,9 +449,8 @@ def _splash_backward_launcher(q, k, v, do, lse, delta, masks, scale,
     """Validate and allocate for ``rtt_splash_bwd_dkv`` and
     ``rtt_splash_bwd_dq`` on (B, S, H, D) CUDA tensors, D in {64, 128};
     ``lse`` and ``delta`` are (B, H, Sq) fp32. Returns ``(launch, (dq, dk,
-    dv))``: ``launch("dkv")`` launches the dK/dV kernel once over every
-    head group, ``launch("dq")`` the dQ kernel once per head group, into
-    those outputs."""
+    dv))``: ``launch("dkv")`` and ``launch("dq")`` launch the dK/dV and the
+    dQ kernel once each, over every head group, into those outputs."""
     b, sq, sk, hq, hkv, d = _flash._check_inputs(q, k, v, None, None,
                                                  "splash")
     dtype, device = q.dtype, q.device
@@ -516,36 +466,30 @@ def _splash_backward_launcher(q, k, v, do, lse, delta, masks, scale,
         if t.shape != (b, hq, sq):
             raise ValueError(f"{name} {tuple(t.shape)} is not ({b}, {hq}, "
                              f"{sq})")
-    groups = _groups_for_kernel(q, k, masks)
-    call = _call_schedule(masks, hq // hkv, sq, sk, _DKV_TILE, _DKV_TILE,
-                          device)
+    group = hq // hkv
+    dkv_call = _call_schedule(masks, group, sq, sk, *_DKV_TILE, device)
+    dq_call = _call_schedule(masks, group, sq, sk, *_DQ_TILE[dtype], device)
     fns = {name: _flash._library("splash", f"rtt_splash_bwd_{name}", csrc)
            for name in ("dkv", "dq")}
     dq = torch.empty((b, sq, hq, d), dtype=dtype, device=device)
     dk = torch.empty((b, sk, hkv, d), dtype=dtype, device=device)
     dv = torch.empty_like(dk)
-    calls = {"dkv": [_kernel_args(dtype, q, k, v, call=call.dkv,
-                                  n_blocks=call.dkv_blocks, lse=lse, do=do,
-                                  delta=delta, dk=dk, dv=dv)],
-             "dq": []}
-    for a, ka, c, kc, m, code, param in groups:
-        qs, ks = slice(a, a + c), slice(ka, ka + kc)
-        calls["dq"].append(_kernel_args(
-            dtype, q[:, :, qs], k[:, :, ks], v[:, :, ks],
-            sched=_kernel_schedule(m, sq, sk, device), code=code,
-            param=param, lse=lse[:, qs], do=do[:, :, qs],
-            delta=delta[:, qs], dq=dq[:, :, qs]))
+    stats = dict(lse=lse, do=do, delta=delta)
+    args = {"dkv": _kernel_args(dtype, q, k, v, dkv_call.dkv,
+                                dkv_call.dkv_blocks, dk=dk, dv=dv, **stats),
+            "dq": _kernel_args(dtype, q, k, v, dq_call.fwd,
+                               dq_call.fwd_blocks, dq=dq, **stats)}
     stream = torch.cuda.current_stream(device).cuda_stream
 
     def launch(name: str) -> None:
-        for ptrs, ints in calls[name]:
-            err = fns[name](ptrs, ints, float(scale), stream)
-            if err:
-                raise RuntimeError(
-                    f"splash_bwd_{name} launch failed: cudaError {err}")
-            counter = f"{name}_launches"
-            setattr(splash_backward, counter,
-                    getattr(splash_backward, counter) + 1)
+        ptrs, ints = args[name]
+        err = fns[name](ptrs, ints, float(scale), stream)
+        if err:
+            raise RuntimeError(
+                f"splash_bwd_{name} launch failed: cudaError {err}")
+        counter = f"{name}_launches"
+        setattr(splash_backward, counter,
+                getattr(splash_backward, counter) + 1)
 
     launch.keep = (lse, delta)  # alive while launches may run
     return launch, (dq, dk, dv)
@@ -582,10 +526,10 @@ def splash_backward(q, k, v, out, lse, do, mask, scale=None
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(dq, dk, dv)`` on (B, S, H, D), the arguments of
     ``splash_backward_reference``, dispatched on the tensors' device: the
-    two Hopper kernels (dK/dV, then dQ) for CUDA tensors, the plain
-    version for CPU tensors. delta = rowsum(dO∘O) is a plain PyTorch
-    pre-pass, as in JAX. Pads D like the forward and drops the padded
-    gradient columns."""
+    delta pre-pass kernel (delta = rowsum(dO∘O), on the unpadded
+    tensors) and the two Hopper kernels (dK/dV, then dQ) for CUDA
+    tensors, the plain version for CPU tensors. Pads D like the forward
+    and drops the padded gradient columns."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if _flash._device_kind(q, "splash_attention") == "cpu":
@@ -649,10 +593,10 @@ def splash_attention(
     ``mask`` is one :class:`Mask` for all heads or a per-head sequence
     (consecutive heads with equal masks form a head group — e.g.
     ``[LocalMask(1024)] * 6 + [FullMask()] * 2`` for a local/global
-    stack; the forward and dK/dV kernels take every group in one launch,
-    dQ one launch a group). With ``mask=None`` the causal/window algebra (and data-
-    dependent ``segment_ids``) delegates to the port's flash attention;
-    with a mask, ``causal`` and ``window`` are ignored, as in JAX."""
+    stack; each kernel takes every group in one launch). With
+    ``mask=None`` the causal/window algebra (and data-dependent
+    ``segment_ids``) delegates to the port's flash attention; with a mask,
+    ``causal`` and ``window`` are ignored, as in JAX."""
     if mask is None:
         return _flash.flash_attention(
             q, k, v, causal=causal, window=window, segment_ids=segment_ids,

@@ -32,9 +32,11 @@ there and back: a, b, ..., change, change, ..., b, a.
   ``flex_attention`` with a ``create_block_mask`` of the same stack
   (compiled once, outside the timed window; its error instead where it
   does not compile), forward and backward. A directory whose
-  ``splash.cu`` has no ``rtt_splash_launches`` speaks the older
-  per-head-group interface (one launch of each kernel per head group,
-  each group's own schedules) and is launched that way.
+  ``splash.cu`` has no ``splash_bwd_dq_wgmma_kernel`` speaks the older
+  interface of the mma.sync dQ (the forward and dK/dV from the call
+  schedule, dQ one launch per head group on that group's own schedule)
+  and is launched that way; the delta pre-pass is this checkout's in
+  every version, and its plain version is timed beside it.
 
 Prints one JSON line with the card's name and power limit. Needs one CUDA
 card.
@@ -205,9 +207,12 @@ def _ab_bwd(dirs, g) -> dict:
               for name in ("dkv", "dq")}
     timers["pair"] = pair
     _turns(out, dirs, timers)
-    # The delta pre-pass is the same plain PyTorch in every version; the
-    # unit (delta + dK/dV + dQ) is what SDPA's backward call computes.
-    out["delta_ms"] = _time_ms(lambda: fa.attention_delta(o, do))
+    # The delta pre-pass is this checkout's kernel in every version,
+    # launched alone (its plain version beside it); the unit (delta +
+    # dK/dV + dQ) is what SDPA's backward call computes.
+    out["delta_ms"] = _time_ms(fa._delta_launcher(o, do)[0])
+    out["delta_plain_ms"] = _time_ms(
+        lambda: fa.attention_delta_reference(o, do))
     for which in dirs:
         out[f"sum_{which}_ms"] = out[f"dkv_{which}_ms"] + out[f"dq_{which}_ms"]
         out[f"unit_{which}_ms"] = out["delta_ms"] + out[f"pair_{which}_ms"]
@@ -225,68 +230,74 @@ def splash_masks():
             + [ss.CausalMask()] * 2 + [ss.FullMask()] * 2)
 
 
+# The per-group dQ interface (an earlier ``splash.cu``, whose mma.sync dQ
+# launched once per head group): 64 x 64 tiles, and its entries' argument
+# layout.
+_PARENT_TILE = 64
+
+
 class _GroupSchedule(NamedTuple):
-    """One head group's schedules in the per-group interface: the q
-    schedule and the order of its q tiles (as ``_kernel_schedule``), and
-    the transposed schedule with the order of its kv tiles, at 64 x 64."""
+    """One head group's q schedule at 64 x 64 as the per-group dQ reads it:
+    ids, lengths, full flags and the order of its q tiles."""
     kv_ids: torch.Tensor
     kv_lens: torch.Tensor
     kv_full: torch.Tensor
     q_order: torch.Tensor
     q_len: int
-    transposed: tuple
-    k_len: int
 
 
 def _group_schedule(mask, sq, sk, device) -> _GroupSchedule:
-    t = ss._TILE
+    t = _PARENT_TILE
     s = ss._Schedule(mask, -(-sq // t), -(-sk // t), t, t)
-    kv_full, q_full = ss._full_flags(mask, s, sq, sk, t, t)
+    kv_full, _ = ss._full_flags(mask, s, sq, sk, t, t)
     arrays = [torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
               for a in (s.kv_ids, s.kv_lens, kv_full,
-                        np.argsort(-s.kv_lens, kind="stable"), s.q_ids,
-                        s.q_lens, q_full,
-                        np.argsort(-s.q_lens, kind="stable"))]
-    return _GroupSchedule(*arrays[:4], s.q_len, tuple(arrays[4:]), s.k_len)
+                        np.argsort(-s.kv_lens, kind="stable"))]
+    return _GroupSchedule(*arrays, s.q_len)
 
 
-def _per_group_launchers(csrc, q, k, v, do, masks, scale):
-    """``{"fwd", "dkv", "dq"}`` -> a launch of that kernel once per head
-    group through the per-group interface of ``csrc``'s ``splash.cu``,
-    into outputs allocated here; and ``(out, lse, delta)``."""
-    dtype = q.dtype
+def _parent_args(q, k, v, *, sched=None, code=0, param=0, call=None,
+                 n_blocks=0, out=None, lse=None, do=None, delta=None,
+                 dq=None, dk=None, dv=None):
+    """ctypes (ptrs, ints) in the per-group dQ interface's layout (15
+    pointers: the call's ten tensors, a group's four schedule arrays, the
+    call schedule; 34 ints: this checkout's 30, then mask code, mask
+    param, q_len, n_blocks)."""
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    lists = (None,) * 4 if sched is None else sched[:4]
+    stats = lse if lse is not None else delta
+    ptrs = (ctypes.c_void_p * 15)(
+        ptr(q), ptr(k), ptr(v), ptr(out), ptr(lse), ptr(do), ptr(delta),
+        ptr(dq), ptr(dk), ptr(dv), *(ptr(x) for x in lists), ptr(call))
+    _, cur = ss._kernel_args(q.dtype, q, k, v, None, 0, out=out, lse=stats,
+                             do=do, dq=dq, dk=dk)
+    ints = (ctypes.c_longlong * 34)(
+        *cur[:30], code, param, 0 if sched is None else sched.q_len,
+        n_blocks)
+    return ptrs, ints
+
+
+def _parent_launchers(csrc, q, k, v, do, masks, scale):
+    """``{"fwd", "dkv", "dq"}`` -> a launch of that kernel through the
+    per-group dQ interface of ``csrc``'s ``splash.cu`` (the forward and
+    dK/dV once over all head groups, dQ once per head group), into
+    outputs allocated here; and ``(out, lse, delta)``, ``(dq, dk, dv)``."""
     b, s_, h, d = q.shape
     hkv = k.shape[2]
+    group = h // hkv
     fns = {name: fa._library("splash", f"rtt_splash_{name}", csrc)
            for name in ("fwd", "bwd_dkv", "bwd_dq")}
     out = torch.empty_like(q)
     lse = torch.empty((b, h, s_), dtype=torch.float32, device=q.device)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    args = {"fwd": [], "bwd_dkv": [], "bwd_dq": []}
-    keep = []
-    for a, ka, c, kc, m, code, param in ss._groups_for_kernel(q, k, masks):
-        sched = _group_schedule(m, s_, s_, q.device)
-        keep.append(sched)
-        qs, ks = slice(a, a + c), slice(ka, ka + kc)
-        views = (q[:, :, qs], k[:, :, ks], v[:, :, ks])
-        for name, kw in (("fwd", dict(out=out[:, :, qs], lse=lse[:, qs])),
-                         ("bwd", dict(lse=lse[:, qs], do=do[:, :, qs],
-                                      dq=dq[:, :, qs], dk=dk[:, :, ks],
-                                      dv=dv[:, :, ks]))):
-            ptrs, ints = ss._kernel_args(dtype, *views, sched=sched,
-                                         code=code, param=param, **kw)
-            # That interface's layout: the transposed schedule follows the
-            # q schedule's four arrays, and k_len follows q_len.
-            ptrs = (ctypes.c_void_p * 18)(
-                *ptrs[:14], *(x.data_ptr() for x in sched.transposed))
-            ints[33] = sched.k_len
-            if name == "fwd":
-                args["fwd"].append((ptrs, ints))
-            else:
-                args["bwd_dkv"].append((ptrs, ints))
-                args["bwd_dq"].append((ptrs, ints))
+    fwd_call = ss._call_schedule(masks, group, s_, s_, 128, 128, q.device)
+    dkv_call = ss._call_schedule(masks, group, s_, s_, 64, 64, q.device)
+    args = {"fwd": [_parent_args(q, k, v, call=fwd_call.fwd,
+                                 n_blocks=fwd_call.fwd_blocks, out=out,
+                                 lse=lse)]}
     stream = torch.cuda.current_stream().cuda_stream
-    hold = [keep]  # the schedules and delta, alive while launches may run
 
     def run(name):
         def go():
@@ -294,28 +305,35 @@ def _per_group_launchers(csrc, q, k, v, do, masks, scale):
                 err = fns[name](ptrs, ints, float(scale), stream)
                 if err:
                     raise RuntimeError(f"splash {name}: cudaError {err}")
-        go.keep = hold
         return go
 
-    launches = {"fwd": run("fwd"), "dkv": run("bwd_dkv"), "dq": run("bwd_dq")}
-    launches["fwd"]()
+    run("fwd")()
     delta = fa.attention_delta(out, do)
-    # The backward's delta: each group's view of it (both backward entries
-    # share one argument set a group).
-    for (ptrs, _), (a, _, c, *_rest) in zip(
-            args["bwd_dkv"], ss._groups_for_kernel(q, k, masks)):
-        ptrs[6] = delta[:, a:a + c].data_ptr()
-    hold.append(delta)
+    args["bwd_dkv"] = [_parent_args(q, k, v, call=dkv_call.dkv,
+                                    n_blocks=dkv_call.dkv_blocks, lse=lse,
+                                    do=do, delta=delta, dk=dk, dv=dv)]
+    scheds = []  # alive while launches may run
+    args["bwd_dq"] = []
+    for a, c, m in ss._aligned_groups(masks, group):
+        code, param = ss._kernel_mask(m)
+        scheds.append(_group_schedule(m, s_, s_, q.device))
+        qs, ks = slice(a, a + c), slice(a // group, (a + c) // group)
+        args["bwd_dq"].append(_parent_args(
+            q[:, :, qs], k[:, :, ks], v[:, :, ks], sched=scheds[-1],
+            code=code, param=param, lse=lse[:, qs], do=do[:, :, qs],
+            delta=delta[:, qs], dq=dq[:, :, qs]))
+    launches = {"fwd": run("fwd"), "dkv": run("bwd_dkv"), "dq": run("bwd_dq")}
+    launches["dq"].keep = (scheds, fwd_call, dkv_call)
     return launches, (out, lse, delta), (dq, dk, dv)
 
 
 def _splash_launchers(csrc, q, k, v, do, masks, scale):
     """The launchers of ``csrc``'s splash kernels, in the interface its
-    library speaks: ``({"fwd", "dkv", "dq"} -> launch, (out, lse, delta),
+    source speaks: ``({"fwd", "dkv", "dq"} -> launch, (out, lse, delta),
     (dq, dk, dv))``."""
-    lib = cuda_build.load("splash", csrc)
-    if not hasattr(lib, "rtt_splash_launches"):
-        return _per_group_launchers(csrc, q, k, v, do, masks, scale)
+    if "splash_bwd_dq_wgmma_kernel" not in (Path(csrc) / "splash.cu"
+                                             ).read_text():
+        return _parent_launchers(csrc, q, k, v, do, masks, scale)
     fwd, (out, lse) = ss._splash_forward_launcher(q, k, v, masks, scale,
                                                   csrc)
     fwd()
@@ -413,12 +431,13 @@ def _ab_splash(dirs, g) -> dict:
     def seq(*names, delta=False):
         def make(which):
             launch, (o, _, _), _ = versions[which]
+            delta_launch = fa._delta_launcher(o, do)[0]
 
             def run():
                 for n in names:
                     launch[n]()
                     if delta and n == "fwd":
-                        fa.attention_delta(o, do)
+                        delta_launch()
             return run
         return make
 

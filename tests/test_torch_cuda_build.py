@@ -70,3 +70,21 @@ def test_every_kernel_source_hashes_the_shared_header():
     for name in ("flash_fwd", "flash_bwd", "splash"):
         names = [p.name for p in cuda_build._sources(name, cuda_build.CSRC)]
         assert names == [f"{name}.cu", "hopper.cuh"], names
+
+
+def test_delta_source_stands_alone(tmp_path):
+    """``delta.cu`` (the backward's delta pre-pass) includes no header of
+    ``csrc``: its build follows its own text and not ``hopper.cuh``'s.
+    Every ``.cu`` in ``csrc`` is one of the four kernel sources."""
+    assert sorted(p.stem for p in cuda_build.CSRC.glob("*.cu")) == [
+        "delta", "flash_bwd", "flash_fwd", "splash"]
+    assert [p.name for p in cuda_build._sources("delta", cuda_build.CSRC)
+            ] == ["delta.cu"]
+    text = (cuda_build.CSRC / "delta.cu").read_text()
+    (tmp_path / "delta.cu").write_text(text)
+    (tmp_path / "hopper.cuh").write_text("int y;\n")
+    first = cuda_build._artifact("delta", tmp_path)
+    (tmp_path / "hopper.cuh").write_text("int y2;\n")
+    assert cuda_build._artifact("delta", tmp_path) == first
+    (tmp_path / "delta.cu").write_text(text + "\n")
+    assert cuda_build._artifact("delta", tmp_path) != first

@@ -231,3 +231,52 @@ def test_plain_backward_matches_autograd_of_plain_forward():
                                           dlse, **kw)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+
+
+# The delta pre-pass, delta = rowsum(dO * O): the shapes the two backward
+# paths hand it (before D is padded) and a (B, H, S, D) transposed view.
+DELTA_CASES = {"d128": (2, 96, 4, 128), "d80": (1, 64, 3, 80),
+               "d64": (2, 33, 2, 64), "d16_bhsd_view": (2, 40, 4, 16)}
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("case", sorted(DELTA_CASES))
+def test_attention_delta_reference_matches_jax(case, dtype):
+    """``attention_delta_reference`` against the JAX package's expression
+    (``ray_tpu/ops/flash_attention.py:343-346``, ``jnp.sum(do.astype(f32)
+    * out.astype(f32), -1)`` on its (B, H, S, D) layout) on the same numpy
+    inputs, rounded to the working dtype first. Tolerance: 1e-5 of the
+    largest |delta| (the same fp32 products, summed in another order)."""
+    jdt, tdt = DT[dtype]
+    b, s, h, d = DELTA_CASES[case]
+    rng = np.random.default_rng(len(case))
+    out, do = (rng.normal(size=(b, h, s, d)).astype(np.float32)
+               for _ in range(2))
+    want = np.asarray(jnp.sum(jnp.asarray(do, jdt).astype(jnp.float32)
+                              * jnp.asarray(out, jdt).astype(jnp.float32),
+                              axis=-1))
+    t_out, t_do = (torch.from_numpy(a).to(tdt) for a in (out, do))
+    if case.endswith("bhsd_view"):  # as flash_attention_stats hands it
+        t_out, t_do = t_out.transpose(1, 2), t_do.transpose(1, 2)
+    else:
+        t_out, t_do = (x.transpose(1, 2).contiguous() for x in (t_out, t_do))
+    got = tflash.attention_delta_reference(t_out, t_do)
+    assert got.dtype == torch.float32 and got.shape == (b, h, s)
+    assert got.is_contiguous()
+    np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                               atol=1e-5 * float(np.abs(want).max()))
+
+
+def test_attention_delta_takes_the_plain_version_on_cpu():
+    """On CPU tensors ``attention_delta`` is its plain version (no kernel
+    launch counted); other devices are refused."""
+    out, do = (torch.from_numpy(a).to(torch.bfloat16)
+               for a in _inputs(2, 48, 48, 4, 4, 80)[:2])
+    before = tflash.attention_delta.launches
+    got = tflash.attention_delta(out, do)
+    torch.testing.assert_close(got, tflash.attention_delta_reference(out, do),
+                               rtol=0, atol=0)
+    assert tflash.attention_delta.launches == before
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        tflash.attention_delta(*(torch.zeros(1, 8, 1, 16, device="meta")
+                                 for _ in range(2)))

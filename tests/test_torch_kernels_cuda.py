@@ -374,29 +374,28 @@ _ALTERNATING = [("local", 96), ("full",)] * 4  # eight head groups
 ])
 def test_splash_kernels_match_plain(cuda_device, dtype, b, sq, sk, h, hkv, d,
                                     spec):
-    """The three splash kernels against the plain versions: the forward
-    and dK/dV kernels once over all head groups (on wgmma for bf16, on
-    mma.sync for float32, by the C entries' own counts), dQ once per
-    group. Mixed local / chunked stacks, ragged S=100, 129 and 255, rows
-    that see nothing (S=256 queries on 64 keys under a 32 window), D=80
-    padded, Sq != Sk, GQA 1, 2 and 4, eight alternating head groups."""
+    """The three splash kernels against the plain versions, each once over
+    all head groups (on wgmma for bf16, on mma.sync for float32, by the C
+    entries' own counts), after one delta launch. Mixed local / chunked
+    stacks, ragged S=100, 129 and 255, rows that see nothing (S=256
+    queries on 64 keys under a 32 window), D=80 padded, Sq != Sk, GQA 1, 2
+    and 4, eight alternating head groups."""
     from ray_tpu_torch.ops import splash_attention as ss
 
     masks = _splash_masks(spec)
-    groups = len(ss._group_heads(masks))
     q, k, v, do = _splash_inputs(cuda_device, dtype, b, sq, sk, h, hkv, d)
     before = (ss.splash_attention.launches, ss.splash_backward.dkv_launches,
-              ss.splash_backward.dq_launches)
+              ss.splash_backward.dq_launches, tflash.attention_delta.launches)
     by_kernel = ss.kernel_launches()
     out, lse = ss.splash_forward(q, k, v, masks)
     got = ss.splash_backward(q, k, v, out, lse, do, masks)
     torch.cuda.synchronize()
     after = (ss.splash_attention.launches, ss.splash_backward.dkv_launches,
-             ss.splash_backward.dq_launches)
-    assert [a - b_ for a, b_ in zip(after, before)] == [1, 1, groups]
+             ss.splash_backward.dq_launches, tflash.attention_delta.launches)
+    assert [a - b_ for a, b_ in zip(after, before)] == [1, 1, 1, 1]
     route = "wgmma" if dtype == torch.bfloat16 else "mma_sync_f32"
     want = {k_: 0 for k_ in ss.SPLASH_KERNELS}
-    want.update({f"fwd_{route}": 1, f"dkv_{route}": 1, "dq_mma_sync": groups})
+    want.update({f"fwd_{route}": 1, f"dkv_{route}": 1, f"dq_{route}": 1})
     assert {k_: n - by_kernel[k_]
             for k_, n in ss.kernel_launches().items()} == want
     ref, ref_lse = ss.splash_attention_reference(q, k, v, masks)
@@ -443,11 +442,10 @@ def test_splash_attention_autograd_runs_the_kernels(cuda_device):
     dq0 = ss.splash_backward.dq_launches
     out = ss.splash_attention(q, k, v, mask=masks)
     grads = torch.autograd.grad(out, (q, k, v), do)
-    # One forward and one dK/dV launch over the four head groups, one dQ
-    # launch a group.
+    # One forward, one dK/dV and one dQ launch over the four head groups.
     assert ss.splash_attention.launches == fwd0 + 1
     assert ss.splash_backward.dkv_launches == dkv0 + 1
-    assert ss.splash_backward.dq_launches == dq0 + 4
+    assert ss.splash_backward.dq_launches == dq0 + 1
     ref = ss.splash_attention_reference(q, k, v, masks)[0]
     want = torch.autograd.grad(ref, (q, k, v), do)
     for a, r in zip(grads, want):
@@ -472,3 +470,97 @@ def test_splash_kernels_refuse_masks_they_do_not_know(cuda_device):
     q = torch.randn(1, 64, 2, 64, device=cuda_device, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="FullMask, CausalMask"):
         ss.splash_attention(q, q, q, mask=Diagonal())
+
+
+# dQ's edges (128-row q tiles and 64-key tiles in bf16, 64 x 64 in
+# float32): (dtype, B, Sq, Sk, H, Hkv, D, masks); "local32" on 256 queries
+# and 64 keys leaves q tiles with nothing live (queries 95..).
+SPLASH_DQ_EDGES = [
+    (torch.bfloat16, 1, 256, 64, 2, 1, 128, [("local", 32)] * 2),
+    (torch.bfloat16, 2, 256, 64, 4, 2, 64, [("local", 32)] * 4),
+    (torch.bfloat16, 2, 129, 129, 4, 4, 128,
+     [("local", 70)] * 2 + [("causal",)] * 2),
+    (torch.bfloat16, 1, 200, 328, 8, 2, 128,
+     [("chunked", 48)] * 4 + [("full",)] * 4),
+    (torch.float32, 1, 256, 64, 2, 1, 128, [("local", 32)] * 2),
+    (torch.float32, 2, 129, 129, 4, 2, 64,
+     [("causal",)] * 2 + [("local", 40)] * 2),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,b,sq,sk,h,hkv,d,spec", SPLASH_DQ_EDGES)
+def test_splash_dq_kernel_matches_plain(cuda_device, dtype, b, sq, sk, h, hkv,
+                                        d, spec):
+    """The dQ kernel alone (one launch over all head groups, on
+    ``dq_wgmma`` for bf16 and ``dq_mma_sync_f32`` for float32) against the
+    plain backward's dq on the same (out, lse, delta); rows that nothing
+    reaches get exactly zero."""
+    from ray_tpu_torch.ops import splash_attention as ss
+
+    masks = _splash_masks(spec)
+    q, k, v, do = _splash_inputs(cuda_device, dtype, b, sq, sk, h, hkv, d,
+                                 seed=5)
+    out, lse = ss.splash_attention_reference(q, k, v, masks)
+    delta = tflash.attention_delta_reference(out, do)
+    launch, (dq, _, _) = ss._splash_backward_launcher(
+        q, k, v, do, lse, delta, masks, d ** -0.5)
+    before = ss.kernel_launches()
+    launch("dq")
+    torch.cuda.synchronize()
+    route = "wgmma" if dtype == torch.bfloat16 else "mma_sync_f32"
+    assert {k_: n - before[k_] for k_, n in ss.kernel_launches().items()} \
+        == {k_: int(k_ == f"dq_{route}") for k_ in ss.SPLASH_KERNELS}
+    want = ss.splash_backward_reference(q, k, v, out, lse, do, masks)[0]
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    err = float((dq.float() - want.float()).abs().max())
+    assert err <= tol * float(want.float().abs().max()), err
+    dead = lse <= -1e29  # (B, H, Sq): rows nothing reaches
+    assert not dq.transpose(1, 2)[dead].any()
+
+
+# The delta pre-pass on the shapes and layouts the backward paths hand
+# it: (name, dtype, B, S, H, D, layout); "bhsd" is the (B, S, H, D) view
+# of a (B, H, S, D) tensor that flash_attention_stats passes.
+DELTA_EDGES = [
+    ("train_1b", torch.bfloat16, 4, 2048, 16, 128, "bshd"),
+    ("s129", torch.bfloat16, 2, 129, 4, 128, "bshd"),
+    ("d64", torch.bfloat16, 2, 200, 4, 64, "bshd"),
+    ("d80", torch.bfloat16, 2, 200, 4, 80, "bshd"),
+    ("d16", torch.bfloat16, 2, 64, 4, 16, "bshd"),
+    ("f32", torch.float32, 2, 255, 4, 128, "bshd"),
+    ("bhsd_view", torch.bfloat16, 2, 256, 4, 128, "bhsd"),
+    ("head_dim_strided", torch.bfloat16, 1, 64, 2, 64, "strided"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,dtype,b,s,h,d,layout", DELTA_EDGES,
+                         ids=[c[0] for c in DELTA_EDGES])
+def test_attention_delta_kernel_matches_plain(cuda_device, name, dtype, b, s,
+                                              h, d, layout):
+    """``delta.cu``'s kernel against ``attention_delta_reference``: one
+    launch, (B, H, S) fp32 contiguous, within 1e-5 of the largest |delta|
+    (fp32 sums of the same fp32 products, in another order)."""
+    g = torch.Generator(device=cuda_device).manual_seed(6)
+
+    def rnd():
+        if layout == "bhsd":
+            return torch.randn(b, h, s, d, generator=g, device=cuda_device
+                               ).to(dtype).transpose(1, 2)
+        if layout == "strided":  # every other element of the head dim
+            return torch.randn(b, s, h, 2 * d, generator=g, device=cuda_device
+                               ).to(dtype)[..., ::2]
+        return torch.randn(b, s, h, d, generator=g, device=cuda_device
+                           ).to(dtype)
+
+    out, do = rnd(), rnd()
+    before = tflash.attention_delta.launches
+    got = tflash.attention_delta(out, do)
+    torch.cuda.synchronize()
+    assert tflash.attention_delta.launches == before + 1
+    want = tflash.attention_delta_reference(out, do)
+    assert got.dtype == torch.float32 and got.shape == (b, h, s)
+    assert got.is_contiguous()
+    err = float((got - want).abs().max())
+    assert err <= 1e-5 * float(want.abs().max()), err

@@ -16,9 +16,11 @@ The kernels' own schedules are checked here: the call schedule's lists
 (the forward's at 128 x 128, dK/dV's at 64 x 64) against the JAX
 ``_Schedule`` array for array, its block order, and a replay of the rule
 ``splash.cu`` applies (visit the listed tiles, mask per element where the
-tile is not full) against each head's dense mask; likewise dQ's per-group
-schedule at 64 x 64. The
-Hopper kernels themselves are held against the plain versions on a card by
+tile is not full) against each head's dense mask, for the forward, dK/dV
+and dQ (whose q-major walk runs at 128 x 64 in bf16 and 64 x 64 in
+float32); and a plain walk of dQ's schedule that computes dQ as its kernel
+does, against the plain backward and the JAX kernels. The Hopper kernels
+themselves are held against the plain versions on a card by
 ``tests/test_torch_kernels_cuda.py`` and ``chip_smoke.py``."""
 
 import itertools
@@ -414,34 +416,58 @@ def _side(buf, n_blocks, n_heads):
     return pairs, head_group, groups
 
 
-def _replay(mask, sq, sk):
-    """The (query, key) pairs each kernel lets through, over the 64-padded
-    grid: the dQ kernel's q schedule and the dK/dV kernel's call schedule
-    (its transposed lists at 64 x 64)."""
-    t = tsplash._TILE
-    sched = tsplash._kernel_schedule(mask, sq, sk, torch.device("cpu"))
-    code, param = tsplash._kernel_mask(mask)
-    nq, nk = -(-sq // t), -(-sk // t)
-    fwd = np.zeros((nq * t, nk * t), bool)
-    kv_ids, kv_full = sched.kv_ids.numpy(), sched.kv_full.numpy()
-    for i, n in enumerate(sched.kv_lens.numpy()):
-        for j, full in zip(kv_ids[i, :n], kv_full[i, :n]):
-            for r in range(i * t, i * t + t):
+def _q_major_walk(call, n_heads, sq, sk, bq, bk):
+    """(n_heads, nq * bq, nk * bk) bool: the (query, key) pairs a walk of
+    the call schedule's q-major side lets through (the forward's and dQ's
+    rule: a block (q head, q tile) visits its group's listed kv tiles and
+    masks the non-full ones by each row's key range), over the padded
+    grid."""
+    pairs, head_group, decoded = _side(call.fwd, call.fwd_blocks, n_heads)
+    nq, nk = -(-sq // bq), -(-sk // bk)
+    seen = np.zeros((n_heads, nq * bq, nk * bk), bool)
+    for h, i in pairs:
+        code, param, ids, lens, full, _, _ = decoded[head_group[h]]
+        for j, f in zip(ids[i, :lens[i]], full[i, :lens[i]]):
+            for r in range(i * bq, i * bq + bq):
                 lo, hi = _key_range(code, param, r, sk)
-                c = np.arange(j * t, j * t + t)
-                fwd[r, c] = True if full else (c >= lo) & (c <= hi)
-    call = tsplash._call_schedule([mask], 1, sq, sk, t, t,
-                                  torch.device("cpu"))
-    _, _, ((_, _, q_ids, q_lens, q_full, _, _),) = _side(
-        call.dkv, call.dkv_blocks, 1)
-    dkv = np.zeros_like(fwd)
-    for j, n in enumerate(q_lens):
-        for i, full in zip(q_ids[j, :n], q_full[j, :n]):
-            for c in range(j * t, j * t + t):
-                lo, hi = _query_range(code, param, c, sq)
-                r = np.arange(i * t, i * t + t)
-                dkv[r, c] = True if full else (r >= lo) & (r <= hi)
-    return sched, call, fwd, dkv
+                c = np.arange(j * bk, j * bk + bk)
+                seen[h, r, c] = True if f else (c >= lo) & (c <= hi)
+    return seen
+
+
+def _kv_major_walk(call, n_heads, group, sq, sk, t):
+    """The same for the transposed side at t x t (dK/dV's rule: a block
+    (kv head, key tile) visits its listed q tiles for every q head of its
+    kv head and masks the non-full ones by each key's query range)."""
+    pairs, head_group, decoded = _side(call.dkv, call.dkv_blocks,
+                                       n_heads // group)
+    nq, nk = -(-sq // t), -(-sk // t)
+    seen = np.zeros((n_heads, nq * t, nk * t), bool)
+    for hk, j in pairs:
+        code, param, ids, lens, full, _, _ = decoded[head_group[hk]]
+        for h in range(hk * group, hk * group + group):
+            for i, f in zip(ids[j, :lens[j]], full[j, :lens[j]]):
+                for c in range(j * t, j * t + t):
+                    lo, hi = _query_range(code, param, c, sq)
+                    r = np.arange(i * t, i * t + t)
+                    seen[h, r, c] = True if f else (r >= lo) & (r <= hi)
+    return seen
+
+
+def _heaviest_first(buf, n_blocks, n_heads):
+    """The block order of one side is a permutation of every (head, tile)
+    with non-increasing list lengths."""
+    pairs, head_group, decoded = _side(buf, n_blocks, n_heads)
+    n_tiles = n_blocks // n_heads
+    assert sorted(pairs) == [(h, t) for h in range(n_heads)
+                             for t in range(n_tiles)]
+    counts = [decoded[head_group[h]][3][t] for h, t in pairs]
+    assert all(x >= y for x, y in zip(counts, counts[1:]))
+
+
+# dQ's tiles, (q rows, keys): the bf16 wgmma kernel's and the float32
+# mma.sync kernel's.
+DQ_TILES = [(128, 64), (64, 64)]
 
 
 @pytest.mark.parametrize("spec,sq,sk", [
@@ -451,28 +477,30 @@ def _replay(mask, sq, sk):
     (("chunked", 128), 512, 512), (("local", 32), 256, 64),
     (("causal",), 100, 100), (("full",), 100, 100)])
 def test_kernel_schedule_replays_to_the_mask(spec, sq, sk):
-    """Visiting the listed 64 x 64 tiles and masking the non-full ones per
-    element, as ``splash.cu`` does, keeps exactly the mask's pairs on the
-    real grid and nothing in the padding, in both directions (dQ's q
-    schedule, dK/dV's call schedule); the blocks' order puts the longest
-    lists first."""
+    """Visiting the listed tiles and masking the non-full ones per element,
+    as ``splash.cu`` does, keeps exactly the mask's pairs on the real grid
+    and nothing in the padding, for dQ's q-major side at both of its
+    tilings and dK/dV's transposed side at 64 x 64; each side's blocks put
+    the longest lists first."""
     (m,) = _pair([spec])[1]
-    sched, call, fwd, dkv = _replay(m, sq, sk)
+    cpu = torch.device("cpu")
     rows, cols = np.arange(sq)[:, None], np.arange(sk)[None, :]
     want = m.apply(torch.zeros(sq, sk), torch.from_numpy(rows),
                    torch.from_numpy(cols)).numpy() == 0
-    np.testing.assert_array_equal(fwd[:sq, :sk], want)
+    for bq, bk in DQ_TILES:
+        call = tsplash._call_schedule([m], 1, sq, sk, bq, bk, cpu)
+        (dq,) = _q_major_walk(call, 1, sq, sk, bq, bk)
+        np.testing.assert_array_equal(dq[:sq, :sk], want)
+        assert not dq[:sq, sk:].any()
+        assert call.fwd_blocks == -(-sq // bq)
+        _heaviest_first(call.fwd, call.fwd_blocks, 1)
+        assert call.fwd.dtype == torch.int32
+        assert tsplash._call_schedule([m], 1, sq, sk, bq, bk, cpu) is call
+    call = tsplash._call_schedule([m], 1, sq, sk, 64, 64, cpu)
+    (dkv,) = _kv_major_walk(call, 1, 1, sq, sk, 64)
     np.testing.assert_array_equal(dkv[:sq, :sk], want)
-    assert not fwd[:sq, sk:].any() and not dkv[sq:, :sk].any()
-    lens, order = sched.kv_lens.numpy(), sched.q_order.numpy()
-    assert sorted(order.tolist()) == list(range(len(lens)))
-    assert (np.diff(lens[order]) <= 0).all()
-    pairs, _, ((_, _, _, q_lens, _, _, _),) = _side(call.dkv,
-                                                    call.dkv_blocks, 1)
-    assert sorted(t for _, t in pairs) == list(range(len(q_lens)))
-    assert (np.diff(q_lens[[t for _, t in pairs]]) <= 0).all()
-    assert sched.kv_ids.dtype == torch.int32 and call.dkv.dtype == torch.int32
-    assert tsplash._kernel_schedule(m, sq, sk, torch.device("cpu")) is sched
+    assert not dkv[sq:, :sk].any()
+    _heaviest_first(call.dkv, call.dkv_blocks, 1)
 
 
 # The smoke's 16 q heads on 8 kv heads: local / chunked / causal / full.
@@ -549,15 +577,9 @@ def test_call_schedule_block_order_is_heaviest_first(stack):
         call = tsplash._call_schedule(tmasks, group, 2048, 2048, tile, tile,
                                       torch.device("cpu"))
         n_heads = len(tmasks) if side == "fwd" else len(tmasks) // group
-        n_tiles = 2048 // tile
-        pairs, head_group, decoded = _side(getattr(call, side),
-                                           getattr(call, f"{side}_blocks"),
-                                           n_heads)
-        assert getattr(call, f"{side}_blocks") == n_heads * n_tiles
-        assert sorted(pairs) == [(h, t) for h in range(n_heads)
-                                 for t in range(n_tiles)]
-        counts = [decoded[head_group[h]][3][t] for h, t in pairs]
-        assert all(x >= y for x, y in zip(counts, counts[1:]))
+        assert getattr(call, f"{side}_blocks") == n_heads * 2048 // tile
+        _heaviest_first(getattr(call, side), getattr(call, f"{side}_blocks"),
+                        n_heads)
 
 
 @pytest.mark.parametrize("stack", ["mixed_gqa2", "alternating_8_groups"])
@@ -565,9 +587,13 @@ def test_call_schedule_block_order_is_heaviest_first(stack):
 def test_call_schedule_replays_to_each_heads_mask(stack, sq, sk):
     """Walking the call schedule as the kernels do (a block visits its
     group's listed tiles, masking the non-full ones by the per-row key
-    range in the forward and the per-key query range in dK/dV, for every
-    q head of its kv head) keeps exactly each head's ``apply`` on the
-    real grid and nothing in the padding."""
+    range in the forward and dQ, by the per-key query range in dK/dV, for
+    every q head of its kv head) keeps exactly each head's ``apply`` on
+    the real grid and nothing in the padding: the forward's blocks over
+    (q head, 128-row q tile) with 128-key tiles, dQ's over (q head,
+    128-row q tile) with 64-key tiles, dK/dV's over (kv head, 64-key
+    tile). A q tile that nothing reaches (S=256 queries on 64 keys) lists
+    one tile, fully masked."""
     spec, group = STACKS[stack]
     tmasks = _pair(spec)[1]
     cpu = torch.device("cpu")
@@ -575,40 +601,22 @@ def test_call_schedule_replays_to_each_heads_mask(stack, sq, sk):
     want = np.stack([m.apply(torch.zeros(sq, sk), torch.from_numpy(rows),
                              torch.from_numpy(cols)).numpy() == 0
                      for m in tmasks])
-    # Forward: blocks over (q head, 128-row q tile).
-    t = 128
-    call = tsplash._call_schedule(tmasks, group, sq, sk, t, t, cpu)
-    pairs, head_group, decoded = _side(call.fwd, call.fwd_blocks,
+    for bq, bk in ((128, 128), (128, 64)):  # the forward, dQ
+        call = tsplash._call_schedule(tmasks, group, sq, sk, bq, bk, cpu)
+        seen = _q_major_walk(call, len(tmasks), sq, sk, bq, bk)
+        np.testing.assert_array_equal(seen[:, :sq, :sk], want)
+        assert not seen[:, :sq, sk:].any()
+        _, head_group, decoded = _side(call.fwd, call.fwd_blocks,
                                        len(tmasks))
-    nq, nk = -(-sq // t), -(-sk // t)
-    fwd = np.zeros((len(tmasks), nq * t, nk * t), bool)
-    for h, i in pairs:
-        code, param, ids, lens, full, _, _ = decoded[head_group[h]]
-        for j, f in zip(ids[i, :lens[i]], full[i, :lens[i]]):
-            for r in range(i * t, i * t + t):
-                lo, hi = _key_range(code, param, r, sk)
-                c = np.arange(j * t, j * t + t)
-                fwd[h, r, c] = True if f else (c >= lo) & (c <= hi)
-    np.testing.assert_array_equal(fwd[:, :sq, :sk], want)
-    assert not fwd[:, :sq, sk:].any()
-    # dK/dV: blocks over (kv head, 64-key tile), each walking its group's
-    # q heads.
-    t = 64
-    call = tsplash._call_schedule(tmasks, group, sq, sk, t, t, cpu)
-    pairs, head_group, decoded = _side(call.dkv, call.dkv_blocks,
-                                       len(tmasks) // group)
-    nq, nk = -(-sq // t), -(-sk // t)
-    dkv = np.zeros((len(tmasks), nq * t, nk * t), bool)
-    for hk, j in pairs:
-        code, param, ids, lens, full, _, _ = decoded[head_group[hk]]
-        for h in range(hk * group, hk * group + group):
-            for i, f in zip(ids[j, :lens[j]], full[j, :lens[j]]):
-                for c in range(j * t, j * t + t):
-                    lo, hi = _query_range(code, param, c, sq)
-                    r = np.arange(i * t, i * t + t)
-                    dkv[h, r, c] = True if f else (r >= lo) & (r <= hi)
-    np.testing.assert_array_equal(dkv[:, :sq, :sk], want)
-    assert not dkv[:, sq:, :sk].any()
+        for h in range(len(tmasks)):
+            _, _, ids, lens, full, _, _ = decoded[head_group[h]]
+            for i in range(-(-sq // bq)):
+                if not want[h, i * bq:(i + 1) * bq].any():
+                    assert (lens[i], ids[i, 0], full[i, 0]) == (1, 0, 0)
+    call = tsplash._call_schedule(tmasks, group, sq, sk, 64, 64, cpu)
+    seen = _kv_major_walk(call, len(tmasks), group, sq, sk, 64)
+    np.testing.assert_array_equal(seen[:, :sq, :sk], want)
+    assert not seen[:, sq:, :sk].any()
 
 
 def test_call_schedule_cache_keys_on_the_tile():
@@ -623,3 +631,96 @@ def test_call_schedule_cache_keys_on_the_tile():
     assert tsplash._call_schedule(masks, 1, 512, 512, 64, 64, cpu) is not b
     with pytest.raises(ValueError, match="FullMask, CausalMask"):
         tsplash._call_schedule([_Diagonal()] * 2, 1, 64, 64, 64, 64, cpu)
+
+
+def _dq_walk(q, k, v, do, out, lse, masks, bq, bk):
+    """dQ computed the way ``splash.cu``'s dQ kernels do, by a plain walk
+    of the call schedule's q-major side at (bq, bk) tiles: each block (q
+    head, q tile) visits only its listed kv tiles, masks scores by each
+    row's key range only where the tile is not full, takes P = exp(s -
+    max(lse, -5e29)) and dS = P (dP - delta) scale, rounds dS to k's
+    dtype and accumulates dS K in fp32. Rows past Sq (zero Q and dO, lse
+    and delta 0) are computed and dropped, as the kernel never stores
+    them."""
+    b, sq, h, d = q.shape
+    sk, group = k.shape[1], h // k.shape[2]
+    scale = d ** -0.5
+    call = tsplash._call_schedule(masks, group, sq, sk, bq, bk,
+                                  torch.device("cpu"))
+    pairs, head_group, decoded = _side(call.fwd, call.fwd_blocks, h)
+    nq, nk = -(-sq // bq), -(-sk // bk)
+
+    def pad(t, n):
+        return torch.nn.functional.pad(t.float(), (0, 0, 0, 0, 0,
+                                                   n - t.shape[1]))
+
+    qp, dop, kp, vp = pad(q, nq * bq), pad(do, nq * bq), pad(k, nk * bk), \
+        pad(v, nk * bk)
+    stats = torch.zeros(2, b, h, nq * bq)
+    stats[0, :, :, :sq] = lse.clamp_min(-1e30 / 2)
+    stats[1, :, :, :sq] = tflash.attention_delta_reference(out, do)
+    dq = torch.zeros(b, nq * bq, h, d)
+    for h_, i in pairs:
+        code, param, ids, lens, full, _, _ = decoded[head_group[h_]]
+        r = torch.arange(i * bq, (i + 1) * bq)
+        bounds = torch.tensor([_key_range(code, param, int(x), sk)
+                               for x in r])
+        lse_r, dd = stats[:, :, h_, r][..., None]
+        for j, f in zip(ids[i, :lens[i]], full[i, :lens[i]]):
+            c = torch.arange(j * bk, (j + 1) * bk)
+            kt = kp[:, c, h_ // group]
+            s = torch.einsum("bqd,bkd->bqk", qp[:, r, h_], kt) * scale
+            if not f:
+                keep = (c >= bounds[:, :1]) & (c <= bounds[:, 1:])
+                s = torch.where(keep, s, -1e30)
+            p = torch.exp(s - lse_r)
+            dp = torch.einsum("bqd,bkd->bqk", dop[:, r, h_],
+                              vp[:, c, h_ // group])
+            ds = (p * (dp - dd) * scale).to(k.dtype).float()
+            dq[:, r, h_] += torch.einsum("bqk,bkd->bqd", ds, kt)
+    return dq[:, :sq].to(q.dtype)
+
+
+@pytest.mark.parametrize("stack,sq,sk,dtype,tiles,jax_blocks", [
+    ("mixed_gqa2", 256, 256, "f32", (128, 64), (128, 64)),
+    ("mixed_gqa2", 256, 256, "bf16", (128, 64), (128, 64)),
+    ("mixed_gqa2", 256, 256, "f32", (64, 64), (64, 64)),
+    ("degenerate", 256, 64, "f32", (128, 64), (128, 64)),
+    ("alternating_8_groups", 200, 328, "f32", (128, 64), None),
+])
+def test_dq_walk_of_the_call_schedule_matches(stack, sq, sk, dtype, tiles,
+                                              jax_blocks):
+    """dQ from a plain walk of the call schedule, as the dQ kernels compute
+    it (listed tiles only, the mask only on tiles not full, the lse floor,
+    dS rounded to k's dtype), at the bf16 kernel's 128 x 64 tiles and the
+    float32 kernel's 64 x 64, against ``splash_backward_reference`` on
+    the same (out, lse) and against the JAX ``_sbwd`` dQ (its Pallas
+    kernels in interpret mode, through ``jax.vjp``, where the lengths
+    divide its blocks). Tolerances as the module's: float32 1e-4 and bf16
+    2e-2 of the plain gradient's max |value|; rows nothing reaches (the
+    degenerate stack: queries 95.. of 256 on 64 keys under a 32 window)
+    get exactly zero."""
+    spec, group = (([("local", 32)] * 2, 1) if stack == "degenerate"
+                   else STACKS[stack])
+    jmasks, tmasks = _pair(spec)
+    jdt, tdt = DT[dtype]
+    h = len(tmasks)
+    q, k, v, do = _inputs(1, sq, sk, h, h // group, 32, seed=21)
+    tq, tk, tv, tdo = (torch.from_numpy(a).to(tdt) for a in (q, k, v, do))
+    out, lse = tsplash.splash_attention_reference(tq, tk, tv, tmasks)
+    got = _dq_walk(tq, tk, tv, tdo, out, lse, tmasks, *tiles)
+    assert got.dtype == tdt and got.shape == tq.shape
+    want = tsplash.splash_backward_reference(tq, tk, tv, out, lse, tdo,
+                                             tmasks)[0]
+    tol = TOL[dtype] * float(want.float().abs().max())
+    assert float((got.float() - want.float()).abs().max()) <= tol
+    if stack == "degenerate":
+        assert not got[:, 95:].any()
+    if jax_blocks is not None:
+        bq, bk = jax_blocks
+        _, vjp = jax.vjp(lambda *a: jsplash.splash_attention(
+            *a, mask=jmasks, block_q=bq, block_k=bk),
+            *(jnp.asarray(a, jdt) for a in (q, k, v)))
+        jdq = np.asarray(vjp(jnp.asarray(do, jdt))[0].astype(jnp.float32))
+        tol = TOL[dtype] * float(np.abs(jdq).max())
+        assert float(np.abs(got.float().numpy() - jdq).max()) <= tol
