@@ -52,7 +52,20 @@ Phases, one JSON line each (``{"phase": ..., "ok": ...}``):
    one of them a prefix-cache hit. Launch counters are zeroed right before
    and read right after; every kernel of the path must have run. Greedy
    outputs are held against solo runs under the margin rule.
-6. train: the 1B Llama (``PRESETS["1b"]``, full width and depth, fp32
+6. serve_paged: a fresh deployment of the same model and weights with a
+   paged KV pool (``kv_page_tokens=64``, ``kv_pool_pages=64``: 4096
+   tokens of KV for 8 slots of 2048), ``prefill_chunk_tokens=512`` and
+   the device sampler answers eight requests sent before the first can
+   finish (1100 tokens, a sharer of its first 1061 plus 200 sent after
+   its first token, 1500, 900, 800, 700 sampled at temperature 0.8, 300
+   and 20; every prompt over 512 tokens prefills in chunks, the 1500 one
+   in three). It must preempt at least once, run at
+   least three prefill chunks, hit the prefix cache, return every page
+   (free or pinned by the prefix index) and launch the flash forward 32
+   times per full prefill wave, all on wgmma. Greedy streams are held
+   against solo contiguous runs under the margin rule, and the paged
+   paths' logit drift against the contiguous ones must stay under it.
+7. train: the 1B Llama (``PRESETS["1b"]``, full width and depth, fp32
    masters from seed 0, ``attention_impl="flash"``, full remat,
    ``loss_chunk=512``) takes four AdamW steps through ``build_train_step``
    with two microbatches of 4 x 2048 tokens. Launch counters are zeroed
@@ -62,17 +75,18 @@ Phases, one JSON line each (``{"phase": ..., "ok": ...}``):
    and falling. A 2-layer model of the same width then holds the flash
    gradients against the plain-attention ones.
 
-Serve and train also read the forward's C entry's own launch count of
-each of its kernels over the same window: every forward launch there
-must have taken the wgmma kernel; train reads the backward's entries the
-same way, and every backward launch must have taken a wgmma kernel.
+Serve, serve_paged and train also read the forward's C entry's own
+launch count of each of its kernels over the same window: every forward
+launch there must have taken the wgmma kernel; train reads the
+backward's entries the same way, and every backward launch must have
+taken a wgmma kernel.
 
-Each main path (splash, serve, train) must have launched each of its
-kernels at least once. Then a ``{"kernels": [...]}`` line with all seven
-kernels (the six attention kernels with their main-path launches by
-kernel, and each with its ptxas lines: registers, shared memory and
-spills of each instantiation), the nvidia-smi name/power-limit line,
-and, last, ``{"ok": true, "device": {...}}``.
+Each main path (splash, serve, serve_paged, train) must have launched
+each of its kernels at least once. Then a ``{"kernels": [...]}`` line
+with all seven kernels (the six attention kernels with their main-path
+launches by kernel, and each with its ptxas lines: registers, shared
+memory and spills of each instantiation), the nvidia-smi
+name/power-limit line, and, last, ``{"ok": true, "device": {...}}``.
 Any failed phase exits 1 without that last line; so does a machine
 without a card.
 """
@@ -177,6 +191,7 @@ KERNELS = {
 # The kernels each main path must launch at least once.
 PATH_KERNELS = {
     "serve": ["flash_fwd"],
+    "serve_paged": ["flash_fwd"],
     "train": ["flash_fwd", "flash_bwd_dkv", "flash_bwd_dq",
               "attention_delta"],
     "splash": ["splash_fwd", "splash_bwd_dq", "splash_bwd_dkv",
@@ -1510,6 +1525,239 @@ def phase_serve(cfg, device="cuda") -> dict:
     return out
 
 
+# The serve_paged phase's pool and requests (see the module docstring).
+PAGED_SERVE = dict(slots=8, capacity=2048, page_tokens=64, pool_pages=64,
+                   chunk=512)
+
+
+def _paged_drift(engine, plan, src, sharer, prefix_len) -> dict:
+    """Max |logit| differences between the paged and the contiguous paths
+    on the deployment's weights, each through a fresh pool with shuffled
+    page ids: a full paged prefill and one paged decode step after it
+    against the contiguous ones; the longest prompt prefilled in
+    engine-sized chunks (paged suffix prefills) against its full
+    contiguous prefill; and a prefix hit's paged suffix prefill over the
+    source's pages against the sharer's full contiguous prefill. The
+    margin rule's tolerance must cover all of them."""
+    from ray_tpu_torch.models import llama_decode as ld
+
+    cfg, dev, params = engine.config, engine.device, engine.params
+    T, chunk = engine.page_tokens, engine.prefill_chunk_tokens
+    pages = engine.slot_pages_max
+    ids = torch.as_tensor(np.random.default_rng(1).permutation(
+        np.arange(1, pages + 1)), dtype=torch.int32, device=dev)[None]
+
+    def padded(p, b):
+        t = torch.zeros(1, b, dtype=torch.long, device=dev)
+        t[0, :len(p)] = torch.as_tensor(p, device=dev)
+        return t
+
+    def contiguous(p):
+        cache = ld.init_cache(cfg, 1, engine.capacity, device=dev)
+        logits, cache = ld.prefill(
+            params, padded(p, ld.cache_bucket(len(p), engine.prefill_bucket)),
+            cache, cfg, lengths=torch.tensor([len(p)], device=dev))
+        return logits, cache
+
+    out = {}
+    p = plan["p3"][0]
+    bucket = ld.cache_bucket(len(p), engine.prefill_bucket)
+    pool = ld.init_page_pool(cfg, pages, T, device=dev)
+    lengths = torch.tensor([len(p)], dtype=torch.int32, device=dev)
+    paged, pool = ld.paged_prefill(params, padded(p, bucket), pool,
+                                   ids[:, :-(-bucket // T)], cfg,
+                                   lengths=lengths)
+    full, cache = contiguous(p)
+    out["prefill"] = float((paged - full).abs().max())
+    tok = torch.argmax(full, dim=-1).to(torch.int32)
+    paged, pool, _ = ld.paged_decode_step(
+        params, pool, ids[:, :-(-(len(p) + 1) // T)], lengths, tok, cfg)
+    full, cache = ld.decode_step(params, cache, tok, cfg)
+    out["decode"] = float((paged - full).abs().max())
+    del cache
+    p = plan["p2_chunked"][0]
+    pool = ld.init_page_pool(cfg, pages, T, device=dev)
+    for start in range(0, len(p), chunk):
+        end = min(len(p), start + chunk)
+        b = min(ld.cache_bucket(end - start, engine._suffix_bucket_min),
+                chunk)
+        paged, pool = ld.paged_prefill_suffix(
+            params, padded(p[start:end], b), pool,
+            ids[:, :min(pages, -(-(start + b) // T))], cfg,
+            torch.tensor([start], device=dev),
+            torch.tensor([end], device=dev))
+    full, _ = contiguous(p)
+    out["chunked_vs_full"] = float((paged - full).abs().max())
+    pool = ld.init_page_pool(cfg, pages, T, device=dev)
+    bucket = ld.cache_bucket(len(src), engine.prefill_bucket)
+    ld.paged_prefill(params, padded(src, bucket), pool,
+                     ids[:, :-(-bucket // T)], cfg,
+                     lengths=torch.tensor([len(src)], device=dev))
+    suffix = sharer[prefix_len:]
+    b = ld.cache_bucket(len(suffix), engine._suffix_bucket_min)
+    paged, pool = ld.paged_prefill_suffix(
+        params, padded(suffix, b), pool,
+        ids[:, :min(pages, -(-(prefix_len + b) // T))], cfg,
+        torch.tensor([prefix_len], device=dev),
+        torch.tensor([len(sharer)], device=dev))
+    full, _ = contiguous(sharer)
+    out["suffix_vs_full"] = float((paged - full).abs().max())
+    del pool
+    return out
+
+
+def phase_serve_paged(cfg, device="cuda") -> dict:
+    """Llama-2-7B behind a paged ``LlamaDecodeDeployment``: 8 slots of
+    2048 tokens on a pool of 64 pages of 64 tokens (4096 tokens for
+    requests that want far more), 512-token prefill chunks, the device
+    sampler. Eight requests, all sent before the first can finish: a
+    1100-token prefix source; a sharer of its first 1061 tokens plus 200,
+    sent after the source's first token; a 1500-token prompt (3 chunks);
+    prompts of 900, 800, 700, 300 and 20 tokens, the 700 one sampled at
+    temperature 0.8."""
+    from ray_tpu_torch.serve.decode import LlamaDecodeDeployment
+
+    gc.collect()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    geo = PAGED_SERVE
+    t0 = time.perf_counter()
+    dep = LlamaDecodeDeployment(
+        config=cfg, slots=geo["slots"], capacity=geo["capacity"], seed=0,
+        kv_page_tokens=geo["page_tokens"], kv_pool_pages=geo["pool_pages"],
+        prefill_chunk_tokens=geo["chunk"], device_sampler=True,
+        device=device)
+    _sync(device)
+    init_s = time.perf_counter() - t0
+    eng = dep.engine
+    rng = np.random.default_rng(1)
+
+    def prompt(n):
+        return rng.integers(1, cfg.vocab_size, n).tolist()
+
+    shared = prompt(1100)
+    plan = {  # name -> (prompt, max_new_tokens, temperature)
+        "p1_shared_src": (shared, 32, 0.0),
+        "p2_chunked": (prompt(1500), 16, 0.0),
+        "p3": (prompt(900), 24, 0.0),
+        "p4": (prompt(800), 24, 0.0),
+        "p5_sampled": (prompt(700), 24, 0.8),
+        "p6": (prompt(300), 32, 0.0),
+        "p7_short": (prompt(20), 32, 0.0),
+        "p8_prefix_hit": (shared[:1061] + prompt(200), 24, 0.0),
+    }
+    results, errors, token_times, submitted = {}, {}, {}, {}
+    first_token = threading.Event()
+
+    def run(name):
+        toks, n, temp = plan[name]
+        try:
+            got, times = [], []
+            submitted[name] = time.perf_counter()
+            for tok in dep({"tokens": toks, "max_new_tokens": n,
+                            "temperature": temp, "stream": True}):
+                times.append(time.perf_counter())
+                got.append(tok)
+                if name == "p1_shared_src":
+                    first_token.set()
+            token_times[name] = times
+            results[name] = got
+        except Exception as e:  # reported as a failed phase below
+            errors[name] = f"{type(e).__name__}: {e}"
+            first_token.set()
+
+    # Page stats at every step boundary, read on the decode loop's own
+    # thread: a read from another thread could land inside an admission,
+    # whose pages are taken before its prefill has filled them.
+    samples = []
+    step = eng.step
+
+    def step_and_sample():
+        n = step()
+        s = eng.stats()
+        if s["active"] or s["prefilling"]:
+            samples.append((s["kv_fragmentation"], s["pages_free"]))
+        return n
+
+    eng.step = step_and_sample
+    reset_counts()
+    fwd0 = fwd_kernel_counts(device)
+    t_start = time.perf_counter()
+    threads = [threading.Thread(target=run, args=(n,))
+               for n in plan if n != "p8_prefix_hit"]
+    for t in threads:
+        t.start()
+    # The prefix index takes the source's pages at its admission: send the
+    # sharer after the source's first token.
+    first_token.wait(REQUEST_TIMEOUT_S)
+    later = threading.Thread(target=run, args=("p8_prefix_hit",))
+    later.start()
+    for t in threads + [later]:
+        t.join(REQUEST_TIMEOUT_S)
+    _sync(device)
+    t_end = time.perf_counter()
+    counts = launch_counts()
+    by_kernel = fwd_kernels_since(fwd0, device)
+    stats = eng.stats()
+    hung = [t.name for t in threads + [later] if t.is_alive()]
+    out = {"init_s": init_s, "wall_s": t_end - t_start,
+           "geometry": geo, "launches": counts,
+           "flash_fwd_by_kernel": by_kernel, "engine": stats,
+           "errors": errors, "hung_threads": hung}
+    checks = {}
+    checks["all_answered"] = (not errors and not hung
+                              and set(results) == set(plan))
+    checks["token_counts"] = checks["all_answered"] and all(
+        len(results[n]) == plan[n][1] for n in plan)
+    checks["tokens_in_vocab"] = checks["all_answered"] and all(
+        0 <= t < cfg.vocab_size for n in plan for t in results[n])
+    checks["preempted"] = stats["preempted"] >= 1
+    checks["prefill_chunks_3"] = stats["prefill_chunks"] >= 3
+    checks["prefix_hit"] = stats.get("prefix", {}).get("hits", 0) >= 1
+    checks["pages_returned"] = (
+        stats["active"] == stats["prefilling"] == stats["queued"] == 0
+        and stats["pages_free"] + stats["pages_pinned"]
+        == geo["pool_pages"])
+    checks["flash_launches_per_full_wave"] = (
+        stats["prefill_waves"] > 0
+        and counts["flash_fwd"] == cfg.n_layers * stats["prefill_waves"])
+    checks["flash_fwd_on_wgmma"] = all_on_wgmma(by_kernel,
+                                                counts["flash_fwd"], device)
+    if samples:
+        frag = [f for f, _ in samples]
+        out["kv_fragmentation"] = {"mean": sum(frag) / len(frag),
+                                   "max": max(frag), "steps": len(frag)}
+        out["pages_free_min"] = min(p for _, p in samples)
+    if checks["all_answered"]:
+        out["ttft_s"] = {n: token_times[n][0] - submitted[n] for n in plan}
+        out["stream_decode_tok_s"] = {
+            n: (len(ts) - 1) / (ts[-1] - ts[0])
+            for n, ts in token_times.items() if len(ts) > 1}
+        out["engine_tok_s"] = stats["tokens_out"] / (t_end - t_start)
+        agree = {}
+        for n, (toks, k, temp) in plan.items():
+            if temp > 0:
+                continue
+            want, margins = _solo_greedy(eng, toks, k)
+            agree[n] = _agrees(results[n], want, margins, MARGIN_TOL)
+        out["greedy_positions_compared"] = agree
+        # The source's prefix entry: the largest power of two <= 1100
+        # tokens, whole 64-token pages.
+        drift = _paged_drift(eng, plan, shared, plan["p8_prefix_hit"][0],
+                             1024)
+        out["logit_drift"] = drift
+        checks["greedy_agrees_with_solo"] = (
+            all(v >= 0 for v in agree.values())
+            and max(drift.values()) < MARGIN_TOL)
+    out["margin_tol"] = MARGIN_TOL
+    out["checks"] = checks
+    if torch.device(device).type == "cuda":
+        out["device"] = smi_line()
+    out["ok"] = all(checks.values()) and len(checks) == 10
+    dep.shutdown()
+    return out
+
+
 # Flash vs plain-attention gradients of the 2-layer check: the relative L2
 # norm of their difference, per parameter. Both round P (and the flash path
 # dS) to bf16, at other points of the sums, through two layers of bf16
@@ -1673,13 +1921,14 @@ def main() -> int:
     paths: dict = {}
     by_kernel: dict = {}
     bwd_by_kernel: dict = {}
+    serve_cfg = replace(llama.PRESETS["7b"], attention_impl="flash")
     train_cfg = replace(llama.PRESETS["1b"], attention_impl="flash",
                         remat=True, remat_policy="full", loss_chunk=512)
     for name, fn in (("env", phase_env), ("build", phase_build),
                      ("kernels", lambda: phase_kernels(record)),
                      ("splash", lambda: phase_splash(record)),
-                     ("serve", lambda: phase_serve(replace(
-                         llama.PRESETS["7b"], attention_impl="flash"))),
+                     ("serve", lambda: phase_serve(serve_cfg)),
+                     ("serve_paged", lambda: phase_serve_paged(serve_cfg)),
                      ("train", lambda: phase_train(train_cfg))):
         t0 = time.perf_counter()
         try:

@@ -4,8 +4,8 @@
 Same names, types and defaults as the JAX package. ``RAY_TPU_<NAME>`` env
 vars override at import time; ``config.update({...})`` or attribute
 assignment overrides at run time. The knobs the port does not carry yet
-(paged KV, speculative decoding, the device sampler, warmup, a decode
-mesh) are declared so that a non-default value can be refused by name.
+(speculative decoding, warmup, a decode mesh) are declared so that a
+non-default value can be refused by name.
 """
 
 from __future__ import annotations
@@ -28,14 +28,46 @@ _FLAG_DEFS: Dict[str, tuple] = {
         "it, submit() sheds the request with OverloadedError. "
         "0 = slots * 8."),
     "kv_page_tokens": (int, 0,
-        "Page size (tokens) of a paged KV pool. 0 = contiguous whole-row "
-        "cache (the only layout the port carries so far)."),
+        "Page size (tokens) of a DecodeEngine's paged KV pool. >0 switches "
+        "the engine from per-slot monolithic cache rows to a shared device "
+        "pool of fixed-size pages addressed through per-slot block tables "
+        "(vLLM-style paged attention on static shapes): slots consume only "
+        "the pages their sequence actually covers, prefix sharing splices "
+        "block-table entries with zero device copies, and eviction frees "
+        "page-granular tail segments. Must divide the engine capacity. "
+        "0 = contiguous whole-row cache (pre-paging behavior)."),
+    "kv_pool_pages": (int, 0,
+        "Pages in a paged DecodeEngine's device KV pool. The pool may be "
+        "OVERCOMMITTED (pages < slots * capacity / kv_page_tokens): more "
+        "concurrent sequences fit the same HBM bytes, and when the pool "
+        "truly runs dry the engine reclaims prefix-cache pins first and "
+        "then preempts the youngest request (recompute-style requeue). "
+        "0 = slots * capacity / kv_page_tokens (no overcommit)."),
+    "kv_prefix_max_pages": (int, 0,
+        "Cap on pool pages pinned by the paged prefix index (cached "
+        "prompt prefixes kept resident after their request completes). "
+        "Past it, least-recently-used tail pages unpin first. "
+        "0 = kv_pool_pages // 4."),
+    "prefill_chunk_tokens": (int, 0,
+        "Chunked-prefill interleaving for paged DecodeEngines: prompt "
+        "prefills longer than this run as a sequence of at most one "
+        "chunk-sized prefill program per decode step, scheduled between "
+        "decode steps — a long admission can stall active streams for at "
+        "most ONE chunk instead of its whole prefill. 0 disables "
+        "(monolithic prefill at admission, pre-chunking behavior)."),
     "spec_k": (int, 0,
         "Speculative-decoding depth (requires paged KV). 0 disables."),
     "spec_draft_model": (str, "",
         "Draft-model preset name for speculative mode. Empty disables."),
     "decode_device_sampler": (bool, False,
-        "Fold sampling into the decode step on the device."),
+        "Fold sampling into the decode step on the device (argmax, or a "
+        "per-row categorical draw at the row's temperature) so each step "
+        "returns token ids instead of copying (slots, vocab) logits to "
+        "the host sampler. Greedy rows are identical to the host "
+        "sampler's; temperature > 0 rows draw from a torch.Generator "
+        "seeded from the step (a different stream than the host "
+        "sampler's numpy generator and than the JAX package's device "
+        "stream), which is why this is opt-in."),
     "decode_warmup": (bool, False,
         "Pre-dispatch the steady-state step programs at construction."),
     "decode_mesh_shape": (str, "",

@@ -16,7 +16,7 @@ Training: ``loss_fn`` (next-token cross entropy, chunked under
 (``remat_wrap``), the one-hot matmul embedding (``_embed_matmul``),
 ``param_axes`` and ``flops_per_token``. The JAX ``constrain(...)`` calls
 are sharding hints; on one device they are no-ops, so the port drops them.
-The MoE fields are not ported (ROADMAP.md queue 1, item 5).
+The MoE fields are not ported (ROADMAP.md queue 1, item 3).
 """
 
 from __future__ import annotations
@@ -112,7 +112,7 @@ def config_for(name_or_config) -> LlamaConfig:
 def _check_ported(config: LlamaConfig) -> None:
     if config.attention_impl == "ring":
         raise not_ported("attention_impl='ring'",
-                         "item 5, ring, Ulysses and MoE")
+                         "item 3, meshes with ring, Ulysses and MoE")
 
 
 # ------------------------------------------------------------------ params

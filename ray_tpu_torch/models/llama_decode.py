@@ -1,13 +1,17 @@
 """Autoregressive decoding for the Llama family (port of
-``ray_tpu/models/llama_decode.py``, contiguous KV cache).
+``ray_tpu/models/llama_decode.py``: the contiguous KV cache, the paged KV
+pool and the batched sampler).
 
 The cache is the JAX package's ``(L, B, C, KV, D)`` layout plus a per-row
-``length``. Where the JAX functions return new caches (the engine donates
-the old buffers), these update the preallocated cache tensors IN PLACE and
-return the same dict: the KV cache is never copied per step.
+``length``; the paged pool is its ``(L, pages + 1, T, KV, D)`` layout
+addressed through per-row block tables. Where the JAX functions return new
+caches (the engine donates the old buffers), these update the
+preallocated cache and pool tensors IN PLACE and return the same dict: the
+KV state is never copied per step.
 
 Prefill attention is the config's ``attention_impl`` (``"flash"`` launches
-the Hopper kernel); the suffix-prefill and decode attention are plain
+the Hopper kernel), for the contiguous and the paged full prefill alike;
+the suffix-prefill, chunk and decode attention, paged or not, are plain
 masked products in fp32, as the JAX package leaves them to XLA.
 
 Writes the JAX package lets XLA drop (a scatter index past the cache row)
@@ -15,7 +19,8 @@ raise or fault in PyTorch, so they are masked out explicitly here: never
 clamped into a live position. Reads past the rope tables clamp, as XLA's
 gathers do; they only feed rows whose output nothing reads.
 
-The paged and speculative functions come with ROADMAP.md queue 1, item 2.
+The speculative functions (``paged_verify``, ``paged_spec_draft``) come
+with ROADMAP.md queue 1, item 1.
 """
 
 from __future__ import annotations
@@ -221,6 +226,204 @@ def decode_chunk(params, cache: Cache, tokens: torch.Tensor,
     return torch.stack(out), cache
 
 
+# --------------------------------------------------------------- paged KV
+#
+# K/V for ALL slots live in one device pool of ``(pages + 1, T)`` blocks;
+# a per-row block table (page ids, (B, W)) maps logical token positions to
+# pool pages. Attention gathers a row's pages back into logical order, so
+# the gathered layout is value-for-value the contiguous cache's and the
+# masked product is the contiguous one.
+#
+# Page 0 is the reserved scratch page: block-table entries a row never
+# allocated point at it, and positions past the block table's window are
+# routed to it explicitly, as the JAX package routes them. An index is
+# never clamped into a live page. Several rows may write page 0 at one
+# offset in one ``index_put_``: whichever write lands, nothing reads it.
+# A full prefill writes no page another row owns; suffix, chunk and decode
+# writes start at each row's ``prefix_lens`` / ``length``, past the pages a
+# prefix hit shares (those end on a page boundary at or before it).
+
+
+def init_page_pool(config: LlamaConfig, pages: int, page_tokens: int,
+                   dtype: Optional[torch.dtype] = None, device=None) -> Cache:
+    """Zeroed paged KV pool: ``pages`` usable pages of ``page_tokens``
+    tokens each, plus the scratch page 0 (so ``pages + 1`` page rows)."""
+    c = config
+    dev = resolve_device(device)
+    shape = (c.n_layers, pages + 1, page_tokens, c.n_kv_heads, c.head_dim)
+    dt = dtype or c.dtype
+    return {"k": torch.zeros(shape, dtype=dt, device=dev),
+            "v": torch.zeros(shape, dtype=dt, device=dev)}
+
+
+def _page_slots(block_tables: torch.Tensor, pos: torch.Tensor, T: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pool (page, offset) of absolute positions ``pos`` (B, ...) through
+    ``block_tables`` (B, W); positions past the ``W * T`` window go to the
+    scratch page 0."""
+    W = block_tables.shape[1]
+    col = torch.div(pos, T, rounding_mode="floor").clamp(max=W - 1)
+    rows = torch.arange(pos.shape[0], device=pos.device).view(
+        -1, *([1] * (pos.dim() - 1)))
+    page = torch.where(pos < W * T, block_tables[rows, col],
+                       torch.zeros_like(col))
+    return page, pos % T
+
+
+def _gather_pages(pool_layer: torch.Tensor, block_tables: torch.Tensor
+                  ) -> torch.Tensor:
+    """One layer's pool (P + 1, T, KV, D) -> each row's pages in logical
+    order, (B, W * T, KV, D)."""
+    B, W = block_tables.shape
+    T = pool_layer.shape[1]
+    return pool_layer[block_tables].reshape(B, W * T, *pool_layer.shape[2:])
+
+
+def paged_prefill(params, tokens: torch.Tensor, pool: Cache,
+                  block_tables: torch.Tensor, config: LlamaConfig,
+                  lengths: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, Cache]:
+    """Full prefill of right-padded prompts (B, S) scattered into pool
+    pages. The attention is the plain causal ``prefill`` (a fresh prompt
+    attends only to itself, no pool reads) into a scratch cache; position
+    ``p`` of row ``b`` then lands in page ``block_tables[b, p // T]`` at
+    offset ``p % T``, in place.
+
+    ``block_tables``: (B, W) with ``W * T >= S``. Pad positions past a
+    row's real length scatter into whatever page backs them, the row's own
+    tail page or the scratch page 0, and are never read (causally
+    invisible at prefill, masked by ``length`` at decode). Returns
+    ``(last_logits (B, V) fp32, pool)``."""
+    c = config
+    B, S = tokens.shape
+    dev = tokens.device
+    T = pool["k"].shape[2]
+    bt = block_tables.to(dev).long()
+    if bt.shape[1] * T < S:
+        raise ValueError(f"block tables of {bt.shape[1]} pages x {T} "
+                         f"tokens do not cover the prompt bucket {S}")
+    shape = (c.n_layers, B, S, c.n_kv_heads, c.head_dim)
+    scratch = {"k": torch.empty(shape, dtype=pool["k"].dtype, device=dev),
+               "v": torch.empty(shape, dtype=pool["v"].dtype, device=dev),
+               "length": torch.zeros((B,), dtype=torch.int32, device=dev)}
+    logits, scratch = prefill(params, tokens, scratch, c, lengths)
+    pos = torch.arange(S, device=dev)
+    pages = bt[:, pos // T]                                     # (B, S)
+    offs = (pos % T).expand(B, S)
+    pool["k"][:, pages, offs] = scratch["k"]
+    pool["v"][:, pages, offs] = scratch["v"]
+    return logits, pool
+
+
+def paged_prefill_suffix(params, tokens: torch.Tensor, pool: Cache,
+                         block_tables: torch.Tensor, config: LlamaConfig,
+                         prefix_lens: torch.Tensor, lengths: torch.Tensor
+                         ) -> Tuple[torch.Tensor, Cache]:
+    """Suffix prefill against paged context: right-padded suffix
+    ``tokens`` (B, S) from ``pos = prefix_lens``, attending to the pages
+    ``block_tables`` (B, W) maps (the shared or earlier-filled prefix
+    pages plus the causal part of the suffix). It serves the prefix-hit
+    splice (the block table IS the splice, no copy) and each chunk of a
+    chunked prefill (prefix = what earlier chunks wrote).
+
+    Pass block tables sliced to the columns covering prefix + suffix, so
+    the gather and the attention scale with what the wave touches. Suffix
+    K/V is written in place at its absolute positions before the gather,
+    so each query sees its own causal K/V; pad positions past the window
+    go to the scratch page. ``lengths`` is each row's TOTAL length.
+    Returns ``(last_logits (B, V) fp32, pool)`` at each row's final real
+    token."""
+    c = config
+    B, S = tokens.shape
+    dev = tokens.device
+    T = pool["k"].shape[2]
+    bt = block_tables.to(dev).long()
+    C = bt.shape[1] * T
+    prefix_lens = prefix_lens.to(dev).long()
+    abs_pos = prefix_lens[:, None] + torch.arange(S, device=dev)[None, :]
+    pages, offs = _page_slots(bt, abs_pos, T)                   # (B, S)
+    valid = (torch.arange(C, device=dev)[None, None, :]
+             <= abs_pos[:, :, None])                            # (B, S, C)
+    rope_pos = abs_pos.clamp(max=c.max_seq_len - 1)
+    x = embed(params, tokens, c)
+    cos, sin = rope_tables(c, dev)
+    for i in range(c.n_layers):
+        layer = layer_params(params, i)
+        h = rms_norm(x, layer["attn_norm"], c.norm_eps)
+        q, k_new, v_new = qkv(layer, h, c)
+        q = apply_rope(q, cos, sin, positions=rope_pos)
+        k_new = apply_rope(k_new, cos, sin, positions=rope_pos)
+        kp, vp = pool["k"][i], pool["v"][i]
+        kp[pages, offs] = k_new.to(kp.dtype)
+        vp[pages, offs] = v_new.to(vp.dtype)
+        att = _masked_attention(q, _gather_pages(kp, bt),
+                                _gather_pages(vp, bt), valid, c)
+        x = mlp(layer, x + out_proj(layer, att.to(x.dtype)), c)
+    x = rms_norm(x, params["final_norm"], c.norm_eps)
+    idx = (lengths.to(dev).long() - prefix_lens - 1).clamp(0, S - 1)
+    return logits_f32(params, _last_real(x, idx)), pool
+
+
+def paged_decode_step(params, pool: Cache, block_tables: torch.Tensor,
+                      lengths: torch.Tensor, tokens: torch.Tensor,
+                      config: LlamaConfig
+                      ) -> Tuple[torch.Tensor, Cache, torch.Tensor]:
+    """One decode token per row against paged context. ``tokens`` (B,) is
+    written in place at position ``lengths[b]`` of each row's block-mapped
+    sequence; attention sees positions ``<= length`` across the row's
+    gathered pages, value for value the contiguous ``decode_step``.
+
+    Idle and mid-prefill rows flow through too: their parked cursor may
+    sit past the window (block tables sliced to the live rows' needs), and
+    those writes go to the scratch page. Returns ``(logits (B, V) fp32,
+    pool, lengths + 1)``; nothing here reads a device value back to the
+    host."""
+    c = config
+    dev = tokens.device
+    T = pool["k"].shape[2]
+    bt = block_tables.to(dev).long()
+    C = bt.shape[1] * T
+    pos = lengths.to(dev).long()
+    page, off = _page_slots(bt, pos, T)                         # (B,)
+    valid = (torch.arange(C, device=dev)[None, :]
+             <= pos[:, None])[:, None, :]                       # (B, 1, C)
+    rope_pos = pos.clamp(max=c.max_seq_len - 1)[:, None]
+    x = embed(params, tokens, c)[:, None]                       # (B, 1, E)
+    cos, sin = rope_tables(c, dev)
+    for i in range(c.n_layers):
+        layer = layer_params(params, i)
+        h = rms_norm(x, layer["attn_norm"], c.norm_eps)
+        q, k_new, v_new = qkv(layer, h, c)                      # (B, 1, ., D)
+        q = apply_rope(q, cos, sin, positions=rope_pos)
+        k_new = apply_rope(k_new, cos, sin, positions=rope_pos)
+        kp, vp = pool["k"][i], pool["v"][i]
+        kp[page, off] = k_new[:, 0].to(kp.dtype)
+        vp[page, off] = v_new[:, 0].to(vp.dtype)
+        att = _masked_attention(q, _gather_pages(kp, bt),
+                                _gather_pages(vp, bt), valid, c)
+        x = mlp(layer, x + out_proj(layer, att.to(x.dtype)), c)
+    x = rms_norm(x, params["final_norm"], c.norm_eps)
+    return logits_f32(params, x[:, 0]), pool, (pos + 1).to(torch.int32)
+
+
+def paged_decode_chunk(params, pool: Cache, block_tables: torch.Tensor,
+                       lengths: torch.Tensor, tokens: torch.Tensor,
+                       config: LlamaConfig, k: int
+                       ) -> Tuple[torch.Tensor, Cache, torch.Tensor]:
+    """``k`` greedy paged decode steps, each step's argmax feeding the
+    next. The block tables are fixed across the chunk: the caller must
+    have pages allocated to cover ``length + k`` for every stepping row.
+    Returns ``(tokens (k, B) int32, pool, lengths)``."""
+    out = []
+    tok = tokens
+    for _ in range(k):
+        logits, pool, lengths = paged_decode_step(
+            params, pool, block_tables, lengths, tok, config)
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        out.append(tok)
+    return torch.stack(out), pool, lengths
+
+
 def _sample(logits: torch.Tensor, temperature: float,
             generator: Optional[torch.Generator]) -> torch.Tensor:
     if temperature <= 0.0:
@@ -228,6 +431,27 @@ def _sample(logits: torch.Tensor, temperature: float,
     probs = torch.softmax(logits / temperature, dim=-1)
     return torch.multinomial(probs, 1, generator=generator)[:, 0].to(
         torch.int32)
+
+
+def sample_batch(logits: torch.Tensor, temperatures: torch.Tensor,
+                 generator: Optional[torch.Generator] = None
+                 ) -> torch.Tensor:
+    """Per-row sampling on the device: argmax where ``temperatures[b] <=
+    0``, else a categorical draw at that row's temperature (Gumbel-max:
+    ``argmax(logits / t + g)`` with ``g = -log(-log(u))``, the draw the
+    JAX package's ``jax.random.categorical`` makes). The greedy lane
+    equals host ``np.argmax`` (both take the first maximum); the sampled
+    lane draws from ``generator``, a different stream than the host
+    sampler's and the JAX package's, and repeats under one seed.
+    Returns (B,) int32."""
+    greedy = torch.argmax(logits, dim=-1)
+    temps = temperatures.to(logits.device, torch.float32)
+    u = torch.rand(logits.shape, generator=generator, device=logits.device,
+                   dtype=torch.float32)
+    gumbel = -torch.log(-torch.log(u))
+    sampled = torch.argmax(logits.float() / temps.clamp(min=1e-6)[:, None]
+                           + gumbel, dim=-1)
+    return torch.where(temps <= 0.0, greedy, sampled).to(torch.int32)
 
 
 @torch.no_grad()

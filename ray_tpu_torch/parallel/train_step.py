@@ -10,7 +10,7 @@ builder picks no device itself.
 
 One device only. The JAX builder runs the step under a mesh's axis rules
 (DP/FSDP/TP/SP); a non-None ``mesh`` and the ZeRO-1 builders raise until
-the meshes are ported (ROADMAP.md queue 1, item 5).
+the meshes are ported (ROADMAP.md queue 1, item 3).
 """
 
 from __future__ import annotations
@@ -23,7 +23,7 @@ from ray_tpu_torch.core.device import not_ported, resolve_device
 from ray_tpu_torch.ops.optim import tree_leaves, tree_map
 
 Params = Dict[str, Any]
-_MESH_ITEM = "item 5, the meshes under ring, Ulysses and MoE"
+_MESH_ITEM = "item 3, meshes with ring, Ulysses and MoE"
 
 
 def _no_mesh(mesh, what: str) -> None:

@@ -1,30 +1,46 @@
-"""Continuous-batching decode engine (port of ``ray_tpu/serve/decode.py``,
-contiguous KV cache).
+"""Continuous-batching decode engine (port of ``ray_tpu/serve/decode.py``:
+the contiguous and the paged KV engine, chunked prefill, recompute
+preemption and the device sampler).
 
-* One KV cache of ``slots`` rows x ``capacity`` tokens, allocated once.
-  Requests join and leave the running batch between decode steps:
-  admission prefills a wave of prompts into free slots, then one
-  ``decode_step`` advances every slot together.
-* Prefix cache: a device-resident pool of cached prompt prefixes indexed
-  by a host-side trie (``serve.prefix_cache``). Admission splits a wave
-  into misses (full prefill, whose attention is the config's impl: the
-  Hopper flash kernel with ``attention_impl="flash"``) and hits (the pool
-  entry is spliced into the slot and only the suffix is prefilled).
-* Every cache update is in place: admission writes its slots' rows, decode
-  writes one position per slot, a pool insert copies a slot's leading
-  positions into a pool row. The JAX engine gets the same effect by
-  donating the cache to each program.
+* Contiguous mode: one KV cache of ``slots`` rows x ``capacity`` tokens,
+  allocated once. Requests join and leave the running batch between
+  decode steps: admission prefills a wave of prompts into free slots,
+  then one ``decode_step`` advances every slot together.
+* Paged mode (``page_tokens > 0``): one pool of ``pool_pages`` pages
+  shared by all slots, addressed through per-slot block tables
+  (``serve.paging.PageAllocator``). A slot holds only the pages its
+  sequence covers, so the pool may be overcommitted; when it runs dry the
+  engine unpins prefix pages, then preempts the youngest request, whose
+  prompt plus emitted tokens re-enter the queue as one prefill
+  (recompute preemption). Prompts longer than ``prefill_chunk_tokens``
+  prefill one chunk per step between decode steps.
+* Prefix cache: contiguous mode keeps a device pool of cached prompt
+  prefixes indexed by a host-side trie (``serve.prefix_cache``); paged
+  mode pins the pages themselves (``serve.paging.PagedPrefixIndex``), so
+  an insert and a hit are block-table edits with no device copy. A miss
+  is a full prefill, whose attention is the config's impl (the Hopper
+  flash kernel with ``attention_impl="flash"``); a hit prefills only the
+  suffix, with plain masked attention.
+* Every cache update is in place: admission writes its slots' rows or
+  pages, decode writes one position per slot. The JAX engine gets the
+  same effect by donating the cache to each program.
 * Prompts pad to power-of-two length buckets, as in the JAX engine (the
   flash kernel's block checks want them). Wave sizes are not padded: the
   JAX engine pads them to bound its compiled-program set, which eager
-  PyTorch does not have, so no pad row is ever scattered.
+  PyTorch does not have, so no pad row is ever scattered. Paged decode
+  gathers only the block-table columns the live slots reach, the
+  counterpart of the contiguous path's ``lim``.
+* The device sampler (``device_sampler=True``) samples inside the step
+  (``llama_decode.sample_batch``) from a ``torch.Generator`` seeded from
+  the step counter, so runs repeat; only (slots,) token ids reach the
+  host.
 
 Single-threaded by design: ``serve_forever`` is the only consumer; intake
 (``submit``/``cancel``) is thread-safe. Not ported yet (ROADMAP.md queue
-1): paged KV, chunked prefill, speculative decoding, the device sampler,
-warmup and disaggregated handoff (item 2); decode meshes (item 5); the
+1): speculative decoding, the disaggregated handoff, warmup, and the step
+timelines, metrics and trace spans (item 1); decode meshes (item 3); the
 actor runtime, serve controller and HTTP proxy that run the deployment as
-a replica (item 3); step timelines, metrics and trace spans.
+a replica (item 4).
 """
 
 from __future__ import annotations
@@ -47,12 +63,13 @@ from ray_tpu_torch.core.errors import (DeadlineExceededError,
                                        RequestCancelledError)
 from ray_tpu_torch.models import llama
 from ray_tpu_torch.models import llama_decode as ld
+from ray_tpu_torch.serve.paging import PageAllocator, PagedPrefixIndex
 from ray_tpu_torch.serve.prefix_cache import PrefixCache
 
 logger = logging.getLogger(__name__)
 
 _req_ids = itertools.count(1)
-_ENGINE_PATHS = "item 2, paged KV / speculative / device-sampler engine paths"
+_ENGINE_PATHS = "item 1, speculative decoding, handoff and warmup"
 
 
 @dataclass(eq=False)  # identity semantics: numpy token arrays inside
@@ -73,6 +90,12 @@ class _Request:
     finished_at: Optional[float] = None
     prefix_entry: int = -1                 # prefix-pool row spliced in
     prefix_len: int = 0                    # cached tokens NOT re-prefilled
+    # ------------------------------------------------------- paged mode
+    prefix_pages: List[int] = field(default_factory=list)  # spliced pages
+    prompt_len: int = 0       # ORIGINAL prompt length (tokens grows when
+    #   a preempted request re-queues with its emitted tokens absorbed)
+    prefilled: int = 0        # prompt tokens prefilled so far (chunked)
+    preemptions: int = 0      # times requeued by page pressure
     request_id: str = ""
     deadline: Optional[float] = None       # absolute monotonic; None = none
     cancelled: bool = False                # cooperative-cancel flag
@@ -98,11 +121,14 @@ class DecodeEngine:
     """Continuous batcher over ``llama_decode``.
 
     ``slots`` concurrent sequences share one KV cache of ``capacity``
-    tokens per slot. ``step()`` admits waiting requests and advances every
-    active slot one token (or ``decode_chunk`` greedy tokens);
-    ``submit()`` enqueues a request. Run ``serve_forever`` in a thread, or
-    drive ``step()`` by hand in tests. Runs on ``device`` (``cuda`` unless
-    the caller passes another), where ``params`` must live."""
+    tokens per slot, or, with ``page_tokens > 0``, a pool of
+    ``pool_pages`` pages of ``page_tokens`` tokens (default: enough for
+    every slot's full capacity). ``step()`` admits waiting requests, runs
+    at most one chunk of a chunked prefill, and advances every active slot
+    one token (or ``decode_chunk`` greedy tokens); ``submit()`` enqueues a
+    request. Run ``serve_forever`` in a thread, or drive ``step()`` by
+    hand in tests. Runs on ``device`` (``cuda`` unless the caller passes
+    another), where ``params`` must live."""
 
     def __init__(self, params, config, slots: int = 4,
                  capacity: int = 1024, prefill_bucket: int = 128,
@@ -112,24 +138,20 @@ class DecodeEngine:
                  prefix_match_min_tokens: Optional[int] = None,
                  queue_max: Optional[int] = None,
                  page_tokens: Optional[int] = None,
+                 pool_pages: Optional[int] = None,
+                 prefill_chunk_tokens: Optional[int] = None,
+                 prefix_max_pages: Optional[int] = None,
                  mesh_shape=None,
                  spec_draft_params=None, spec_k: Optional[int] = None,
                  device_sampler: Optional[bool] = None,
                  device=None):
-        pt = rt_config.kv_page_tokens if page_tokens is None else page_tokens
-        if int(pt) > 0:
-            raise not_ported("paged KV (kv_page_tokens > 0)", _ENGINE_PATHS)
         sk = rt_config.spec_k if spec_k is None else spec_k
         if int(sk) > 0 and spec_draft_params is not None:
             raise not_ported("speculative decoding (spec_k > 0)",
                              _ENGINE_PATHS)
-        if device_sampler if device_sampler is not None \
-                else rt_config.decode_device_sampler:
-            raise not_ported("the device sampler (device_sampler=True)",
-                             _ENGINE_PATHS)
         if mesh_shape is not None or rt_config.decode_mesh_shape:
             raise not_ported("decode meshes (mesh_shape)",
-                             "item 5, ring, Ulysses and MoE")
+                             "item 3, meshes with ring, Ulysses and MoE")
         self.device = resolve_device(device)
         pdev = params["tok_embed"].device
         if pdev.type != self.device.type:
@@ -140,10 +162,49 @@ class DecodeEngine:
         self.slots = slots
         self.capacity = capacity
         self.prefill_bucket = prefill_bucket
-        self.cache = ld.init_cache(config, slots, capacity,
-                                   device=self.device)
+        # -------------------------------------------------- paged KV pool
+        pt = rt_config.kv_page_tokens if page_tokens is None else page_tokens
+        self.page_tokens = int(pt)
+        self.paged = self.page_tokens > 0
+        chunk_tok = (rt_config.prefill_chunk_tokens
+                     if prefill_chunk_tokens is None
+                     else prefill_chunk_tokens)
+        # Chunked prefill rides on the paged suffix prefill (a chunk IS a
+        # suffix prefill from pos = prefilled); contiguous engines keep
+        # monolithic admission. Rounded down to a power of two, as in the
+        # JAX engine, so chunk buckets stay on the prompt-bucket grid.
+        self.prefill_chunk_tokens = int(chunk_tok) if self.paged else 0
+        if self.prefill_chunk_tokens:
+            c = 1
+            while c * 2 <= self.prefill_chunk_tokens:
+                c *= 2
+            self.prefill_chunk_tokens = c
+        self._pages: Optional[PageAllocator] = None
+        if self.paged:
+            if capacity % self.page_tokens:
+                raise ValueError(
+                    f"capacity ({capacity}) must be a multiple of "
+                    f"kv_page_tokens ({self.page_tokens})")
+            self.slot_pages_max = capacity // self.page_tokens
+            pp = (rt_config.kv_pool_pages if pool_pages is None
+                  else pool_pages)
+            self.pool_pages = int(pp) or slots * self.slot_pages_max
+            self._pages = PageAllocator(self.pool_pages)
+            pool = ld.init_page_pool(config, self.pool_pages,
+                                     self.page_tokens, device=self.device)
+            self.cache = {"k": pool["k"], "v": pool["v"],
+                          "length": torch.zeros((slots,), dtype=torch.int32,
+                                                device=self.device)}
+            self._block_tables = np.zeros((slots, self.slot_pages_max),
+                                          np.int32)
+            self._slot_pages: List[List[int]] = [[] for _ in range(slots)]
+        else:
+            self.cache = ld.init_cache(config, slots, capacity,
+                                       device=self.device)
         self._free = list(range(slots))
         self._active: Dict[int, _Request] = {}
+        self._prefilling: Dict[int, _Request] = {}  # chunked, mid-prefill
+        self._requeue: List[_Request] = []  # preempted / pushed back, FIFO
         self._pending: "queue.Queue[_Request]" = queue.Queue()
         self._tokens = np.zeros((slots,), np.int32)
         self._rng = np.random.default_rng(0)
@@ -160,14 +221,18 @@ class DecodeEngine:
         self._reqs_lock = threading.Lock()
         self._queued_cancelled = 0  # cancelled but not yet dequeued
         self._queued_tokens = 0     # prompt tokens waiting for prefill
+        #   (pending queue + requeue)
         self.shed = 0
         self.cancelled = 0
         self.deadline_exceeded = 0
+        self.preempted = 0          # requests requeued by page pressure
         self._ema_request_s = 0.0   # EMA of completed-request service time
         self._last_purge = 0.0
         self.prefill_waves = 0      # full-prefill (miss) waves dispatched
         self.suffix_waves = 0       # suffix-prefill (hit) waves dispatched
-        # Prefix KV cache: a device pool of P entries x C_prefix tokens.
+        self.prefill_chunks = 0     # chunked-prefill chunks dispatched
+        # Prefix KV cache. Contiguous mode: a device pool of P entries x
+        # C_prefix tokens. Paged mode: the index pins pool pages.
         entries = (rt_config.prefix_pool_entries
                    if prefix_pool_entries is None else prefix_pool_entries)
         min_tokens = (rt_config.prefix_match_min_tokens
@@ -177,9 +242,17 @@ class DecodeEngine:
             prefix_capacity = 1
             while prefix_capacity * 2 <= capacity // 2:
                 prefix_capacity *= 2
-        self.prefix: Optional[PrefixCache] = None
+        self.prefix = None
         self._pool: Optional[Dict[str, torch.Tensor]] = None
-        if entries > 0 and prefix_capacity >= max(2, min_tokens):
+        if self.paged:
+            if entries > 0:
+                pmax = (rt_config.kv_prefix_max_pages
+                        if prefix_max_pages is None else prefix_max_pages)
+                self.prefix = PagedPrefixIndex(
+                    self._pages, self.page_tokens,
+                    max_pages=int(pmax) or max(1, self.pool_pages // 4),
+                    min_tokens=min_tokens)
+        elif entries > 0 and prefix_capacity >= max(2, min_tokens):
             self.prefix = PrefixCache(entries, prefix_capacity,
                                       min_tokens=min_tokens)
             c = config
@@ -188,6 +261,19 @@ class DecodeEngine:
             self._pool = {
                 "k": torch.zeros(shape, dtype=c.dtype, device=self.device),
                 "v": torch.zeros(shape, dtype=c.dtype, device=self.device)}
+        # Device sampler: the step samples on the device and only (slots,)
+        # token ids reach the host. Greedy rows equal the host sampler's;
+        # sampled rows draw from this generator, re-seeded from the step
+        # counter every step (the JAX engine's fold_in(key(0), step)) so a
+        # run repeats.
+        self._device_sampler = bool(
+            rt_config.decode_device_sampler if device_sampler is None
+            else device_sampler)
+        self._generator = (torch.Generator(device=self.device)
+                           if self._device_sampler else None)
+        self._tokens_dev: Optional[torch.Tensor] = None  # the last sampled
+        #   step's token ids, fed to the next sampled step without an
+        #   upload; any host-side token write drops it.
         # Suffix prefills bucket on a finer grid than full prefills: the
         # suffix is short, and padding it back up to prefill_bucket would
         # refund most of the win.
@@ -197,6 +283,81 @@ class DecodeEngine:
         self.decode_chunk = max(1, int(decode_chunk))
         self.steps = 0
         self.tokens_out = 0
+
+    # --------------------------------------------- paged page accounting
+
+    def _alloc_pages(self, n: int) -> Optional[List[int]]:
+        """``n`` pool pages, reclaiming prefix-index pins under pressure.
+        None = genuinely dry (caller preempts or backs off)."""
+        if self._pages.free_count < n and self.prefix is not None:
+            self.prefix.reclaim(n - self._pages.free_count)
+        return self._pages.alloc(n)
+
+    def _set_slot_pages(self, slot: int, pages: List[int]) -> None:
+        self._block_tables[slot, :] = 0
+        self._block_tables[slot, :len(pages)] = pages
+        self._slot_pages[slot] = pages
+
+    def _grow_slot(self, slot: int, pages: List[int]) -> None:
+        have = self._slot_pages[slot]
+        self._block_tables[slot, len(have):len(have) + len(pages)] = pages
+        self._slot_pages[slot] = have + pages
+
+    def _seq_pages(self, tokens: int) -> int:
+        return -(-tokens // self.page_tokens)
+
+    def _ensure_decode_pages(self, k: int) -> None:
+        """Every active slot can write its next ``k`` tokens. Oldest slots
+        are served first; when the pool is dry even after reclaiming
+        prefix pins, the YOUNGEST admitted request is preempted
+        (recompute-style requeue). The oldest request always makes
+        progress, so this terminates."""
+        for slot in sorted(self._active,
+                           key=lambda s: self._active[s].submitted_at):
+            while True:
+                req = self._active.get(slot)
+                if req is None:
+                    break  # preempted while serving an older slot
+                need = self._seq_pages(req.prompt_len + req.generated
+                                       - 1 + k) \
+                    - len(self._slot_pages[slot])
+                if need <= 0:
+                    break
+                got = self._alloc_pages(need)
+                if got is not None:
+                    self._grow_slot(slot, got)
+                    break
+                if not self._preempt_one():
+                    break  # nothing left to preempt
+
+    def _preempt_one(self) -> bool:
+        """Requeue the youngest admitted request to free its pages
+        (vLLM-style recompute preemption): its prompt plus every token
+        emitted so far re-enters the queue as one prefill, so the stream
+        continues where it left off after re-admission."""
+        cands = list(self._active.items()) + list(self._prefilling.items())
+        if not cands:
+            return False
+        slot, req = max(cands, key=lambda it: it[1].submitted_at)
+        self._active.pop(slot, None)
+        self._prefilling.pop(slot, None)
+        self._release_slot(slot)
+        absorbed = len(req.tokens) - req.prompt_len
+        tail = np.asarray(req.output[absorbed:], np.int32)
+        if len(tail):
+            req.tokens = np.concatenate([req.tokens, tail])
+        req.slot = -1
+        req.prefix_pages = []
+        req.prefix_len = 0
+        req.prefilled = 0
+        self.preempted += 1
+        req.preemptions += 1
+        self._requeue.insert(0, req)
+        self._queued_tokens += len(req.tokens)
+        with self._reqs_lock:
+            req.admitted = False  # cancel-while-requeued counts as queued
+        self._work.set()
+        return True
 
     # ------------------------------------------------------------ intake
 
@@ -214,6 +375,15 @@ class DecodeEngine:
                        int(max_new_tokens), float(temperature), eos_id,
                        on_token)
         req.request_id = request_id or f"req-{next(_req_ids)}"
+        req.prompt_len = len(req.tokens)
+        if self.paged and self._seq_pages(
+                len(req.tokens) + req.max_new_tokens) > self.pool_pages:
+            # A request no amount of preemption can seat must fail fast,
+            # not live forever in the requeue list.
+            raise ValueError(
+                f"prompt ({len(req.tokens)}) + max_new_tokens "
+                f"({req.max_new_tokens}) needs more pages than the pool "
+                f"holds ({self.pool_pages} x {self.page_tokens} tokens)")
         if len(req.tokens) >= self.capacity:
             raise ValueError(
                 f"prompt ({len(req.tokens)}) must be shorter than the "
@@ -271,9 +441,15 @@ class DecodeEngine:
     # -------------------------------------------------------- admission
 
     def _admit(self) -> None:
-        while self._free and not self._pending.empty():
+        while self._free and (self._requeue or not self._pending.empty()):
+            # Preempted and pushed-back requests go first: they were
+            # admitted before anything still queued.
             wave: List[_Request] = []
             while len(wave) < len(self._free):
+                if self._requeue:
+                    wave.append(self._requeue.pop(0))
+                    self._queued_tokens -= len(wave[-1].tokens)
+                    continue
                 try:
                     req = self._pending.get_nowait()
                 except queue.Empty:
@@ -298,6 +474,10 @@ class DecodeEngine:
                     live.append(req)
             if not live:
                 continue
+            if self.paged:
+                if not self._admit_paged(live):
+                    return  # pool dry: stop admitting this step
+                continue
             hits: List[_Request] = []
             misses: List[_Request] = []
             for req in live:
@@ -310,6 +490,147 @@ class DecodeEngine:
                     misses.append(req)
             self._admit_full(misses)
             self._admit_suffix(hits)
+
+    def _admit_paged(self, live: List[_Request]) -> bool:
+        """Seat a wave in paged mode: prefix pages splice into the slot's
+        block table with no device copy, fresh pages come from the
+        allocator, and prompts longer than a chunk go to the chunked
+        prefill (``_prefill_tick``). Returns False when the pool ran dry
+        mid-wave (the unseated requests are pushed back in order and
+        admission pauses until pages free)."""
+        chunk = self.prefill_chunk_tokens
+        full_group: List[_Request] = []
+        suffix_group: List[_Request] = []
+        for i, req in enumerate(live):
+            m = (self.prefix.match(req.tokens)
+                 if self.prefix is not None else None)
+            if m is not None:
+                req.prefix_pages, req.prefix_len = m
+            else:
+                req.prefix_pages, req.prefix_len = [], 0
+            if chunk > 0 and len(req.tokens) - req.prefix_len > chunk:
+                # Chunked prefill: take the slot and the spliced prefix
+                # now; _prefill_tick runs the chunks between decode steps
+                # and allocates pages chunk by chunk.
+                slot = self._free.pop()
+                req.slot = slot
+                self._set_slot_pages(slot, req.prefix_pages)
+                req.prefilled = req.prefix_len
+                # Park the device cursor at the spliced length NOW: the
+                # slot may wait several steps for its chunks, and every
+                # decode step writes an idle row's junk at pos = length.
+                # At 0 that would land INSIDE a shared prefix page and
+                # corrupt it for every borrower; at prefix_len it lands in
+                # the slot's own (or the scratch) page, which the first
+                # chunk overwrites.
+                self.cache["length"][slot] = req.prefix_len
+                self._prefilling[slot] = req
+                continue
+            need = self._seq_pages(len(req.tokens)) - len(req.prefix_pages)
+            pages = self._alloc_pages(need)
+            if pages is None:
+                # Dry: drop the splice pins, push this and the rest of
+                # the wave back (front, original order) and pause.
+                self._pages.free(req.prefix_pages)
+                req.prefix_pages = []
+                req.prefix_len = 0
+                for r in reversed(live[i:]):
+                    with self._reqs_lock:
+                        r.admitted = False
+                    self._requeue.insert(0, r)
+                    self._queued_tokens += len(r.tokens)
+                break
+            slot = self._free.pop()
+            req.slot = slot
+            self._set_slot_pages(slot, req.prefix_pages + pages)
+            (suffix_group if req.prefix_len else full_group).append(req)
+        self._admit_paged_full(full_group)
+        self._admit_paged_suffix(suffix_group)
+        return not self._requeue
+
+    def _admit_paged_full(self, reqs: List[_Request]) -> None:
+        """Prefix misses: one batched prefill per prompt bucket (its
+        attention the config's impl), K/V scattered into the wave's
+        pages."""
+        T = self.page_tokens
+        for bucket, group in self._by_bucket(
+                reqs, lambda r: len(r.tokens), self.prefill_bucket).items():
+            wp = -(-bucket // T)  # block-table columns covering the bucket
+            rows = np.zeros((len(group), bucket), np.int32)
+            for i, req in enumerate(group):
+                rows[i, :len(req.tokens)] = req.tokens
+            slots = [r.slot for r in group]
+            lengths = self._dev([len(r.tokens) for r in group])
+            self.prefill_waves += 1
+            logits, _ = ld.paged_prefill(
+                self.params, self._dev(rows), self.cache,
+                self._dev(self._block_tables[slots, :wp]), self.config,
+                lengths=lengths)
+            self.cache["length"][self._dev(slots)] = lengths.to(torch.int32)
+            self._post_admit(group, slots, logits.cpu().numpy())
+
+    def _admit_paged_suffix(self, reqs: List[_Request]) -> None:
+        """Prefix hits: the shared pages are already in the slots' block
+        tables (the splice in _admit_paged); prefill only the uncached
+        suffixes, over the block-table columns prefix + suffix reach."""
+        for bucket, group in self._by_bucket(
+                reqs, lambda r: len(r.tokens) - r.prefix_len,
+                self._suffix_bucket_min).items():
+            width = min(max(self._seq_pages(r.prefix_len + bucket)
+                            for r in group), self.slot_pages_max)
+            rows = np.zeros((len(group), bucket), np.int32)
+            for i, req in enumerate(group):
+                suffix = req.tokens[req.prefix_len:]
+                rows[i, :len(suffix)] = suffix
+            slots = [r.slot for r in group]
+            lengths = self._dev([len(r.tokens) for r in group])
+            self.suffix_waves += 1
+            logits, _ = ld.paged_prefill_suffix(
+                self.params, self._dev(rows), self.cache,
+                self._dev(self._block_tables[slots, :width]), self.config,
+                self._dev([r.prefix_len for r in group]), lengths)
+            self.cache["length"][self._dev(slots)] = lengths.to(torch.int32)
+            self._post_admit(group, slots, logits.cpu().numpy())
+
+    def _prefill_tick(self) -> None:
+        """Chunked prefill: advance the OLDEST mid-prefill slot by at most
+        ONE ``prefill_chunk_tokens`` chunk, then return so the decode step
+        runs: a long admission costs active streams one chunk a step,
+        never its whole prefill. Pages are allocated chunk by chunk; a dry
+        pool skips the tick (decode keeps draining, the chunk retries next
+        step)."""
+        if not self._prefilling:
+            return
+        slot = min(self._prefilling,
+                   key=lambda s: self._prefilling[s].submitted_at)
+        req = self._prefilling[slot]
+        step_tok = min(self.prefill_chunk_tokens,
+                       len(req.tokens) - req.prefilled)
+        bucket = min(ld.cache_bucket(step_tok, self._suffix_bucket_min),
+                     self.prefill_chunk_tokens)
+        need = self._seq_pages(req.prefilled + step_tok) \
+            - len(self._slot_pages[slot])
+        if need > 0:
+            got = self._alloc_pages(need)
+            if got is None:
+                return
+            self._grow_slot(slot, got)
+        width = min(self._seq_pages(req.prefilled + bucket),
+                    self.slot_pages_max)
+        rows = np.zeros((1, bucket), np.int32)
+        rows[0, :step_tok] = req.tokens[req.prefilled:
+                                        req.prefilled + step_tok]
+        end = req.prefilled + step_tok
+        logits, _ = ld.paged_prefill_suffix(
+            self.params, self._dev(rows), self.cache,
+            self._dev(self._block_tables[slot:slot + 1, :width]),
+            self.config, self._dev([req.prefilled]), self._dev([end]))
+        self.cache["length"][slot] = end
+        self.prefill_chunks += 1
+        req.prefilled = end
+        if req.prefilled >= len(req.tokens):
+            self._prefilling.pop(slot)
+            self._post_admit([req], [slot], logits.cpu().numpy())
 
     def _by_bucket(self, reqs: List[_Request], length, minimum: int
                    ) -> Dict[int, List[_Request]]:
@@ -368,22 +689,29 @@ class DecodeEngine:
 
     def _post_admit(self, group: List[_Request], slots: List[int],
                     logits: np.ndarray) -> None:
+        # The paged insert runs BEFORE the emit loop: a request that
+        # completes on its first token is _finish-ed inside that loop,
+        # which frees its pages; pinning them afterwards would pin
+        # recycled pages. Inserting first pins the slot's pages while the
+        # slot still owns them (zero copy); _finish then drops only the
+        # slot's own references.
+        if self.prefix is not None and self.paged:
+            for req, slot in zip(group, slots):
+                self.prefix.insert(req.tokens, self._slot_pages[slot],
+                                   matched_len=req.prefix_len)
         now = time.monotonic()
+        self._tokens_dev = None  # host token writes below
         for i, req in enumerate(group):
-            tok = self._sample_host(logits[i], req)
             req.slot = slots[i]
-            req.first_token_at = now
-            self._emit(req, tok)
-            self._tokens[slots[i]] = tok
+            if req.first_token_at is None:  # a preempted request keeps
+                req.first_token_at = now    # its first token's time
             self._active[slots[i]] = req
-            if req.generated >= req.max_new_tokens or (
-                    req.eos_id is not None and tok == req.eos_id):
-                self._finish(slots[i])
-        # Insert AFTER the emit loop: it copies the slot's leading
+            self._advance(slots[i], self._sample_host(logits[i], req))
+        # The contiguous insert stays AFTER: it copies the slot's leading
         # positions into a pool row, and the rows still hold the prompt
         # K/V (a _finish only parks ``length``). Inserts run before any
         # later admission can recycle these slots.
-        if self.prefix is not None:
+        if self.prefix is not None and not self.paged:
             cp = self._pool["k"].shape[2]
             for req, slot in zip(group, slots):
                 ins = self.prefix.insert(req.tokens,
@@ -433,14 +761,26 @@ class DecodeEngine:
     # -------------------------------------------------- slot lifecycle
 
     def _release_slot(self, slot: int) -> None:
+        """Slot teardown shared by _finish and preemption. Paged mode drops
+        the slot's page references (shared prefix pages survive on the
+        index's pins; pages it owns alone recycle at once) and points its
+        block-table row at the scratch page."""
+        if self.paged:
+            pages = self._slot_pages[slot]
+            self._slot_pages[slot] = []
+            self._block_tables[slot, :] = 0
+            self._pages.free(pages)
         self._free.append(slot)
         # Park the freed slot at length 0 so idle slots don't walk their
         # cursor toward the capacity edge while others decode.
         self.cache["length"][slot] = 0
         self._tokens[slot] = 0
+        self._tokens_dev = None
 
     def _finish(self, slot: int, status: str = "completed") -> None:
-        req = self._active.pop(slot)
+        req = self._active.pop(slot, None)
+        if req is None:
+            req = self._prefilling.pop(slot)  # died mid-chunked-prefill
         # Return the slot right after the pop: stats() reads both sides
         # from other threads.
         self._release_slot(slot)
@@ -496,6 +836,24 @@ class DecodeEngine:
                 self._retire(req, "deadline_exceeded")
             else:
                 self._pending.put(req)
+        # Preempted and pushed-back requests wait in _requeue, not the
+        # queue: their cancels and deadlines take the same prompt exit.
+        for req in list(self._requeue):
+            with self._reqs_lock:
+                dead = req.cancelled
+                if dead:
+                    self._queued_cancelled -= 1
+                    req.admitted = True
+            expired = (not dead and req.deadline is not None
+                       and now > req.deadline)
+            if dead or expired:
+                self._requeue.remove(req)
+                self._queued_tokens -= len(req.tokens)
+                if expired:
+                    with self._reqs_lock:
+                        req.admitted = True
+                self._retire(req, "cancelled" if dead
+                             else "deadline_exceeded")
 
     def _reap(self) -> None:
         """Free slots whose requests are dead (cancelled, or past their
@@ -503,24 +861,30 @@ class DecodeEngine:
         now = time.monotonic()
         if (self._queued_cancelled > 0
                 or (now - self._last_purge > 0.5
-                    and not self._pending.empty())):
+                    and (self._requeue or not self._pending.empty()))):
             self._last_purge = now
             self._purge_pending()
-        for slot in list(self._active):
-            req = self._active[slot]
-            if req.cancelled:
-                self._finish(slot, "cancelled")
-            elif req.deadline is not None and now > req.deadline:
-                self._finish(slot, "deadline_exceeded")
+        # Mid-chunked-prefill slots die the same way as active ones: their
+        # pages (all but shared ones) free within one step boundary.
+        for slots in (self._active, self._prefilling):
+            for slot in list(slots):
+                req = slots[slot]
+                if req.cancelled:
+                    self._finish(slot, "cancelled")
+                elif req.deadline is not None and now > req.deadline:
+                    self._finish(slot, "deadline_exceeded")
 
     # --------------------------------------------------------- the loop
 
     def _pick_chunk(self) -> int:
         """Greedy decode steps fusable into one call right now: only when
-        the batch cannot change mid-chunk and every request is greedy.
-        Rounded down to a power of two, as in the JAX engine."""
+        the batch cannot change mid-chunk, every request is greedy and no
+        chunked prefill is in flight (its point is a chunk between EVERY
+        two steps). Rounded down to a power of two, as in the JAX
+        engine."""
         if (self.decode_chunk > 1
                 and (self._pending.empty() or not self._free)
+                and not self._requeue and not self._prefilling
                 and all(r.temperature <= 0.0
                         for r in self._active.values())):
             chunk = min(self.decode_chunk,
@@ -531,45 +895,105 @@ class DecodeEngine:
             return chunk
         return 1
 
+    def _decode_tables(self, k: int) -> torch.Tensor:
+        """The block-table columns the active slots reach over their next
+        ``k`` tokens, uploaded once for the step. Rows of idle and
+        mid-prefill slots whose cursor lies past them write to the scratch
+        page."""
+        top = max(r.prompt_len + r.generated - 1
+                  for r in self._active.values())
+        width = min(self._seq_pages(top + k), self.slot_pages_max)
+        return self._dev(self._block_tables[:, :width])
+
+    def _decode_logits(self, tokens: torch.Tensor) -> torch.Tensor:
+        """One decode step of every slot on the device: (slots, V) fp32
+        logits."""
+        if self.paged:
+            logits, _, self.cache["length"] = ld.paged_decode_step(
+                self.params, self.cache, self._decode_tables(1),
+                self.cache["length"], tokens, self.config)
+            return logits
+        logits, self.cache = ld.decode_step(self.params, self.cache, tokens,
+                                            self.config)
+        return logits
+
+    def _advance(self, slot: int, tok: int) -> bool:
+        """Emit ``tok`` for the active request in ``slot``; finish it at
+        its token budget or EOS. Returns True when it finished."""
+        req = self._active[slot]
+        self._emit(req, tok)
+        self._tokens[slot] = tok
+        if req.generated >= req.max_new_tokens or (
+                req.eos_id is not None and tok == req.eos_id):
+            self._finish(slot)
+            return True
+        return False
+
     @torch.no_grad()
     def step(self) -> int:
-        """Admit pending prefills, then advance every active slot one
-        token (or one greedy chunk). Returns the number of slots stepped."""
+        """Admit pending prefills, run at most one chunk of a chunked
+        prefill, then advance every active slot one token (or one greedy
+        chunk). Returns the number of slots stepped."""
         self._reap()
         self._admit()
+        if self.paged:
+            self._prefill_tick()
         if not self._active:
             return 0
-        stepped = len(self._active)
         chunk = self._pick_chunk()
+        if self.paged:
+            # Page the next k tokens in BEFORE the step: the block tables
+            # are fixed across it. May preempt the youngest request.
+            self._ensure_decode_pages(chunk)
+            if not self._active:
+                return 0
+            chunk = min(chunk, self._pick_chunk())
+        stepped = len(self._active)
         if chunk > 1:
-            toks, self.cache = ld.decode_chunk(
-                self.params, self.cache, self._dev(self._tokens),
-                self.config, chunk)
+            tokens = self._dev(self._tokens)
+            if self.paged:
+                toks, _, self.cache["length"] = ld.paged_decode_chunk(
+                    self.params, self.cache, self._decode_tables(chunk),
+                    self.cache["length"], tokens, self.config, chunk)
+            else:
+                toks, self.cache = ld.decode_chunk(
+                    self.params, self.cache, tokens, self.config, chunk)
             toks = toks.cpu().numpy()  # (chunk, slots)
             self.steps += chunk
+            self._tokens_dev = None
             for slot in list(self._active):
-                req = self._active[slot]
                 for i in range(chunk):
-                    tok = int(toks[i, slot])
-                    self._emit(req, tok)
-                    self._tokens[slot] = tok
-                    if req.generated >= req.max_new_tokens or (
-                            req.eos_id is not None and tok == req.eos_id):
-                        self._finish(slot)
+                    if self._advance(slot, int(toks[i, slot])):
                         break
             return stepped
-        logits, self.cache = ld.decode_step(
-            self.params, self.cache, self._dev(self._tokens), self.config)
-        logits = logits.cpu().numpy()
+        if self._device_sampler:
+            return self._sampled_step()
+        logits = self._decode_logits(self._dev(self._tokens)).cpu().numpy()
         self.steps += 1
         for slot in list(self._active):
-            req = self._active[slot]
-            tok = self._sample_host(logits[slot], req)
-            self._emit(req, tok)
-            self._tokens[slot] = tok
-            if req.generated >= req.max_new_tokens or (
-                    req.eos_id is not None and tok == req.eos_id):
-                self._finish(slot)
+            self._advance(slot, self._sample_host(logits[slot],
+                                                  self._active[slot]))
+        return stepped
+
+    def _sampled_step(self) -> int:
+        """One decode step with sampling on the device: only (slots,)
+        token ids cross to the host, and the next sampled step takes them
+        back without an upload. Greedy rows equal the host sampler's;
+        sampled rows draw from the step-seeded generator."""
+        stepped = len(self._active)
+        temps = np.zeros((self.slots,), np.float32)
+        for slot, req in self._active.items():
+            temps[slot] = max(0.0, req.temperature)
+        tokens = (self._tokens_dev if self._tokens_dev is not None
+                  else self._dev(self._tokens))
+        logits = self._decode_logits(tokens)
+        self._generator.manual_seed(self.steps)
+        toks_dev = ld.sample_batch(logits, self._dev(temps), self._generator)
+        toks = toks_dev.cpu().numpy()
+        self.steps += 1
+        self._tokens_dev = toks_dev  # _finish drops it below
+        for slot in list(self._active):
+            self._advance(slot, int(toks[slot]))
         return stepped
 
     def serve_forever(self, idle_wait_s: float = 0.05) -> None:
@@ -579,7 +1003,8 @@ class DecodeEngine:
         loop stops."""
         try:
             while not self._stop.is_set():
-                if self._active or not self._pending.empty():
+                if (self._active or self._prefilling or self._requeue
+                        or not self._pending.empty()):
                     self.step()
                 else:
                     self._work.clear()
@@ -605,17 +1030,27 @@ class DecodeEngine:
     # ------------------------------------------------------------ stats
 
     def prefill_backlog_tokens(self) -> int:
-        """Prompt tokens accepted but not yet prefilled."""
-        return max(0, self._queued_tokens)
+        """Prompt tokens accepted but not yet prefilled: the queue, the
+        requeue and the remainder of mid-prefill slots."""
+        backlog = max(0, self._queued_tokens)
+        for req in list(self._prefilling.values()):
+            backlog += max(0, len(req.tokens) - req.prefilled)
+        return backlog
 
     def stats(self) -> Dict[str, Any]:
         active = len(self._active)
-        queued = max(0, self._pending.qsize() - self._queued_cancelled)
+        prefilling = len(self._prefilling)
+        queued = max(0, self._pending.qsize() + len(self._requeue)
+                     - self._queued_cancelled)
         backlog = self.prefill_backlog_tokens()
+        # Backlog tokens -> load units: one prefill chunk (or one prompt
+        # bucket, unchunked) is about one step's work.
+        denom = self.prefill_chunk_tokens or self.prefill_bucket
         out = {
             "steps": self.steps,
             "tokens_out": self.tokens_out,
             "active": active,
+            "prefilling": prefilling,
             "slots": self.slots,
             "free_slots": len(self._free),
             "queued": queued,
@@ -623,15 +1058,48 @@ class DecodeEngine:
             "shed": self.shed,
             "cancelled": self.cancelled,
             "deadline_exceeded": self.deadline_exceeded,
+            "preempted": self.preempted,
             "prefill_waves": self.prefill_waves,
             "suffix_waves": self.suffix_waves,
+            "prefill_chunks": self.prefill_chunks,
             "prefill_backlog_tokens": backlog,
-            "load": active + queued + backlog // max(1,
-                                                     self.prefill_bucket),
+            "load": active + prefilling + queued + backlog // max(1, denom),
         }
+        if self.paged:
+            out.update(self._pages.stats())
+            out["page_tokens"] = self.page_tokens
+            out["pages_pinned"] = (self.prefix.pinned_pages
+                                   if self.prefix is not None else 0)
+            out["kv_fragmentation"] = self._fragmentation()
         if self.prefix is not None:
             out["prefix"] = self.prefix.stats()
         return out
+
+    def _fragmentation(self) -> float:
+        """Internal fragmentation of the page pool: the share of allocated
+        page-token capacity that backs no live token. Pages are
+        interchangeable, so external fragmentation is zero by
+        construction: the waste is partial tail pages."""
+        valid: Dict[int, int] = {}
+        T = self.page_tokens
+        rows = ([(s, r.prompt_len + r.generated)
+                 for s, r in list(self._active.items())]
+                + [(s, r.prefilled)
+                   for s, r in list(self._prefilling.items())])
+        for slot, length in rows:
+            for i, page in enumerate(self._slot_pages[slot]):
+                end = min(T, length - i * T)
+                if end > 0:
+                    valid[page] = max(valid.get(page, 0), end)
+        if self.prefix is not None:
+            # Prefix-pinned pages are always full by construction.
+            for page in self.prefix.pinned_page_ids():
+                valid[page] = T
+        in_use = self._pages.in_use
+        if not in_use:
+            return 0.0
+        used_tokens = sum(valid.values())
+        return round(max(0.0, 1.0 - used_tokens / (in_use * T)), 4)
 
 
 class LlamaDecodeDeployment:
@@ -640,7 +1108,7 @@ class LlamaDecodeDeployment:
     token generator with ``"stream": true``. Random weights from ``seed``
     on ``device`` (``cuda`` unless the caller passes another). Driven
     in-process here; the runtime that runs it as a replica is ROADMAP.md
-    queue 1, item 3."""
+    queue 1, item 4."""
 
     def __init__(self, preset: str = "debug", slots: int = 4,
                  capacity: int = 1024, seed: int = 0,
@@ -650,6 +1118,8 @@ class LlamaDecodeDeployment:
                  prefix_match_min_tokens: Optional[int] = None,
                  queue_max: Optional[int] = None,
                  kv_page_tokens: Optional[int] = None,
+                 kv_pool_pages: Optional[int] = None,
+                 prefill_chunk_tokens: Optional[int] = None,
                  mesh_shape=None,
                  spec_draft_model: Optional[str] = None,
                  spec_k: Optional[int] = None,
@@ -675,6 +1145,8 @@ class LlamaDecodeDeployment:
             prefix_capacity=prefix_capacity,
             prefix_match_min_tokens=prefix_match_min_tokens,
             queue_max=queue_max, page_tokens=kv_page_tokens,
+            pool_pages=kv_pool_pages,
+            prefill_chunk_tokens=prefill_chunk_tokens,
             mesh_shape=mesh_shape, device_sampler=device_sampler,
             device=dev)
         self._thread = threading.Thread(target=self.engine.serve_forever,

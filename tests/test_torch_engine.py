@@ -191,8 +191,7 @@ def test_engine_matches_jax_engine(tiny):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(page_tokens=16), dict(device_sampler=True), dict(mesh_shape=(1, 1)),
-    dict(spec_k=2, spec_draft_params={})])
+    dict(mesh_shape=(1, 1)), dict(spec_k=2, spec_draft_params={})])
 def test_unported_engine_knobs_raise(tiny, kw):
     _, _, tcfg, tp = tiny
     with pytest.raises(NotImplementedError, match="ROADMAP"):

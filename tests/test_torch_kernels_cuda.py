@@ -564,3 +564,76 @@ def test_attention_delta_kernel_matches_plain(cuda_device, name, dtype, b, s,
     assert got.is_contiguous()
     err = float((got - want).abs().max())
     assert err <= 1e-5 * float(want.abs().max()), err
+
+
+def _solo_greedy(params, cfg, prompt, n, dev):
+    """Solo contiguous greedy decode on the card: (tokens, top-2 logit
+    margins behind each)."""
+    from ray_tpu_torch.models import llama_decode as td
+
+    toks = torch.as_tensor(prompt, device=dev)[None]
+    cache = td.init_cache(cfg, 1, td.cache_bucket(len(prompt) + n),
+                          device=dev)
+    logits, cache = td.prefill(params, toks, cache, cfg)
+    out, margins = [], []
+    for _ in range(n):
+        top2 = torch.topk(logits[0], 2).values
+        margins.append(float(top2[0] - top2[1]))
+        out.append(int(torch.argmax(logits[0])))
+        logits, cache = td.decode_step(
+            params, cache, torch.tensor([out[-1]], dtype=torch.int32,
+                                        device=dev), cfg)
+    return out, margins
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-3),
+                                       (torch.bfloat16, 5e-2)])
+def test_paged_engine_matches_contiguous_engine(cuda_device, dtype, tol):
+    """A tiny paged engine (16-token pages, an overcommitted pool, 32-token
+    prefill chunks, the device sampler) against a tiny contiguous engine
+    on the card, prefills on the flash kernel: greedy streams agree with
+    solo contiguous runs under the margin rule (tokens compared while the
+    solo top-2 margin exceeds ``tol``), and every page comes back."""
+    from dataclasses import replace
+
+    import numpy as np
+
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.serve.decode import DecodeEngine
+
+    cfg = replace(llama.PRESETS["debug"], dim=256, n_heads=4, n_kv_heads=2,
+                  max_seq_len=512, attention_impl="flash", dtype=dtype)
+    params = llama.init_params(cfg, device=cuda_device, seed=0)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab_size, n).tolist()
+               for n in (5, 20, 70, 130, 17, 40)]
+    prompts.append(prompts[2][:64] + [3, 4, 5])  # a prefix hit on 70's
+    launches0 = tflash.flash_attention.launches
+    outs = {}
+    for mode, kw in (("contiguous", {}),
+                     ("paged", dict(page_tokens=16, pool_pages=24,
+                                    prefill_chunk_tokens=32,
+                                    device_sampler=True))):
+        eng = DecodeEngine(params, cfg, slots=4, capacity=256,
+                           prefix_match_min_tokens=16, device=cuda_device,
+                           **kw)
+        reqs = [eng.submit(p, max_new_tokens=24) for p in prompts]
+        for _ in range(2000):
+            if all(r.done.is_set() for r in reqs):
+                break
+            eng.step()
+        assert all(r.status == "completed" for r in reqs)
+        outs[mode] = [r.output for r in reqs]
+        s = eng.stats()
+        if mode == "paged":
+            assert s["preempted"] + s["prefill_chunks"] > 0
+            assert s["pages_free"] + s["pages_pinned"] == 24
+    assert tflash.flash_attention.launches > launches0
+    for p, c, g in zip(prompts, outs["contiguous"], outs["paged"]):
+        want, margins = _solo_greedy(params, cfg, p, 24, cuda_device)
+        for got in (c, g):
+            for i, (a, b) in enumerate(zip(got, want)):
+                if margins[i] <= tol:
+                    break
+                assert a == b, (i, got, want)
