@@ -65,7 +65,25 @@ Phases, one JSON line each (``{"phase": ..., "ok": ...}``):
    times per full prefill wave, all on wgmma. Greedy streams are held
    against solo contiguous runs under the margin rule, and the paged
    paths' logit drift against the contiguous ones must stay under it.
-7. train: the 1B Llama (``PRESETS["1b"]``, full width and depth, fp32
+7. serve_spec: a fresh speculative deployment of the same model and
+   weights with the 1B preset as its draft (random weights from seed 1),
+   ``spec_k=4``, 8 slots of 2048 tokens on 128 pages of 64, a draft pool
+   of 48 pages (3072 tokens, too few to seat every prompt), the device
+   sampler and warmup. Before any request the warmup's step keys must be
+   marked and both pools idle. Seven requests sent at once: greedy
+   prompts of 20, 300, 700, 900, 1100 and 1500 tokens with 32 new tokens
+   each, and 400 tokens at temperature 0.8 with 16 (rounds fall back to
+   plain steps while it is active). It must run spec rounds, demote or
+   evict a draft seat, resync a lagging draft, return every page of both
+   pools and launch the flash forward 32 times per target full prefill
+   wave, all on wgmma; the timeline must hold draft and verify phases.
+   Greedy streams are held against solo runs under the margin rule. Then
+   one slot's verify logits against k + 1 decode steps (drift under the
+   margin tolerance), and a draft equal to the target (4 slots, four of
+   the greedy prompts) against a plain paged engine: accept rate at
+   least 0.5, at most half the plain engine's steps in rounds, streams
+   under the margin rule.
+8. train: the 1B Llama (``PRESETS["1b"]``, full width and depth, fp32
    masters from seed 0, ``attention_impl="flash"``, full remat,
    ``loss_chunk=512``) takes four AdamW steps through ``build_train_step``
    with two microbatches of 4 x 2048 tokens. Launch counters are zeroed
@@ -75,14 +93,14 @@ Phases, one JSON line each (``{"phase": ..., "ok": ...}``):
    and falling. A 2-layer model of the same width then holds the flash
    gradients against the plain-attention ones.
 
-Serve, serve_paged and train also read the forward's C entry's own
-launch count of each of its kernels over the same window: every forward
-launch there must have taken the wgmma kernel; train reads the
-backward's entries the same way, and every backward launch must have
+Serve, serve_paged, serve_spec and train also read the forward's C
+entry's own launch count of each of its kernels over the same window:
+every forward launch there must have taken the wgmma kernel; train reads
+the backward's entries the same way, and every backward launch must have
 taken a wgmma kernel.
 
-Each main path (splash, serve, serve_paged, train) must have launched
-each of its kernels at least once. Then a ``{"kernels": [...]}`` line
+Each main path (splash, serve, serve_paged, serve_spec, train) must have
+launched each of its kernels at least once. Then a ``{"kernels": [...]}`` line
 with all seven kernels (the six attention kernels with their main-path
 launches by kernel, and each with its ptxas lines: registers, shared
 memory and spills of each instantiation), the nvidia-smi
@@ -192,6 +210,7 @@ KERNELS = {
 PATH_KERNELS = {
     "serve": ["flash_fwd"],
     "serve_paged": ["flash_fwd"],
+    "serve_spec": ["flash_fwd"],
     "train": ["flash_fwd", "flash_bwd_dkv", "flash_bwd_dq",
               "attention_delta"],
     "splash": ["splash_fwd", "splash_bwd_dq", "splash_bwd_dkv",
@@ -1758,6 +1777,267 @@ def phase_serve_paged(cfg, device="cuda") -> dict:
     return out
 
 
+# The serve_spec phase's pools, draft and requests (see the module
+# docstring). The draft pool holds 3072 tokens for prompts of 4920.
+SPEC_SERVE = dict(slots=8, capacity=2048, page_tokens=64, pool_pages=128,
+                  draft="1b", k=4, draft_pool_pages=48)
+
+
+def _verify_drift(engine, prompt, k) -> float:
+    """Max |logit| difference between one slot's ``paged_verify`` logits
+    at its k + 1 positions and k + 1 sequential ``paged_decode_step``s of
+    the same tokens, on the deployment's weights, through one pool with
+    shuffled page ids (the decode steps rewrite each position before they
+    read it)."""
+    from ray_tpu_torch.models import llama_decode as ld
+
+    cfg, dev, params = engine.config, engine.device, engine.params
+    T, pages = engine.page_tokens, engine.slot_pages_max
+    bt = torch.as_tensor(np.random.default_rng(2).permutation(
+        np.arange(1, pages + 1)), dtype=torch.int32, device=dev)[None]
+    s = len(prompt)
+    bucket = ld.cache_bucket(s, engine.prefill_bucket)
+    toks = torch.zeros(1, bucket, dtype=torch.long, device=dev)
+    toks[0, :s] = torch.as_tensor(prompt, device=dev)
+    pool = ld.init_page_pool(cfg, pages, T, device=dev)
+    lengths = torch.tensor([s], dtype=torch.int32, device=dev)
+    logits, pool = ld.paged_prefill(params, toks, pool,
+                                    bt[:, :-(-bucket // T)], cfg,
+                                    lengths=lengths)
+    row = [int(torch.argmax(logits[0]))]
+    row += np.random.default_rng(3).integers(1, cfg.vocab_size, k).tolist()
+    row = torch.tensor([row], dtype=torch.int32, device=dev)
+    width = bt[:, :-(-(s + k + 1) // T)]
+    verify, pool = ld.paged_verify(params, row, pool, width, cfg, lengths)
+    drift = 0.0
+    for j in range(k + 1):
+        step, pool, lengths = ld.paged_decode_step(params, pool, width,
+                                                   lengths, row[:, j], cfg)
+        drift = max(drift, float((step[0] - verify[0, j]).abs().max()))
+    del pool
+    return drift
+
+
+def _drive_engine(engine, plan) -> dict:
+    """Submit every request of ``plan`` to an engine and step it by hand
+    until all end: name -> request."""
+    reqs = {n: engine.submit(toks, max_new_tokens=m)
+            for n, (toks, m, _) in plan.items()}
+    for _ in range(100_000):
+        if all(r.done.is_set() for r in reqs.values()):
+            break
+        engine.step()
+    return reqs
+
+
+def _perfect_draft(cfg, params, plan, solo, device) -> dict:
+    """A DecodeEngine whose draft is the target itself (k = 4, 4 slots)
+    against a plain paged engine on the same requests and weights."""
+    from ray_tpu_torch.serve.decode import DecodeEngine
+
+    geo = SPEC_SERVE
+    kw = dict(slots=4, capacity=geo["capacity"],
+              page_tokens=geo["page_tokens"], pool_pages=64, device=device)
+    out, streams = {}, {}
+    for mode, extra in (("plain", {}),
+                        ("spec", dict(spec_draft_params=params,
+                                      spec_draft_config=cfg,
+                                      spec_k=geo["k"]))):
+        engine = DecodeEngine(params, cfg, **kw, **extra)
+        _sync(device)
+        t0 = time.perf_counter()
+        reqs = _drive_engine(engine, plan)
+        _sync(device)
+        wall = time.perf_counter() - t0
+        s = engine.stats()
+        out[mode] = {"wall_s": wall, "steps": engine.steps,
+                     "tokens_out": s["tokens_out"],
+                     "engine_tok_s": s["tokens_out"] / wall,
+                     "completed": all(r.status == "completed"
+                                      for r in reqs.values())}
+        if mode == "spec":
+            out[mode]["spec"] = s["spec"]
+        streams[mode] = {n: r.output for n, r in reqs.items()}
+        del engine
+        gc.collect()
+        if torch.device(device).type == "cuda":
+            torch.cuda.empty_cache()
+    out["greedy_positions_compared"] = {
+        mode: {n: _agrees(streams[mode][n], *solo[n], MARGIN_TOL)
+               for n in plan} for mode in streams}
+    return out
+
+
+def phase_serve_spec(cfg, device="cuda", draft=None) -> dict:
+    """Llama-2-7B behind a speculative ``LlamaDecodeDeployment`` with the
+    1B preset as its draft (seed 1, random weights like the target's),
+    k = 4, 8 slots of 2048 tokens on 128 pages of 64, a draft pool of 48
+    pages, the device sampler and warmup. Seven requests sent before the
+    first can finish: greedy prompts of 20, 300, 700, 900, 1100 and 1500
+    tokens with 32 new tokens each and a 400-token prompt at temperature
+    0.8 with 16. Then the verify's drift against decode steps, and a
+    draft equal to the target against a plain paged engine."""
+    from ray_tpu_torch.serve.decode import LlamaDecodeDeployment
+
+    gc.collect()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    geo = SPEC_SERVE
+    k = geo["k"]
+    t0 = time.perf_counter()
+    dep = LlamaDecodeDeployment(
+        config=cfg, slots=geo["slots"], capacity=geo["capacity"], seed=0,
+        kv_page_tokens=geo["page_tokens"], kv_pool_pages=geo["pool_pages"],
+        spec_draft_model=draft or geo["draft"], spec_k=k,
+        spec_draft_pool_pages=geo["draft_pool_pages"], device_sampler=True,
+        warmup=True, device=device)
+    _sync(device)
+    init_s = time.perf_counter() - t0
+    eng = dep.engine
+    checks = {}
+    checks["warmup_keys"] = {
+        ("decode",), ("decode_sampled",), ("spec_draft", k),
+        ("spec_verify", k), ("paged_prefill", 1, 128)} <= eng._compiled
+    checks["warmup_idle_pools"] = (
+        not eng.cache["length"].any() and not eng._draft_cache["length"].any()
+        and eng.stats()["pages_free"] == geo["pool_pages"]
+        and eng.stats()["spec"]["draft_pages_free"]
+        == geo["draft_pool_pages"])
+    rng = np.random.default_rng(2)
+
+    def prompt(n):
+        return rng.integers(1, cfg.vocab_size, n).tolist()
+
+    plan = {  # name -> (prompt, max_new_tokens, temperature)
+        "s1_short": (prompt(20), 32, 0.0),
+        "s2": (prompt(300), 32, 0.0),
+        "s3": (prompt(700), 32, 0.0),
+        "s4": (prompt(900), 32, 0.0),
+        "s5": (prompt(1100), 32, 0.0),
+        "s6_long": (prompt(1500), 32, 0.0),
+        "s7_sampled": (prompt(400), 16, 0.8),
+    }
+    results, errors, token_times, submitted = {}, {}, {}, {}
+
+    def run(name):
+        toks, n, temp = plan[name]
+        try:
+            got, times = [], []
+            submitted[name] = time.perf_counter()
+            for tok in dep({"tokens": toks, "max_new_tokens": n,
+                            "temperature": temp, "stream": True}):
+                times.append(time.perf_counter())
+                got.append(tok)
+            token_times[name] = times
+            results[name] = got
+        except Exception as e:  # reported as a failed phase below
+            errors[name] = f"{type(e).__name__}: {e}"
+
+    resyncs = []
+    resync = eng._draft_resync
+
+    def counted_resync(slot, req):
+        resyncs.append(slot)
+        return resync(slot, req)
+
+    eng._draft_resync = counted_resync
+    reset_counts()
+    fwd0 = fwd_kernel_counts(device)
+    t_start = time.perf_counter()
+    threads = [threading.Thread(target=run, args=(n,)) for n in plan]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(REQUEST_TIMEOUT_S)
+    _sync(device)
+    t_end = time.perf_counter()
+    # Stop the loop before reading its state: a request's stream ends
+    # before the loop records the step that finished it.
+    dep.shutdown()
+    counts = launch_counts()
+    by_kernel = fwd_kernels_since(fwd0, device)
+    stats = eng.stats()
+    spec = stats["spec"]
+    timeline = eng.timeline()
+    hung = [t.name for t in threads if t.is_alive()]
+    phases = [p for row in timeline["rows"] for p in row["phases"]]
+    host_ms = {name: sorted(1e3 * (p["t1"] - p["t0"]) for p in phases
+                            if p["phase"] == name)
+               for name in ("draft", "verify", "decode", "draft-prefill")}
+    out = {"init_s": init_s, "wall_s": t_end - t_start, "geometry": geo,
+           "launches": counts, "flash_fwd_by_kernel": by_kernel,
+           "engine": stats, "resyncs": len(resyncs), "errors": errors,
+           "hung_threads": hung,
+           "timeline_rows": len(timeline["rows"]),
+           "timeline_dropped": timeline["dropped"],
+           "phase_host_ms_median": {n: v[len(v) // 2] if v else None
+                                    for n, v in host_ms.items()},
+           "phase_count": {n: len(v) for n, v in host_ms.items()}}
+    checks["all_answered"] = (not errors and not hung
+                              and set(results) == set(plan))
+    checks["token_counts"] = checks["all_answered"] and all(
+        len(results[n]) == plan[n][1] for n in plan)
+    checks["tokens_in_vocab"] = checks["all_answered"] and all(
+        0 <= t < cfg.vocab_size for n in plan for t in results[n])
+    checks["spec_rounds"] = spec["rounds"] > 0
+    checks["draft_demoted_or_evicted"] = spec["draft_demotions"] >= 1
+    checks["resynced"] = len(resyncs) >= 1
+    checks["pages_returned"] = (
+        stats["active"] == stats["prefilling"] == stats["queued"] == 0
+        and stats["pages_free"] + stats["pages_pinned"]
+        == geo["pool_pages"]
+        and spec["draft_pages_free"] == geo["draft_pool_pages"])
+    checks["flash_launches_per_full_wave"] = (
+        stats["prefill_waves"] > 0
+        and counts["flash_fwd"] == cfg.n_layers * stats["prefill_waves"])
+    checks["flash_fwd_on_wgmma"] = all_on_wgmma(by_kernel,
+                                                counts["flash_fwd"], device)
+    verify = [p for p in phases if p["phase"] == "verify"]
+    checks["timeline_draft_verify"] = (
+        bool(host_ms["draft"]) and bool(verify)
+        and all("accepted" in p for p in verify))
+    solo = {}
+    if checks["all_answered"]:
+        out["ttft_s"] = {n: token_times[n][0] - submitted[n] for n in plan}
+        out["engine_tok_s"] = stats["tokens_out"] / (t_end - t_start)
+        agree = {}
+        for n, (toks, m, temp) in plan.items():
+            if temp > 0:
+                continue
+            solo[n] = _solo_greedy(eng, toks, m)
+            agree[n] = _agrees(results[n], *solo[n], MARGIN_TOL)
+        out["greedy_positions_compared"] = agree
+        checks["greedy_agrees_with_solo"] = all(
+            v >= 0 for v in agree.values())
+    drift = _verify_drift(eng, plan["s5"][0], k)
+    out["verify_drift"] = drift
+    checks["verify_drift_under_tol"] = drift < MARGIN_TOL
+    # (c) A draft equal to the target, on four of the greedy requests.
+    params = eng.params
+    del dep, eng, resync
+    sub = {n: plan[n] for n in ("s1_short", "s2", "s3", "s5")}
+    if all(n in solo for n in sub):
+        gc.collect()
+        if torch.device(device).type == "cuda":
+            torch.cuda.empty_cache()
+        perfect = _perfect_draft(cfg, params, sub, solo, device)
+        out["perfect_draft"] = perfect
+        pspec = perfect["spec"]["spec"]
+        checks["perfect_accept_rate"] = (pspec["accept_rate"] or 0) >= 0.5
+        checks["perfect_rounds_half_of_plain_steps"] = (
+            2 * pspec["rounds"] <= perfect["plain"]["steps"])
+        checks["perfect_streams_agree"] = (
+            perfect["plain"]["completed"] and perfect["spec"]["completed"]
+            and all(v >= 0 for m in perfect["greedy_positions_compared"]
+                    .values() for v in m.values()))
+    out["margin_tol"] = MARGIN_TOL
+    out["checks"] = checks
+    if torch.device(device).type == "cuda":
+        out["device"] = smi_line()
+    out["ok"] = all(checks.values()) and len(checks) == 17
+    return out
+
+
 # Flash vs plain-attention gradients of the 2-layer check: the relative L2
 # norm of their difference, per parameter. Both round P (and the flash path
 # dS) to bf16, at other points of the sums, through two layers of bf16
@@ -1929,6 +2209,7 @@ def main() -> int:
                      ("splash", lambda: phase_splash(record)),
                      ("serve", lambda: phase_serve(serve_cfg)),
                      ("serve_paged", lambda: phase_serve_paged(serve_cfg)),
+                     ("serve_spec", lambda: phase_serve_spec(serve_cfg)),
                      ("train", lambda: phase_train(train_cfg))):
         t0 = time.perf_counter()
         try:

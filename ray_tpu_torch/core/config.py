@@ -3,9 +3,9 @@
 
 Same names, types and defaults as the JAX package. ``RAY_TPU_<NAME>`` env
 vars override at import time; ``config.update({...})`` or attribute
-assignment overrides at run time. The knobs the port does not carry yet
-(speculative decoding, warmup, a decode mesh) are declared so that a
-non-default value can be refused by name.
+assignment overrides at run time. The knob the port does not carry yet (a
+decode mesh) is declared so that a non-default value can be refused by
+name.
 """
 
 from __future__ import annotations
@@ -56,9 +56,28 @@ _FLAG_DEFS: Dict[str, tuple] = {
         "most ONE chunk instead of its whole prefill. 0 disables "
         "(monolithic prefill at admission, pre-chunking behavior)."),
     "spec_k": (int, 0,
-        "Speculative-decoding depth (requires paged KV). 0 disables."),
+        "Speculative-decoding depth for DecodeEngines given a draft "
+        "model: a small draft model proposes k tokens per active slot "
+        "per step and the target model verifies all k+1 positions in "
+        "ONE batched forward (the paged ragged-position gather), so a "
+        "step emits 1..k+1 tokens per slot. Each emitted token is the "
+        "target's argmax at its position (longest-matching-prefix "
+        "acceptance); sampled (temperature > 0) requests fall back to "
+        "per-token decode. Requires paged KV (kv_page_tokens > 0). "
+        "0 disables."),
     "spec_draft_model": (str, "",
-        "Draft-model preset name for speculative mode. Empty disables."),
+        "Draft-model preset name (models/llama.PRESETS) for "
+        "LlamaDecodeDeployment's speculative mode, a model a few times "
+        "smaller than the target preset over the same vocab. Empty "
+        "disables spec mode at the deployment level; engines constructed "
+        "directly take draft params/config explicitly."),
+    "spec_draft_pool_pages": (int, 0,
+        "Pages in the draft model's OWN paged KV pool (spec mode). The "
+        "draft tracks the same sequence positions as the target but at "
+        "draft-model width, so its pool is the same page count at a "
+        "fraction of the bytes. A dry draft pool evicts younger draft "
+        "seats or leaves a slot draftless; it never preempts a request. "
+        "0 = match kv_pool_pages."),
     "decode_device_sampler": (bool, False,
         "Fold sampling into the decode step on the device (argmax, or a "
         "per-row categorical draw at the row's temperature) so each step "
@@ -69,7 +88,20 @@ _FLAG_DEFS: Dict[str, tuple] = {
         "sampler's numpy generator and than the JAX package's device "
         "stream), which is why this is opt-in."),
     "decode_warmup": (bool, False,
-        "Pre-dispatch the steady-state step programs at construction."),
+        "Pre-dispatch a DecodeEngine's steady-state step set (decode, "
+        "decode-chunk grid, spec draft/verify, device sampler, one "
+        "prefill bucket) at deployment construction, so the first "
+        "requests do not pay the first call of each (on a card: the "
+        "flash kernel's build, cuBLAS's first call of each shape). The "
+        "steplog's jit-compile events then show only the prefill "
+        "buckets the live prompt mix reaches."),
+    "decode_step_timeline": (int, 256,
+        "Entries in a DecodeEngine's step-timeline ring "
+        "(serve/steplog.py): per-step phases (prefill waves, prefill "
+        "chunk, decode, draft, verify), batch occupancy and page "
+        "alloc/free, preempt, spec-draftless and jit-compile events, "
+        "read through engine.timeline() and stats(). 0 disables the "
+        "recorder."),
     "decode_mesh_shape": (str, "",
         "Default (batch, model) decode mesh. Empty = one device."),
 }

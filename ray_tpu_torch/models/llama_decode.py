@@ -1,6 +1,7 @@
 """Autoregressive decoding for the Llama family (port of
 ``ray_tpu/models/llama_decode.py``: the contiguous KV cache, the paged KV
-pool and the batched sampler).
+pool, the speculative verify and draft functions and the batched
+sampler).
 
 The cache is the JAX package's ``(L, B, C, KV, D)`` layout plus a per-row
 ``length``; the paged pool is its ``(L, pages + 1, T, KV, D)`` layout
@@ -11,16 +12,13 @@ KV state is never copied per step.
 
 Prefill attention is the config's ``attention_impl`` (``"flash"`` launches
 the Hopper kernel), for the contiguous and the paged full prefill alike;
-the suffix-prefill, chunk and decode attention, paged or not, are plain
-masked products in fp32, as the JAX package leaves them to XLA.
+the suffix-prefill, chunk, verify and decode attention, paged or not, are
+plain masked products in fp32, as the JAX package leaves them to XLA.
 
 Writes the JAX package lets XLA drop (a scatter index past the cache row)
 raise or fault in PyTorch, so they are masked out explicitly here: never
 clamped into a live position. Reads past the rope tables clamp, as XLA's
 gathers do; they only feed rows whose output nothing reads.
-
-The speculative functions (``paged_verify``, ``paged_spec_draft``) come
-with ROADMAP.md queue 1, item 1.
 """
 
 from __future__ import annotations
@@ -315,32 +313,22 @@ def paged_prefill(params, tokens: torch.Tensor, pool: Cache,
     return logits, pool
 
 
-def paged_prefill_suffix(params, tokens: torch.Tensor, pool: Cache,
-                         block_tables: torch.Tensor, config: LlamaConfig,
-                         prefix_lens: torch.Tensor, lengths: torch.Tensor
-                         ) -> Tuple[torch.Tensor, Cache]:
-    """Suffix prefill against paged context: right-padded suffix
-    ``tokens`` (B, S) from ``pos = prefix_lens``, attending to the pages
-    ``block_tables`` (B, W) maps (the shared or earlier-filled prefix
-    pages plus the causal part of the suffix). It serves the prefix-hit
-    splice (the block table IS the splice, no copy) and each chunk of a
-    chunked prefill (prefix = what earlier chunks wrote).
-
-    Pass block tables sliced to the columns covering prefix + suffix, so
-    the gather and the attention scale with what the wave touches. Suffix
-    K/V is written in place at its absolute positions before the gather,
-    so each query sees its own causal K/V; pad positions past the window
-    go to the scratch page. ``lengths`` is each row's TOTAL length.
-    Returns ``(last_logits (B, V) fp32, pool)`` at each row's final real
-    token."""
+def _paged_forward(params, tokens: torch.Tensor, pool: Cache,
+                   block_tables: torch.Tensor, config: LlamaConfig,
+                   prefix_lens: torch.Tensor) -> torch.Tensor:
+    """Right-padded rows ``tokens`` (B, S) from ``pos = prefix_lens``
+    against the pages ``block_tables`` (B, W) maps: each layer writes its
+    K/V in place at the rows' absolute positions (past the ``W * T``
+    window: the scratch page) BEFORE it gathers, so each query sees its
+    own causal K/V. Returns the final-norm hidden states (B, S, E)."""
     c = config
     B, S = tokens.shape
     dev = tokens.device
     T = pool["k"].shape[2]
     bt = block_tables.to(dev).long()
     C = bt.shape[1] * T
-    prefix_lens = prefix_lens.to(dev).long()
-    abs_pos = prefix_lens[:, None] + torch.arange(S, device=dev)[None, :]
+    abs_pos = prefix_lens.to(dev).long()[:, None] \
+        + torch.arange(S, device=dev)[None, :]
     pages, offs = _page_slots(bt, abs_pos, T)                   # (B, S)
     valid = (torch.arange(C, device=dev)[None, None, :]
              <= abs_pos[:, :, None])                            # (B, S, C)
@@ -359,8 +347,32 @@ def paged_prefill_suffix(params, tokens: torch.Tensor, pool: Cache,
         att = _masked_attention(q, _gather_pages(kp, bt),
                                 _gather_pages(vp, bt), valid, c)
         x = mlp(layer, x + out_proj(layer, att.to(x.dtype)), c)
-    x = rms_norm(x, params["final_norm"], c.norm_eps)
-    idx = (lengths.to(dev).long() - prefix_lens - 1).clamp(0, S - 1)
+    return rms_norm(x, params["final_norm"], c.norm_eps)
+
+
+def paged_prefill_suffix(params, tokens: torch.Tensor, pool: Cache,
+                         block_tables: torch.Tensor, config: LlamaConfig,
+                         prefix_lens: torch.Tensor, lengths: torch.Tensor
+                         ) -> Tuple[torch.Tensor, Cache]:
+    """Suffix prefill against paged context: right-padded suffix
+    ``tokens`` (B, S) from ``pos = prefix_lens``, attending to the pages
+    ``block_tables`` (B, W) maps (the shared or earlier-filled prefix
+    pages plus the causal part of the suffix). It serves the prefix-hit
+    splice (the block table IS the splice, no copy) and each chunk of a
+    chunked prefill (prefix = what earlier chunks wrote).
+
+    Pass block tables sliced to the columns covering prefix + suffix, so
+    the gather and the attention scale with what the wave touches. Suffix
+    K/V is written in place at its absolute positions before the gather;
+    pad positions past the window go to the scratch page. ``lengths`` is
+    each row's TOTAL length. Returns ``(last_logits (B, V) fp32, pool)``
+    at each row's final real token."""
+    S = tokens.shape[1]
+    x = _paged_forward(params, tokens, pool, block_tables, config,
+                       prefix_lens)
+    dev = tokens.device
+    idx = (lengths.to(dev).long() - prefix_lens.to(dev).long() - 1).clamp(
+        0, S - 1)
     return logits_f32(params, _last_real(x, idx)), pool
 
 
@@ -422,6 +434,67 @@ def paged_decode_chunk(params, pool: Cache, block_tables: torch.Tensor,
         tok = torch.argmax(logits, dim=-1).to(torch.int32)
         out.append(tok)
     return torch.stack(out), pool, lengths
+
+
+# ------------------------------------------------- speculative decoding
+#
+# ``paged_verify`` scores a (k+1)-token row per slot in ONE target forward
+# (the ragged-position write-then-gather of ``paged_prefill_suffix``, with
+# logits at EVERY position: the engine compares the draft's proposals with
+# the per-position argmaxes), and ``paged_spec_draft`` runs the draft
+# model: it takes up to two catch-up tokens (the true tokens the draft has
+# not committed yet; the acceptance rule bounds them at 2), then proposes
+# ``k`` tokens greedily. Accepting the longest prefix of proposals that
+# equals the target's argmaxes emits, at each position, the token
+# sequential greedy decode picks: position ``j``'s verify logits condition
+# on exactly the tokens sequential decode would have conditioned on
+# whenever proposals ``1..j`` were accepted.
+
+
+def paged_verify(params, tokens: torch.Tensor, pool: Cache,
+                 block_tables: torch.Tensor, config: LlamaConfig,
+                 prefix_lens: torch.Tensor) -> Tuple[torch.Tensor, Cache]:
+    """Target verify forward: right-padded rows ``tokens`` (B, S = k + 1)
+    from ``pos = prefix_lens`` against the paged context; returns fp32
+    logits at ALL ``S`` positions, (B, S, V), and the pool. The engine's
+    row layout is ``[last_emitted, draft_1, .., draft_k]``. K/V for every
+    position is written in place into the row's pages (past the window:
+    the scratch page), so the accepted prefix is committed by the forward
+    that scores it; a rejected tail is junk past the rolled-back
+    ``length``, masked like pad writes and rewritten by the next round
+    before anything gathers it. Pass block tables covering
+    ``prefix_lens + S`` positions of every live row."""
+    x = _paged_forward(params, tokens, pool, block_tables, config,
+                       prefix_lens)
+    return logits_f32(params, x), pool
+
+
+def paged_spec_draft(params, pool: Cache, block_tables: torch.Tensor,
+                     lengths: torch.Tensor, catchup: torch.Tensor,
+                     catchup_lens: torch.Tensor, config: LlamaConfig,
+                     k: int) -> Tuple[torch.Tensor, Cache]:
+    """Draft propose step: take the ragged ``catchup`` rows (B, 2), 1 true
+    token normally or 2 after a fully accepted round, writing their K/V at
+    ``lengths .. lengths + catchup_lens - 1``, then greedily roll ``k``
+    proposals. Returns ``(proposals (B, k) int32, pool)``. The caller owns
+    the ``lengths`` cursors (rolled back on the host after acceptance);
+    pages must cover ``lengths + catchup_lens + k - 1`` positions. A
+    1-long row's pad writes junk one past its real token, which the first
+    proposal's decode step rewrites before anything gathers it."""
+    logits, pool = paged_verify(params, catchup, pool, block_tables,
+                                config, lengths)
+    rows = torch.arange(logits.shape[0], device=logits.device)
+    last = logits[rows, catchup_lens.to(logits.device).long() - 1]
+    tok = torch.argmax(last, dim=-1).to(torch.int32)
+    lens = (lengths.to(logits.device) + catchup_lens.to(logits.device)).to(
+        torch.int32)
+    out = [tok]
+    for _ in range(k - 1):
+        logits, pool, lens = paged_decode_step(params, pool, block_tables,
+                                               lens, tok, config)
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        out.append(tok)
+    return torch.stack(out, dim=1), pool
 
 
 def _sample(logits: torch.Tensor, temperature: float,

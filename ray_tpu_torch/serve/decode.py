@@ -1,6 +1,7 @@
 """Continuous-batching decode engine (port of ``ray_tpu/serve/decode.py``:
 the contiguous and the paged KV engine, chunked prefill, recompute
-preemption and the device sampler).
+preemption, the device sampler, speculative decoding, warmup and the step
+timeline).
 
 * Contiguous mode: one KV cache of ``slots`` rows x ``capacity`` tokens,
   allocated once. Requests join and leave the running batch between
@@ -34,13 +35,21 @@ preemption and the device sampler).
   (``llama_decode.sample_batch``) from a ``torch.Generator`` seeded from
   the step counter, so runs repeat; only (slots,) token ids reach the
   host.
+* Speculative decoding (paged mode, ``spec_k > 0`` and a draft model): a
+  draft model with its own page pool and block tables proposes ``spec_k``
+  tokens a slot, the target scores all ``spec_k + 1`` positions in one
+  ``paged_verify`` forward, the host accepts the longest prefix that
+  equals the target's argmaxes plus the target's next token, and both
+  pools' cursors and tail pages roll back over the rejected rest.
+* The step timeline (``serve.steplog``) keeps one row a step: its phases
+  and batch occupancy, with page, preemption, demotion and first-dispatch
+  events.
 
 Single-threaded by design: ``serve_forever`` is the only consumer; intake
 (``submit``/``cancel``) is thread-safe. Not ported yet (ROADMAP.md queue
-1): speculative decoding, the disaggregated handoff, warmup, and the step
-timelines, metrics and trace spans (item 1); decode meshes (item 3); the
-actor runtime, serve controller and HTTP proxy that run the deployment as
-a replica (item 4).
+1): the disaggregated handoff, serve metrics and trace spans (item 1);
+decode meshes (item 3); the actor runtime, serve controller and HTTP proxy
+that run the deployment as a replica (item 4).
 """
 
 from __future__ import annotations
@@ -51,7 +60,7 @@ import queue
 import threading
 import time
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -65,11 +74,12 @@ from ray_tpu_torch.models import llama
 from ray_tpu_torch.models import llama_decode as ld
 from ray_tpu_torch.serve.paging import PageAllocator, PagedPrefixIndex
 from ray_tpu_torch.serve.prefix_cache import PrefixCache
+from ray_tpu_torch.serve.steplog import StepTimeline
 
 logger = logging.getLogger(__name__)
 
 _req_ids = itertools.count(1)
-_ENGINE_PATHS = "item 1, speculative decoding, handoff and warmup"
+_ENGINE_PATHS = "item 1, the handoff, serve metrics and trace spans"
 
 
 @dataclass(eq=False)  # identity semantics: numpy token arrays inside
@@ -102,6 +112,9 @@ class _Request:
     admitted: bool = False                 # left the pending queue
     status: str = "pending"                # terminal: completed |
     #   cancelled | deadline_exceeded | error
+    spec_proposed: int = 0                 # draft tokens proposed for this
+    #   request across its spec rounds
+    spec_accepted: int = 0                 # of those, verified-accepted
 
     def raise_for_status(self) -> None:
         """Re-raise this request's terminal outcome as its typed error."""
@@ -128,7 +141,13 @@ class DecodeEngine:
     one token (or ``decode_chunk`` greedy tokens); ``submit()`` enqueues a
     request. Run ``serve_forever`` in a thread, or drive ``step()`` by
     hand in tests. Runs on ``device`` (``cuda`` unless the caller passes
-    another), where ``params`` must live."""
+    another), where ``params`` must live.
+
+    With ``spec_k > 0`` and ``spec_draft_params``/``spec_draft_config``
+    (paged mode only) every all-greedy step is a speculative round; the
+    draft's pool holds ``spec_draft_pool_pages`` pages (default: as many
+    as the target's). ``step_timeline`` sizes the step-timeline ring (0
+    turns it off)."""
 
     def __init__(self, params, config, slots: int = 4,
                  capacity: int = 1024, prefill_bucket: int = 128,
@@ -142,13 +161,12 @@ class DecodeEngine:
                  prefill_chunk_tokens: Optional[int] = None,
                  prefix_max_pages: Optional[int] = None,
                  mesh_shape=None,
-                 spec_draft_params=None, spec_k: Optional[int] = None,
+                 spec_draft_params=None, spec_draft_config=None,
+                 spec_k: Optional[int] = None,
+                 spec_draft_pool_pages: Optional[int] = None,
                  device_sampler: Optional[bool] = None,
+                 step_timeline: Optional[int] = None,
                  device=None):
-        sk = rt_config.spec_k if spec_k is None else spec_k
-        if int(sk) > 0 and spec_draft_params is not None:
-            raise not_ported("speculative decoding (spec_k > 0)",
-                             _ENGINE_PATHS)
         if mesh_shape is not None or rt_config.decode_mesh_shape:
             raise not_ported("decode meshes (mesh_shape)",
                              "item 3, meshes with ring, Ulysses and MoE")
@@ -283,6 +301,60 @@ class DecodeEngine:
         self.decode_chunk = max(1, int(decode_chunk))
         self.steps = 0
         self.tokens_out = 0
+        self.steplog = StepTimeline(
+            rt_config.decode_step_timeline
+            if step_timeline is None else step_timeline)
+        self._step_phases: List[Dict[str, Any]] = []  # this step's phases
+        self._compiled: set = set()  # program keys dispatched once
+        self._init_spec(spec_draft_params, spec_draft_config, spec_k,
+                        spec_draft_pool_pages)
+
+    def _init_spec(self, draft_params, draft_config, spec_k,
+                   draft_pool_pages) -> None:
+        """Speculative state. The draft keeps its K/V in its OWN page pool
+        (same page size, draft width) with its own allocator and block
+        tables and no prefix index; its cursors roll back with the
+        target's after each round."""
+        sk = rt_config.spec_k if spec_k is None else spec_k
+        self.spec_k = int(sk)
+        self.spec = self.spec_k > 0 and draft_params is not None
+        if not self.spec:
+            return
+        if not self.paged:
+            raise ValueError(
+                "speculative decoding requires paged KV (kv_page_tokens "
+                "> 0): the verify forward and the rollback cursor are "
+                "page-table operations")
+        if draft_config is None:
+            raise ValueError("spec_draft_params needs spec_draft_config")
+        ddev = draft_params["tok_embed"].device
+        if ddev.type != self.device.type:
+            raise ValueError(f"draft params are on {ddev}, the engine runs "
+                             f"on {self.device}")
+        self._draft_params = draft_params
+        self._draft_config = draft_config
+        dpp = (rt_config.spec_draft_pool_pages if draft_pool_pages is None
+               else draft_pool_pages)
+        self.draft_pool_pages = int(dpp) or self.pool_pages
+        self._draft_pages = PageAllocator(self.draft_pool_pages)
+        dpool = ld.init_page_pool(draft_config, self.draft_pool_pages,
+                                  self.page_tokens, device=self.device)
+        self._draft_cache = {
+            "k": dpool["k"], "v": dpool["v"],
+            "length": torch.zeros((self.slots,), dtype=torch.int32,
+                                  device=self.device)}
+        self._draft_bt = np.zeros((self.slots, self.slot_pages_max),
+                                  np.int32)
+        self._draft_slot_pages: List[List[int]] = [
+            [] for _ in range(self.slots)]
+        # Host-side committed draft length per slot; -1 = draftless (the
+        # draft pool could not seat it: the slot rides spec rounds with
+        # junk proposals that verification rejects).
+        self._draft_committed = [0] * self.slots
+        self.spec_rounds = 0
+        self.spec_proposed = 0
+        self.spec_accepted = 0
+        self.spec_demotions = 0
 
     # --------------------------------------------- paged page accounting
 
@@ -291,7 +363,11 @@ class DecodeEngine:
         None = genuinely dry (caller preempts or backs off)."""
         if self._pages.free_count < n and self.prefix is not None:
             self.prefix.reclaim(n - self._pages.free_count)
-        return self._pages.alloc(n)
+        got = self._pages.alloc(n)
+        if got is not None and self.steplog.enabled:
+            self.steplog.event("page-alloc", n=n,
+                               free=self._pages.free_count)
+        return got
 
     def _set_slot_pages(self, slot: int, pages: List[int]) -> None:
         self._block_tables[slot, :] = 0
@@ -306,6 +382,13 @@ class DecodeEngine:
     def _seq_pages(self, tokens: int) -> int:
         return -(-tokens // self.page_tokens)
 
+    def _round_pages(self, req: _Request, k: int) -> int:
+        """Pages covering ``req``'s next ``k`` writes, at most a slot's
+        worth: a spec round near the capacity edge writes positions past
+        it, whose tokens are never emitted, to the scratch page."""
+        return min(self._seq_pages(req.prompt_len + req.generated - 1 + k),
+                   self.slot_pages_max)
+
     def _ensure_decode_pages(self, k: int) -> None:
         """Every active slot can write its next ``k`` tokens. Oldest slots
         are served first; when the pool is dry even after reclaiming
@@ -318,8 +401,7 @@ class DecodeEngine:
                 req = self._active.get(slot)
                 if req is None:
                     break  # preempted while serving an older slot
-                need = self._seq_pages(req.prompt_len + req.generated
-                                       - 1 + k) \
+                need = self._round_pages(req, k) \
                     - len(self._slot_pages[slot])
                 if need <= 0:
                     break
@@ -329,6 +411,89 @@ class DecodeEngine:
                     break
                 if not self._preempt_one():
                     break  # nothing left to preempt
+
+    # ------------------------------------------- draft-pool accounting
+    #
+    # The draft pool mirrors the target's block-table discipline at the
+    # draft model's width: same page size, its own allocator and tables,
+    # no prefix index. Freeing a slot frees both pools. Draft-pool
+    # pressure never touches the target: a draft seat only buys speed, so
+    # a dry draft pool evicts the youngest other DRAFT seat or leaves the
+    # slot draftless, and never preempts a request.
+
+    def _draft_grow_slot(self, slot: int, pages: List[int]) -> None:
+        have = self._draft_slot_pages[slot]
+        self._draft_bt[slot, len(have):len(have) + len(pages)] = pages
+        self._draft_slot_pages[slot] = have + pages
+
+    def _ensure_draft_pages(self, k: int) -> None:
+        """Every drafted active slot's draft can write its catch-up row and
+        ``k - 1`` proposals (through ``L + k - 1``, ``L`` the target's
+        length). Draftless slots (-1) are skipped: their rows write to the
+        scratch page and verification rejects their junk proposals. A slot
+        the pool cannot cover even after evicting younger draft seats is
+        demoted to draftless the same way."""
+        for slot in sorted(self._active,
+                           key=lambda s: self._active[s].submitted_at):
+            req = self._active[slot]
+            while self._draft_committed[slot] >= 0:
+                need = self._round_pages(req, k) \
+                    - len(self._draft_slot_pages[slot])
+                if need <= 0:
+                    break
+                got = self._draft_pages.alloc(need)
+                if got is not None:
+                    self._draft_grow_slot(slot, got)
+                    break
+                if not self._draft_evict_one(slot):
+                    self._draft_demote(slot, req)
+
+    def _draft_demote(self, slot: int, req: _Request) -> None:
+        """Drop a slot's draft seat and its draft pages: it keeps riding
+        spec rounds with junk proposals that verification rejects, so its
+        output is unchanged; it stops adding speed until re-admission
+        seats it again."""
+        self._draft_pages.free(self._draft_slot_pages[slot])
+        self._draft_slot_pages[slot] = []
+        self._draft_bt[slot, :] = 0
+        self._draft_committed[slot] = -1
+        self.spec_demotions += 1
+        if self.steplog.enabled:
+            self.steplog.event("spec-draftless", request=req.request_id)
+
+    def _draft_evict_one(self, keep: int) -> bool:
+        """Make room in the draft pool by demoting the youngest OTHER
+        drafted slot. Never preempts a request over draft pressure."""
+        cands = [s for s in self._active
+                 if s != keep and self._draft_committed[s] >= 0
+                 and self._draft_slot_pages[s]]
+        if not cands:
+            return False
+        victim = max(cands, key=lambda s: self._active[s].submitted_at)
+        self._draft_demote(victim, self._active[victim])
+        return True
+
+    def _rollback_pages(self, slot: int, committed: int) -> None:
+        """Roll a slot's pages back to ``committed`` tokens after a spec
+        round: tail pages past the accepted run go back to the allocator
+        in BOTH pools. Their junk K/V is dead: nothing attends past the
+        rolled-back ``length``, and a later owner's write precedes its
+        gather on the same stream. Leading pages, shared prefix pages
+        among them, stay: ``committed >= prefix_len`` always."""
+        keep = self._seq_pages(committed)
+        tail = self._slot_pages[slot][keep:]
+        if tail:
+            self._block_tables[slot, keep:keep + len(tail)] = 0
+            self._slot_pages[slot] = self._slot_pages[slot][:keep]
+            self._pages.free(tail)
+        keep_d = self._seq_pages(min(committed,
+                                     self._draft_committed[slot]))
+        dtail = self._draft_slot_pages[slot][keep_d:]
+        if dtail:
+            self._draft_bt[slot, keep_d:keep_d + len(dtail)] = 0
+            self._draft_slot_pages[slot] = \
+                self._draft_slot_pages[slot][:keep_d]
+            self._draft_pages.free(dtail)
 
     def _preempt_one(self) -> bool:
         """Requeue the youngest admitted request to free its pages
@@ -352,6 +517,9 @@ class DecodeEngine:
         req.prefilled = 0
         self.preempted += 1
         req.preemptions += 1
+        if self.steplog.enabled:
+            self.steplog.event("preempt", request=req.request_id,
+                               tokens=req.generated)
         self._requeue.insert(0, req)
         self._queued_tokens += len(req.tokens)
         with self._reqs_lock:
@@ -562,12 +730,16 @@ class DecodeEngine:
             slots = [r.slot for r in group]
             lengths = self._dev([len(r.tokens) for r in group])
             self.prefill_waves += 1
+            t0 = time.time()
+            self._mark_compile(("paged_prefill", len(group), bucket))
             logits, _ = ld.paged_prefill(
                 self.params, self._dev(rows), self.cache,
                 self._dev(self._block_tables[slots, :wp]), self.config,
                 lengths=lengths)
             self.cache["length"][self._dev(slots)] = lengths.to(torch.int32)
-            self._post_admit(group, slots, logits.cpu().numpy())
+            logits = logits.cpu().numpy()
+            self._phase("prefill", t0, n=len(group), bucket=bucket)
+            self._post_admit(group, slots, logits)
 
     def _admit_paged_suffix(self, reqs: List[_Request]) -> None:
         """Prefix hits: the shared pages are already in the slots' block
@@ -585,12 +757,16 @@ class DecodeEngine:
             slots = [r.slot for r in group]
             lengths = self._dev([len(r.tokens) for r in group])
             self.suffix_waves += 1
+            t0 = time.time()
+            self._mark_compile(("paged_suffix", len(group), bucket, width))
             logits, _ = ld.paged_prefill_suffix(
                 self.params, self._dev(rows), self.cache,
                 self._dev(self._block_tables[slots, :width]), self.config,
                 self._dev([r.prefix_len for r in group]), lengths)
             self.cache["length"][self._dev(slots)] = lengths.to(torch.int32)
-            self._post_admit(group, slots, logits.cpu().numpy())
+            logits = logits.cpu().numpy()
+            self._phase("suffix-prefill", t0, n=len(group), bucket=bucket)
+            self._post_admit(group, slots, logits)
 
     def _prefill_tick(self) -> None:
         """Chunked prefill: advance the OLDEST mid-prefill slot by at most
@@ -621,6 +797,8 @@ class DecodeEngine:
         rows[0, :step_tok] = req.tokens[req.prefilled:
                                         req.prefilled + step_tok]
         end = req.prefilled + step_tok
+        t0 = time.time()
+        self._mark_compile(("paged_suffix", 1, bucket, width))
         logits, _ = ld.paged_prefill_suffix(
             self.params, self._dev(rows), self.cache,
             self._dev(self._block_tables[slot:slot + 1, :width]),
@@ -628,6 +806,8 @@ class DecodeEngine:
         self.cache["length"][slot] = end
         self.prefill_chunks += 1
         req.prefilled = end
+        self._phase("prefill-chunk", t0, tokens=step_tok, prefilled=end,
+                    prompt=len(req.tokens))
         if req.prefilled >= len(req.tokens):
             self._prefilling.pop(slot)
             self._post_admit([req], [slot], logits.cpu().numpy())
@@ -652,10 +832,14 @@ class DecodeEngine:
                 rows[i, :len(req.tokens)] = req.tokens
             lengths = [len(r.tokens) for r in group]
             self.prefill_waves += 1
+            t0 = time.time()
+            self._mark_compile(("prefill", len(group), bucket))
             logits, self.cache = ld.prefill(
                 self.params, self._dev(rows), self.cache, self.config,
                 lengths=self._dev(lengths), rows=self._dev(slots))
-            self._post_admit(group, slots, logits.cpu().numpy())
+            logits = logits.cpu().numpy()
+            self._phase("prefill", t0, n=len(group), bucket=bucket)
+            self._post_admit(group, slots, logits)
 
     def _admit_suffix(self, reqs: List[_Request]) -> None:
         """Prefix-cache hits: splice each matched pool entry into its
@@ -676,11 +860,14 @@ class DecodeEngine:
             self.cache["k"][:, slot_ids, :cp] = self._pool["k"][:, entries]
             self.cache["v"][:, slot_ids, :cp] = self._pool["v"][:, entries]
             self.suffix_waves += 1
+            t0 = time.time()
+            self._mark_compile(("suffix", len(group), bucket))
             logits, self.cache = ld.prefill_suffix(
                 self.params, self._dev(rows), self.cache, self.config,
                 self._dev([r.prefix_len for r in group]),
                 self._dev([len(r.tokens) for r in group]), rows=slot_ids)
             logits = logits.cpu().numpy()
+            self._phase("suffix-prefill", t0, n=len(group), bucket=bucket)
             for req in group:
                 # Stream order makes the splice read precede any later
                 # write to the entry, so the row may now be recycled.
@@ -718,8 +905,82 @@ class DecodeEngine:
                                          matched_len=req.prefix_len)
                 if ins is not None:
                     row, _ins_len = ins
+                    self._mark_compile(("pool_insert",))
                     self._pool["k"][:, row] = self.cache["k"][:, slot, :cp]
                     self._pool["v"][:, row] = self.cache["v"][:, slot, :cp]
+        if self.spec:
+            self._draft_seat([r for r in group if not r.done.is_set()])
+
+    # ------------------------------------------------------ draft seats
+
+    def _draft_seat(self, reqs: List[_Request]) -> None:
+        """Give each newly seated slot its draft state: draft pages for the
+        whole prompt and a full draft prefill (a target prefix hit still
+        draft-prefills everything: the draft pool has no prefix index, and
+        the draft is cheap by construction). A slot the draft pool cannot
+        seat even after evicting younger draft seats becomes draftless."""
+        for req in reqs:
+            self._draft_prefill_slot(req.slot, req,
+                                     np.asarray(req.tokens, np.int32))
+
+    def _draft_prefill_slot(self, slot: int, req: _Request, seq: np.ndarray,
+                            reserve: int = 0) -> bool:
+        """Allocate draft pages covering ``seq`` plus ``reserve`` more
+        positions and prefill ``seq`` into the slot's draft state; ``seq``
+        is the true committed stream (the prompt at admission, prompt +
+        output on resync). False when the slot no longer holds ``req``
+        (it finished or was preempted in this admission) or the pool is
+        dry even after evictions (the slot is demoted to draftless)."""
+        if self._active.get(slot) is not req:
+            return False
+        n = min(self._seq_pages(len(seq) + reserve), self.slot_pages_max)
+        got = self._draft_pages.alloc(n)
+        while got is None and self._draft_evict_one(slot):
+            got = self._draft_pages.alloc(n)
+        if got is None:
+            self._draft_demote(slot, req)
+            return False
+        self._draft_bt[slot, :] = 0
+        self._draft_bt[slot, :len(got)] = got
+        self._draft_slot_pages[slot] = got
+        bucket = min(ld.cache_bucket(len(seq), self.prefill_bucket),
+                     self.capacity)
+        rows = np.zeros((1, bucket), np.int32)
+        rows[0, :len(seq)] = seq
+        t0 = time.time()
+        self._mark_compile(("draft_prefill", 1, bucket))
+        ld.paged_prefill(
+            self._draft_params, self._dev(rows), self._draft_cache,
+            self._dev(self._draft_bt[slot:slot + 1,
+                                     :self._seq_pages(bucket)]),
+            self._draft_config, lengths=self._dev([len(seq)]))
+        self._draft_cache["length"][slot] = len(seq)
+        self._draft_committed[slot] = len(seq)
+        self._phase("draft-prefill", t0, tokens=len(seq))
+        return True
+
+    def _draft_resync(self, slot: int, req: _Request) -> bool:
+        """Plain-step interludes (a sampled request in the batch, a
+        draftless neighbour, decode chunks) advance the target while the
+        draft idles; once the draft is more than one round behind, its
+        catch-up row cannot close the gap, so the slot's draft state is
+        rebuilt by one draft prefill of the true sequence, with pages for
+        this round's writes too."""
+        L = req.prompt_len + req.generated - 1
+        self._draft_pages.free(self._draft_slot_pages[slot])
+        self._draft_slot_pages[slot] = []
+        self._draft_bt[slot, :] = 0
+        seq = np.asarray([self._token_at(req, p) for p in range(L)],
+                         np.int32)
+        return self._draft_prefill_slot(slot, req, seq, reserve=self.spec_k)
+
+    @staticmethod
+    def _token_at(req: _Request, p: int) -> int:
+        """True committed token at absolute position ``p``: the prompt,
+        then the output (also for a re-admitted preempted request, whose
+        ``prompt_len`` stays the ORIGINAL prompt's length)."""
+        return (int(req.tokens[p]) if p < req.prompt_len
+                else int(req.output[p - req.prompt_len]))
 
     def _dev(self, values) -> torch.Tensor:
         return torch.as_tensor(np.asarray(values), device=self.device)
@@ -770,6 +1031,15 @@ class DecodeEngine:
             self._slot_pages[slot] = []
             self._block_tables[slot, :] = 0
             self._pages.free(pages)
+            if pages and self.steplog.enabled:
+                self.steplog.event("page-free", n=len(pages),
+                                   free=self._pages.free_count)
+        if self.spec:
+            self._draft_pages.free(self._draft_slot_pages[slot])
+            self._draft_slot_pages[slot] = []
+            self._draft_bt[slot, :] = 0
+            self._draft_committed[slot] = 0
+            self._draft_cache["length"][slot] = 0
         self._free.append(slot)
         # Park the freed slot at length 0 so idle slots don't walk their
         # cursor toward the capacity edge while others decode.
@@ -895,15 +1165,17 @@ class DecodeEngine:
             return chunk
         return 1
 
-    def _decode_tables(self, k: int) -> torch.Tensor:
-        """The block-table columns the active slots reach over their next
-        ``k`` tokens, uploaded once for the step. Rows of idle and
-        mid-prefill slots whose cursor lies past them write to the scratch
-        page."""
+    def _decode_tables(self, k: int,
+                       tables: Optional[np.ndarray] = None) -> torch.Tensor:
+        """The columns of ``tables`` (default: the target's block tables)
+        the active slots reach over their next ``k`` writes, uploaded once
+        for the call. Rows of idle and mid-prefill slots whose cursor lies
+        past them write to the scratch page."""
         top = max(r.prompt_len + r.generated - 1
                   for r in self._active.values())
         width = min(self._seq_pages(top + k), self.slot_pages_max)
-        return self._dev(self._block_tables[:, :width])
+        tables = self._block_tables if tables is None else tables
+        return self._dev(tables[:, :width])
 
     def _decode_logits(self, tokens: torch.Tensor) -> torch.Tensor:
         """One decode step of every slot on the device: (slots, V) fp32
@@ -932,14 +1204,35 @@ class DecodeEngine:
     @torch.no_grad()
     def step(self) -> int:
         """Admit pending prefills, run at most one chunk of a chunked
-        prefill, then advance every active slot one token (or one greedy
-        chunk). Returns the number of slots stepped."""
+        prefill, then advance every active slot: one speculative round
+        when spec mode is on and every request is greedy, else one token
+        (or one greedy chunk). Returns the number of slots stepped. With
+        the step timeline on, the step's phases and events land as one
+        ring row."""
+        t0 = time.time()
+        self._step_phases = []
+        stepped = self._step()
+        self._steplog_row(t0)
+        return stepped
+
+    def _step(self) -> int:
         self._reap()
         self._admit()
         if self.paged:
             self._prefill_tick()
         if not self._active:
             return 0
+        if self._spec_ready():
+            # Page both pools for the round first: the block tables are
+            # fixed across the draft and verify calls. The target side may
+            # preempt the youngest request; the draft side only evicts or
+            # demotes draft seats.
+            self._ensure_decode_pages(self.spec_k + 1)
+            if not self._active:
+                return 0
+            self._ensure_draft_pages(self.spec_k)
+            if self._spec_ready():
+                return self._spec_step()
         chunk = self._pick_chunk()
         if self.paged:
             # Page the next k tokens in BEFORE the step: the block tables
@@ -949,8 +1242,10 @@ class DecodeEngine:
                 return 0
             chunk = min(chunk, self._pick_chunk())
         stepped = len(self._active)
+        t0 = time.time()
         if chunk > 1:
             tokens = self._dev(self._tokens)
+            self._mark_compile(("decode_k", chunk))
             if self.paged:
                 toks, _, self.cache["length"] = ld.paged_decode_chunk(
                     self.params, self.cache, self._decode_tables(chunk),
@@ -959,6 +1254,7 @@ class DecodeEngine:
                 toks, self.cache = ld.decode_chunk(
                     self.params, self.cache, tokens, self.config, chunk)
             toks = toks.cpu().numpy()  # (chunk, slots)
+            self._phase("decode", t0, batch=stepped, k=chunk)
             self.steps += chunk
             self._tokens_dev = None
             for slot in list(self._active):
@@ -968,7 +1264,9 @@ class DecodeEngine:
             return stepped
         if self._device_sampler:
             return self._sampled_step()
+        self._mark_compile(("decode",))
         logits = self._decode_logits(self._dev(self._tokens)).cpu().numpy()
+        self._phase("decode", t0, batch=stepped, k=1)
         self.steps += 1
         for slot in list(self._active):
             self._advance(slot, self._sample_host(logits[slot],
@@ -986,15 +1284,244 @@ class DecodeEngine:
             temps[slot] = max(0.0, req.temperature)
         tokens = (self._tokens_dev if self._tokens_dev is not None
                   else self._dev(self._tokens))
+        t0 = time.time()
+        self._mark_compile(("decode_sampled",))
         logits = self._decode_logits(tokens)
         self._generator.manual_seed(self.steps)
         toks_dev = ld.sample_batch(logits, self._dev(temps), self._generator)
         toks = toks_dev.cpu().numpy()
+        self._phase("decode", t0, batch=stepped, k=1, sampler="device")
         self.steps += 1
         self._tokens_dev = toks_dev  # _finish drops it below
         for slot in list(self._active):
             self._advance(slot, int(toks[slot]))
         return stepped
+
+    # ----------------------------------------------- speculative rounds
+
+    def _spec_ready(self) -> bool:
+        """Spec rounds run only when every active request is greedy (the
+        acceptance rule compares argmax tokens; a sampled request takes
+        the plain path to keep its sampler's stream) and at least one
+        active slot holds a draft seat (an all-draftless batch would pay
+        the k+1-wide verify for proposals that are all rejected)."""
+        return (self.spec and bool(self._active)
+                and all(r.temperature <= 0.0
+                        for r in self._active.values())
+                and any(self._draft_committed[s] >= 0
+                        for s in self._active))
+
+    def _spec_step(self) -> int:
+        """One speculative round: the draft catches up on last round's
+        accepted tokens and proposes ``k`` a slot, the target verifies all
+        ``k + 1`` positions in ONE batched forward, the longest proposal
+        prefix equal to the target's own argmaxes is emitted with the
+        target's next token, and both pools' cursors and tail pages roll
+        back over the rejected rest. Emits 1..k+1 tokens a slot; each is
+        the target's argmax at its position, given the tokens before it."""
+        k = self.spec_k
+        stepped = len(self._active)
+        # ---- draft: the catch-up rows, then k proposals a slot
+        catchup = np.zeros((self.slots, 2), np.int32)
+        clens = np.ones((self.slots,), np.int32)
+        for slot, req in list(self._active.items()):
+            D = self._draft_committed[slot]
+            if D < 0:
+                continue  # draftless: junk proposals, still verified
+            L = req.prompt_len + req.generated - 1
+            if L - D + 1 > 2:
+                # The resync may evict younger draft seats or demote this
+                # slot; either leaves the round correct.
+                if not self._draft_resync(slot, req):
+                    continue
+                D = self._draft_committed[slot]
+            cl = L - D + 1
+            for j in range(cl):
+                catchup[slot, j] = self._token_at(req, D + j)
+            clens[slot] = cl
+        t0 = time.time()
+        self._mark_compile(("spec_draft", k))
+        toks_d, _ = ld.paged_spec_draft(
+            self._draft_params, self._draft_cache,
+            self._decode_tables(k, self._draft_bt),
+            self._draft_cache["length"], self._dev(catchup),
+            self._dev(clens), self._draft_config, k)
+        # Copies: on the CPU a .numpy() view aliases the tensor.
+        toks_d = toks_d.cpu().numpy().copy()               # (slots, k)
+        self._phase("draft", t0, batch=stepped, k=k)
+        # ---- target: all k+1 positions in one batched forward
+        rows = np.zeros((self.slots, k + 1), np.int32)
+        for slot in self._active:
+            rows[slot, 0] = self._tokens[slot]
+            rows[slot, 1:] = toks_d[slot]
+        t0 = time.time()
+        self._mark_compile(("spec_verify", k))
+        logits, _ = ld.paged_verify(
+            self.params, self._dev(rows), self.cache,
+            self._decode_tables(k + 1), self.config, self.cache["length"])
+        toks_v = torch.argmax(logits, dim=-1).to(
+            torch.int32).cpu().numpy().copy()              # (slots, k+1)
+        # ---- host: longest matching prefix, emission, rollback
+        self.steps += 1
+        self.spec_rounds += 1
+        self._tokens_dev = None  # host token writes below
+        accepted = 0
+        upd: List[Tuple[int, int, int]] = []   # (slot, L', D')
+        for slot in list(self._active):
+            req = self._active[slot]
+            g = toks_v[slot]
+            n_acc = 0
+            while n_acc < k and rows[slot, n_acc + 1] == g[n_acc]:
+                n_acc += 1
+            if self._draft_committed[slot] >= 0:
+                req.spec_proposed += k
+                req.spec_accepted += n_acc
+                self.spec_proposed += k
+                self.spec_accepted += n_acc
+                accepted += n_acc
+            L = req.prompt_len + req.generated - 1
+            emitted = 0
+            for j in range(n_acc + 1):
+                emitted += 1
+                if self._advance(slot, int(g[j])):
+                    break  # EOS or max_new_tokens: both pools freed
+            if slot not in self._active:
+                continue
+            committed = L + emitted
+            if self._draft_committed[slot] >= 0:
+                # The draft's K/V is true through L + min(n_acc, k - 1):
+                # its catch-up row and its accepted proposals.
+                self._draft_committed[slot] = L + min(emitted, k)
+            self._rollback_pages(slot, committed)
+            upd.append((slot, committed,
+                        max(0, self._draft_committed[slot])))
+        if upd:
+            ids = self._dev([u[0] for u in upd])
+            self.cache["length"][ids] = self._dev(
+                [u[1] for u in upd]).to(torch.int32)
+            self._draft_cache["length"][ids] = self._dev(
+                [u[2] for u in upd]).to(torch.int32)
+        self._phase("verify", t0, batch=stepped, k=k, accepted=accepted)
+        return stepped
+
+    # ----------------------------------------------------- step timeline
+
+    def _mark_compile(self, key: tuple) -> None:
+        """The first dispatch of a program key: the JAX engine compiles a
+        program there; here it is the first call of that shape (on a card,
+        the flash kernel's build and cuBLAS's first call)."""
+        if key not in self._compiled:
+            self._compiled.add(key)
+            if self.steplog.enabled:
+                self.steplog.event("jit-compile", key="/".join(
+                    str(k) for k in key))
+
+    def _phase(self, name: str, t0: float, **attrs: Any) -> None:
+        """Close one timed phase of the current step (host wall clock)."""
+        if self.steplog.enabled:
+            self._step_phases.append(
+                {"phase": name, "t0": t0, "t1": time.time(), **attrs})
+
+    def _steplog_row(self, t0: float) -> None:
+        """Close the step's timeline row; an idle step with no phases and
+        no pending events records nothing (an idle engine must not churn
+        useful rows out of the bounded ring)."""
+        phases, self._step_phases = self._step_phases, []
+        if not self.steplog.enabled or not (phases
+                                            or self.steplog.pending_events):
+            return
+        self.steplog.record(
+            self.steps, t0, time.time(), phases,
+            active=len(self._active), prefilling=len(self._prefilling),
+            queued=max(0, self._pending.qsize() + len(self._requeue)
+                       - self._queued_cancelled),
+            pages_free=self._pages.free_count if self.paged else None)
+
+    def timeline(self) -> Dict[str, Any]:
+        """The step-timeline dump with the engine's shape."""
+        out = self.steplog.dump()
+        out["paged"] = self.paged
+        out["slots"] = self.slots
+        out["spec_k"] = self.spec_k if self.spec else 0
+        return out
+
+    # ------------------------------------------------------------ warmup
+
+    @torch.no_grad()
+    def warmup(self) -> None:
+        """Run one of each step call on the idle engine (paged: one
+        ``prefill_bucket`` prefill, decode, every power-of-two decode
+        chunk up to ``decode_chunk``, the device sampler, the spec draft
+        and verify; contiguous: decode, the chunks, the sampler), so the
+        first requests do not pay their first calls: on a card the flash
+        kernel's build and cuBLAS's first call of each shape. Paged writes
+        go to the scratch page (idle block tables are all zeros),
+        contiguous ones to idle rows the next admission overwrites; the
+        KV lengths are zeroed after."""
+        if self._active or self._prefilling:
+            raise RuntimeError("warmup needs an idle engine")
+        toks = self._dev(self._tokens)
+        temps = torch.zeros((self.slots,), device=self.device)
+        if self.paged:
+            bucket = self.prefill_bucket
+            self._mark_compile(("paged_prefill", 1, bucket))
+            ld.paged_prefill(
+                self.params, torch.zeros((1, bucket), dtype=torch.long,
+                                         device=self.device),
+                self.cache, self._dev(
+                    self._block_tables[:1, :self._seq_pages(bucket)]),
+                self.config, lengths=self._dev([1]))
+            bt = self._dev(self._block_tables[:, :1])
+            lens = self.cache["length"]
+            self._mark_compile(("decode",))
+            ld.paged_decode_step(self.params, self.cache, bt, lens, toks,
+                                 self.config)
+            c = 2
+            while c <= self.decode_chunk:
+                self._mark_compile(("decode_k", c))
+                ld.paged_decode_chunk(self.params, self.cache, bt, lens,
+                                      toks, self.config, c)
+                c *= 2
+            if self._device_sampler:
+                self._mark_compile(("decode_sampled",))
+                logits, _, _ = ld.paged_decode_step(
+                    self.params, self.cache, bt, lens, toks, self.config)
+                ld.sample_batch(logits, temps, self._generator)
+            if self.spec:
+                k = self.spec_k
+                self._mark_compile(("spec_draft", k))
+                ld.paged_spec_draft(
+                    self._draft_params, self._draft_cache,
+                    self._dev(self._draft_bt[:, :1]),
+                    self._draft_cache["length"],
+                    torch.zeros((self.slots, 2), dtype=torch.int32,
+                                device=self.device),
+                    torch.ones((self.slots,), dtype=torch.int32,
+                               device=self.device),
+                    self._draft_config, k)
+                self._mark_compile(("spec_verify", k))
+                ld.paged_verify(
+                    self.params, torch.zeros((self.slots, k + 1),
+                                             dtype=torch.int32,
+                                             device=self.device),
+                    self.cache, bt, self.config, lens)
+                self._draft_cache["length"].zero_()
+        else:
+            self._mark_compile(("decode",))
+            ld.decode_step(self.params, self.cache, toks, self.config)
+            c = 2
+            while c <= self.decode_chunk:
+                self._mark_compile(("decode_k", c))
+                ld.decode_chunk(self.params, self.cache, toks, self.config,
+                                c)
+                c *= 2
+            if self._device_sampler:
+                self._mark_compile(("decode_sampled",))
+                logits, _ = ld.decode_step(self.params, self.cache, toks,
+                                           self.config)
+                ld.sample_batch(logits, temps, self._generator)
+        self.cache["length"].zero_()
+        self._tokens_dev = None
 
     def serve_forever(self, idle_wait_s: float = 0.05) -> None:
         """Decode loop for a serving thread: steps while work exists,
@@ -1071,8 +1598,24 @@ class DecodeEngine:
             out["pages_pinned"] = (self.prefix.pinned_pages
                                    if self.prefix is not None else 0)
             out["kv_fragmentation"] = self._fragmentation()
+        if self.spec:
+            out["spec"] = {
+                "k": self.spec_k,
+                "rounds": self.spec_rounds,
+                "proposed_tokens": self.spec_proposed,
+                "accepted_tokens": self.spec_accepted,
+                "accept_rate": (
+                    round(self.spec_accepted / self.spec_proposed, 4)
+                    if self.spec_proposed else None),
+                "draft_pages_total": self._draft_pages.pages,
+                "draft_pages_free": self._draft_pages.free_count,
+                "draft_demotions": self.spec_demotions,
+            }
         if self.prefix is not None:
             out["prefix"] = self.prefix.stats()
+        if self.steplog.enabled:
+            out["step_timeline_rows"] = len(self.steplog._rows)
+            out["step_timeline_dropped"] = self.steplog.dropped
         return out
 
     def _fragmentation(self) -> float:
@@ -1106,9 +1649,12 @@ class LlamaDecodeDeployment:
     """Deployment wrapping a DecodeEngine: ``{"tokens": [...],
     "max_new_tokens": N}`` -> ``{"tokens": [...], "ttft_s": ...}``, or a
     token generator with ``"stream": true``. Random weights from ``seed``
-    on ``device`` (``cuda`` unless the caller passes another). Driven
-    in-process here; the runtime that runs it as a replica is ROADMAP.md
-    queue 1, item 4."""
+    on ``device`` (``cuda`` unless the caller passes another); with
+    ``spec_draft_model`` (a preset over the target's vocab) and
+    ``spec_k``, a draft model with random weights from ``seed + 1``.
+    ``warmup`` runs ``DecodeEngine.warmup`` before the decode loop
+    starts. Driven in-process here; the runtime that runs it as a replica
+    is ROADMAP.md queue 1, item 4."""
 
     def __init__(self, preset: str = "debug", slots: int = 4,
                  capacity: int = 1024, seed: int = 0,
@@ -1123,21 +1669,29 @@ class LlamaDecodeDeployment:
                  mesh_shape=None,
                  spec_draft_model: Optional[str] = None,
                  spec_k: Optional[int] = None,
+                 spec_draft_pool_pages: Optional[int] = None,
                  device_sampler: Optional[bool] = None,
                  warmup: Optional[bool] = None,
                  device=None):
-        draft = (rt_config.spec_draft_model if spec_draft_model is None
-                 else spec_draft_model)
-        sk = rt_config.spec_k if spec_k is None else int(spec_k)
-        if draft and sk > 0:
-            raise not_ported("speculative decoding (spec_draft_model)",
-                             _ENGINE_PATHS)
-        if rt_config.decode_warmup if warmup is None else warmup:
-            raise not_ported("engine warmup (warmup=True)", _ENGINE_PATHS)
         cfg = config or llama.PRESETS[preset]
         self.cfg = cfg
+        draft_name = (rt_config.spec_draft_model if spec_draft_model is None
+                      else spec_draft_model)
+        sk = rt_config.spec_k if spec_k is None else int(spec_k)
+        draft_cfg = None
+        if draft_name and sk > 0:
+            draft_cfg = llama.PRESETS[draft_name]
+            if draft_cfg.vocab_size != cfg.vocab_size:
+                raise ValueError(
+                    f"spec_draft_model {draft_name!r} vocab "
+                    f"({draft_cfg.vocab_size}) != target vocab "
+                    f"({cfg.vocab_size}): proposals must share the token "
+                    f"space the target verifies")
         dev = resolve_device(device)
         params = llama.init_params(cfg, device=dev, seed=seed)
+        draft_params = (None if draft_cfg is None else
+                        llama.init_params(draft_cfg, device=dev,
+                                          seed=seed + 1))
         self.engine = DecodeEngine(
             params, cfg, slots=slots, capacity=capacity,
             decode_chunk=decode_chunk,
@@ -1147,8 +1701,13 @@ class LlamaDecodeDeployment:
             queue_max=queue_max, page_tokens=kv_page_tokens,
             pool_pages=kv_pool_pages,
             prefill_chunk_tokens=prefill_chunk_tokens,
-            mesh_shape=mesh_shape, device_sampler=device_sampler,
-            device=dev)
+            mesh_shape=mesh_shape,
+            spec_draft_params=draft_params, spec_draft_config=draft_cfg,
+            spec_k=sk if draft_params is not None else 0,
+            spec_draft_pool_pages=spec_draft_pool_pages,
+            device_sampler=device_sampler, device=dev)
+        if rt_config.decode_warmup if warmup is None else warmup:
+            self.engine.warmup()
         self._thread = threading.Thread(target=self.engine.serve_forever,
                                         name="decode-loop", daemon=True)
         self._thread.start()
@@ -1214,3 +1773,7 @@ class LlamaDecodeDeployment:
 
     def health(self) -> Dict[str, Any]:
         return self.engine.stats()
+
+    def timeline(self) -> Dict[str, Any]:
+        """The engine's step-timeline dump."""
+        return self.engine.timeline()

@@ -1,18 +1,24 @@
-"""Where a 7B decode step's time goes on one card, paged and contiguous.
+"""Where a 7B decode step's time goes on one card: contiguous, paged, and
+a speculative round.
 
-    python -m ray_tpu_torch.tools.serve_profile [STEPS [CONTEXT]]
+    python -m ray_tpu_torch.tools.serve_profile [STEPS [CONTEXT [LAYOUTS]]]
 
 Builds Llama-2-7B (``PRESETS["7b"]`` at full width and depth, random bf16
 weights from seed 0, ``attention_impl="flash"``), then for each engine
-layout in turn, the contiguous cache and a paged pool of 64-token pages,
-seats 8 greedy requests of ``CONTEXT`` prompt tokens (default 1024) in 8
-slots of 2048 tokens with room for every page (no preemption, no chunked
-prefill), takes two warm-up steps, and traces ``STEPS`` engine steps
-(default 8) with ``torch.profiler``. Prints one JSON line per layout: the
-step time (host clock, each step ends in the host's copy of the sampled
-tokens), the device's busy and idle share of the traced window, and the
-device time by kernel group and by kernel (top 12), beside the card's
-name and power limit. Needs one CUDA card.
+layout in turn (``LAYOUTS``, comma-separated, default
+``contiguous,paged,spec``: the contiguous cache, a paged pool of 64-token
+pages, and that pool with the 1B preset as a speculative draft, random
+weights from seed 1, ``spec_k=4``), seats 8 greedy requests of
+``CONTEXT`` prompt tokens (default 1024) in 8 slots of 2048 tokens with
+room for every page (no preemption, no chunked prefill, no draft
+demotion), takes two warm-up steps, and traces ``STEPS`` engine steps
+(default 8; a spec step is one round) with ``torch.profiler``. Prints one
+JSON line per layout: the step time (host clock, each step ends in the
+host's copy of the step's tokens), the device's busy and idle share of
+the traced window, the device time by kernel group and by kernel (top
+12), for a spec round also its draft and verify phases' host times from
+the step timeline, beside the card's name and power limit. Needs one
+CUDA card.
 """
 
 from __future__ import annotations
@@ -80,7 +86,8 @@ def _profile(engine, steps: int) -> dict:
     }
 
 
-def main(steps: int = 8, context: int = 1024) -> int:
+def main(steps: int = 8, context: int = 1024,
+         layouts: str = "contiguous,paged,spec") -> int:
     if not torch.cuda.is_available():
         print("serve_profile: no CUDA device is available", file=sys.stderr)
         return 1
@@ -97,17 +104,33 @@ def main(steps: int = 8, context: int = 1024) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=30).stdout.strip()
-    for layout, kw in (("contiguous", {}),
-                       ("paged", dict(page_tokens=PAGE_TOKENS))):
+    draft_cfg = llama.PRESETS["1b"]
+    kws = {"contiguous": {}, "paged": dict(page_tokens=PAGE_TOKENS),
+           "spec": dict(page_tokens=PAGE_TOKENS, spec_draft_config=draft_cfg,
+                        spec_k=4)}
+    for layout in layouts.split(","):
+        kw = dict(kws[layout])
+        if layout == "spec":
+            kw["spec_draft_params"] = llama.init_params(
+                draft_cfg, device="cuda", seed=1)
         engine = DecodeEngine(params, cfg, slots=SLOTS, capacity=CAPACITY,
                               prefix_pool_entries=0, device="cuda", **kw)
         for p in prompts:
-            engine.submit(p, max_new_tokens=steps + 8)
+            engine.submit(p, max_new_tokens=steps * 5 + 8)
         for _ in range(2):  # the admission wave, then a plain step
             engine.step()
         torch.cuda.synchronize()
+        rows = len(engine.timeline()["rows"])
         out = {"layout": layout, "slots": SLOTS, "context": context,
                "steps": steps, **_profile(engine, steps), "device": device}
+        if engine.spec:
+            phases = [p for row in engine.timeline()["rows"][rows:]
+                      for p in row["phases"]]
+            for name in ("draft", "verify"):
+                ms = [1e3 * (p["t1"] - p["t0"]) for p in phases
+                      if p["phase"] == name]
+                out[f"{name}_host_ms"] = sum(ms) / len(ms)
+            out["spec"] = engine.stats()["spec"]
         print(json.dumps(out), flush=True)
         engine.shutdown()
         del engine
@@ -117,5 +140,5 @@ def main(steps: int = 8, context: int = 1024) -> int:
 
 
 if __name__ == "__main__":
-    args = [int(a) for a in sys.argv[1:3]]
+    args = [int(a) for a in sys.argv[1:3]] + sys.argv[3:4]
     sys.exit(main(*args))

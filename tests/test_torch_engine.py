@@ -190,8 +190,7 @@ def test_engine_matches_jax_engine(tiny):
         assert_greedy_agrees(tr.output, jr.output, margins, TOL)
 
 
-@pytest.mark.parametrize("kw", [
-    dict(mesh_shape=(1, 1)), dict(spec_k=2, spec_draft_params={})])
+@pytest.mark.parametrize("kw", [dict(mesh_shape=(1, 1))])
 def test_unported_engine_knobs_raise(tiny, kw):
     _, _, tcfg, tp = tiny
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -200,11 +199,8 @@ def test_unported_engine_knobs_raise(tiny, kw):
 
 def test_unported_deployment_knobs_raise(tiny):
     _, _, tcfg, tp = tiny
-    with pytest.raises(NotImplementedError, match="warmup"):
-        LlamaDecodeDeployment(config=tcfg, warmup=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="speculative"):
-        LlamaDecodeDeployment(config=tcfg, spec_draft_model="debug",
-                              spec_k=2, device="cpu")
+    with pytest.raises(NotImplementedError, match="mesh"):
+        LlamaDecodeDeployment(config=tcfg, mesh_shape=(1, 1), device="cpu")
     eng = _engine(tp, tcfg)
     with pytest.raises(NotImplementedError, match="handoff"):
         eng.submit([1, 2], prefill_only=True)

@@ -94,6 +94,15 @@ def test_entry_points_refuse_without_card(no_card):
         llama_decode.generate(params, [[1, 2]], cfg, max_new_tokens=2)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         DecodeEngine(params, cfg, slots=1, capacity=16)
+    # Speculative decoding and warmup: the same refusal.
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DecodeEngine(params, cfg, slots=1, capacity=16, page_tokens=16,
+                     spec_draft_params=params, spec_draft_config=cfg,
+                     spec_k=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        LlamaDecodeDeployment(config=cfg, slots=1, capacity=16,
+                              kv_page_tokens=16, spec_draft_model="debug",
+                              spec_k=2, warmup=True)
     # The train path: params, batches and steps follow the params' device,
     # which defaults to the card.
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -637,3 +637,62 @@ def test_paged_engine_matches_contiguous_engine(cuda_device, dtype, tol):
                 if margins[i] <= tol:
                     break
                 assert a == b, (i, got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("draft", ["seeded", "perfect"])
+def test_spec_engine_matches_plain_paged_engine(cuda_device, draft):
+    """The spec engine on the card (the debug preset in bf16, prefills on
+    the flash kernel, k = 4, 16-token pages, a draft pool that cannot
+    seat every prompt) against the plain paged engine: greedy streams
+    agree with solo contiguous runs under the margin rule (tol 5e-2, as
+    for the bf16 paged engine above), a draft equal to the target accepts
+    proposals, and every page of both pools comes back."""
+    from dataclasses import replace
+
+    import numpy as np
+
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.serve.decode import DecodeEngine
+
+    tol = 5e-2
+    cfg = replace(llama.PRESETS["debug"], max_seq_len=512,
+                  attention_impl="flash", dtype=torch.bfloat16)
+    params = llama.init_params(cfg, device=cuda_device, seed=0)
+    dparams = (params if draft == "perfect" else
+               llama.init_params(cfg, device=cuda_device, seed=1))
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab_size, n).tolist()
+               for n in (5, 20, 70, 130, 17, 40)]
+    launches0 = tflash.flash_attention.launches
+    outs = {}
+    for mode, kw in (("plain", {}),
+                     ("spec", dict(spec_draft_params=dparams,
+                                   spec_draft_config=cfg, spec_k=4,
+                                   spec_draft_pool_pages=16))):
+        eng = DecodeEngine(params, cfg, slots=4, capacity=256,
+                           page_tokens=16, pool_pages=64,
+                           prefix_pool_entries=0, device=cuda_device, **kw)
+        reqs = [eng.submit(p, max_new_tokens=24) for p in prompts]
+        for _ in range(2000):
+            if all(r.done.is_set() for r in reqs):
+                break
+            eng.step()
+        assert all(r.status == "completed" for r in reqs)
+        outs[mode] = [r.output for r in reqs]
+        s = eng.stats()
+        assert s["pages_free"] == 64
+        if mode == "spec":
+            spec = s["spec"]
+            assert spec["rounds"] > 0
+            assert spec["draft_pages_free"] == spec["draft_pages_total"]
+            if draft == "perfect":
+                assert spec["accepted_tokens"] > 0
+    assert tflash.flash_attention.launches > launches0
+    for p, a, b in zip(prompts, outs["plain"], outs["spec"]):
+        want, margins = _solo_greedy(params, cfg, p, 24, cuda_device)
+        for got in (a, b):
+            for i, (x, y) in enumerate(zip(got, want)):
+                if margins[i] <= tol:
+                    break
+                assert x == y, (i, got, want)
