@@ -211,6 +211,7 @@ PATH_KERNELS = {
     "serve": ["flash_fwd"],
     "serve_paged": ["flash_fwd"],
     "serve_spec": ["flash_fwd"],
+    "serve_disagg": ["flash_fwd"],
     "train": ["flash_fwd", "flash_bwd_dkv", "flash_bwd_dq",
               "attention_delta"],
     "splash": ["splash_fwd", "splash_bwd_dq", "splash_bwd_dkv",
@@ -1429,12 +1430,35 @@ def _agrees(got, want, margins, tol):
     return len(got)
 
 
+def slo(deployment: str) -> dict:
+    """``slo_summary`` of one deployment's serve metrics, read from this
+    process's registry."""
+    from ray_tpu_torch.serve.metrics import slo_summary
+    from ray_tpu_torch.util.metrics import _Registry
+
+    return slo_summary({"local": _Registry.get().snapshot()}).get(
+        deployment, {})
+
+
+def slo_line(summary: dict) -> dict:
+    """TTFT p50/p99, inter-token p50, queue-wait p50 (seconds, bucket-
+    interpolated by ``histogram_quantile``) and the outcomes."""
+    def q(field, key):
+        return summary.get(field, {}).get(key)
+
+    return {"ttft_p50_s": q("ttft_s", "p50"), "ttft_p99_s": q("ttft_s", "p99"),
+            "ttft_count": q("ttft_s", "count"),
+            "inter_token_p50_s": q("inter_token_s", "p50"),
+            "queue_wait_p50_s": q("queue_wait_s", "p50"),
+            "outcomes": summary.get("outcomes", {})}
+
+
 def phase_serve(cfg, device="cuda") -> dict:
     from ray_tpu_torch.serve.decode import LlamaDecodeDeployment
 
     t0 = time.perf_counter()
     dep = LlamaDecodeDeployment(config=cfg, slots=4, capacity=2048, seed=0,
-                                device=device)
+                                metrics_deployment="serve", device=device)
     _sync(device)
     init_s = time.perf_counter() - t0
     eng = dep.engine
@@ -1535,11 +1559,14 @@ def phase_serve(cfg, device="cuda") -> dict:
         checks["greedy_agrees_with_solo"] = (
             all(v >= 0 for v in agree.values())
             and max(drift.values()) < MARGIN_TOL)
+    out["slo"] = slo_line(slo("serve"))
+    checks["slo_completed"] = (
+        out["slo"]["outcomes"].get("completed") == len(plan))
     out["margin_tol"] = MARGIN_TOL
     out["checks"] = checks
     if torch.device(device).type == "cuda":
         out["device"] = smi_line()
-    out["ok"] = all(checks.values()) and len(checks) == 7
+    out["ok"] = all(checks.values()) and len(checks) == 8
     dep.shutdown()
     return out
 
@@ -1645,7 +1672,7 @@ def phase_serve_paged(cfg, device="cuda") -> dict:
         config=cfg, slots=geo["slots"], capacity=geo["capacity"], seed=0,
         kv_page_tokens=geo["page_tokens"], kv_pool_pages=geo["pool_pages"],
         prefill_chunk_tokens=geo["chunk"], device_sampler=True,
-        device=device)
+        metrics_deployment="serve_paged", device=device)
     _sync(device)
     init_s = time.perf_counter() - t0
     eng = dep.engine
@@ -1768,11 +1795,14 @@ def phase_serve_paged(cfg, device="cuda") -> dict:
         checks["greedy_agrees_with_solo"] = (
             all(v >= 0 for v in agree.values())
             and max(drift.values()) < MARGIN_TOL)
+    out["slo"] = slo_line(slo("serve_paged"))
+    checks["slo_completed"] = (
+        out["slo"]["outcomes"].get("completed") == len(plan))
     out["margin_tol"] = MARGIN_TOL
     out["checks"] = checks
     if torch.device(device).type == "cuda":
         out["device"] = smi_line()
-    out["ok"] = all(checks.values()) and len(checks) == 10
+    out["ok"] = all(checks.values()) and len(checks) == 11
     dep.shutdown()
     return out
 
@@ -1890,7 +1920,7 @@ def phase_serve_spec(cfg, device="cuda", draft=None) -> dict:
         kv_page_tokens=geo["page_tokens"], kv_pool_pages=geo["pool_pages"],
         spec_draft_model=draft or geo["draft"], spec_k=k,
         spec_draft_pool_pages=geo["draft_pool_pages"], device_sampler=True,
-        warmup=True, device=device)
+        warmup=True, metrics_deployment="serve_spec", device=device)
     _sync(device)
     init_s = time.perf_counter() - t0
     eng = dep.engine
@@ -2009,6 +2039,9 @@ def phase_serve_spec(cfg, device="cuda", draft=None) -> dict:
         out["greedy_positions_compared"] = agree
         checks["greedy_agrees_with_solo"] = all(
             v >= 0 for v in agree.values())
+    out["slo"] = slo_line(slo("serve_spec"))
+    checks["slo_completed"] = (
+        out["slo"]["outcomes"].get("completed") == len(plan))
     drift = _verify_drift(eng, plan["s5"][0], k)
     out["verify_drift"] = drift
     checks["verify_drift_under_tol"] = drift < MARGIN_TOL
@@ -2034,7 +2067,267 @@ def phase_serve_spec(cfg, device="cuda", draft=None) -> dict:
     out["checks"] = checks
     if torch.device(device).type == "cuda":
         out["device"] = smi_line()
-    out["ok"] = all(checks.values()) and len(checks) == 17
+    out["ok"] = all(checks.values()) and len(checks) == 18
+    return out
+
+
+# The serve_disagg phase's two deployments (see the module docstring): the
+# prefill side's pool is serve_paged's, the decode side's serve_spec's.
+DISAGG_SERVE = dict(slots=8, capacity=2048, page_tokens=64,
+                    prefill_pool_pages=64, decode_pool_pages=128, chunk=512,
+                    ttl_s=1.0)
+# PCIe Gen5 x16, nominal rate a direction: what a host-staged handoff
+# between two cards would cross (this phase's two deployments share one).
+PCIE5_X16_NOMINAL_GBS = 64.0
+
+
+def phase_serve_disagg(cfg, device="cuda") -> dict:
+    """Disaggregated prefill/decode at Llama-2-7B: a prefill deployment
+    (64 pages of 64 tokens, 512-token chunks) and a decode deployment (8
+    slots of 2048 tokens on 128 pages), both from seed 0 with the device
+    sampler. Seven requests from threads, each through ``prefill_handoff``
+    then ``decode_adopted`` (one sampled stream through
+    ``stream_adopted``), the lease discharged after the adopt as the
+    JAX router does: greedy prompts of 20, 300, 700, 1100 and 1500 tokens
+    with 32 new tokens, a sharer of the 1100 prompt's first 1061 tokens
+    plus 200 sent after that prompt's descriptor returns (a prefix hit on
+    the prefill side), and 400 tokens at temperature 0.8 with 16. Then a
+    descriptor whose adopt is refused (page_tokens altered) and aborted,
+    and one lease left to expire through the TTL sweep."""
+    from ray_tpu_torch.core import api
+    from ray_tpu_torch.core.config import config as rt_config
+    from ray_tpu_torch.core.errors import HandoffAdoptError
+    from ray_tpu_torch.serve.decode import LlamaDecodeDeployment
+
+    gc.collect()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    geo = DISAGG_SERVE
+    common = dict(config=cfg, slots=geo["slots"], capacity=geo["capacity"],
+                  seed=0, kv_page_tokens=geo["page_tokens"],
+                  device_sampler=True, device=device)
+    objects0 = len(api._store)
+    t0 = time.perf_counter()
+    # The prefill side's ledger takes a 1 s TTL (read at construction) so
+    # the phase can let one lease expire; the sweep runs only when
+    # replica_metrics is read, after every other lease is discharged.
+    ttl = rt_config.serve_handoff_ttl_s
+    rt_config.serve_handoff_ttl_s = geo["ttl_s"]
+    try:
+        pre = LlamaDecodeDeployment(
+            **common, kv_pool_pages=geo["prefill_pool_pages"],
+            prefill_chunk_tokens=geo["chunk"], metrics_deployment="prefill")
+    finally:
+        rt_config.serve_handoff_ttl_s = ttl
+    dec = LlamaDecodeDeployment(**common,
+                                kv_pool_pages=geo["decode_pool_pages"],
+                                metrics_deployment="decode")
+    _sync(device)
+    init_s = time.perf_counter() - t0
+    peng, deng = pre.engine, dec.engine
+    rng = np.random.default_rng(3)
+
+    def prompt(n):
+        return rng.integers(1, cfg.vocab_size, n).tolist()
+
+    shared = prompt(1100)
+    plan = {  # name -> (prompt, max_new_tokens, temperature)
+        "d1_short": (prompt(20), 32, 0.0),
+        "d2": (prompt(300), 32, 0.0),
+        "d3": (prompt(700), 32, 0.0),
+        "d4_shared_src": (shared, 32, 0.0),
+        "d5_long": (prompt(1500), 32, 0.0),
+        "d6_sampled_stream": (prompt(400), 16, 0.8),
+        "d7_prefix_hit": (shared[:1061] + prompt(200), 32, 0.0),
+    }
+    check_pages_of = "d3"
+    capture, adopt, pages_equal = {}, {}, {}
+    capture_fn, seat_fn = peng._capture_handoff, deng._seat_adopted
+
+    def timed_capture(req, slot, first_token):
+        # On the prefill loop's thread: the copy to the host, by the card.
+        _sync(device)
+        t = time.perf_counter()
+        capture_fn(req, slot, first_token)
+        _sync(device)
+        capture[req.request_id] = (req.handoff["nbytes"],
+                                   time.perf_counter() - t)
+
+    def timed_seat(req):
+        # On the decode loop's thread: the copy to the card and the
+        # scatter into the pool; then one slot's pages against its payload.
+        payload = req.adopt
+        _sync(device)
+        t = time.perf_counter()
+        seated = seat_fn(req)
+        _sync(device)
+        if seated:
+            adopt[req.request_id] = (payload["k"].nbytes
+                                     + payload["v"].nbytes,
+                                     time.perf_counter() - t)
+            if req.request_id == f"dc-{check_pages_of}":
+                ids = torch.as_tensor(deng._slot_pages[req.slot],
+                                      device=deng.device)
+                pages_equal[req.request_id] = all(
+                    torch.equal(deng.cache[n][:, ids],
+                                payload[n].to(deng.device))
+                    for n in ("k", "v"))
+        return seated
+
+    peng._capture_handoff = timed_capture
+    deng._seat_adopted = timed_seat
+    results, descs, errors, times = {}, {}, {}, {}
+    src_published = threading.Event()
+
+    def run(name):
+        toks, n, temp = plan[name]
+        req = {"tokens": toks, "max_new_tokens": n, "temperature": temp}
+        desc = None
+        try:
+            t = time.perf_counter()
+            desc = pre.prefill_handoff({**req, "request_id": f"pf-{name}"})
+            descs[name] = desc
+            t_desc = time.perf_counter() - t
+            if name == "d4_shared_src":
+                src_published.set()
+            dreq = {**req, "request_id": f"dc-{name}"}
+            if temp > 0:
+                got, t_first = [], None
+                for tok in dec.stream_adopted(dreq, desc):
+                    if t_first is None:
+                        t_first = time.perf_counter() - t
+                        pre.discharge_handoff(desc["handoff_id"])
+                    got.append(tok)
+            else:
+                got = dec.decode_adopted(dreq, desc)["tokens"]
+                t_first = None
+                pre.discharge_handoff(desc["handoff_id"])
+            times[name] = {"descriptor_s": t_desc,
+                           "first_stream_token_s": t_first,
+                           "done_s": time.perf_counter() - t}
+            results[name] = got
+        except Exception as e:  # reported as a failed phase below
+            errors[name] = f"{type(e).__name__}: {e}"
+            if desc is not None:
+                pre.abort_handoff(desc["handoff_id"])
+            src_published.set()
+
+    reset_counts()
+    fwd0 = fwd_kernel_counts(device)
+    t_start = time.perf_counter()
+    threads = [threading.Thread(target=run, args=(n,))
+               for n in plan if n != "d7_prefix_hit"]
+    for t in threads:
+        t.start()
+    # The prefill side's prefix index takes the source's pages when it
+    # prefills: send the sharer once the source's descriptor is back.
+    src_published.wait(REQUEST_TIMEOUT_S)
+    later = threading.Thread(target=run, args=("d7_prefix_hit",))
+    later.start()
+    for t in threads + [later]:
+        t.join(REQUEST_TIMEOUT_S)
+    _sync(device)
+    t_end = time.perf_counter()
+    hung = [t.name for t in threads + [later] if t.is_alive()]
+    # (a) An adopt the decode side must refuse, then the abort.
+    refused = None
+    req = {"tokens": prompt(100), "max_new_tokens": 4}
+    desc = pre.prefill_handoff(req)
+    try:
+        dec.decode_adopted(req, {**desc,
+                                 "page_tokens": geo["page_tokens"] // 2})
+    except HandoffAdoptError as e:
+        refused = str(e)
+    pre.abort_handoff(desc["handoff_id"])
+    # (b) A lease nobody discharges: expired by the sweep replica_metrics
+    # runs once the TTL has passed.
+    pre.prefill_handoff({"tokens": prompt(60), "max_new_tokens": 4})
+    time.sleep(geo["ttl_s"] + 0.2)
+    rm = pre.replica_metrics()
+    # Stop both loops before reading their state.
+    pre.shutdown()
+    dec.shutdown()
+    counts = launch_counts()
+    by_kernel = fwd_kernels_since(fwd0, device)
+    pstats, dstats = peng.stats(), deng.stats()
+    summary = {"prefill": slo("prefill"), "decode": slo("decode")}
+    books = summary["prefill"].get("handoffs", {})
+    handoff = {}
+    for name in plan:
+        key = (f"pf-{name}", f"dc-{name}")
+        if key[0] in capture and key[1] in adopt:
+            (nb, tc), (_, ta) = capture[key[0]], adopt[key[1]]
+            handoff[name] = {"payload_bytes": nb,
+                             "capture_ms": 1e3 * tc,
+                             "capture_gb_s": nb / tc / 1e9,
+                             "adopt_ms": 1e3 * ta,
+                             "adopt_gb_s": nb / ta / 1e9}
+    out = {"init_s": init_s, "wall_s": t_end - t_start, "geometry": geo,
+           "launches": counts, "flash_fwd_by_kernel": by_kernel,
+           "prefill_engine": pstats, "decode_engine": dstats,
+           "replica_metrics_prefill": rm, "errors": errors,
+           "hung_threads": hung, "handoff": handoff,
+           "pcie5_x16_nominal_gb_s_per_direction": PCIE5_X16_NOMINAL_GBS,
+           "host_clock_s": times, "refused_adopt": refused,
+           "handoff_latency_s": summary["prefill"].get("handoff_latency_s"),
+           "handoff_descriptor_bytes": summary["prefill"].get(
+               "handoff_bytes"),
+           "handoff_events": books,
+           "slo": {dep: slo_line(v) for dep, v in summary.items()}}
+    checks = {}
+    checks["all_answered"] = (not errors and not hung
+                              and set(results) == set(plan))
+    checks["token_counts"] = checks["all_answered"] and all(
+        len(results[n]) == plan[n][1] for n in plan)
+    checks["first_token_from_prefill"] = checks["all_answered"] and all(
+        results[n][0] == descs[n]["first_token"] for n in plan)
+    checks["adopted_pages_equal_payload"] = (
+        pages_equal.get(f"dc-{check_pages_of}") is True)
+    checks["decode_ran_no_prefill"] = (
+        dstats["prefill_waves"] == dstats["suffix_waves"]
+        == dstats["prefill_chunks"] == 0)
+    checks["prefill_prefix_hit"] = (
+        pstats.get("prefix", {}).get("hits", 0) >= 1)
+    checks["flash_launches_per_full_wave"] = (
+        pstats["prefill_waves"] > 0
+        and counts["flash_fwd"] == cfg.n_layers * pstats["prefill_waves"])
+    checks["flash_fwd_on_wgmma"] = all_on_wgmma(by_kernel,
+                                                counts["flash_fwd"], device)
+    checks["adopt_refused"] = refused is not None and "page_tokens" in refused
+    checks["handoff_books_close"] = (
+        books.get("published", 0) == len(plan) + 2
+        and books.get("published") == books.get("adopted", 0)
+        + books.get("aborted", 0) + books.get("expired", 0)
+        and books.get("aborted") == 1 and books.get("expired") == 1)
+    checks["ledger_drained"] = (
+        rm["handoffs_live"] == 0 and rm["handoff_live_bytes"] == 0
+        and pre._handoffs.live() == 0 and pre._handoffs.live_bytes() == 0)
+    checks["refs_freed"] = len(api._store) == objects0
+    checks["pages_returned"] = all(
+        s["active"] == s["prefilling"] == s["queued"] == 0
+        and s["pages_free"] + s["pages_pinned"] == s["pages_total"]
+        for s in (pstats, dstats))
+    dsum = summary["decode"]
+    checks["slo_decode"] = (
+        dsum.get("ttft_s", {}).get("count") == len(plan)
+        and dsum.get("inter_token_s", {}).get("count") == len(plan)
+        and dsum.get("outcomes", {}).get("completed") == len(plan))
+    if checks["all_answered"]:
+        out["engine_tok_s"] = dstats["tokens_out"] / (t_end - t_start)
+        agree = {}
+        for n, (toks, m, temp) in plan.items():
+            if temp > 0:
+                continue
+            agree[n] = _agrees(results[n], *_solo_greedy(deng, toks, m),
+                               MARGIN_TOL)
+        out["greedy_positions_compared"] = agree
+        checks["greedy_agrees_with_solo"] = all(
+            v >= 0 for v in agree.values())
+    out["margin_tol"] = MARGIN_TOL
+    out["checks"] = checks
+    if torch.device(device).type == "cuda":
+        out["device"] = smi_line()
+    out["ok"] = all(checks.values()) and len(checks) == 15
     return out
 
 
@@ -2210,6 +2503,8 @@ def main() -> int:
                      ("serve", lambda: phase_serve(serve_cfg)),
                      ("serve_paged", lambda: phase_serve_paged(serve_cfg)),
                      ("serve_spec", lambda: phase_serve_spec(serve_cfg)),
+                     ("serve_disagg",
+                      lambda: phase_serve_disagg(serve_cfg)),
                      ("train", lambda: phase_train(train_cfg))):
         t0 = time.perf_counter()
         try:

@@ -1,5 +1,6 @@
 """Process-wide typed knobs of the serving path (copy of the part of
-``ray_tpu/core/config.py`` that the decode engine reads).
+``ray_tpu/core/config.py`` that the serving path reads: the decode engine,
+the handoff ledger and the metrics registry).
 
 Same names, types and defaults as the JAX package. ``RAY_TPU_<NAME>`` env
 vars override at import time; ``config.update({...})`` or attribute
@@ -102,6 +103,30 @@ _FLAG_DEFS: Dict[str, tuple] = {
         "alloc/free, preempt, spec-draftless and jit-compile events, "
         "read through engine.timeline() and stats(). 0 disables the "
         "recorder."),
+    "serve_metrics_enabled": (bool, True,
+        "Serve SLO instruments (serve/metrics.py): TTFT, inter-token and "
+        "queue-wait histograms plus request-outcome, preemption, "
+        "speculative and handoff counters, labeled by deployment, read "
+        "from the process's registry (util/metrics.py snapshot()). All "
+        "observations are per-REQUEST (never per token), so the decode "
+        "step loop pays nothing per step."),
+    "metrics_max_series": (int, 2000,
+        "Per-process cap on metric series included in one registry "
+        "snapshot. Past it, overflow series are dropped from the snapshot "
+        "(insertion order keeps established series flowing) and a "
+        "metrics_series_dropped gauge reports the overflow: a runaway "
+        "label-cardinality producer degrades visibly instead of growing "
+        "every snapshot without bound."),
+    "serve_handoff_ttl_s": (float, 60.0,
+        "How long a prefill deployment's handoff ledger keeps a published "
+        "KV-page handoff (object-plane refs + descriptor) that nobody "
+        "discharged. The caller discharges on adopt-ack or abort; this "
+        "TTL only catches a caller that died mid-splice: the sweep "
+        "(driven by replica_metrics) frees the expired refs so an "
+        "orphaned handoff can never pin its page payload past the window. "
+        "Must exceed the worst-case publish->adopt gap (seconds); expiry "
+        "after a successful adopt is harmless (the decode side already "
+        "fetched the bytes)."),
     "decode_mesh_shape": (str, "",
         "Default (batch, model) decode mesh. Empty = one device."),
 }

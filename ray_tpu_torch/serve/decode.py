@@ -1,7 +1,8 @@
 """Continuous-batching decode engine (port of ``ray_tpu/serve/decode.py``:
 the contiguous and the paged KV engine, chunked prefill, recompute
-preemption, the device sampler, speculative decoding, warmup and the step
-timeline).
+preemption, the device sampler, speculative decoding, warmup, the step
+timeline, the serve SLO metrics and the disaggregated prefill/decode
+handoff).
 
 * Contiguous mode: one KV cache of ``slots`` rows x ``capacity`` tokens,
   allocated once. Requests join and leave the running batch between
@@ -42,14 +43,28 @@ timeline).
   equals the target's argmaxes plus the target's next token, and both
   pools' cursors and tail pages roll back over the rejected rest.
 * The step timeline (``serve.steplog``) keeps one row a step: its phases
-  and batch occupancy, with page, preemption, demotion and first-dispatch
-  events.
+  and batch occupancy, with page, preemption, demotion, handoff and
+  first-dispatch events.
+* SLO metrics (``serve.metrics``) are observed per REQUEST only: the
+  shed and expired-deadline outcomes at submit, queue wait at first
+  admission, preemptions, and at the terminal step the outcome, TTFT,
+  inter-token time and the speculative counters. Nothing is observed per
+  token or per step.
+* Disaggregated handoff (paged mode): a ``prefill_only`` request ends at
+  its first token with its pages copied to the host as the handoff
+  payload (``_capture_handoff``); another engine ``adopt``s the payload,
+  scattering it into fresh pages with no model math (``_seat_adopted``),
+  and decodes from the handed-off first token. ``LlamaDecodeDeployment``
+  publishes payloads as leases on the object plane's stand-in
+  (``core.api``) and the ledger of ``serve.handoff``.
 
 Single-threaded by design: ``serve_forever`` is the only consumer; intake
-(``submit``/``cancel``) is thread-safe. Not ported yet (ROADMAP.md queue
-1): the disaggregated handoff, serve metrics and trace spans (item 1);
-decode meshes (item 3); the actor runtime, serve controller and HTTP proxy
-that run the deployment as a replica (item 4).
+(``submit``/``cancel``) is thread-safe, and an adopt payload rides its
+request into the loop thread, which alone touches the pool. Not ported
+yet (ROADMAP.md queue 1): decode meshes (item 3); the trace spans (left
+from item 1: they record into the runtime's request traces), the actor
+runtime, serve controller, router splice and HTTP proxy that run the
+deployment as replicas (item 4).
 """
 
 from __future__ import annotations
@@ -59,19 +74,23 @@ import logging
 import queue
 import threading
 import time
+import uuid
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ray_tpu_torch.core import api
 from ray_tpu_torch.core.config import config as rt_config
 from ray_tpu_torch.core.device import not_ported, resolve_device
 from ray_tpu_torch.core.errors import (DeadlineExceededError,
-                                       OverloadedError,
+                                       HandoffAdoptError, OverloadedError,
                                        RequestCancelledError)
 from ray_tpu_torch.models import llama
 from ray_tpu_torch.models import llama_decode as ld
+from ray_tpu_torch.serve import metrics as smetrics
+from ray_tpu_torch.serve.handoff import HandoffLedger, descriptor_nbytes
 from ray_tpu_torch.serve.paging import PageAllocator, PagedPrefixIndex
 from ray_tpu_torch.serve.prefix_cache import PrefixCache
 from ray_tpu_torch.serve.steplog import StepTimeline
@@ -79,7 +98,8 @@ from ray_tpu_torch.serve.steplog import StepTimeline
 logger = logging.getLogger(__name__)
 
 _req_ids = itertools.count(1)
-_ENGINE_PATHS = "item 1, the handoff, serve metrics and trace spans"
+_ENGINE_PATHS = ("item 4, the runtime's request traces, which the trace "
+                 "spans left from item 1 record into")
 
 
 @dataclass(eq=False)  # identity semantics: numpy token arrays inside
@@ -106,6 +126,15 @@ class _Request:
     #   a preempted request re-queues with its emitted tokens absorbed)
     prefilled: int = 0        # prompt tokens prefilled so far (chunked)
     preemptions: int = 0      # times requeued by page pressure
+    # ------------------------------------------- disaggregated handoff
+    prefill_only: bool = False  # terminal = filled pages, not tokens: the
+    #   request ends at its first token with its KV pages copied to the
+    #   host as the handoff payload instead of entering the decode loop
+    handoff: Optional[Dict[str, Any]] = None  # prefill_only result: k/v
+    #   page payloads + committed_len + first_token + page geometry
+    adopt: Optional[Dict[str, Any]] = None    # decode-side twin: payload
+    #   to scatter into this engine's pool at admission (no recompute)
+    admitted_at: Optional[float] = None  # first admission (queue wait)
     request_id: str = ""
     deadline: Optional[float] = None       # absolute monotonic; None = none
     cancelled: bool = False                # cooperative-cancel flag
@@ -147,7 +176,9 @@ class DecodeEngine:
     (paged mode only) every all-greedy step is a speculative round; the
     draft's pool holds ``spec_draft_pool_pages`` pages (default: as many
     as the target's). ``step_timeline`` sizes the step-timeline ring (0
-    turns it off)."""
+    turns it off). ``metrics_enabled`` (default ``serve_metrics_enabled``)
+    observes the serve SLO metrics under the tag ``{"deployment":
+    metrics_deployment or "-"}``."""
 
     def __init__(self, params, config, slots: int = 4,
                  capacity: int = 1024, prefill_bucket: int = 128,
@@ -166,10 +197,16 @@ class DecodeEngine:
                  spec_draft_pool_pages: Optional[int] = None,
                  device_sampler: Optional[bool] = None,
                  step_timeline: Optional[int] = None,
+                 metrics_enabled: Optional[bool] = None,
+                 trace_spans: Optional[bool] = None,
+                 metrics_deployment: Optional[str] = None,
                  device=None):
         if mesh_shape is not None or rt_config.decode_mesh_shape:
             raise not_ported("decode meshes (mesh_shape)",
                              "item 3, meshes with ring, Ulysses and MoE")
+        if trace_spans:
+            raise not_ported("serve trace spans (trace_spans)",
+                             _ENGINE_PATHS)
         self.device = resolve_device(device)
         pdev = params["tok_embed"].device
         if pdev.type != self.device.type:
@@ -306,6 +343,16 @@ class DecodeEngine:
             if step_timeline is None else step_timeline)
         self._step_phases: List[Dict[str, Any]] = []  # this step's phases
         self._compiled: set = set()  # program keys dispatched once
+        # SLO metrics are per REQUEST (submit, admission, preemption,
+        # terminal): nothing here touches the per-token or per-step path.
+        self._obs_metrics = bool(rt_config.serve_metrics_enabled
+                                 if metrics_enabled is None
+                                 else metrics_enabled)
+        self._mtags = {"deployment": metrics_deployment or "-"}
+        # Disaggregated handoff accounting (engine side; the lease ledger
+        # lives on the deployment).
+        self.handoffs_published = 0  # prefill_only captures completed
+        self.handoffs_adopted = 0    # adopted seats completed
         self._init_spec(spec_draft_params, spec_draft_config, spec_k,
                         spec_draft_pool_pages)
 
@@ -517,6 +564,8 @@ class DecodeEngine:
         req.prefilled = 0
         self.preempted += 1
         req.preemptions += 1
+        if self._obs_metrics:
+            smetrics.PREEMPTIONS.inc(1.0, self._mtags)
         if self.steplog.enabled:
             self.steplog.event("preempt", request=req.request_id,
                                tokens=req.generated)
@@ -536,14 +585,22 @@ class DecodeEngine:
                request_id: Optional[str] = None,
                prefill_only: bool = False,
                adopt: Optional[Dict[str, Any]] = None) -> _Request:
-        if prefill_only or adopt is not None:
-            raise not_ported("disaggregated prefill/decode handoff",
-                             _ENGINE_PATHS)
+        """Enqueue a request. ``prefill_only`` (paged engines) ends it at
+        its first token with ``req.handoff`` holding its pages on the
+        host; ``adopt`` (such a payload, shaped as ``_fetch_adopt``
+        returns it) seats it from those pages with no prefill."""
         req = _Request(np.asarray(prompt_tokens, np.int32).reshape(-1),
                        int(max_new_tokens), float(temperature), eos_id,
                        on_token)
         req.request_id = request_id or f"req-{next(_req_ids)}"
         req.prompt_len = len(req.tokens)
+        if prefill_only and not self.paged:
+            raise ValueError("prefill_only handoff requires a paged "
+                             "engine (kv_page_tokens > 0)")
+        req.prefill_only = bool(prefill_only)
+        if adopt is not None:
+            self._validate_adopt(req, adopt)
+            req.adopt = dict(adopt)
         if self.paged and self._seq_pages(
                 len(req.tokens) + req.max_new_tokens) > self.pool_pages:
             # A request no amount of preemption can seat must fail fast,
@@ -564,6 +621,9 @@ class DecodeEngine:
         if deadline_s is not None:
             if deadline_s <= 0:
                 self.deadline_exceeded += 1
+                if self._obs_metrics:
+                    smetrics.REQUESTS.inc(1.0, {
+                        **self._mtags, "outcome": "deadline_exceeded"})
                 raise DeadlineExceededError(
                     f"request {req.request_id} arrived with an already-"
                     f"expired deadline ({deadline_s:.3f}s)")
@@ -571,6 +631,9 @@ class DecodeEngine:
         # Load shedding happens HERE, at enqueue.
         if self._pending.qsize() - self._queued_cancelled >= self.queue_max:
             self.shed += 1
+            if self._obs_metrics:
+                smetrics.REQUESTS.inc(1.0, {**self._mtags,
+                                            "outcome": "shed"})
             raise OverloadedError(
                 f"decode queue at capacity ({self.queue_max} pending, "
                 f"{self.slots} slots)",
@@ -581,6 +644,40 @@ class DecodeEngine:
         self._pending.put(req)
         self._work.set()
         return req
+
+    def _validate_adopt(self, req: _Request,
+                        adopt: Dict[str, Any]) -> None:
+        """Reject a handoff this pool cannot splice BEFORE enqueue, as the
+        typed error the router maps to its colocated fallback. The payload
+        must come from a pool with the same page geometry, head layout and
+        dtype, and must cover exactly the prompt."""
+        if not self.paged:
+            raise HandoffAdoptError(
+                "adopt requires a paged engine (kv_page_tokens > 0)")
+        if int(adopt["page_tokens"]) != self.page_tokens:
+            raise HandoffAdoptError(
+                f"handoff page_tokens ({adopt['page_tokens']}) != this "
+                f"engine's ({self.page_tokens}); pages cannot splice")
+        if int(adopt["committed_len"]) != len(req.tokens):
+            raise HandoffAdoptError(
+                f"handoff committed_len ({adopt['committed_len']}) != "
+                f"prompt length ({len(req.tokens)})")
+        pool = tuple(self.cache["k"].shape)  # (L, pages + 1, T, KV, D)
+        for name in ("k", "v"):
+            t = adopt[name]
+            if (not isinstance(t, torch.Tensor) or t.ndim != 5
+                    or t.shape[0] != pool[0]
+                    or tuple(t.shape[2:]) != pool[2:]
+                    or t.shape[1] != self._seq_pages(len(req.tokens))):
+                raise HandoffAdoptError(
+                    f"handoff payload {name} "
+                    f"{tuple(getattr(t, 'shape', ()))} "
+                    f"({type(t).__name__}) does not fit this engine's "
+                    f"pool {pool}")
+            if t.dtype != self.cache["k"].dtype:
+                raise HandoffAdoptError(
+                    f"handoff payload {name} is {t.dtype}, this engine's "
+                    f"pool {self.cache['k'].dtype}")
 
     def retry_after_estimate_s(self) -> float:
         """How long a shed caller should wait before retrying: the queue
@@ -605,6 +702,51 @@ class DecodeEngine:
                 self._queued_cancelled += 1
         self._work.set()
         return True
+
+    # ------------------------------------------------- observability hooks
+    #
+    # All per request: admission (queue wait), preemption, terminal
+    # outcomes. The per-token and per-step paths never touch the metrics
+    # registry.
+
+    def _mark_admitted(self, reqs: List[_Request]) -> None:
+        """Queue wait ends: the wave is about to dispatch device work.
+        First admission only: a preemption requeue keeps its original
+        admission time (queue wait measures admission latency, not
+        lifetime)."""
+        fresh = [r for r in reqs if r.admitted_at is None]
+        if not fresh:
+            return
+        now = time.monotonic()
+        for req in fresh:
+            req.admitted_at = now
+        if self._obs_metrics:
+            smetrics.QUEUE_WAIT.observe_many(
+                [now - r.submitted_at for r in fresh], self._mtags)
+
+    def _observe_terminal(self, req: _Request, status: str) -> None:
+        """Terminal bookkeeping shared by _finish and _retire: the outcome
+        counter, TTFT and inter-token histograms, and the speculative
+        counters and accept-rate histogram, once per request."""
+        if not self._obs_metrics:
+            return
+        smetrics.REQUESTS.inc(1.0, {**self._mtags, "outcome": status})
+        if req.first_token_at is not None:
+            smetrics.TTFT.observe(req.first_token_at - req.submitted_at,
+                                  self._mtags)
+            if status == "completed" and req.generated > 1:
+                # Stream duration a token, once per request: robust to
+                # chunked emission's bursty gaps, never a per-token hit.
+                smetrics.INTER_TOKEN.observe(
+                    (req.finished_at - req.first_token_at)
+                    / (req.generated - 1), self._mtags)
+        if req.spec_proposed > 0:
+            smetrics.SPEC_PROPOSED.inc(float(req.spec_proposed),
+                                       self._mtags)
+            smetrics.SPEC_ACCEPTED.inc(float(req.spec_accepted),
+                                       self._mtags)
+            smetrics.SPEC_ACCEPT.observe(
+                req.spec_accepted / req.spec_proposed, self._mtags)
 
     # -------------------------------------------------------- admission
 
@@ -656,20 +798,31 @@ class DecodeEngine:
                     hits.append(req)
                 else:
                     misses.append(req)
+            self._mark_admitted(live)
             self._admit_full(misses)
             self._admit_suffix(hits)
 
     def _admit_paged(self, live: List[_Request]) -> bool:
-        """Seat a wave in paged mode: prefix pages splice into the slot's
-        block table with no device copy, fresh pages come from the
-        allocator, and prompts longer than a chunk go to the chunked
-        prefill (``_prefill_tick``). Returns False when the pool ran dry
-        mid-wave (the unseated requests are pushed back in order and
-        admission pauses until pages free)."""
+        """Seat a wave in paged mode: an adopted handoff scatters its
+        payload into fresh pages (``_seat_adopted``), prefix pages splice
+        into the slot's block table with no device copy, fresh pages come
+        from the allocator, and prompts longer than a chunk go to the
+        chunked prefill (``_prefill_tick``). Returns False when the pool
+        ran dry mid-wave (the unseated requests are pushed back in order
+        and admission pauses until pages free)."""
         chunk = self.prefill_chunk_tokens
         full_group: List[_Request] = []
         suffix_group: List[_Request] = []
+        seated: List[_Request] = []
         for i, req in enumerate(live):
+            if req.adopt is not None:
+                # The prompt's K/V exists as a handed-off payload: no
+                # prefix match and no model math. The adopted pages go
+                # into the prefix index in _post_adopt.
+                if not self._seat_adopted(req):
+                    self._push_back(live[i:])
+                    break
+                continue
             m = (self.prefix.match(req.tokens)
                  if self.prefix is not None else None)
             if m is not None:
@@ -693,6 +846,7 @@ class DecodeEngine:
                 # chunk overwrites.
                 self.cache["length"][slot] = req.prefix_len
                 self._prefilling[slot] = req
+                seated.append(req)
                 continue
             need = self._seq_pages(len(req.tokens)) - len(req.prefix_pages)
             pages = self._alloc_pages(need)
@@ -702,19 +856,81 @@ class DecodeEngine:
                 self._pages.free(req.prefix_pages)
                 req.prefix_pages = []
                 req.prefix_len = 0
-                for r in reversed(live[i:]):
-                    with self._reqs_lock:
-                        r.admitted = False
-                    self._requeue.insert(0, r)
-                    self._queued_tokens += len(r.tokens)
+                self._push_back(live[i:])
                 break
             slot = self._free.pop()
             req.slot = slot
             self._set_slot_pages(slot, req.prefix_pages + pages)
+            seated.append(req)
             (suffix_group if req.prefix_len else full_group).append(req)
+        self._mark_admitted(seated)
         self._admit_paged_full(full_group)
         self._admit_paged_suffix(suffix_group)
         return not self._requeue
+
+    def _push_back(self, reqs: List[_Request]) -> None:
+        """Return unseated requests to the front of the requeue, in
+        order, as still queued."""
+        for r in reversed(reqs):
+            with self._reqs_lock:
+                r.admitted = False
+            self._requeue.insert(0, r)
+            self._queued_tokens += len(r.tokens)
+
+    def _seat_adopted(self, req: _Request) -> bool:
+        """Seat one adopted handoff: pages for the committed prompt, the
+        payload scattered into them (pure data movement, so the adopted
+        state equals having prefilled here), the slot's cursor at the
+        committed length, then the handoff's first token. Scatters exactly
+        ``len(pages)`` pages: the JAX engine pads the page count to a
+        power of two for its compiled-program cache, which eager PyTorch
+        does not have. Returns False when the pool is dry (the caller
+        requeues; the payload stays on the request for the retry)."""
+        adopt = req.adopt
+        clen = int(adopt["committed_len"])
+        pages = self._alloc_pages(self._seq_pages(clen))
+        if pages is None:
+            return False
+        slot = self._free.pop()
+        req.slot = slot  # ownership on the request before any fallible
+        #   call: a raise must not strand the pages
+        self._set_slot_pages(slot, pages)
+        req.prefix_pages, req.prefix_len = [], 0
+        req.prefilled = clen
+        t0 = time.time()
+        self._mark_compile(("adopt_pages", len(pages)))
+        ids = self._dev(pages)
+        for name in ("k", "v"):
+            # One payload tensor on the card at a time; index_copy_ writes
+            # the pool in place (no pool-sized temporary).
+            self.cache[name].index_copy_(1, ids,
+                                         adopt[name].to(self.device))
+        self.cache["length"][slot] = clen
+        if self.steplog.enabled:
+            self.steplog.event("handoff-adopt", slot=slot,
+                               pages=len(pages), committed=clen)
+        self._phase("handoff", t0, slot=slot, pages=len(pages))
+        self._mark_admitted([req])
+        self._post_adopt(req, slot)
+        return True
+
+    def _post_adopt(self, req: _Request, slot: int) -> None:
+        """Adopted twin of _post_admit's per-request tail: the prefix-index
+        insert first (the adopted pages hold the whole prompt, so later
+        prompts sharing it splice against this engine), then the
+        handoff's first token, which enters the request into the decode
+        loop, and its draft seat on a speculative engine."""
+        if self.prefix is not None:
+            self.prefix.insert(req.tokens, self._slot_pages[slot],
+                               matched_len=0)
+        self._tokens_dev = None  # host token write in _advance
+        tok = int(req.adopt["first_token"])
+        req.first_token_at = time.monotonic()
+        self._active[slot] = req
+        self.handoffs_adopted += 1
+        req.adopt = None  # drop the payload promptly
+        if not self._advance(slot, tok) and self.spec:
+            self._draft_seat([req])
 
     def _admit_paged_full(self, reqs: List[_Request]) -> None:
         """Prefix misses: one batched prefill per prompt bucket (its
@@ -893,7 +1109,17 @@ class DecodeEngine:
             if req.first_token_at is None:  # a preempted request keeps
                 req.first_token_at = now    # its first token's time
             self._active[slots[i]] = req
-            self._advance(slots[i], self._sample_host(logits[i], req))
+            tok = self._sample_host(logits[i], req)
+            if req.prefill_only:
+                # Disaggregated prefill's terminal: the deliverable is the
+                # slot's filled pages and the sampled first token, which
+                # rides the descriptor (the decode side emits it). The
+                # slot's pages free at once; the insert above pinned the
+                # shareable ones.
+                self._capture_handoff(req, slots[i], tok)
+                self._finish(slots[i])
+                continue
+            self._advance(slots[i], tok)
         # The contiguous insert stays AFTER: it copies the slot's leading
         # positions into a pool row, and the rows still hold the prompt
         # K/V (a _finish only parks ``length``). Inserts run before any
@@ -910,6 +1136,33 @@ class DecodeEngine:
                     self._pool["v"][:, row] = self.cache["v"][:, slot, :cp]
         if self.spec:
             self._draft_seat([r for r in group if not r.done.is_set()])
+
+    def _capture_handoff(self, req: _Request, slot: int,
+                         first_token: int) -> None:
+        """Copy the slot's filled pages to the host as the handoff payload:
+        a gather of page payloads (no model math), so an adopting engine's
+        state equals having prefilled there. The payload must own its
+        bytes, or later in-place pool writes would reach a published
+        payload: the gather makes a new tensor, and ``copy=True`` copies
+        on every device (on a CPU engine ``.to("cpu")`` alone returns its
+        input). The copy to pageable host memory returns once the bytes
+        are there."""
+        t0 = time.time()
+        ids = self._dev(self._slot_pages[slot])
+        k = self.cache["k"][:, ids].to("cpu", copy=True)
+        v = self.cache["v"][:, ids].to("cpu", copy=True)
+        req.handoff = {
+            "k": k, "v": v,
+            "committed_len": int(req.prompt_len),
+            "first_token": int(first_token),
+            "page_tokens": self.page_tokens,
+            "nbytes": int(k.nbytes + v.nbytes),
+        }
+        self.handoffs_published += 1
+        if self.steplog.enabled:
+            self.steplog.event("handoff", slot=slot, pages=len(ids),
+                               nbytes=req.handoff["nbytes"])
+        self._phase("handoff", t0, slot=slot, pages=len(ids))
 
     # ------------------------------------------------------ draft seats
 
@@ -1065,6 +1318,7 @@ class DecodeEngine:
             self.cancelled += 1
         elif status == "deadline_exceeded":
             self.deadline_exceeded += 1
+        self._observe_terminal(req, status)
         with self._reqs_lock:
             self._requests.pop(req.request_id, None)
         req.done.set()
@@ -1077,6 +1331,7 @@ class DecodeEngine:
             self.cancelled += 1
         elif status == "deadline_exceeded":
             self.deadline_exceeded += 1
+        self._observe_terminal(req, status)
         with self._reqs_lock:
             self._requests.pop(req.request_id, None)
         req.done.set()
@@ -1440,6 +1695,7 @@ class DecodeEngine:
     def timeline(self) -> Dict[str, Any]:
         """The step-timeline dump with the engine's shape."""
         out = self.steplog.dump()
+        out["deployment"] = self._mtags["deployment"]
         out["paged"] = self.paged
         out["slots"] = self.slots
         out["spec_k"] = self.spec_k if self.spec else 0
@@ -1576,6 +1832,10 @@ class DecodeEngine:
         out = {
             "steps": self.steps,
             "tokens_out": self.tokens_out,
+            # Chips this engine spans: one until decode meshes (ROADMAP
+            # queue 1, item 3).
+            "chips": 1,
+            "mesh_shape": None,
             "active": active,
             "prefilling": prefilling,
             "slots": self.slots,
@@ -1598,6 +1858,8 @@ class DecodeEngine:
             out["pages_pinned"] = (self.prefix.pinned_pages
                                    if self.prefix is not None else 0)
             out["kv_fragmentation"] = self._fragmentation()
+            out["handoffs_published"] = self.handoffs_published
+            out["handoffs_adopted"] = self.handoffs_adopted
         if self.spec:
             out["spec"] = {
                 "k": self.spec_k,
@@ -1617,6 +1879,12 @@ class DecodeEngine:
             out["step_timeline_rows"] = len(self.steplog._rows)
             out["step_timeline_dropped"] = self.steplog.dropped
         return out
+
+    def set_metrics_deployment(self, name: str) -> None:
+        """Re-label this engine's SLO metrics (a caller separates its
+        warmup from the measured run this way; requests observe under the
+        label current at their terminal step)."""
+        self._mtags = {"deployment": name}
 
     def _fragmentation(self) -> float:
         """Internal fragmentation of the page pool: the share of allocated
@@ -1653,8 +1921,18 @@ class LlamaDecodeDeployment:
     ``spec_draft_model`` (a preset over the target's vocab) and
     ``spec_k``, a draft model with random weights from ``seed + 1``.
     ``warmup`` runs ``DecodeEngine.warmup`` before the decode loop
-    starts. Driven in-process here; the runtime that runs it as a replica
-    is ROADMAP.md queue 1, item 4."""
+    starts. ``metrics_deployment`` labels the engine's SLO metrics (the
+    JAX deployment takes the label from its replica context).
+
+    Disaggregated serving: ``prefill_handoff`` prefills a request and
+    publishes its pages as a lease (refs on the object plane's stand-in,
+    ``core.api``, plus a small descriptor); ``decode_adopted`` /
+    ``stream_adopted`` on another deployment adopt the pages and decode;
+    the caller then ``discharge_handoff``s or ``abort_handoff``s the
+    lease, and ``replica_metrics`` sweeps leases past
+    ``serve_handoff_ttl_s``. Driven in-process here; the runtime that runs
+    deployments as replicas, and the router that splices the two halves,
+    are ROADMAP.md queue 1, item 4."""
 
     def __init__(self, preset: str = "debug", slots: int = 4,
                  capacity: int = 1024, seed: int = 0,
@@ -1672,9 +1950,11 @@ class LlamaDecodeDeployment:
                  spec_draft_pool_pages: Optional[int] = None,
                  device_sampler: Optional[bool] = None,
                  warmup: Optional[bool] = None,
+                 metrics_deployment: Optional[str] = None,
                  device=None):
         cfg = config or llama.PRESETS[preset]
         self.cfg = cfg
+        self._sub_slice: Optional[Dict[str, Any]] = None
         draft_name = (rt_config.spec_draft_model if spec_draft_model is None
                       else spec_draft_model)
         sk = rt_config.spec_k if spec_k is None else int(spec_k)
@@ -1705,9 +1985,14 @@ class LlamaDecodeDeployment:
             spec_draft_params=draft_params, spec_draft_config=draft_cfg,
             spec_k=sk if draft_params is not None else 0,
             spec_draft_pool_pages=spec_draft_pool_pages,
-            device_sampler=device_sampler, device=dev)
+            device_sampler=device_sampler,
+            metrics_deployment=metrics_deployment, device=dev)
         if rt_config.decode_warmup if warmup is None else warmup:
             self.engine.warmup()
+        # Prefill->decode handoff lease ledger: published but undischarged
+        # handoffs, so the TTL sweep (riding replica_metrics) can free
+        # refs nobody claimed.
+        self._handoffs = HandoffLedger()
         self._thread = threading.Thread(target=self.engine.serve_forever,
                                         name="decode-loop", daemon=True)
         self._thread.start()
@@ -1717,7 +2002,47 @@ class LlamaDecodeDeployment:
         self.engine.shutdown()
         self._thread.join(timeout_s)
 
-    def _submit(self, request: Dict[str, Any], on_token=None) -> _Request:
+    def set_topology(self, assignment: Dict[str, Any]) -> None:
+        """Sub-slice assignment pushed by the serve controller (item 4's
+        runtime); reported back through ``replica_metrics``."""
+        self._sub_slice = dict(assignment)
+
+    def replica_metrics(self) -> Dict[str, Any]:
+        """Load, degradation counters, page-pool health, speculative and
+        prefix state and the handoff ledger, as the JAX replica reports
+        them to its controller. Also the handoff-lease backstop: leases
+        past their TTL expire here and their refs are freed."""
+        s = self.engine.stats()
+        out: Dict[str, Any] = {"load": s["load"], "queued": s["queued"],
+                               "shed": s["shed"],
+                               "cancelled": s["cancelled"],
+                               "deadline_exceeded": s["deadline_exceeded"],
+                               "prefill_backlog_tokens":
+                               s["prefill_backlog_tokens"],
+                               "chips": s["chips"],
+                               "mesh_shape": s["mesh_shape"]}
+        if self._sub_slice is not None:
+            out["sub_slice"] = dict(self._sub_slice)
+            out["slice_id"] = self._sub_slice.get("slice_id")
+        if self.engine.paged:
+            for key in ("pages_total", "pages_free", "pages_in_use",
+                        "pages_pinned", "kv_fragmentation", "preempted"):
+                out[key] = s[key]
+        if self.engine.spec:
+            out["spec"] = s["spec"]
+        if self.engine.prefix is not None:
+            out["prefix"] = s.get("prefix", {})
+            out["prefixes"] = self.engine.prefix.hashes()
+        self._sweep_handoffs()
+        out["handoffs_live"] = self._handoffs.live()
+        out["handoff_live_bytes"] = self._handoffs.live_bytes()
+        out["handoffs_published"] = s.get("handoffs_published", 0)
+        out["handoffs_adopted"] = s.get("handoffs_adopted", 0)
+        return out
+
+    def _submit(self, request: Dict[str, Any], on_token=None,
+                prefill_only: bool = False,
+                adopt: Optional[Dict[str, Any]] = None) -> _Request:
         return self.engine.submit(
             request["tokens"],
             max_new_tokens=int(request.get("max_new_tokens", 32)),
@@ -1725,7 +2050,9 @@ class LlamaDecodeDeployment:
             eos_id=request.get("eos_id"),
             on_token=on_token,
             deadline_s=request.get("deadline_s"),
-            request_id=request.get("request_id"))
+            request_id=request.get("request_id"),
+            prefill_only=prefill_only,
+            adopt=adopt)
 
     def _wait_done(self, req: _Request) -> None:
         """Block until the engine finishes the request; with a deadline, a
@@ -1755,6 +2082,11 @@ class LlamaDecodeDeployment:
         Closing the generator cancels the engine request."""
         q: "queue.Queue" = queue.Queue()
         req = self._submit(request, on_token=q.put)
+        yield from self._drain(req, q)
+
+    def _drain(self, req: _Request, q: "queue.Queue"):
+        """Yield ``req``'s tokens from ``q`` until it ends; re-raise its
+        terminal error; cancel it if the consumer closes early."""
         try:
             while True:
                 try:
@@ -1770,6 +2102,125 @@ class LlamaDecodeDeployment:
         finally:
             if not req.done.is_set():
                 self.engine.cancel(req.request_id)
+
+    # --------------------------------------- disaggregated prefill/decode
+
+    def prefill_handoff(self, request: Dict[str, Any]) -> Dict[str, Any]:
+        """Disaggregated prefill half: run admission and (chunked) prefill
+        into this engine's paged pool, then publish the filled pages as
+        object-plane refs plus a descriptor small enough to ride with the
+        request (``HANDOFF_DESC_BYTE_BUDGET``).
+
+        The descriptor is a LEASE: the caller must adopt-ack it
+        (``discharge_handoff``) or abort it (``abort_handoff``) on every
+        path; the ledger's TTL sweep is the backstop for a caller that
+        died mid-splice."""
+        req = self._submit(request, prefill_only=True)
+        self._wait_done(req)
+        req.raise_for_status()
+        payload = req.handoff
+        if payload is None:  # the engine retired the request pre-capture
+            raise RuntimeError(
+                f"prefill request {req.request_id} completed without a "
+                f"handoff payload")
+        desc = {
+            "handoff_id": uuid.uuid4().hex[:16],
+            "k_ref": api.put(payload["k"]),
+            "v_ref": api.put(payload["v"]),
+            "committed_len": payload["committed_len"],
+            "first_token": payload["first_token"],
+            "page_tokens": payload["page_tokens"],
+            "nbytes": payload["nbytes"],
+            "prefill_ttft_s": round(
+                req.first_token_at - req.submitted_at, 4),
+        }
+        req.handoff = None  # the object plane owns the payload now
+        self._handoffs.publish_handoff(desc)
+        try:
+            self._observe_handoff_published(desc)
+        except BaseException:
+            # The lease must not outlive a failed publish tail: hand the
+            # refs back before the error escapes.
+            self._drop_handoff(desc["handoff_id"], "aborted")
+            raise
+        return desc
+
+    def discharge_handoff(self, handoff_id: str) -> None:
+        """Adopt-ack: the decode side fetched the payload, so free the
+        refs now. Idempotent."""
+        self._drop_handoff(handoff_id, "adopted")
+
+    def abort_handoff(self, handoff_id: str) -> None:
+        """Splice failure (the decode side cannot adopt, or the request
+        was cancelled): free the refs now. Idempotent, like discharge."""
+        self._drop_handoff(handoff_id, "aborted")
+
+    def _drop_handoff(self, handoff_id: str, event: str) -> None:
+        """Discharge one published handoff and free its payload refs. The
+        ledger referees a double discharge (abort racing the sweep)."""
+        entry = self._handoffs.discharge_handoff(handoff_id)
+        if entry is not None:
+            self._discharge_entry(entry, event)
+
+    def _sweep_handoffs(self) -> None:
+        for entry in self._handoffs.sweep():
+            self._discharge_entry(entry, "expired")
+
+    def _discharge_entry(self, entry: Dict[str, Any], event: str) -> None:
+        desc = entry["desc"]
+        api.free([desc.get("k_ref"), desc.get("v_ref")])
+        if self.engine._obs_metrics:
+            tags = dict(self.engine._mtags)
+            smetrics.HANDOFFS.inc(1.0, {**tags, "event": event})
+            if event == "adopted":
+                # publish -> adopt: the window the pages spent as host
+                # objects between the two deployments.
+                smetrics.HANDOFF_LATENCY.observe(entry["age_s"], tags)
+
+    def _observe_handoff_published(self, desc: Dict[str, Any]) -> None:
+        if not self.engine._obs_metrics:
+            return
+        tags = dict(self.engine._mtags)
+        smetrics.HANDOFF_BYTES.observe(float(descriptor_nbytes(desc)), tags)
+        smetrics.HANDOFFS.inc(1.0, {**tags, "event": "published"})
+
+    def _fetch_adopt(self, desc: Dict[str, Any]) -> Dict[str, Any]:
+        """Pull the handed-off payload off the object plane, shaped as the
+        engine's adopt argument. Refs that are gone (freed, expired, or
+        never in this process) raise the typed adopt error the router
+        maps to re-prefill."""
+        try:
+            k, v = api.get([desc["k_ref"], desc["v_ref"]], timeout=30.0)
+        except Exception as e:
+            raise HandoffAdoptError(
+                f"handoff {desc.get('handoff_id')} page payload "
+                f"unavailable: {e!r}") from e
+        return {"k": k, "v": v,
+                "committed_len": desc["committed_len"],
+                "first_token": desc["first_token"],
+                "page_tokens": desc["page_tokens"]}
+
+    def decode_adopted(self, request: Dict[str, Any],
+                       desc: Dict[str, Any]) -> Dict[str, Any]:
+        """Disaggregated decode half (unary): adopt the published pages
+        into this engine's pool, with no recompute, and decode to the
+        end."""
+        req = self._submit(request, adopt=self._fetch_adopt(desc))
+        self._wait_done(req)
+        req.raise_for_status()
+        return {"tokens": req.output,
+                "ttft_s": desc.get("prefill_ttft_s", 0.0)}
+
+    def stream_adopted(self, request: Dict[str, Any],
+                       desc: Dict[str, Any]):
+        """Streaming twin of ``decode_adopted``. The adoption (fetch and
+        submit) runs in this call, not in the returned generator, so adopt
+        failures raise here and the caller can discharge the prefill
+        lease as soon as this returns."""
+        q: "queue.Queue" = queue.Queue()
+        req = self._submit(request, on_token=q.put,
+                           adopt=self._fetch_adopt(desc))
+        return self._drain(req, q)
 
     def health(self) -> Dict[str, Any]:
         return self.engine.stats()

@@ -190,7 +190,8 @@ def test_engine_matches_jax_engine(tiny):
         assert_greedy_agrees(tr.output, jr.output, margins, TOL)
 
 
-@pytest.mark.parametrize("kw", [dict(mesh_shape=(1, 1))])
+@pytest.mark.parametrize("kw", [dict(mesh_shape=(1, 1)),
+                                dict(trace_spans=True)])
 def test_unported_engine_knobs_raise(tiny, kw):
     _, _, tcfg, tp = tiny
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -201,8 +202,10 @@ def test_unported_deployment_knobs_raise(tiny):
     _, _, tcfg, tp = tiny
     with pytest.raises(NotImplementedError, match="mesh"):
         LlamaDecodeDeployment(config=tcfg, mesh_shape=(1, 1), device="cpu")
+    # The handoff is ported: a contiguous engine refuses it as the JAX
+    # one does (tests/test_torch_handoff.py drives the paged one).
     eng = _engine(tp, tcfg)
-    with pytest.raises(NotImplementedError, match="handoff"):
+    with pytest.raises(ValueError, match="paged"):
         eng.submit([1, 2], prefill_only=True)
 
 

@@ -50,6 +50,27 @@ def tiny_pair(dtype: str = "f32", seed: int = 0, **overrides):
     return jcfg, jp, tcfg, tp
 
 
+def kv_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A port handoff payload tensor as the JAX engine's payload array,
+    bit for bit: bf16 through a 16-bit integer view (numpy has no
+    bfloat16; the JAX package's arrays use ml_dtypes')."""
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16).copy()
+    return t.numpy().copy()
+
+
+def kv_from_numpy(a: np.ndarray) -> torch.Tensor:
+    """A JAX handoff payload array as the port's CPU tensor, bit for
+    bit (the inverse of ``kv_to_numpy``)."""
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(
+            np.ascontiguousarray(a).view(np.int16).copy()).view(
+                torch.bfloat16)
+    return torch.from_numpy(np.array(a))
+
+
 def greedy_with_margins(tcfg, tp, prompt, max_new: int):
     """Solo greedy decode in the port, recording the top-2 logit margin
     behind every token: (tokens, margins)."""
