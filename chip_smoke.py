@@ -1,5 +1,5 @@
-"""Drive the PyTorch/CUDA port's splash, serving and training paths on one
-NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's splash, serving and training paths (Llama
+and ViT) on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -92,6 +92,22 @@ Phases, one JSON line each (``{"phase": ..., "ok": ...}``):
    and the forward twice (the remat recompute). Losses must be finite
    and falling. A 2-layer model of the same width then holds the flash
    gradients against the plain-attention ones.
+9. vit: ViT-B/16 (``vit.PRESETS["vit_b16"]``, full width and depth, fp32
+   masters from seed 0, bf16 compute, full remat) takes six AdamW(3e-4,
+   weight decay 0.1) steps through ``build_train_step`` at batch 256, fed
+   by ``device_prefetch(prefetch=2)`` from seeded numpy batches of float32
+   NHWC images and int64 labels (made before the loop); the first step is
+   the warm-up. Then six steps on the same batches placed on the card
+   beforehand (the yardstick for whether the copy is hidden). It prints
+   step time (host clock after a sync), images/s, MFU from
+   ``flops_per_image``, peak memory, the consumer's wait per step on the
+   prefetch queue and the copies' rate. Checks: finite losses and params,
+   the params moved, each device batch's checksum equals its host
+   batch's, the host buffers were pinned and the copies ran on a side
+   stream, the port on the card equals the port on the CPU at the debug
+   size in float32 (random head), ``pad_tokens_to=256`` logits equal the
+   unpadded ones at B=4, and none of the seven hand-written kernels
+   launched (ViT attention is the plain path, as in the JAX package).
 
 Serve, serve_paged, serve_spec and train also read the forward's C
 entry's own launch count of each of its kernels over the same window:
@@ -2474,6 +2490,224 @@ def phase_train(cfg, device="cuda", batch=8, seq=2048, steps=4,
     return out
 
 
+# The ViT-B/16 train loop (``bench.py``'s ViT workload): batch, steps (the
+# first a warm-up), the prefetch depth.
+VIT_TRAIN = dict(batch=256, steps=6, prefetch=2)
+# Port on the card against port on the CPU at the debug size in float32,
+# TF32 off: logits and gradients within this share of their max |value|
+# (the same math, fp32 sums in another order).
+VIT_F32_TOL = 1e-4
+# pad_tokens_to against no padding on the card, ViT-B/16 width, B = 4:
+# float32 at the tolerance above, bf16 at the JAX package's test's 2e-2
+# (cuBLAS picks its kernels by shape, so the bf16 roundings differ).
+VIT_PAD_BF16_TOL = 2e-2
+
+
+def _steady(xs: list) -> float:
+    """The mean past the first (warm-up) entry."""
+    xs = xs[1:] or xs
+    return sum(xs) / len(xs)
+
+
+def _vit_host_batches(cfg, batch: int, n: int, seed: int) -> list:
+    """``n`` host batches of float32 NHWC images and int64 labels, made
+    with numpy from ``seed`` before the loop (set-up, not ingest)."""
+    rng = np.random.default_rng(seed)
+    shape = (batch, cfg.image_size, cfg.image_size, cfg.channels)
+    return [{"images": rng.standard_normal(shape, dtype=np.float32),
+             "labels": rng.integers(0, cfg.num_classes, batch)}
+            for _ in range(n)]
+
+
+def _checksum(images, labels):
+    """Integer sums of the images' bits and of the labels, exact on the
+    host (numpy) and on the card (torch) alike."""
+    if isinstance(images, np.ndarray):
+        return (int(images.view(np.int32).sum(dtype=np.int64)),
+                int(labels.sum()))
+    return torch.stack([images.view(torch.int32).sum(dtype=torch.int64),
+                        labels.sum()])
+
+
+def _max_rel(got, want) -> float:
+    return float((got.float().cpu() - want.float().cpu()).abs().max()
+                 / want.float().abs().max().clamp_min(1e-30))
+
+
+def _vit_cpu_check(device) -> dict:
+    """The debug preset in float32 with a random head: logits and every
+    gradient on ``device`` against the CPU."""
+    from ray_tpu_torch.models import vit
+    from ray_tpu_torch.ops.optim import tree_leaves, tree_map
+    from ray_tpu_torch.parallel.train_step import value_and_grad
+
+    cfg = replace(vit.PRESETS["debug"], dtype=torch.float32)
+    params = vit.init_params(cfg, torch.Generator().manual_seed(0),
+                             device="cpu")
+    params["head"].normal_(std=cfg.dim ** -0.5,
+                           generator=torch.Generator().manual_seed(1))
+    host = _vit_host_batches(cfg, 8, 1, seed=2)[0]
+    batch = {k: torch.from_numpy(v) for k, v in host.items()}
+
+    def run(p, b):
+        with torch.no_grad():
+            logits = vit.forward(p, b["images"], cfg)
+        loss, grads = value_and_grad(lambda p_, b_: vit.loss_fn(
+            p_, b_, cfg)[0], p, b)
+        return logits, loss, tree_leaves(grads)
+
+    want = run(params, batch)
+    got = run(tree_map(lambda t: t.to(device), params),
+              tree_map(lambda t: t.to(device), batch))
+    logits = _max_rel(got[0], want[0])
+    grads = max(_max_rel(a, b) for a, b in zip(got[2], want[2]))
+    return {"logits_max_rel": logits, "grads_max_rel": grads,
+            "loss": float(got[1]), "loss_cpu": float(want[1]),
+            "tol": VIT_F32_TOL,
+            "ok": max(logits, grads) <= VIT_F32_TOL
+            and abs(float(got[1]) - float(want[1]))
+            <= VIT_F32_TOL * abs(float(want[1]))}
+
+
+def _vit_pad_check(cfg, params, device, b=4) -> dict:
+    """``pad_tokens_to=256`` logits against the unpadded ones at the
+    config's width and depth, B = ``b``, with a random head, in float32 and
+    in the config's dtype."""
+    from ray_tpu_torch.models import vit
+
+    g = torch.Generator(device=device).manual_seed(3)
+    head = torch.randn(params["head"].shape, generator=g, device=device)
+    p = dict(params, head=head * cfg.dim ** -0.5)
+    images = torch.randn(b, cfg.image_size, cfg.image_size, cfg.channels,
+                         generator=g, device=device)
+    out = {"pad_tokens_to": 256, "tokens": cfg.num_patches, "batch": b}
+    ok = True
+    for name, dt, tol in (("f32", torch.float32, VIT_F32_TOL),
+                          ("bf16", cfg.dtype, VIT_PAD_BF16_TOL)):
+        c = replace(cfg, dtype=dt)
+        with torch.no_grad():
+            base = vit.forward(p, images, c)
+            pad = vit.forward(p, images, replace(c, pad_tokens_to=256))
+        err = _max_rel(pad, base)
+        out[f"{name}_max_rel"] = err
+        out[f"{name}_tol"] = tol
+        ok = ok and err <= tol and bool(torch.isfinite(pad).all())
+    out["ok"] = ok
+    return out
+
+
+def phase_vit(cfg, device="cuda", batch=None, steps=None,
+              prefetch=None) -> dict:
+    """ViT-B/16 (``cfg``) trained from fp32 masters (seed 0) with AdamW
+    through ``build_train_step``, fed by ``device_prefetch`` from host
+    batches; then the same number of steps on the same batches placed on
+    the card beforehand, the port on the card against the CPU at the debug
+    size, and ``pad_tokens_to`` against no padding."""
+    from ray_tpu_torch.data import device_prefetch
+    from ray_tpu_torch.models import vit
+    from ray_tpu_torch.ops.optim import adamw, tree_leaves
+    from ray_tpu_torch.parallel import train_step
+
+    batch = batch or VIT_TRAIN["batch"]
+    steps = steps or VIT_TRAIN["steps"]
+    prefetch = prefetch or VIT_TRAIN["prefetch"]
+    cuda = torch.device(device).type == "cuda"
+    t0 = time.perf_counter()
+    params = vit.init_params(
+        cfg, torch.Generator(device=device).manual_seed(0), device=device)
+    before = {k: params[k].clone() for k in ("patch_embed", "head")}
+    before["wqkv"] = params["layers"]["wqkv"].clone()
+    opt = adamw(3e-4, weight_decay=0.1)
+    state = train_step.init_optimizer_state(opt, params)
+    step = train_step.build_train_step(
+        lambda p, b: vit.loss_fn(p, b, cfg)[0], opt)
+    host = _vit_host_batches(cfg, batch, steps, seed=1)
+    want_sums = [_checksum(h["images"], h["labels"]) for h in host]
+    _sync(device)
+    init_s = time.perf_counter() - t0
+
+    def run(batches):
+        nonlocal params, state
+        losses, times, sums = [], [], []
+        t = time.perf_counter()
+        for b in batches:
+            params, state, m = step(params, state, b)
+            sums.append(_checksum(b["images"], b["labels"]))
+            _sync(device)
+            now = time.perf_counter()
+            times.append(now - t)
+            t = now
+            losses.append(float(m["loss"]))
+        return losses, times, [tuple(int(x) for x in s) for s in sums]
+
+    reset_counts()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    it = device_prefetch(iter(host), prefetch=prefetch, device=device)
+    losses, times, got_sums = run(it)
+    stats = it.stats()
+    peak = torch.cuda.max_memory_allocated() if cuda else None
+    # The yardstick: the same batches, already on the card.
+    placed = [{k: torch.from_numpy(v).to(device) for k, v in h.items()}
+              for h in host]
+    _sync(device)
+    placed_losses, placed_times, _ = run(placed)
+    launches = launch_counts()
+    moved = {k: not torch.equal(v, params["layers"]["wqkv"] if k == "wqkv"
+                                else params[k]) for k, v in before.items()}
+    finite = all(math.isfinite(x) for x in losses + placed_losses) and all(
+        bool(torch.isfinite(t).all()) for t in tree_leaves(params))
+    del before, placed, it
+    cpu_check = _vit_cpu_check(device)
+    pad_check = _vit_pad_check(cfg, params, device)
+    del params, state, step
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    step_s, placed_s = _steady(times), _steady(placed_times)
+    waits = stats["wait_s"]
+    out = {"config": {"image_size": cfg.image_size,
+                      "patch_size": cfg.patch_size, "dim": cfg.dim,
+                      "n_layers": cfg.n_layers, "n_heads": cfg.n_heads,
+                      "mlp_dim": cfg.mlp_dim,
+                      "num_classes": cfg.num_classes,
+                      "num_params": vit.num_params(cfg),
+                      "dtype": str(cfg.dtype), "remat": cfg.remat,
+                      "remat_policy": cfg.remat_policy, "batch": batch,
+                      "steps": steps, "prefetch": prefetch,
+                      "optimizer": "adamw(3e-4, weight_decay=0.1)"},
+           "init_s": init_s, "losses": losses, "step_s": times,
+           "placed_losses": placed_losses, "placed_step_s": placed_times,
+           "prefetch_wait_s": waits,
+           "prefetch": {k: v for k, v in stats.items() if k != "wait_s"},
+           "cpu_check": cpu_check, "pad_check": pad_check,
+           "launches": launches}
+    checks = {
+        "finite": finite,
+        "params_moved": all(moved.values()),
+        "device_batches_equal_host": got_sums == want_sums,
+        "host_buffers_pinned": bool(stats.get("pinned")) or not cuda,
+        "copies_on_side_stream": bool(stats.get("side_stream")) or not cuda,
+        "card_matches_cpu_debug_f32": cpu_check.pop("ok"),
+        "pad_tokens_to_matches": pad_check.pop("ok"),
+        "no_hand_written_kernel_launched": not any(launches.values()),
+    }
+    if cuda:
+        out["device"] = smi_line()
+        out["steady_step_s"] = step_s
+        out["images_per_s"] = batch / step_s
+        out["mfu_bf16_peak"] = (vit.flops_per_image(cfg) * batch
+                                / (step_s * PEAK_BF16_FLOPS))
+        out["placed_steady_step_s"] = placed_s
+        out["placed_images_per_s"] = batch / placed_s
+        out["steady_prefetch_wait_s_mean"] = _steady(waits)
+        out["h2d_gb_per_s"] = stats["h2d_gb_per_s"]
+        out["peak_memory_bytes"] = peak
+    out["checks"] = checks
+    out["ok"] = all(checks.values())
+    return out
+
+
 def _sync(device) -> None:
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize()
@@ -2483,7 +2717,7 @@ def _sync(device) -> None:
 
 
 def main() -> int:
-    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.models import llama, vit
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2505,7 +2739,8 @@ def main() -> int:
                      ("serve_spec", lambda: phase_serve_spec(serve_cfg)),
                      ("serve_disagg",
                       lambda: phase_serve_disagg(serve_cfg)),
-                     ("train", lambda: phase_train(train_cfg))):
+                     ("train", lambda: phase_train(train_cfg)),
+                     ("vit", lambda: phase_vit(vit.PRESETS["vit_b16"]))):
         t0 = time.perf_counter()
         try:
             res = fn()

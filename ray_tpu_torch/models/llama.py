@@ -379,9 +379,10 @@ def remat_wrap(parts: Sequence[Callable], config: LlamaConfig
     parts (the attention output, the residual after it and the SwiGLU
     product) is what is saved. The block input is saved by every policy,
     as the JAX scan carry is. Every policy computes the same values; only
-    what the backward recomputes differs."""
+    what the backward recomputes differs. ``None`` means ``"full"`` (the
+    JAX ViT's spelling)."""
     policy = config.remat_policy
-    if policy == "full":
+    if policy is None or policy == "full":
         return lambda x: checkpoint(_chain, parts, x, use_reentrant=False)
     if policy == "dots":
         from torch.utils.checkpoint import create_selective_checkpoint_contexts
