@@ -1,5 +1,5 @@
-"""Drive the PyTorch/CUDA port's splash, serving and training paths (Llama
-and ViT) on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's splash, serving, training (Llama and ViT)
+and mesh paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -108,6 +108,33 @@ Phases, one JSON line each (``{"phase": ..., "ok": ...}``):
    size in float32 (random head), ``pad_tokens_to=256`` logits equal the
    unpadded ones at B=4, and none of the seven hand-written kernels
    launched (ViT attention is the plain path, as in the JAX package).
+10. mesh: the mesh plane at world size 1: one NCCL process group of one
+   rank, rendezvoused in process (``parallel.mesh.init_distributed``).
+   The train phase's 1B setup (2 steps of 2 microbatches of 4 x 2048)
+   mesh-less, then through ``build_train_step`` on
+   ``MeshSpec(fsdp=-1).build()`` (DTensor params, state and batch) and
+   through ``build_zero1_train_step``, from the same weights and tokens:
+   losses and gradient norms within ``MESH_REL_TOL`` of the mesh-less
+   step's, exact launches a step, each variant's step time, tokens/s,
+   peak memory and state bytes. ``ring_attention(impl="flash")`` forward
+   and backward and ``ulysses_attention(impl="flash")`` on the 1-rank
+   mesh at the 1B attention width (B=1, S=8192, 16 q on 8 kv heads,
+   D=128, bf16, causal), and the 1B width with 8 experts (top-2,
+   capacity 1.25) cut to ``MOE_LAYERS`` layers trained 3 steps on
+   1 x 2048 tokens on an ``expert`` mesh of one (finite loss and aux,
+   the loss falls). Counters are zeroed before the mesh, ZeRO-1, ring,
+   Ulysses and MoE runs and read after them: the exact launches, all on
+   wgmma. Then the comparisons, against the plain flash forward and
+   backward on the ring's inputs: the path's ring output and gradients,
+   Ulysses' output, the 1-rank ring run again, and a loopback ring of 4
+   virtual shards of 2048 (the package's ``ring_flash_attention_local``
+   for each virtual rank, K/V rotated by indexing through its ``ring``
+   argument), which is also held against one full ``flash_attention``
+   call; out and gradients within ``RING_BF16_TOL``. The loopback
+   launches 10 forwards and 10 of each backward kernel (4 diagonal and 6
+   visible hops; the 6 dead hops launch nothing), and each is timed
+   beside the full call. Its hops' shapes (B=1, 2048, 16 on 8 heads,
+   full and causal, with an lse cotangent) are kernel cases too.
 
 Serve, serve_paged, serve_spec and train also read the forward's C
 entry's own launch count of each of its kernels over the same window:
@@ -115,8 +142,8 @@ every forward launch there must have taken the wgmma kernel; train reads
 the backward's entries the same way, and every backward launch must have
 taken a wgmma kernel.
 
-Each main path (splash, serve, serve_paged, serve_spec, train) must have
-launched each of its kernels at least once. Then a ``{"kernels": [...]}`` line
+Each main path (splash, serve, serve_paged, serve_spec, train, mesh) must
+have launched each of its kernels at least once. Then a ``{"kernels": [...]}`` line
 with all seven kernels (the six attention kernels with their main-path
 launches by kernel, and each with its ptxas lines: registers, shared
 memory and spills of each instantiation), the nvidia-smi
@@ -232,6 +259,8 @@ PATH_KERNELS = {
               "attention_delta"],
     "splash": ["splash_fwd", "splash_bwd_dq", "splash_bwd_dkv",
                "attention_delta"],
+    "mesh": ["flash_fwd", "flash_bwd_dkv", "flash_bwd_dq",
+             "attention_delta"],
 }
 # The sources to build: one library (and one nvcc) per .cu file.
 SOURCES = sorted({Path(k["source"]).stem for k in KERNELS.values()})
@@ -427,6 +456,9 @@ def _flash_cases(g):
             g, 2, 256, 256, 4, 2, 128, bf)), dict(causal=True)),
         ("f32_s320", _inputs(g, 1, 320, 320, 4, 4, 128, torch.float32),
          dict(causal=True)),
+        # A visible off-diagonal hop of the mesh phase's loopback ring.
+        ("ring_hop_full_b1_s2048_gqa16_8",
+         _inputs(g, 1, 2048, 2048, 16, 8, 128, bf), dict(causal=False)),
     ]
 
 
@@ -562,6 +594,14 @@ def _flash_bwd_cases(g):
          dict(causal=True), True),
         ("bhsd_views", tuple(_bhsd(x) for x in _bwd_inputs(
             g, 2, 256, 256, 4, 2, 128, bf)), dict(causal=True), False),
+        # The mesh phase's loopback ring hops: off-diagonal (full) and
+        # diagonal (causal), each with the lse cotangent of the merge.
+        ("ring_hop_full_dlse_b1_s2048_gqa16_8",
+         _bwd_inputs(g, 1, 2048, 2048, 16, 8, 128, bf),
+         dict(causal=False), True),
+        ("ring_hop_diag_dlse_b1_s2048_gqa16_8",
+         _bwd_inputs(g, 1, 2048, 2048, 16, 8, 128, bf),
+         dict(causal=True), True),
     ]
 
 
@@ -2708,6 +2748,373 @@ def phase_vit(cfg, device="cuda", batch=None, steps=None,
     return out
 
 
+# ----------------------------------------------------------------- mesh
+
+# Mesh step against the mesh-less step on one card, bf16 compute: losses
+# and gradient norms of the same two steps from the same weights and
+# batches, relative. At world size 1 the DTensor step runs the same local
+# products in the same order, so the numbers agree to the last bit; 1e-6
+# leaves room for one rounding and still catches a step that drops one of
+# its two microbatches (its loss is then the mean over other tokens) or
+# scales the accumulated gradient by a factor off 1 by more than 1e-6.
+MESH_REL_TOL = 1e-6
+# The ring (1-rank, in the path and again timed), the loopback ring (4
+# virtual shards, each hop's bf16 partial output merged in fp32) and
+# Ulysses against the plain flash forward and backward, and the loopback
+# against one full flash call, bf16: max |error| relative to max |value|
+# for out, dq, dk and dv.
+RING_BF16_TOL = 2e-2
+# The 1B MoE model's depth cut for the mesh phase (see MOE_* below).
+MOE_LAYERS = 4
+
+
+def _mesh_train_run(cfg, variant, device, tokens, steps, accum_steps, mesh):
+    """``steps`` AdamW(3e-4, wd 0.1) steps of ``cfg`` from seed-0 fp32
+    masters on ``tokens``: mesh-less (``"plain"``), through
+    ``build_train_step(mesh=...)`` (``"mesh"``) or through
+    ``build_zero1_train_step`` (``"zero1"``); per-step losses, grad norms,
+    times after a sync, launches, peak memory."""
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.ops.optim import adamw
+    from ray_tpu_torch.parallel import train_step as ts
+
+    cuda = torch.device(device).type == "cuda"
+    opt = adamw(3e-4, weight_decay=0.1)
+    lf = lambda p, b: llama.loss_fn(p, b, cfg)  # noqa: E731
+    init = lambda seed: llama.init_params(  # noqa: E731
+        cfg, device=device, dtype=torch.float32, seed=seed)
+    if variant == "plain":
+        params = init(0)
+        state = ts.init_optimizer_state(opt, params)
+        step = ts.build_train_step(lf, opt, accum_steps=accum_steps)
+        batch = {"tokens": tokens}
+    elif variant == "mesh":
+        params = ts.init_sharded_params(init, llama.param_axes(cfg), mesh, 0)
+        state = ts.init_optimizer_state(opt, params)
+        step = ts.build_train_step(lf, opt, mesh, accum_steps=accum_steps)
+        batch = ts.shard_batch({"tokens": tokens}, mesh)
+    else:
+        params = init(0)
+        state = ts.init_zero1_opt_state(opt, params, mesh)
+        step = ts.build_zero1_train_step(lf, opt, mesh, params,
+                                         accum_steps=accum_steps)
+        batch = ts.shard_batch({"tokens": tokens}, mesh)
+    _sync(device)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    out = {"losses": [], "grad_norms": [], "step_s": [],
+           "launches_per_step": []}
+    for _ in range(steps):
+        before = launch_counts()
+        t = time.perf_counter()
+        params, state, m = step(params, state, batch)
+        _sync(device)
+        out["step_s"].append(time.perf_counter() - t)
+        now = launch_counts()
+        out["launches_per_step"].append(
+            {k: now[k] - before[k] for k in now})
+        out["losses"].append(float(m["loss"]))
+        out["grad_norms"].append(float(m["grad_norm"]))
+    if variant != "plain":
+        out["state_bytes_per_rank"] = ts.per_replica_state_bytes(state)
+    if cuda:
+        out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+        tok = tokens.shape[0] * (tokens.shape[1] - 1)
+        last = out["step_s"][-1]
+        out["tokens_per_s"] = tok / last
+    del params, state, step, batch
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    return out
+
+
+def _ring_inputs(shape, device, seed=3):
+    g = torch.Generator(device=device).manual_seed(seed)
+    b, s, h, hkv, d = (shape[k] for k in ("b", "s", "h", "hkv", "d"))
+    dt = torch.bfloat16 if torch.device(device).type == "cuda" \
+        else torch.float32
+    mk = lambda *sh: torch.randn(sh, generator=g, device=device,  # noqa
+                                 dtype=torch.float32).to(dt)
+    return mk(b, s, h, d), mk(b, s, hkv, d), mk(b, s, hkv, d), mk(b, s, h, d)
+
+
+def _with_grads(fn, q, k, v, do):
+    """``fn(q, k, v)``'s output and the q/k/v gradients of sum(out * do)."""
+    q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+    out = fn(q, k, v)
+    out.backward(do)
+    return [out.detach(), q.grad, k.grad, v.grad]
+
+
+def _loopback_ring(q, k, v, n):
+    """The package's ``ring_flash_attention_local`` run for each of ``n``
+    virtual ranks in one process, K/V rotated by indexing (its ``ring``
+    argument) instead of collectives. Returns the full (B, S, H, D)
+    output."""
+    import torch.nn.functional as F
+
+    from ray_tpu_torch.parallel.ring_attention import (
+        ring_flash_attention_local)
+
+    sl = q.shape[1] // n
+    pad = (-q.shape[-1]) % 128
+    shard = lambda t, r: t[:, r * sl:(r + 1) * sl]  # noqa: E731
+
+    def ring_of(rank):
+        src = [rank]
+
+        def rotate_fn(kv):
+            src[0] = (src[0] - 1) % n
+            kv = torch.stack([shard(k, src[0]), shard(v, src[0])])
+            return F.pad(kv, (0, pad)).transpose(2, 3)
+
+        return rank, n, rotate_fn
+
+    return torch.cat([ring_flash_attention_local(
+        shard(q, r), shard(k, r), shard(v, r), None, ring=ring_of(r))
+        for r in range(n)], dim=1)
+
+
+def _plain_attention(q, k, v, do):
+    """[out, dq, dk, dv] of causal attention by the plain flash forward and
+    backward (``flash_attention_reference``, ``flash_backward_reference``)."""
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    out, lse = fa.flash_attention_reference(q, k, v, causal=True)
+    return [out, *fa.flash_backward_reference(q, k, v, out, lse, do,
+                                              causal=True)]
+
+
+def _errs(got, want) -> dict:
+    return {n: _rel_err(g, w) for n, g, w in
+            zip(("out", "dq", "dk", "dv"), got, want)}
+
+
+def _ring_checks(q, k, v, do, mesh, n_virtual, plain) -> dict:
+    """(a) ``ring_attention(impl="flash")`` on the 1-rank mesh and (b) the
+    loopback ring of ``n_virtual`` shards, forward and backward, each
+    against ``plain`` (``_plain_attention`` on the same inputs); the
+    loopback also against one full ``flash_attention`` call; with the
+    launches of each and their times."""
+    from ray_tpu_torch.ops.flash_attention import flash_attention
+    from ray_tpu_torch.parallel.ring_attention import ring_attention
+
+    cuda = q.is_cuda
+    full = lambda q_, k_, v_: flash_attention(q_, k_, v_)  # noqa: E731
+    ring = lambda q_, k_, v_: ring_attention(  # noqa: E731
+        q_, k_, v_, mesh, impl="flash")
+    loop = lambda q_, k_, v_: _loopback_ring(q_, k_, v_, n_virtual)  # noqa
+    flash = _with_grads(full, q, k, v, do)
+    res = {"full_flash_rel_err_vs_plain": _errs(flash, plain)}
+    for name, fn in (("ring_1rank", ring), ("loopback", loop)):
+        before = launch_counts()
+        fwd0, bwd0 = fwd_kernel_counts(q.device), bwd_kernel_counts(q.device)
+        got = _with_grads(fn, q, k, v, do)
+        _sync(q.device)
+        now = launch_counts()
+        res[name] = {"rel_err_vs_plain": _errs(got, plain),
+                     "launches": {k_: now[k_] - before[k_] for k_ in now},
+                     "fwd_by_kernel": fwd_kernels_since(fwd0, q.device),
+                     "bwd_by_kernel": bwd_kernels_since(bwd0, q.device)}
+        if name == "loopback":
+            res[name]["rel_err_vs_flash"] = _errs(got, flash)
+        if cuda:
+            res[name]["fwd_bwd_ms"] = _time_ms(
+                lambda: _with_grads(fn, q, k, v, do), 3, 1)
+    if cuda:
+        res["full_flash_fwd_bwd_ms"] = _time_ms(
+            lambda: _with_grads(full, q, k, v, do), 3, 1)
+    return res
+
+
+def phase_mesh(cfg, device="cuda", batch=8, seq=2048, steps=2,
+               accum_steps=2, ring_shape=None, moe_seq=2048,
+               moe_steps=3) -> dict:
+    """The mesh plane on one card: a process group of one rank (NCCL, or
+    gloo on the CPU), ``cfg`` trained through the mesh step on
+    ``MeshSpec(fsdp=-1)`` and through ZeRO-1 against the mesh-less step,
+    ``ring_attention(impl="flash")`` and ``ulysses_attention`` on the
+    1-rank mesh, and the MoE model at ``cfg``'s width cut to
+    ``MOE_LAYERS`` layers on an ``expert`` mesh of one; then the
+    comparisons: the ring, Ulysses and a loopback ring of 4 virtual
+    shards against the plain flash forward and backward, and the loopback
+    against one full flash call."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.ops.optim import adamw
+    from ray_tpu_torch.parallel import train_step as ts
+    from ray_tpu_torch.parallel.mesh import MeshSpec
+    from ray_tpu_torch.parallel.ring_attention import ring_attention
+    from ray_tpu_torch.parallel.ulysses import ulysses_attention
+
+    cuda = torch.device(device).type == "cuda"
+    dtype_name = "cuda" if cuda else "cpu"
+    ring_shape = ring_shape or dict(b=1, s=8192, h=cfg.n_heads,
+                                    hkv=cfg.n_kv_heads, d=cfg.head_dim)
+    mesh = MeshSpec(fsdp=-1).build(device_type=dtype_name)
+    g = torch.Generator(device=device).manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, seq + 1), generator=g,
+                           device=device)
+    per_step = {"flash_fwd": 2 * cfg.n_layers * accum_steps,
+                "flash_bwd_dkv": cfg.n_layers * accum_steps,
+                "flash_bwd_dq": cfg.n_layers * accum_steps,
+                "attention_delta": cfg.n_layers * accum_steps}
+    want_step = {**{k: 0 for k in KERNELS}, **per_step}
+    runs = {"plain": _mesh_train_run(cfg, "plain", device, tokens, steps,
+                                     accum_steps, mesh)}
+    q, k, v, do = _ring_inputs(ring_shape, device)
+
+    # The main path: counts zeroed right before, read right after.
+    reset_counts()
+    fwd0, bwd0 = fwd_kernel_counts(device), bwd_kernel_counts(device)
+    for variant in ("mesh", "zero1"):
+        runs[variant] = _mesh_train_run(cfg, variant, device, tokens, steps,
+                                        accum_steps, mesh)
+    ring_out = _with_grads(lambda *a: ring_attention(*a, mesh, impl="flash"),
+                           q, k, v, do)
+    uly_out = ulysses_attention(q, k, v, mesh, impl="flash")
+    moe_cfg = replace(cfg, n_layers=MOE_LAYERS, moe_experts=8, moe_top_k=2,
+                      moe_capacity_factor=1.25)
+    moe_mesh = MeshSpec(expert=-1, fsdp=1).build(device_type=dtype_name)
+    moe_params = ts.init_sharded_params(
+        lambda seed: llama.init_params(moe_cfg, device=device,
+                                       dtype=torch.float32, seed=seed),
+        llama.param_axes(moe_cfg), moe_mesh, 1)
+    opt = adamw(3e-4, weight_decay=0.1)
+    moe_state = ts.init_optimizer_state(opt, moe_params)
+
+    def aux_metric(p, b):
+        _, aux = llama.hidden_states_aux(p, b["tokens"][:, :-1], moe_cfg)
+        return {"aux": ts._full(aux)}
+
+    moe_step = ts.build_train_step(lambda p, b: llama.loss_fn(p, b, moe_cfg),
+                                   opt, moe_mesh, extra_metrics=aux_metric)
+    moe_batch = ts.shard_batch({"tokens": tokens[:1, :moe_seq + 1]},
+                               moe_mesh)
+    moe = {"losses": [], "aux": [], "step_s": []}
+    for _ in range(moe_steps):
+        t = time.perf_counter()
+        moe_params, moe_state, m = moe_step(moe_params, moe_state, moe_batch)
+        _sync(device)
+        moe["step_s"].append(time.perf_counter() - t)
+        moe["losses"].append(float(m["loss"]))
+        moe["aux"].append(float(m["aux"]))
+    del moe_params, moe_state, moe_step
+    _sync(device)
+    launches = launch_counts()
+    by_kernel = fwd_kernels_since(fwd0, device)
+    bwd_by_kernel = bwd_kernels_since(bwd0, device)
+
+    # The comparisons (their launches are not the path's), against the
+    # plain forward and backward at the ring's shape.
+    plain_attn = _plain_attention(q, k, v, do)
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    ring = _ring_checks(q, k, v, do, mesh, 4, plain_attn)
+    uly_err = _rel_err(uly_out, plain_attn[0])
+    ring_err = _errs(ring_out, plain_attn)
+    del q, k, v, do, ring_out, uly_out, plain_attn
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+
+    plain, mesh_r, z1 = runs["plain"], runs["mesh"], runs["zero1"]
+    rel = lambda a, b: max(abs(x - y) / max(abs(y), 1e-30)  # noqa: E731
+                           for x, y in zip(a, b))
+    n_virtual = 4
+    live = n_virtual * (n_virtual + 1) // 2    # diagonal + visible hops
+    loop_want = {**{k_: 0 for k_ in KERNELS}, "flash_fwd": live,
+                 "flash_bwd_dkv": live, "flash_bwd_dq": live,
+                 "attention_delta": live}
+    ring1_want = {**{k_: 0 for k_ in KERNELS}, "flash_fwd": 1,
+                  "flash_bwd_dkv": 1, "flash_bwd_dq": 1,
+                  "attention_delta": 1}
+    # The path: the mesh and ZeRO-1 steps, the ring's forward and
+    # backward, Ulysses' forward, and per MoE step each layer's forward,
+    # remat recompute and aux-metric forward, backward and delta.
+    moe_want = {k_: moe_steps * MOE_LAYERS * (3 if k_ == "flash_fwd"
+                                              else 1 if k_ in per_step
+                                              else 0) for k_ in KERNELS}
+    path_want = {k_: 2 * steps * want_step[k_] + ring1_want[k_]
+                 + (k_ == "flash_fwd") + moe_want[k_] for k_ in KERNELS}
+    out = {"world_size": dist.get_world_size(),
+           "backend": dist.get_backend(),
+           "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+           "config": {"preset_width": {"dim": cfg.dim,
+                                       "n_layers": cfg.n_layers,
+                                       "n_heads": cfg.n_heads,
+                                       "n_kv_heads": cfg.n_kv_heads,
+                                       "mlp_dim": cfg.mlp_dim},
+                      "batch": batch, "seq": seq,
+                      "accum_steps": accum_steps, "steps": steps,
+                      "ring_shape": ring_shape,
+                      "moe": {"n_layers": MOE_LAYERS, "experts": 8,
+                              "top_k": 2, "capacity_factor": 1.25,
+                              "batch": 1, "seq": moe_seq,
+                              "cut": "depth 22 -> 4 layers"}},
+           "train": runs, "moe": moe, "ring": ring,
+           "ring_1rank_in_path_rel_err_vs_plain": ring_err,
+           "ulysses_rel_err_vs_plain": uly_err,
+           "launches": launches, "launches_want": path_want,
+           "flash_fwd_by_kernel": by_kernel,
+           "flash_bwd_by_kernel": bwd_by_kernel,
+           "tol": {"mesh_rel": MESH_REL_TOL, "ring_bf16": RING_BF16_TOL}}
+    ring_tol = RING_BF16_TOL if cuda else 1e-5
+    checks = {
+        "world_size_1": out["world_size"] == 1,
+        "backend": out["backend"] == ("nccl" if cuda else "gloo"),
+        "mesh_losses_match_plain": rel(mesh_r["losses"], plain["losses"])
+        <= MESH_REL_TOL,
+        "mesh_grad_norms_match_plain": rel(mesh_r["grad_norms"],
+                                           plain["grad_norms"])
+        <= MESH_REL_TOL,
+        "zero1_losses_match_plain": rel(z1["losses"], plain["losses"])
+        <= MESH_REL_TOL,
+        "zero1_grad_norms_match_plain": rel(z1["grad_norms"],
+                                            plain["grad_norms"])
+        <= MESH_REL_TOL,
+        "mesh_launches_per_step_exact": all(
+            c == want_step for r in (mesh_r, z1)
+            for c in r["launches_per_step"]),
+        "ring_1rank_in_path_matches_plain": max(ring_err.values())
+        <= ring_tol,
+        "ring_1rank_matches_plain": max(
+            ring["ring_1rank"]["rel_err_vs_plain"].values()) <= ring_tol,
+        "ring_1rank_launches": ring["ring_1rank"]["launches"] == ring1_want,
+        "loopback_matches_plain": max(
+            ring["loopback"]["rel_err_vs_plain"].values()) <= ring_tol,
+        "loopback_matches_flash": max(
+            ring["loopback"]["rel_err_vs_flash"].values()) <= ring_tol,
+        "loopback_launches_skip_dead_hops":
+            ring["loopback"]["launches"] == loop_want,
+        "ulysses_matches_plain": uly_err <= ring_tol,
+        "moe_finite": all(math.isfinite(x)
+                          for x in moe["losses"] + moe["aux"]),
+        "moe_loss_falls": moe["losses"][-1] < moe["losses"][0],
+        "path_launches_exact": launches == path_want,
+        "flash_fwd_on_wgmma": all_on_wgmma(by_kernel, launches["flash_fwd"],
+                                           device),
+        "flash_bwd_on_wgmma": all_bwd_on_wgmma(
+            bwd_by_kernel, launches["flash_bwd_dkv"],
+            launches["flash_bwd_dq"], device),
+        "loopback_on_wgmma": all_on_wgmma(
+            ring["loopback"]["fwd_by_kernel"], live, device)
+        and all_bwd_on_wgmma(ring["loopback"]["bwd_by_kernel"], live, live,
+                             device),
+    }
+    if cuda:
+        out["device"] = smi_line()
+        for r in runs.values():
+            r["steady_step_s"] = r["step_s"][-1]
+    out["checks"] = checks
+    out["ok"] = all(checks.values())
+    dist.destroy_process_group()
+    return out
+
+
 def _sync(device) -> None:
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize()
@@ -2740,7 +3147,8 @@ def main() -> int:
                      ("serve_disagg",
                       lambda: phase_serve_disagg(serve_cfg)),
                      ("train", lambda: phase_train(train_cfg)),
-                     ("vit", lambda: phase_vit(vit.PRESETS["vit_b16"]))):
+                     ("vit", lambda: phase_vit(vit.PRESETS["vit_b16"])),
+                     ("mesh", lambda: phase_mesh(train_cfg))):
         t0 = time.perf_counter()
         try:
             res = fn()

@@ -22,7 +22,11 @@ producer here does what that dispatch does:
 On ``device="cpu"`` the leaves become CPU tensors (copies), with no
 stream. Dtypes follow the JAX package with x64 off for floats (float64
 becomes float32) but keep int64, torch's index dtype, where JAX would
-give int32 (ROADMAP.md queue 3).
+give int32 (ROADMAP.md queue 3). With a ``mesh`` each device batch is
+then placed through ``parallel.train_step.shard_batch`` (batch over
+``("data", "fsdp")``, on the consumer's side, after the wait: each rank
+keeps its rows of the global batch), as the JAX producer's
+``shard_batch`` does.
 """
 
 from __future__ import annotations
@@ -37,7 +41,6 @@ import torch
 
 from ray_tpu_torch.core.device import resolve_device
 from ray_tpu_torch.ops.optim import tree_leaves, tree_map
-from ray_tpu_torch.parallel.train_step import _no_mesh
 
 _SENTINEL = object()
 # Pinned buffer sets: one fills while the copy out of the other runs.
@@ -69,8 +72,10 @@ class DevicePrefetch:
     does. ``stats()`` reads the consumer's waits and, on a card, the
     copies' bytes and times."""
 
-    def __init__(self, host_batches, device: torch.device, prefetch: int):
+    def __init__(self, host_batches, device: torch.device, prefetch: int,
+                 mesh=None, rules=None):
         self.device = device
+        self._mesh, self._rules = mesh, rules
         self._host = host_batches
         self._q: "queue.Queue" = queue.Queue(maxsize=max(1, int(prefetch)))
         self._err: list = []
@@ -101,14 +106,19 @@ class DevicePrefetch:
                 raise err[0]
             raise StopIteration
         self.wait_s.append(time.perf_counter() - t0)
-        if not self._cuda:
-            return item
-        batch, leaves, done = item
-        stream = torch.cuda.current_stream(self.device)
-        stream.wait_event(done)
-        for t in leaves:
-            t.record_stream(stream)
-        return batch
+        if self._cuda:
+            batch, leaves, done = item
+            stream = torch.cuda.current_stream(self.device)
+            stream.wait_event(done)
+            for t in leaves:
+                t.record_stream(stream)
+        else:
+            batch = item
+        if self._mesh is None:
+            return batch
+        from ray_tpu_torch.parallel.train_step import shard_batch
+
+        return shard_batch(batch, self._mesh, self._rules)
 
     # ------------------------------------------------------------ producer
 
@@ -187,11 +197,15 @@ def device_prefetch(host_batches: Iterator[Any], mesh=None, rules=None,
                     prefetch: int = 2, device=None) -> DevicePrefetch:
     """Wrap a host-batch iterator into a device-batch iterator with
     ``prefetch`` batches in flight on ``device`` (``cuda`` unless the
-    caller passes another; without a card ``None`` raises). ``mesh``
-    raises until the meshes are ported (ROADMAP.md queue 1, item 3);
-    ``rules`` has nothing to apply to without one."""
-    _no_mesh(mesh, "device_prefetch")
-    dev = resolve_device(device)
+    caller passes another; without a card ``None`` raises). With
+    ``mesh`` the device is this rank's on the mesh, and each batch lands
+    batch-sharded through ``shard_batch(batch, mesh, rules)``."""
+    if mesh is not None:
+        from ray_tpu_torch.parallel.sharding import mesh_device
+
+        dev = mesh_device(mesh)
+    else:
+        dev = resolve_device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
-    return DevicePrefetch(host_batches, dev, prefetch)
+    return DevicePrefetch(host_batches, dev, prefetch, mesh, rules)

@@ -15,8 +15,12 @@ Training: ``loss_fn`` (next-token cross entropy, chunked under
 ``torch.utils.checkpoint`` with ``loss_chunk``), per-layer remat
 (``remat_wrap``), the one-hot matmul embedding (``_embed_matmul``),
 ``param_axes`` and ``flops_per_token``. The JAX ``constrain(...)`` calls
-are sharding hints; on one device they are no-ops, so the port drops them.
-The MoE fields are not ported (ROADMAP.md queue 1, item 3).
+sit at the same places: outside ``parallel.sharding.axis_rules`` (one
+device) they are no-ops, and under it, on the DTensors of the mesh train
+step, each one redistributes. Attention runs on local shards there
+(``_attention``); ``attention_impl="ring"`` is ``ring_attention`` over the
+context's mesh. With ``moe_experts`` each layer's MLP is ``ops.moe.moe_ffn``
+and ``loss_fn`` adds its load-balance term.
 """
 
 from __future__ import annotations
@@ -31,10 +35,18 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from ray_tpu_torch.core.device import not_ported, resolve_device
+from ray_tpu_torch.core.device import resolve_device
 from ray_tpu_torch.ops.attention import attention
 from ray_tpu_torch.ops.norms import rms_norm
 from ray_tpu_torch.ops.rotary import apply_rope, rope_frequencies
+from ray_tpu_torch.parallel.sharding import (
+    constrain,
+    current_mesh,
+    current_rules,
+    placements_for,
+    shard_map,
+    spec_for,
+)
 
 Params = Dict[str, Any]
 
@@ -52,7 +64,7 @@ class LlamaConfig:
     norm_eps: float = 1e-5
     dtype: torch.dtype = torch.bfloat16
     # "xla" | "chunked" (plain PyTorch) | "flash" (the Hopper kernel) |
-    # "ring" (not ported yet: raises).
+    # "ring" (ring attention over the seq axis of the axis_rules mesh).
     attention_impl: str = "xla"
     remat: bool = True
     # Remat policy: "full" recomputes each layer in the backward; "dots"
@@ -71,6 +83,12 @@ class LlamaConfig:
     # so its backward is matmuls instead of a scatter-add.
     embed_via_matmul: bool = False
     embed_chunk: int = 512
+    # Mixture-of-Experts: moe_experts experts replace the dense MLP (top-k
+    # routing, expert-parallel over the mesh's ``expert`` axis).
+    moe_experts: int = 0
+    moe_top_k: int = 2
+    moe_capacity_factor: float = 1.25
+    moe_aux_coef: float = 0.01
 
     @property
     def head_dim(self) -> int:
@@ -78,11 +96,15 @@ class LlamaConfig:
 
     def num_params(self) -> int:
         p = self.vocab_size * self.dim
+        mlp_params = 3 * self.dim * self.mlp_dim
+        if self.moe_experts:
+            mlp_params = (self.moe_experts * 3 * self.dim * self.mlp_dim
+                          + self.dim * self.moe_experts)
         per_layer = (2 * self.dim
                      + self.dim * self.n_heads * self.head_dim
                      + 2 * self.dim * self.n_kv_heads * self.head_dim
                      + self.n_heads * self.head_dim * self.dim
-                     + 3 * self.dim * self.mlp_dim)
+                     + mlp_params)
         return (p + self.n_layers * per_layer + self.dim
                 + self.dim * self.vocab_size)
 
@@ -109,18 +131,12 @@ def config_for(name_or_config) -> LlamaConfig:
     return PRESETS[name_or_config]
 
 
-def _check_ported(config: LlamaConfig) -> None:
-    if config.attention_impl == "ring":
-        raise not_ported("attention_impl='ring'",
-                         "item 3, meshes with ring, Ulysses and MoE")
-
-
 # ------------------------------------------------------------------ params
 
 
 def param_axes(config: Optional[LlamaConfig] = None) -> Dict[str, Any]:
-    """Logical axis names, mirroring the params tree (metadata: the port
-    runs on one device, so nothing reads them to shard yet)."""
+    """Logical axis names, mirroring the params tree (the mesh train step
+    places the params by them)."""
     c = config
     layers: Dict[str, Any] = {
         "attn_norm": ("layers", "embed"),
@@ -134,7 +150,14 @@ def param_axes(config: Optional[LlamaConfig] = None) -> Dict[str, Any]:
         layers["wq"] = ("layers", "embed", "heads", "head_dim")
         layers["wk"] = ("layers", "embed", "kv_heads", "head_dim")
         layers["wv"] = ("layers", "embed", "kv_heads", "head_dim")
-    if c is not None and c.fused_mlp:
+    if c is not None and c.moe_experts:
+        layers["moe"] = {
+            "router": ("layers", "embed", "expert_dim"),
+            "w_gate": ("layers", "expert", "embed", "mlp"),
+            "w_up": ("layers", "expert", "embed", "mlp"),
+            "w_down": ("layers", "expert", "mlp", "embed"),
+        }
+    elif c is not None and c.fused_mlp:
         layers["w_gate_up"] = ("layers", "embed", "mlp")
     else:
         layers["w_gate"] = ("layers", "embed", "mlp")
@@ -148,15 +171,24 @@ def param_axes(config: Optional[LlamaConfig] = None) -> Dict[str, Any]:
 
 
 def _layer_shapes(c: LlamaConfig) -> Dict[str, Tuple[Tuple[int, ...], int]]:
-    """Matmul weights of one layer: name -> (shape, fan_in)."""
+    """Matmul weights of one layer: name -> (shape, fan_in); the MoE
+    weights under ``moe/<name>``."""
     E, H, KV, D, M = c.dim, c.n_heads, c.n_kv_heads, c.head_dim, c.mlp_dim
+    # The JAX tree keeps the dense ``w_down`` beside the MoE weights
+    # (unused there); so does this one.
     shapes = {"wo": ((H, D, E), H * D), "w_down": ((M, E), M)}
     if c.fused_qkv:
         shapes["wqkv"] = ((E, H + 2 * KV, D), E)
     else:
         shapes.update(wq=((E, H, D), E), wk=((E, KV, D), E),
                       wv=((E, KV, D), E))
-    if c.fused_mlp:
+    if c.moe_experts:
+        X = c.moe_experts
+        shapes.update({"moe/router": ((E, X), E),
+                       "moe/w_gate": ((X, E, M), E),
+                       "moe/w_up": ((X, E, M), E),
+                       "moe/w_down": ((X, M, E), M)})
+    elif c.fused_mlp:
         shapes["w_gate_up"] = ((E, 2 * M), E)
     else:
         shapes.update(w_gate=((E, M), E), w_up=((E, M), E))
@@ -192,12 +224,12 @@ def init_params(config: LlamaConfig,
         return out
 
     L, E = c.n_layers, c.dim
-    layers: Dict[str, torch.Tensor] = {}
+    layers: Dict[str, Any] = {}
     for name, (shape, fan_in) in _layer_shapes(c).items():
         stack = torch.empty((L,) + shape, dtype=dt, device=dev)
         for i in range(L):
             normal(shape, 1.0 / math.sqrt(fan_in), out=stack[i])
-        layers[name] = stack
+        _put(layers, name, stack)
     layers["attn_norm"] = torch.ones((L, E), dtype=torch.float32, device=dev)
     layers["mlp_norm"] = torch.ones((L, E), dtype=torch.float32, device=dev)
     return {
@@ -211,15 +243,34 @@ def init_params(config: LlamaConfig,
 _NORMS = ("attn_norm", "mlp_norm", "final_norm")
 
 
+def _put(tree: Dict[str, Any], path: str, value) -> None:
+    """``tree[a][b] = value`` for ``path`` "a/b"."""
+    *outer, name = path.split("/")
+    for key in outer:
+        tree = tree.setdefault(key, {})
+    tree[name] = value
+
+
+def _flat(tree: Dict[str, Any], prefix: str = "") -> Dict[str, Any]:
+    """The leaves of a nested dict by "a/b" path."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
 def params_from_numpy(tree: Dict[str, Any], config: LlamaConfig,
                       device=None, dtype: Optional[torch.dtype] = None
                       ) -> Params:
     """Carry a JAX params pytree, given as numpy arrays
     (``jax.tree.map(np.asarray, params)``), into the port under the same
-    key paths. Handles ``wq/wk/wv`` or ``wqkv`` and ``w_gate/w_up`` or
-    ``w_gate_up``. Matmul weights are stored in ``dtype`` (default
-    ``config.dtype``; ``torch.float32`` keeps training masters), norm
-    weights in fp32 (see the module docstring)."""
+    key paths. Handles ``wq/wk/wv`` or ``wqkv``, and ``w_gate/w_up``,
+    ``w_gate_up`` or the ``moe`` subtree. Matmul weights are stored in
+    ``dtype`` (default ``config.dtype``; ``torch.float32`` keeps training
+    masters), norm weights in fp32 (see the module docstring)."""
     dev = resolve_device(device)
 
     def conv(name, arr):
@@ -228,12 +279,12 @@ def params_from_numpy(tree: Dict[str, Any], config: LlamaConfig,
         return t.to(device=dev, dtype=dt)
 
     known = set(_layer_shapes(config)) | {"attn_norm", "mlp_norm"}
-    layers = {}
-    for name, arr in tree["layers"].items():
+    layers: Dict[str, Any] = {}
+    for name, arr in _flat(tree["layers"]).items():
         if name not in known:
             raise ValueError(f"unexpected layer param {name!r} for this "
                              f"config (expects {sorted(known)})")
-        layers[name] = conv(name, arr)
+        _put(layers, name, conv(name, arr))
     return {"tok_embed": conv("tok_embed", tree["tok_embed"]),
             "layers": layers,
             "final_norm": conv("final_norm", tree["final_norm"]),
@@ -277,7 +328,8 @@ def out_proj(layer, attn: torch.Tensor) -> torch.Tensor:
     """(B, S, H, D) attention output -> (B, S, E) through ``wo``."""
     b, s = attn.shape[:2]
     wo = _w(layer, "wo", attn)
-    return attn.reshape(b, s, -1) @ wo.reshape(-1, wo.shape[-1])
+    out = attn.reshape(b, s, -1) @ wo.reshape(-1, wo.shape[-1])
+    return constrain(out, ("batch", "length", "act_embed"))
 
 
 def mlp_hidden(layer, x: torch.Tensor, config: LlamaConfig) -> torch.Tensor:
@@ -289,13 +341,69 @@ def mlp_hidden(layer, x: torch.Tensor, config: LlamaConfig) -> torch.Tensor:
     else:
         gate = h2 @ _w(layer, "w_gate", h2)
         up = h2 @ _w(layer, "w_up", h2)
-    return F.silu(gate) * up
+    return constrain(F.silu(gate) * up, ("batch", "length", "mlp_hidden"))
+
+
+def _down(layer, x: torch.Tensor, ffn: torch.Tensor) -> torch.Tensor:
+    down = ffn @ _w(layer, "w_down", ffn)
+    return x + constrain(down, ("batch", "length", "act_embed"))
 
 
 def mlp(layer, x: torch.Tensor, config: LlamaConfig) -> torch.Tensor:
     """Residual SwiGLU block: ``x + down(silu(gate) * up)``."""
-    ffn = mlp_hidden(layer, x, config)
-    return x + ffn @ _w(layer, "w_down", ffn)
+    return _down(layer, x, mlp_hidden(layer, x, config))
+
+
+def moe_block(layer, x: torch.Tensor, config: LlamaConfig):
+    """Residual MoE block: ``(x + moe_ffn(norm(x)), aux)``."""
+    from ray_tpu_torch.ops.moe import moe_ffn
+
+    c = config
+    h2 = rms_norm(x, layer["mlp_norm"], c.norm_eps)
+    out, aux = moe_ffn(h2, layer["moe"], top_k=c.moe_top_k,
+                       capacity_factor=c.moe_capacity_factor)
+    return x + constrain(out, ("batch", "length", "act_embed")), aux
+
+
+def _local_attention(config: LlamaConfig, q, k, v, q_offset):
+    if config.attention_impl == "flash":
+        from ray_tpu_torch.ops.flash_attention import flash_attention
+
+        return flash_attention(q, k, v, causal=True, q_offset=q_offset)
+    return attention(q, k, v, causal=True, q_offset=q_offset,
+                     impl=config.attention_impl)
+
+
+def _attention(config: LlamaConfig, q, k, v, q_offset):
+    """Causal attention by the config's impl. On DTensors it runs on each
+    rank's shard of (batch, heads), with the sequence whole: the local
+    flash kernel sees plain tensors. A dim its mesh axes do not divide
+    stays whole, and so do the heads unless both head counts divide (GQA
+    groups must not split)."""
+    c = config
+    if c.attention_impl == "ring":
+        from ray_tpu_torch.parallel.ring_attention import ring_attention
+
+        mesh = current_mesh()
+        if mesh is None:
+            raise ValueError("attention_impl='ring' requires an axis_rules "
+                             "context with a seq-sharded mesh")
+        return ring_attention(q, k, v, mesh)
+    if not hasattr(q, "device_mesh"):
+        return _local_attention(c, q, k, v, q_offset)
+    mesh, rules = q.device_mesh, current_rules()
+
+    def divides(name, t, dim):
+        spec = spec_for((None,) * dim + (name,), rules)
+        return placements_for(mesh, spec, t.shape) == placements_for(mesh,
+                                                                     spec)
+
+    batch = "batch" if divides("batch", q, 0) else None
+    heads = divides("heads", q, 2) and divides("kv_heads", k, 2)
+    spec_q = spec_for((batch, None, "heads" if heads else None), rules)
+    spec_kv = spec_for((batch, None, "kv_heads" if heads else None), rules)
+    fn = partial(_local_attention, c, q_offset=q_offset)
+    return shard_map(fn, mesh, (spec_q, spec_kv, spec_kv), spec_q)(q, k, v)
 
 
 def attention_block(config: LlamaConfig, x, layer, cos, sin, q_offset=0):
@@ -304,17 +412,14 @@ def attention_block(config: LlamaConfig, x, layer, cos, sin, q_offset=0):
     v it attended with."""
     c = config
     h = rms_norm(x, layer["attn_norm"], c.norm_eps)
+    h = constrain(h, ("batch", "length", "act_embed"))
     q, k, v = qkv(layer, h, c)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
-    _check_ported(c)
-    if c.attention_impl == "flash":
-        from ray_tpu_torch.ops.flash_attention import flash_attention
-
-        attn = flash_attention(q, k, v, causal=True, q_offset=q_offset)
-    else:
-        attn = attention(q, k, v, causal=True, q_offset=q_offset,
-                         impl=c.attention_impl)
+    q = constrain(q, ("batch", "length", "heads", "head_dim"))
+    k = constrain(k, ("batch", "length", "kv_heads", "head_dim"))
+    attn = _attention(c, q, k, v, q_offset)
+    attn = constrain(attn, ("batch", "length", "attn_heads", "head_dim"))
     return attn, k, v
 
 
@@ -332,20 +437,27 @@ def _decoder_layer(config: LlamaConfig, x, layer, cos, sin, q_offset=0):
 
 
 def _layer_parts(config: LlamaConfig, layer, cos, sin) -> Sequence[Callable]:
-    """One decoder block as three functions chained over tuples, split
-    where the "names" policy saves: x -> (x, attn_out) ->
-    (x + out_proj, mlp_hidden) -> block output."""
+    """One decoder block as functions chained over tuples, split where the
+    "names" policy saves: x -> (x, attn_out) -> (x + out_proj, mlp_hidden)
+    -> (block output,); with MoE, x -> (x, attn_out) -> (block output,
+    aux)."""
     c = config
 
     def attn_part(x):
         return x, attention_block(c, x, layer, cos, sin)[0]
+
+    if "moe" in layer:
+        def moe_part(x, attn):
+            return moe_block(layer, x + out_proj(layer, attn), c)
+
+        return attn_part, moe_part
 
     def mlp_part(x, attn):
         x = x + out_proj(layer, attn)
         return x, mlp_hidden(layer, x, c)
 
     def down_part(x, ffn):
-        return (x + ffn @ _w(layer, "w_down", ffn),)
+        return (_down(layer, x, ffn),)
 
     return attn_part, mlp_part, down_part
 
@@ -363,15 +475,15 @@ def _save_matmuls(ctx, op, *args, **kwargs):
             else CheckpointPolicy.PREFER_RECOMPUTE)
 
 
-def _chain(parts: Sequence[Callable], x: torch.Tensor) -> torch.Tensor:
+def _chain(parts: Sequence[Callable], x: torch.Tensor) -> tuple:
     carry = (x,)
     for part in parts:
         carry = part(*carry)
-    return carry[0]
+    return carry
 
 
 def remat_wrap(parts: Sequence[Callable], config: LlamaConfig
-               ) -> Callable[[torch.Tensor], torch.Tensor]:
+               ) -> Callable[[torch.Tensor], tuple]:
     """The config's remat policy over one block given as ``_layer_parts``:
     ``"full"`` checkpoints the block (``use_reentrant=False``), ``"dots"``
     checkpoints it under a selective policy that saves the matmul outputs,
@@ -380,7 +492,8 @@ def remat_wrap(parts: Sequence[Callable], config: LlamaConfig
     product) is what is saved. The block input is saved by every policy,
     as the JAX scan carry is. Every policy computes the same values; only
     what the backward recomputes differs. ``None`` means ``"full"`` (the
-    JAX ViT's spelling)."""
+    JAX ViT's spelling). The wrapped block returns the last part's
+    tuple."""
     policy = config.remat_policy
     if policy is None or policy == "full":
         return lambda x: checkpoint(_chain, parts, x, use_reentrant=False)
@@ -395,7 +508,7 @@ def remat_wrap(parts: Sequence[Callable], config: LlamaConfig
             carry = (x,)
             for part in parts:
                 carry = checkpoint(part, *carry, use_reentrant=False)
-            return carry[0]
+            return carry
         return run
     raise ValueError(f"unknown remat_policy {policy!r}")
 
@@ -409,7 +522,10 @@ def rope_tables(config: LlamaConfig, device) -> Tuple[torch.Tensor,
 
 def embed(params: Params, tokens: torch.Tensor,
           config: LlamaConfig) -> torch.Tensor:
-    return params["tok_embed"].to(config.dtype)[tokens.long()]
+    # The whole table before the lookup (an all-gather on a mesh), as in
+    # the JAX package.
+    table = constrain(params["tok_embed"].to(config.dtype), (None, None))
+    return table[tokens.long()]
 
 
 def _onehot_rows(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
@@ -446,42 +562,66 @@ def logits_f32(params: Params, x: torch.Tensor) -> torch.Tensor:
     return x.float() @ params["lm_head"].to(x.dtype).float()
 
 
-def hidden_states(params: Params, tokens: torch.Tensor,
-                  config: LlamaConfig) -> torch.Tensor:
-    """Token ids (B, S) -> final-norm hidden states (B, S, E). With
-    ``config.remat`` and autograd recording, each layer runs under
-    ``remat_wrap``."""
+def _unbind_layers(layers: Dict[str, Any]) -> Dict[str, Any]:
+    """Each stack (nested for ``moe``) unbound on its layer axis."""
+    return {k: _unbind_layers(v) if isinstance(v, dict) else v.unbind(0)
+            for k, v in layers.items()}
+
+
+def _layer_at(stacks: Dict[str, Any], i: int) -> Dict[str, Any]:
+    return {k: _layer_at(v, i) if isinstance(v, dict) else v[i]
+            for k, v in stacks.items()}
+
+
+def hidden_states_aux(params: Params, tokens: torch.Tensor,
+                      config: LlamaConfig):
+    """Token ids (B, S) -> (final-norm hidden states (B, S, E), the MoE
+    aux losses summed over layers (0 without MoE)). With ``config.remat``
+    and autograd recording, each layer runs under ``remat_wrap``."""
     c = config
-    _check_ported(c)
     if c.embed_via_matmul:
         x = _embed_matmul(params["tok_embed"].to(c.dtype), tokens,
                           c.embed_chunk)
     else:
         x = embed(params, tokens, c)
+    x = constrain(x, ("batch", "length", "act_embed"))
     cos, sin = rope_tables(c, x.device)
     remat = c.remat and torch.is_grad_enabled()
     # One unbind per stack: its backward stacks the layers' gradients in
     # one copy, where indexing each layer would add a zero-filled
     # full-stack gradient per layer (L^2 traffic).
-    stacks = {k: v.unbind(0) for k, v in params["layers"].items()}
+    stacks = _unbind_layers(params["layers"])
+    aux = 0.0
     for i in range(c.n_layers):
-        layer = {k: t[i] for k, t in stacks.items()}
-        parts = _layer_parts(c, layer, cos, sin)
-        x = remat_wrap(parts, c)(x) if remat else _chain(parts, x)
-    return rms_norm(x, params["final_norm"], c.norm_eps)
+        parts = _layer_parts(c, _layer_at(stacks, i), cos, sin)
+        out = remat_wrap(parts, c)(x) if remat else _chain(parts, x)
+        x = out[0]
+        if len(out) > 1:
+            aux = aux + out[1]
+    return rms_norm(x, params["final_norm"], c.norm_eps), aux
+
+
+def hidden_states(params: Params, tokens: torch.Tensor,
+                  config: LlamaConfig) -> torch.Tensor:
+    """Token ids (B, S) -> final-norm hidden states (B, S, E)."""
+    return hidden_states_aux(params, tokens, config)[0]
 
 
 def forward(params: Params, tokens: torch.Tensor,
             config: LlamaConfig) -> torch.Tensor:
     """Token ids (B, S) -> logits (B, S, V) in fp32."""
-    return logits_f32(params, hidden_states(params, tokens, config))
+    logits = logits_f32(params, hidden_states(params, tokens, config))
+    return constrain(logits, ("batch", "length", "vocab"))
 
 
 def _ce_sum(x: torch.Tensor, targets: torch.Tensor,
             lm_head: torch.Tensor) -> torch.Tensor:
     """Summed next-token cross entropy of (B, S, E) hidden states against
-    (B, S) targets, on fp32 logits."""
+    (B, S) targets, on fp32 logits. On a mesh the gold logit is read with
+    the vocab dim whole."""
     logits = x.float() @ lm_head.float()
+    if hasattr(logits, "device_mesh"):
+        logits = constrain(logits, ("batch", "length", None))
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
     return (logz - gold).sum()
@@ -494,14 +634,15 @@ def loss_fn(params: Params, batch: Dict[str, torch.Tensor],
     ``config.loss_chunk`` dividing S (and smaller than it) the head matmul
     and the cross entropy run per sequence chunk under
     ``torch.utils.checkpoint`` (the JAX ``_chunk_ce``), so the (B, S, V)
-    fp32 logits never exist; otherwise on the full fp32 logits."""
+    fp32 logits never exist; otherwise on the full fp32 logits. With MoE
+    the load-balance term ``moe_aux_coef * aux / n_layers`` is added."""
     c = config
     if "tokens" in batch:
         inputs = batch["tokens"][:, :-1]
         targets = batch["tokens"][:, 1:]
     else:
         inputs, targets = batch["inputs"], batch["targets"]
-    x = hidden_states(params, inputs, c)
+    x, aux = hidden_states_aux(params, inputs, c)
     lm_head = params["lm_head"].to(c.dtype)
     b, s, _ = x.shape
     chunk = c.loss_chunk
@@ -512,8 +653,12 @@ def loss_fn(params: Params, batch: Dict[str, torch.Tensor],
             args = (x[:, i:i + chunk], targets[:, i:i + chunk], lm_head)
             total = total + (checkpoint(_ce_sum, *args, use_reentrant=False)
                              if grad else _ce_sum(*args))
-        return total / (b * s)
-    return _ce_sum(x, targets, lm_head) / (b * s)
+        loss = total / (b * s)
+    else:
+        loss = _ce_sum(x, targets, lm_head) / (b * s)
+    if c.moe_experts:
+        loss = loss + c.moe_aux_coef * aux / c.n_layers
+    return loss
 
 
 def flops_per_token(config: LlamaConfig, seq_len: int) -> float:

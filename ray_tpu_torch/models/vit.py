@@ -21,8 +21,8 @@ the JAX ``dots_with_no_batch_dims_saveable`` saves: those products, and
 not attention's batched ones. ``remat_policy=None`` is full remat.
 Attention is the port's plain ``ops.attention.attention`` (the JAX ViT
 calls its default ``impl="xla"``, outside any Pallas kernel). The JAX
-``constrain(...)`` calls are sharding hints; on one device they are
-no-ops, so the port drops them.
+``constrain(...)`` calls sit at the same places: no-ops on one device,
+redistributions of the mesh train step's DTensors under ``axis_rules``.
 """
 
 from __future__ import annotations
@@ -38,6 +38,7 @@ import torch.nn.functional as F
 from ray_tpu_torch.core.device import resolve_device
 from ray_tpu_torch.models.llama import remat_wrap
 from ray_tpu_torch.ops.attention import attention
+from ray_tpu_torch.parallel.sharding import constrain
 
 Params = Dict[str, Any]
 
@@ -87,8 +88,8 @@ PRESETS: Dict[str, ViTConfig] = {
 
 
 def param_axes(config: Optional[ViTConfig] = None) -> Dict[str, Any]:
-    """Logical axis names, mirroring the params tree (metadata: the port
-    runs on one device, so nothing reads them to shard yet)."""
+    """Logical axis names, mirroring the params tree (the mesh train step
+    places the params by them)."""
     return {
         "patch_embed": ("patch", "embed"),
         "pos_embed": ("length", "embed"),
@@ -215,15 +216,21 @@ def _mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def _block(x, layer, c: ViTConfig, n_valid: Optional[int] = None):
     b, n, e = x.shape
     h = _layer_norm(x, layer["ln1_scale"], layer["ln1_bias"])
+    h = constrain(h, ("batch", "length", "act_embed"))
     qkv = _mm(h, layer["wqkv"].reshape(e, -1)).view(b, n, 3 * c.n_heads,
                                                     c.head_dim)
     q, k, v = qkv.split(c.n_heads, dim=2)
+    q = constrain(q, ("batch", "length", "heads", "head_dim"))
     out = attention(q, k, v, causal=False, kv_valid=n_valid)
-    x = x + _mm(out.reshape(b, n, -1), layer["wo"].reshape(-1, e))
+    out = constrain(out, ("batch", "length", "attn_heads", "head_dim"))
+    out = _mm(out.reshape(b, n, -1), layer["wo"].reshape(-1, e))
+    x = x + constrain(out, ("batch", "length", "act_embed"))
 
     h2 = _layer_norm(x, layer["ln2_scale"], layer["ln2_bias"])
     up = F.gelu(_mm(h2, layer["w_up"]) + layer["b_up"], approximate="tanh")
-    return x + (_mm(up, layer["w_down"]) + layer["b_down"])
+    up = constrain(up, ("batch", "length", "mlp_hidden"))
+    down = _mm(up, layer["w_down"]) + layer["b_down"]
+    return x + constrain(down, ("batch", "length", "act_embed"))
 
 
 def forward(params: Params, images: torch.Tensor,
@@ -240,6 +247,7 @@ def forward(params: Params, images: torch.Tensor,
     if c.pad_tokens_to and c.pad_tokens_to > n_tokens:
         x = F.pad(x, (0, 0, 0, c.pad_tokens_to - n_tokens))
         n_valid = n_tokens
+    x = constrain(x, ("batch", "length", "act_embed"))
     remat = c.remat and torch.is_grad_enabled()
     # One unbind per stack (see models.llama.hidden_states).
     stacks = {k: v.unbind(0) for k, v in params["layers"].items()}
@@ -253,7 +261,7 @@ def forward(params: Params, images: torch.Tensor,
             cast = {k: v.to(dt) for k, v in layer.items()}
             return (_block(x, cast, c, n_valid),)
 
-        x = remat_wrap((body,), c)(x) if remat else body(x)[0]
+        x = (remat_wrap((body,), c) if remat else body)(x)[0]
     x = x[:, :n_tokens]
     x = _layer_norm(x, params["final_ln_scale"].to(dt),
                     params["final_ln_bias"].to(dt))
@@ -270,6 +278,8 @@ def loss_fn(params: Params, batch: Dict[str, torch.Tensor],
     """Softmax cross entropy over ``batch`` = {"images": (B, H, W, C),
     "labels": (B,) integer}; returns (loss, {"accuracy": ...})."""
     logits = forward(params, batch["images"], config)
+    if hasattr(logits, "device_mesh"):  # the gold logit with classes whole
+        logits = constrain(logits, ("batch", None))
     labels = batch["labels"].long()
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels[:, None])[:, 0]

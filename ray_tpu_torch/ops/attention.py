@@ -13,6 +13,12 @@ fp32, probabilities rounded to the value dtype before P·V on the plain
 path. GQA repeats K/V heads to match the query heads. Shapes are
 (batch, seq, heads, head_dim) throughout. This is the non-flash branch of
 ``models.llama._decoder_layer`` and the oracle the small tests use.
+
+``attention_block_stats``, ``merge_attention_stats`` and
+``finalize_attention`` are the pieces of the ring's ``xla`` impl
+(``parallel.ring_attention.ring_attention_local``): one block's
+unnormalized accumulator and softmax statistics, their log-sum-exp merge,
+and the division at the end.
 """
 
 from __future__ import annotations
@@ -59,6 +65,42 @@ def attention(
         return _attention_chunked(q, k, v, causal, q_offset, kv_offset,
                                   chunk_size)
     raise ValueError(f"unknown attention impl {impl!r}")
+
+
+def attention_block_stats(q, k, v, causal, q_offset, kv_offset):
+    """One attention block's *unnormalized* accumulator and softmax
+    statistics: (acc (B, H, Sq, D) fp32, m (B, H, Sq), l (B, H, Sq)), all
+    in fp32 (scores, probabilities and P·V)."""
+    n_rep = q.shape[2] // k.shape[2]
+    k = _repeat_kv(k, n_rep)
+    v = _repeat_kv(v, n_rep)
+    scale = q.shape[-1] ** -0.5
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    if causal:
+        mask = _mask(q.shape[1], k.shape[1], q_offset, kv_offset, q.device)
+        scores = scores.masked_fill(~mask, _NEG_INF)
+    m = scores.amax(dim=-1)
+    p = torch.exp(scores - m.clamp_min(_NEG_INF / 2)[..., None])
+    l = p.sum(dim=-1)
+    acc = torch.einsum("bhqk,bkhd->bhqd", p, v.float())
+    return acc, m, l
+
+
+def merge_attention_stats(acc1, m1, l1, acc2, m2, l2):
+    """Log-sum-exp merge of two partial attention results."""
+    m = torch.maximum(m1, m2)
+    m_safe = m.clamp_min(_NEG_INF / 2)
+    c1 = torch.exp(m1.clamp_min(_NEG_INF / 2) - m_safe)
+    c2 = torch.exp(m2.clamp_min(_NEG_INF / 2) - m_safe)
+    acc = acc1 * c1[..., None] + acc2 * c2[..., None]
+    return acc, m, l1 * c1 + l2 * c2
+
+
+def finalize_attention(acc, l, dtype):
+    """(B, H, S, D) accumulator over its row sums -> (B, S, H, D) output in
+    ``dtype``; rows with nothing live stay zero."""
+    l_safe = torch.where(l == 0.0, torch.ones_like(l), l)
+    return (acc / l_safe[..., None]).permute(0, 2, 1, 3).to(dtype)
 
 
 def _attention_xla(q, k, v, causal, q_offset, kv_offset, kv_valid=None):

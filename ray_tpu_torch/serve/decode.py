@@ -203,7 +203,7 @@ class DecodeEngine:
                  device=None):
         if mesh_shape is not None or rt_config.decode_mesh_shape:
             raise not_ported("decode meshes (mesh_shape)",
-                             "item 3, meshes with ring, Ulysses and MoE")
+                             "item 3, the decode mesh")
         if trace_spans:
             raise not_ported("serve trace spans (trace_spans)",
                              _ENGINE_PATHS)

@@ -16,6 +16,8 @@ import torch
 
 from ray_tpu.data.ingest import device_prefetch as jax_prefetch
 from ray_tpu_torch.data import device_prefetch
+from ray_tpu_torch.ops.optim import tree_leaves
+from torch_parity import world_of_one  # noqa: F401
 from ray_tpu_torch.models import vit as tvit
 from ray_tpu_torch.ops.optim import adamw, tree_leaves
 from ray_tpu_torch.parallel import train_step as tts
@@ -183,9 +185,23 @@ def test_wait_is_recorded_per_batch():
     assert all(w >= 0 for w in s["wait_s"])
 
 
-def test_mesh_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 3"):
-        device_prefetch(iter([]), mesh=object(), device="cpu")
+def test_mesh_lands_batches_through_shard_batch(world_of_one):
+    """``device_prefetch(mesh=...)`` yields DTensors placed as
+    ``shard_batch`` places them, in order, with the host batches' values
+    (the JAX prefetch with a mesh, on a one-rank CPU mesh)."""
+    from ray_tpu_torch.parallel.mesh import MeshSpec
+    from ray_tpu_torch.parallel.train_step import shard_batch
+
+    mesh = MeshSpec(fsdp=-1).build(device_type="cpu")
+    host = _host_batches(3)
+    got = list(device_prefetch(iter(host), mesh=mesh))
+    assert len(got) == 3
+    for g, h in zip(got, host):
+        want = tree_leaves(shard_batch(h, mesh))
+        for gl, wl in zip(tree_leaves(g), want):
+            assert gl.placements == wl.placements
+            np.testing.assert_allclose(gl.full_tensor().numpy(),
+                                       wl.full_tensor().numpy(), rtol=1e-7)
 
 
 def test_refuses_without_card_and_device():

@@ -17,7 +17,8 @@ PORT = ROOT / "ray_tpu_torch"
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                         ROOT / "tests" / "torch_dist.py"]
 
 
 def _modules():

@@ -696,3 +696,38 @@ def test_spec_engine_matches_plain_paged_engine(cuda_device, draft):
                 if margins[i] <= tol:
                     break
                 assert x == y, (i, got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
+                                       (torch.float32, 1e-4)])
+def test_loopback_ring_matches_full_flash(cuda_device, dtype, tol):
+    """Ring attention's flash body (``ring_flash_attention_local``) for
+    each of 4 virtual ranks of 128 tokens, K/V rotated by indexing through
+    its ``ring`` argument: output and gradients against one full
+    ``flash_attention`` call; the 6 dead hops launch nothing, the 4
+    diagonal and 6 visible hops one forward and one backward each."""
+    import torch_dist
+
+    n, sl, h, hkv, d = 4, 128, 4, 2, 128
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    mk = lambda *s: torch.randn(*s, generator=g,  # noqa: E731
+                                device=cuda_device).to(dtype)
+    q, k, v, do = mk(1, n * sl, h, d), mk(1, n * sl, hkv, d), \
+        mk(1, n * sl, hkv, d), mk(1, n * sl, h, d)
+
+    def run(fn):
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = fn(*leaves)
+        out.backward(do)
+        return [out.detach()] + [t.grad for t in leaves]
+
+    want = run(lambda *a: tflash.flash_attention(*a))
+    f0, dkv0 = tflash.flash_attention.launches, \
+        tflash.flash_backward.dkv_launches
+    got = run(lambda *a: torch_dist.loopback_ring(*a, n))
+    assert tflash.flash_attention.launches - f0 == 10
+    assert tflash.flash_backward.dkv_launches - dkv0 == 10
+    for a, b in zip(got, want):
+        err = float((a.float() - b.float()).abs().max())
+        assert err <= tol * float(b.float().abs().max()), err

@@ -6,6 +6,8 @@ sums). bfloat16 configs compare at atol = 5e-2 on logits of O(1): every
 activation is rounded to bf16 (8 mantissa bits) between layers, on both
 sides but after differently ordered sums."""
 
+from dataclasses import replace
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -13,7 +15,7 @@ import torch
 
 from ray_tpu.models import llama as jl
 from ray_tpu_torch.models import llama as tl
-from torch_parity import tiny_pair
+from torch_parity import TINY, tiny_pair, world_of_one  # noqa: F401
 
 
 def _tokens(b=2, s=16, seed=0):
@@ -73,7 +75,31 @@ def test_presets_match():
     assert tl.config_for("7b").head_dim == 128
 
 
-def test_ring_attention_not_ported():
-    _, _, tcfg, tp = tiny_pair("f32", attention_impl="ring")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tl.forward(tp, torch.zeros(1, 4, dtype=torch.long), tcfg)
+def test_ring_attention_needs_axis_rules_as_in_jax():
+    jcfg, jp, tcfg, tp = tiny_pair("f32", attention_impl="ring")
+    toks = np.zeros((1, 4), np.int32)
+    with pytest.raises(ValueError, match="axis_rules"):
+        jl.forward(jp, jnp.asarray(toks), jcfg)
+    with pytest.raises(ValueError, match="axis_rules"):
+        tl.forward(tp, torch.from_numpy(toks), tcfg)
+
+
+def test_ring_attention_on_a_one_rank_mesh_matches_jax(world_of_one):
+    """``attention_impl='ring'`` under a one-rank mesh's axis rules: the
+    ring of one hop equals the JAX dense loss (float32, rtol 1e-5)."""
+    from ray_tpu_torch.parallel import train_step as tts
+    from ray_tpu_torch.parallel.mesh import MeshSpec
+
+    jcfg, jp, tcfg, tp = tiny_pair("f32", attention_impl="ring")
+    toks = np.random.default_rng(0).integers(0, TINY["vocab_size"],
+                                             (2, 17)).astype(np.int32)
+    batch = {"inputs": toks[:, :-1], "targets": toks[:, 1:]}
+    want = float(jl.loss_fn(jp, {k: jnp.asarray(v) for k, v in
+                                 batch.items()},
+                            replace(jcfg, attention_impl="xla")))
+    mesh = MeshSpec(seq=1, fsdp=1).build(device_type="cpu")
+    params = tts.init_sharded_params(lambda _: tp, tl.param_axes(tcfg),
+                                     mesh)
+    got = tts.build_eval_step(lambda p, b: tl.loss_fn(p, b, tcfg), mesh)(
+        params, tts.shard_batch(batch, mesh))
+    np.testing.assert_allclose(float(got), want, rtol=1e-5)

@@ -32,7 +32,7 @@ from ray_tpu.parallel.mesh import MeshSpec
 from ray_tpu_torch.models import llama as tl
 from ray_tpu_torch.ops import optim as toptim
 from ray_tpu_torch.parallel import train_step as tts
-from torch_parity import DTYPES, TINY
+from torch_parity import DTYPES, TINY, world_of_one  # noqa: F401
 
 torch.backends.cuda.matmul.allow_tf32 = False  # f32 means f32
 torch.backends.cudnn.allow_tf32 = False
@@ -178,19 +178,50 @@ def test_eval_step_and_shard_batch():
                                                            batch)[0])
 
 
-def test_meshes_and_zero1_not_ported():
-    opt = toptim.adamw(1e-3)
-    with pytest.raises(NotImplementedError, match="item 3"):
-        tts.build_train_step(lambda p, b: 0, opt, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 3"):
-        tts.build_zero1_train_step(lambda p, b: 0, opt, None, {})
-    with pytest.raises(NotImplementedError, match="item 3"):
-        tts.init_zero1_opt_state(opt, {}, None)
+@pytest.mark.parametrize("zero1", [False, True], ids=["mesh", "zero1"])
+def test_one_rank_mesh_step_matches_jax_curve(world_of_one, zero1):
+    """The mesh step (and the ZeRO-1 step) on a one-rank CPU mesh against
+    the JAX builder on a 1-device mesh, as
+    ``test_train_step_curve_matches_jax`` holds the mesh-less step: three
+    AdamW steps, loss and grad norm each step, then the final params."""
+    from ray_tpu_torch.parallel.mesh import MeshSpec as TMeshSpec
+
+    jcfg, jp, tcfg, tp = _pair("f32", attention_impl="flash", loss_chunk=8)
+    toks = _tokens(b=4, seed=4)
+    jmesh = MeshSpec(fsdp=-1).build(jax.devices()[:1])
+    tmesh = TMeshSpec(fsdp=-1).build(device_type="cpu")
+    jopt = joptim.adamw(1e-2, weight_decay=0.1)
+    topt = toptim.adamw(1e-2, weight_decay=0.1)
+    jstep = jts.build_train_step(lambda p, b: jl.loss_fn(p, b, jcfg), jopt,
+                                 jmesh)
+    js = jts.init_optimizer_state(jopt, jp)
+    lf = lambda p, b: tl.loss_fn(p, b, tcfg)  # noqa: E731
+    if zero1:
+        ts = tts.init_zero1_opt_state(topt, tp, tmesh)
+        tstep = tts.build_zero1_train_step(lf, topt, tmesh, tp)
+    else:
+        tp = tts.init_sharded_params(lambda _: tp, tl.param_axes(tcfg),
+                                     tmesh)
+        ts = tts.init_optimizer_state(topt, tp)
+        tstep = tts.build_train_step(lf, topt, tmesh)
+    batch = tts.shard_batch({"tokens": toks}, tmesh)
+    for _ in range(3):
+        jp, js, jm = jstep(jp, js, {"tokens": jnp.asarray(toks)})
+        tp, ts, tm = tstep(tp, ts, batch)
+        np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]),
+                                   rtol=1e-5)
+        np.testing.assert_allclose(float(tm["grad_norm"]),
+                                   float(jm["grad_norm"]), rtol=1e-4)
+    for a, b in zip(jax.tree.leaves(jp), toptim.tree_leaves(tp)):
+        assert hasattr(b, "device_mesh") and b.dtype == torch.float32
+        np.testing.assert_allclose(b.full_tensor().numpy(), np.asarray(a),
+                                   rtol=0, atol=2e-4)
 
 
-@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("fused", [False, True, "moe"])
 def test_param_axes_and_flops_match_jax(fused):
-    kw = dict(fused_qkv=fused, fused_mlp=fused)
+    kw = (dict(moe_experts=8, moe_top_k=2) if fused == "moe"
+          else dict(fused_qkv=fused, fused_mlp=fused))
     for name in ("debug", "1b", "7b"):
         jc = replace(jl.PRESETS[name], **kw)
         tc = replace(tl.PRESETS[name], **kw)

@@ -37,6 +37,19 @@ def one_torch_thread():
     torch.set_num_threads(n)
 
 
+@pytest.fixture
+def world_of_one():
+    """A one-rank gloo default process group (rendezvous in process) for
+    one test's CPU meshes, torn down after it."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch.parallel.mesh import init_distributed
+
+    init_distributed(0, 1, device_type="cpu")
+    yield
+    dist.destroy_process_group()
+
+
 def tiny_pair(dtype: str = "f32", seed: int = 0, **overrides):
     """(jax_cfg, jax_params, torch_cfg, torch_params) of one tiny model
     with identical weights; the port's params live on the CPU."""
