@@ -1,5 +1,5 @@
-"""Drive the PyTorch/CUDA port's splash, serving, training (Llama and ViT)
-and mesh paths on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's splash, serving (a decode mesh among
+them), training (Llama and ViT) and mesh paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -83,7 +83,20 @@ Phases, one JSON line each (``{"phase": ..., "ok": ...}``):
    the greedy prompts) against a plain paged engine: accept rate at
    least 0.5, at most half the plain engine's steps in rounds, streams
    under the margin rule.
-8. train: the 1B Llama (``PRESETS["1b"]``, full width and depth, fp32
+8. serve_disagg: two deployments of the same model, prefill and decode,
+   seven requests through the handoff (prefill, capture, lease, adopt).
+9. serve_mesh: the serve_paged geometry and requests served by one
+   ``DecodeEngine`` replica over a (1, 1) decode mesh at world size 1
+   (one NCCL process group of one rank, in process) beside the mesh-less
+   engine on the same weights from seed 0, both driven through
+   ``step()`` on one schedule (seven requests before the first step, the
+   prefix sharer after the source's first token) so both see the same
+   waves. Every stream must equal the mesh-less engine's token for
+   token, the waves, chunks and steps must be the same, and each run
+   must launch the flash forward 32 times per full prefill wave, all on
+   wgmma. Prints each run's mean and decode step time, tokens/s, TTFT
+   and ``slo_summary``, and the lockstep's control messages.
+10. train: the 1B Llama (``PRESETS["1b"]``, full width and depth, fp32
    masters from seed 0, ``attention_impl="flash"``, full remat,
    ``loss_chunk=512``) takes four AdamW steps through ``build_train_step``
    with two microbatches of 4 x 2048 tokens. Launch counters are zeroed
@@ -92,7 +105,7 @@ Phases, one JSON line each (``{"phase": ..., "ok": ...}``):
    and the forward twice (the remat recompute). Losses must be finite
    and falling. A 2-layer model of the same width then holds the flash
    gradients against the plain-attention ones.
-9. vit: ViT-B/16 (``vit.PRESETS["vit_b16"]``, full width and depth, fp32
+11. vit: ViT-B/16 (``vit.PRESETS["vit_b16"]``, full width and depth, fp32
    masters from seed 0, bf16 compute, full remat) takes six AdamW(3e-4,
    weight decay 0.1) steps through ``build_train_step`` at batch 256, fed
    by ``device_prefetch(prefetch=2)`` from seeded numpy batches of float32
@@ -108,7 +121,7 @@ Phases, one JSON line each (``{"phase": ..., "ok": ...}``):
    size in float32 (random head), ``pad_tokens_to=256`` logits equal the
    unpadded ones at B=4, and none of the seven hand-written kernels
    launched (ViT attention is the plain path, as in the JAX package).
-10. mesh: the mesh plane at world size 1: one NCCL process group of one
+12. mesh: the mesh plane at world size 1: one NCCL process group of one
    rank, rendezvoused in process (``parallel.mesh.init_distributed``).
    The train phase's 1B setup (2 steps of 2 microbatches of 4 x 2048)
    mesh-less, then through ``build_train_step`` on
@@ -142,8 +155,9 @@ every forward launch there must have taken the wgmma kernel; train reads
 the backward's entries the same way, and every backward launch must have
 taken a wgmma kernel.
 
-Each main path (splash, serve, serve_paged, serve_spec, train, mesh) must
-have launched each of its kernels at least once. Then a ``{"kernels": [...]}`` line
+Each main path (splash, serve, serve_paged, serve_spec, serve_disagg,
+serve_mesh, train, mesh) must have launched each of its kernels at least
+once. Then a ``{"kernels": [...]}`` line
 with all seven kernels (the six attention kernels with their main-path
 launches by kernel, and each with its ptxas lines: registers, shared
 memory and spills of each instantiation), the nvidia-smi
@@ -255,6 +269,7 @@ PATH_KERNELS = {
     "serve_paged": ["flash_fwd"],
     "serve_spec": ["flash_fwd"],
     "serve_disagg": ["flash_fwd"],
+    "serve_mesh": ["flash_fwd"],
     "train": ["flash_fwd", "flash_bwd_dkv", "flash_bwd_dq",
               "attention_delta"],
     "splash": ["splash_fwd", "splash_bwd_dq", "splash_bwd_dkv",
@@ -1708,6 +1723,29 @@ def _paged_drift(engine, plan, src, sharer, prefix_len) -> dict:
     return out
 
 
+def _paged_plan(cfg) -> dict:
+    """serve_paged's eight requests, name -> (prompt, max_new_tokens,
+    temperature): a 1100-token prefix source, a 1500-token prompt (3
+    chunks), prompts of 900, 800, 700 (sampled at 0.8), 300 and 20 tokens,
+    and a sharer of the source's first 1061 tokens plus 200."""
+    rng = np.random.default_rng(1)
+
+    def prompt(n):
+        return rng.integers(1, cfg.vocab_size, n).tolist()
+
+    shared = prompt(1100)
+    return {
+        "p1_shared_src": (shared, 32, 0.0),
+        "p2_chunked": (prompt(1500), 16, 0.0),
+        "p3": (prompt(900), 24, 0.0),
+        "p4": (prompt(800), 24, 0.0),
+        "p5_sampled": (prompt(700), 24, 0.8),
+        "p6": (prompt(300), 32, 0.0),
+        "p7_short": (prompt(20), 32, 0.0),
+        "p8_prefix_hit": (shared[:1061] + prompt(200), 24, 0.0),
+    }
+
+
 def phase_serve_paged(cfg, device="cuda") -> dict:
     """Llama-2-7B behind a paged ``LlamaDecodeDeployment``: 8 slots of
     2048 tokens on a pool of 64 pages of 64 tokens (4096 tokens for
@@ -1732,22 +1770,8 @@ def phase_serve_paged(cfg, device="cuda") -> dict:
     _sync(device)
     init_s = time.perf_counter() - t0
     eng = dep.engine
-    rng = np.random.default_rng(1)
-
-    def prompt(n):
-        return rng.integers(1, cfg.vocab_size, n).tolist()
-
-    shared = prompt(1100)
-    plan = {  # name -> (prompt, max_new_tokens, temperature)
-        "p1_shared_src": (shared, 32, 0.0),
-        "p2_chunked": (prompt(1500), 16, 0.0),
-        "p3": (prompt(900), 24, 0.0),
-        "p4": (prompt(800), 24, 0.0),
-        "p5_sampled": (prompt(700), 24, 0.8),
-        "p6": (prompt(300), 32, 0.0),
-        "p7_short": (prompt(20), 32, 0.0),
-        "p8_prefix_hit": (shared[:1061] + prompt(200), 24, 0.0),
-    }
+    plan = _paged_plan(cfg)
+    shared = plan["p1_shared_src"][0]
     results, errors, token_times, submitted = {}, {}, {}, {}
     first_token = threading.Event()
 
@@ -2392,6 +2416,183 @@ def phase_serve_disagg(cfg, device="cuda") -> dict:
 # dS) to bf16, at other points of the sums, through two layers of bf16
 # activations.
 GRAD_REL_TOL = 5e-2
+
+
+# ------------------------------------------------------------ serve_mesh
+
+
+def _drive_steps(engine, plan, device) -> dict:
+    """serve_paged's requests through ``engine.step()`` on one schedule:
+    seven submitted before the first step, the prefix sharer before the
+    first step after the source's first token, then steps until all end.
+    Each step is timed on the host clock (a step ends on a device-to-host
+    copy of its tokens, so the clock covers its device work); a decode
+    step is one that ran no prefill wave or chunk."""
+    reqs = {n: engine.submit(plan[n][0], max_new_tokens=plan[n][1],
+                             temperature=plan[n][2], request_id=n)
+            for n in plan if n != "p8_prefix_hit"}
+    steps, decode_steps = [], []
+    t_start = time.perf_counter()
+    for _ in range(2000):
+        if "p8_prefix_hit" not in reqs and reqs["p1_shared_src"].output:
+            n = "p8_prefix_hit"
+            reqs[n] = engine.submit(plan[n][0], max_new_tokens=plan[n][1],
+                                    temperature=plan[n][2], request_id=n)
+        if len(reqs) == len(plan) and all(r.done.is_set()
+                                          for r in reqs.values()):
+            break
+        s0 = engine.stats()
+        t0 = time.perf_counter()
+        engine.step()
+        dt = time.perf_counter() - t0
+        s1 = engine.stats()
+        steps.append(dt)
+        if all(s1[k] == s0[k] for k in ("prefill_waves", "suffix_waves",
+                                        "prefill_chunks")):
+            decode_steps.append(dt)
+    _sync(device)
+    wall = time.perf_counter() - t_start
+    stats = engine.stats()
+    return {"streams": {n: list(r.output) for n, r in reqs.items()},
+            "status": {n: r.status for n, r in reqs.items()},
+            "ttft_s": {n: r.first_token_at - r.submitted_at
+                       for n, r in reqs.items()
+                       if r.first_token_at is not None},
+            "wall_s": wall, "steps": len(steps),
+            "step_ms_mean": 1e3 * sum(steps) / max(1, len(steps)),
+            "decode_step_ms_median": (
+                1e3 * sorted(decode_steps)[len(decode_steps) // 2]
+                if decode_steps else None),
+            "decode_steps": len(decode_steps),
+            "tokens_out": stats["tokens_out"],
+            "tok_s": stats["tokens_out"] / wall, "engine": stats}
+
+
+def _first_difference(got: dict, want: dict) -> dict:
+    """Each request's first position where two runs' streams differ."""
+    out = {}
+    for n in want:
+        a, b = got.get(n, []), want[n]
+        diff = [i for i, (x, y) in enumerate(zip(a, b)) if x != y]
+        if diff or len(a) != len(b):
+            out[n] = diff[0] if diff else min(len(a), len(b))
+    return out
+
+
+# The serve_mesh phase's runs, in turns so that neither engine always
+# runs first on a warmer card.
+MESH_RUN_ORDER = ("meshless", "mesh", "mesh", "meshless")
+
+
+def phase_serve_mesh(cfg, device="cuda") -> dict:
+    """Llama-2-7B served by one ``DecodeEngine`` replica over a (1, 1)
+    decode mesh at world size 1 (NCCL on the card, in process), beside the
+    mesh-less engine on the same weights, serve_paged's geometry (8 slots
+    of 2048 on 64 pages of 64 tokens, 512-token chunks, the device
+    sampler) and serve_paged's eight requests on one step schedule
+    (``_drive_steps``), so every run sees the same waves. Four runs in
+    turns (``MESH_RUN_ORDER``). Every stream must equal the first
+    mesh-less run's token for token (the mesh's functions run on local
+    shards, which at (1, 1) are the whole weights: the same launches);
+    every run launches the flash forward 32 times per full prefill wave,
+    all on wgmma. Prints each run's mean and decode step time, tokens/s
+    and ``slo_summary``, and the mesh's lockstep messages; the path's
+    launches are the first mesh run's."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.parallel.mesh import init_distributed
+    from ray_tpu_torch.serve.decode import DecodeEngine
+
+    gc.collect()
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.empty_cache()
+    geo = PAGED_SERVE
+    t0 = time.perf_counter()
+    params = llama.init_params(cfg, device=device, seed=0)
+    _sync(device)
+    init_s = time.perf_counter() - t0
+    plan = _paged_plan(cfg)
+    init_distributed(0, 1, device_type=device)
+    runs = []
+    try:
+        for i, name in enumerate(MESH_RUN_ORDER):
+            tag = f"serve_mesh_{name}_{i}"
+            eng = DecodeEngine(
+                params, cfg, slots=geo["slots"], capacity=geo["capacity"],
+                page_tokens=geo["page_tokens"], pool_pages=geo["pool_pages"],
+                prefill_chunk_tokens=geo["chunk"], device_sampler=True,
+                metrics_deployment=tag, device=device,
+                **({"mesh_shape": (1, 1)} if name == "mesh" else {}))
+            reset_counts()
+            fwd0 = fwd_kernel_counts(device)
+            run = _drive_steps(eng, plan, device)
+            run.update(name=name, launches=launch_counts(),
+                       flash_fwd_by_kernel=fwd_kernels_since(fwd0, device),
+                       slo=slo_line(slo(tag)))
+            if name == "mesh":
+                run["lockstep_messages"] = eng._ctl.sent
+                run["backend"] = dist.get_backend()
+            runs.append(run)
+            eng.shutdown()
+            del eng
+            gc.collect()
+            if cuda:
+                torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    del params
+    base = runs[0]
+    mesh = [r for r in runs if r["name"] == "mesh"]
+    diffs = [_first_difference(r["streams"], base["streams"])
+             for r in runs[1:]]
+
+    def median(name, key):
+        xs = sorted(r[key] for r in runs if r["name"] == name)
+        return (xs[0] + xs[-1]) / 2
+
+    out = {"init_s": init_s, "geometry": geo, "mesh_shape": [1, 1],
+           "world_size": 1, "order": list(MESH_RUN_ORDER),
+           "runs": [{k: v for k, v in r.items() if k != "streams"}
+                    for r in runs],
+           "first_difference": diffs,
+           "launches": mesh[0]["launches"],
+           "flash_fwd_by_kernel": mesh[0]["flash_fwd_by_kernel"]}
+    out["mesh_vs_meshless"] = {
+        key: median("mesh", key) / median("meshless", key)
+        for key in ("decode_step_ms_median", "step_ms_mean", "tok_s")}
+    checks = {}
+    checks["all_completed"] = all(
+        set(r["status"]) == set(plan)
+        and all(v == "completed" for v in r["status"].values())
+        and all(len(r["streams"][k]) == plan[k][1] for k in plan)
+        and r["slo"]["outcomes"].get("completed") == len(plan)
+        for r in runs)
+    checks["flash_launches_per_full_wave"] = all(
+        r["engine"]["prefill_waves"] > 0
+        and r["launches"]["flash_fwd"]
+        == cfg.n_layers * r["engine"]["prefill_waves"] for r in runs)
+    checks["flash_fwd_on_wgmma"] = all(
+        all_on_wgmma(r["flash_fwd_by_kernel"], r["launches"]["flash_fwd"],
+                     device) for r in runs)
+    checks["streams_equal"] = not any(diffs)
+    checks["same_waves"] = all(
+        r["engine"][k] == base["engine"][k] for r in runs
+        for k in ("prefill_waves", "suffix_waves", "prefill_chunks",
+                  "preempted", "steps"))
+    checks["mesh_stats"] = all(r["engine"]["chips"] == 1
+                               and r["engine"]["mesh_shape"] == [1, 1]
+                               for r in mesh)
+    checks["lockstep_a_message_a_step"] = all(
+        r["lockstep_messages"] == r["steps"] for r in mesh)
+    checks["backend"] = all(r["backend"] == ("nccl" if cuda else "gloo")
+                            for r in mesh)
+    if cuda:
+        out["device"] = smi_line()
+    out["checks"] = checks
+    out["ok"] = all(checks.values())
+    return out
 
 
 def _grad_check(cfg, device, b, s) -> dict:
@@ -3146,6 +3347,7 @@ def main() -> int:
                      ("serve_spec", lambda: phase_serve_spec(serve_cfg)),
                      ("serve_disagg",
                       lambda: phase_serve_disagg(serve_cfg)),
+                     ("serve_mesh", lambda: phase_serve_mesh(serve_cfg)),
                      ("train", lambda: phase_train(train_cfg)),
                      ("vit", lambda: phase_vit(vit.PRESETS["vit_b16"])),
                      ("mesh", lambda: phase_mesh(train_cfg))):

@@ -43,6 +43,8 @@ from ray_tpu_torch.parallel.sharding import (
     constrain,
     current_mesh,
     current_rules,
+    current_shards,
+    gather_local,
     placements_for,
     shard_map,
     spec_for,
@@ -168,6 +170,21 @@ def param_axes(config: Optional[LlamaConfig] = None) -> Dict[str, Any]:
         "final_norm": ("embed",),
         "lm_head": ("embed", "vocab"),
     }
+
+
+def decode_param_axes(config: Optional[LlamaConfig] = None
+                      ) -> Dict[str, Any]:
+    """Logical axes for serving on a decode mesh (``DECODE_RULES``):
+    ``param_axes`` with ``wo`` and ``w_down`` fully replicated. Their input
+    dims are contracted, so sharding them would split a reduction across
+    the mesh; every other projection shards an output dim (heads,
+    kv_heads, mlp, vocab over "model") and keeps the single-device
+    reduction order."""
+    axes = param_axes(config)
+    layers = axes["layers"]
+    layers["wo"] = ("layers", None, None, None)
+    layers["w_down"] = ("layers", None, None)
+    return axes
 
 
 def _layer_shapes(c: LlamaConfig) -> Dict[str, Tuple[Tuple[int, ...], int]]:
@@ -306,26 +323,28 @@ def _w(layer, name: str, x: torch.Tensor) -> torch.Tensor:
 
 def qkv(layer, h: torch.Tensor, config: LlamaConfig):
     """(B, S, E) -> q (B, S, H, D), k and v (B, S, KV, D); one GEMM each
-    (one in all with ``wqkv``)."""
+    (one in all with ``wqkv``). The head counts are the weights' own: a
+    rank's shards give its local heads."""
     c = config
     b, s, e = h.shape
     if "wqkv" in layer:
         out = (h @ _w(layer, "wqkv", h).reshape(e, -1)).view(
             b, s, -1, c.head_dim)
-        return (out[:, :, :c.n_heads],
-                out[:, :, c.n_heads:c.n_heads + c.n_kv_heads],
-                out[:, :, c.n_heads + c.n_kv_heads:])
-    q = (h @ _w(layer, "wq", h).reshape(e, -1)).view(b, s, c.n_heads,
-                                                    c.head_dim)
-    k = (h @ _w(layer, "wk", h).reshape(e, -1)).view(b, s, c.n_kv_heads,
-                                                    c.head_dim)
-    v = (h @ _w(layer, "wv", h).reshape(e, -1)).view(b, s, c.n_kv_heads,
-                                                    c.head_dim)
+        # A shard holds the same share of the q, k and v heads.
+        nq = out.shape[2] * c.n_heads // (c.n_heads + 2 * c.n_kv_heads)
+        nkv = (out.shape[2] - nq) // 2
+        return (out[:, :, :nq], out[:, :, nq:nq + nkv],
+                out[:, :, nq + nkv:])
+    q = (h @ _w(layer, "wq", h).reshape(e, -1)).view(b, s, -1, c.head_dim)
+    k = (h @ _w(layer, "wk", h).reshape(e, -1)).view(b, s, -1, c.head_dim)
+    v = (h @ _w(layer, "wv", h).reshape(e, -1)).view(b, s, -1, c.head_dim)
     return q, k, v
 
 
 def out_proj(layer, attn: torch.Tensor) -> torch.Tensor:
-    """(B, S, H, D) attention output -> (B, S, E) through ``wo``."""
+    """(B, S, H, D) attention output -> (B, S, E) through ``wo``. On local
+    shards the heads are gathered first: ``wo`` contracts them."""
+    attn = gather_local(attn, 2, "heads")
     b, s = attn.shape[:2]
     wo = _w(layer, "wo", attn)
     out = attn.reshape(b, s, -1) @ wo.reshape(-1, wo.shape[-1])
@@ -345,6 +364,7 @@ def mlp_hidden(layer, x: torch.Tensor, config: LlamaConfig) -> torch.Tensor:
 
 
 def _down(layer, x: torch.Tensor, ffn: torch.Tensor) -> torch.Tensor:
+    ffn = gather_local(ffn, -1, "mlp")  # ``w_down`` contracts the mlp dim
     down = ffn @ _w(layer, "w_down", ffn)
     return x + constrain(down, ("batch", "length", "act_embed"))
 
@@ -525,7 +545,18 @@ def embed(params: Params, tokens: torch.Tensor,
     # The whole table before the lookup (an all-gather on a mesh), as in
     # the JAX package.
     table = constrain(params["tok_embed"].to(config.dtype), (None, None))
-    return table[tokens.long()]
+    shards = current_shards()
+    if shards is None or shards.axis("vocab") is None:
+        return table[tokens.long()]
+    # Local shards: each rank looks up the ids in its block of the vocab
+    # and zeros the rest; the sum over the blocks adds one row to zeros,
+    # which moves no bit.
+    lo, hi = shards.block(config.vocab_size, "vocab")
+    ids = tokens.long() - lo
+    mine = (ids >= 0) & (ids < hi - lo)
+    rows = table[ids.clamp(0, hi - lo - 1)]
+    return shards.sum(torch.where(mine[..., None], rows,
+                                  torch.zeros_like(rows)), "vocab")
 
 
 def _onehot_rows(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
@@ -558,8 +589,11 @@ def logits_f32(params: Params, x: torch.Tensor) -> torch.Tensor:
     """LM head with fp32 output, like the JAX einsum of ``x`` and the head
     cast to the compute dtype with ``preferred_element_type=float32``:
     products of bf16 values are exact in fp32, so upcasting both operands
-    gives the same sums without rounding the logits to bf16."""
-    return x.float() @ params["lm_head"].to(x.dtype).float()
+    gives the same sums without rounding the logits to bf16. On local
+    shards each rank computes its block of the vocab and the blocks are
+    gathered."""
+    logits = x.float() @ params["lm_head"].to(x.dtype).float()
+    return gather_local(logits, -1, "vocab")
 
 
 def _unbind_layers(layers: Dict[str, Any]) -> Dict[str, Any]:

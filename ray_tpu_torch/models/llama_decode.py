@@ -19,11 +19,22 @@ Writes the JAX package lets XLA drop (a scatter index past the cache row)
 raise or fault in PyTorch, so they are masked out explicitly here: never
 clamped into a live position. Reads past the rope tables clamp, as XLA's
 gathers do; they only feed rows whose output nothing reads.
+
+On a decode mesh (``parallel.sharding.local_shards``, set up by
+``decode_shardings``) every function runs on this rank's local shards:
+its heads, kv heads, MLP columns and vocab block over "model", and its
+rows over "batch". The contiguous cache holds only the rank's slots, so a
+contiguous call computes the rows whose slots the rank holds; the paged
+pool holds every page (its kv heads), so a paged call splits its rows
+evenly when the batch axis divides them, and gathers each layer's new K/V
+over "batch" before writing it, so every copy of the pool stays whole.
+Logits come back whole on every rank. Without ``local_shards`` nothing
+here communicates.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -34,6 +45,11 @@ from ray_tpu_torch.models.llama import (LlamaConfig,
                                         out_proj, qkv, rope_tables)
 from ray_tpu_torch.ops.norms import rms_norm
 from ray_tpu_torch.ops.rotary import apply_rope
+from ray_tpu_torch.parallel.sharding import (KV_ROW_AXES, POOL_AXES,
+                                             LocalShards, current_shards,
+                                             decode_rules,
+                                             decode_state_shardings,
+                                             shard_local, tree_shardings)
 
 Cache = Dict[str, torch.Tensor]
 _NEG_INF = -1e30
@@ -52,12 +68,21 @@ def cache_bucket(n: int, minimum: int = 128) -> int:
     return c
 
 
+def _local(shape: Tuple[int, ...], axes) -> Tuple[int, ...]:
+    """``shape`` laid out by ``axes``: this rank's shard of it under
+    ``local_shards``, the whole of it outside."""
+    shards = current_shards()
+    return shape if shards is None else shards.local_shape(shape, axes)
+
+
 def init_cache(config: LlamaConfig, batch: int, capacity: int,
                dtype: Optional[torch.dtype] = None, device=None) -> Cache:
-    """Zeroed KV cache for ``batch`` slots of ``capacity`` tokens."""
+    """Zeroed KV cache for ``batch`` slots of ``capacity`` tokens (under
+    ``local_shards``: this rank's slots and kv heads; ``length`` whole)."""
     c = config
     dev = resolve_device(device)
-    shape = (c.n_layers, batch, capacity, c.n_kv_heads, c.head_dim)
+    shape = _local((c.n_layers, batch, capacity, c.n_kv_heads, c.head_dim),
+                   KV_ROW_AXES)
     dt = dtype or c.dtype
     return {"k": torch.zeros(shape, dtype=dt, device=dev),
             "v": torch.zeros(shape, dtype=dt, device=dev),
@@ -68,6 +93,54 @@ def _rows(rows, n: int, device) -> torch.Tensor:
     if rows is None:
         return torch.arange(n, device=device)
     return torch.as_tensor(rows, device=device).long()
+
+
+class _Owned:
+    """The rows of a contiguous call whose slots this rank's cache holds:
+    ``idx`` their positions in the call, ``slots`` their cache rows here,
+    and how to put the ranks' outputs back in the call's order."""
+
+    def __init__(self, shards: LocalShards, rows: torch.Tensor, n: int):
+        p = shards.parts("batch", n)
+        per = n // p
+        owner = (rows // per).cpu()
+        me = shards.index[shards.axis("batch")]
+        self.shards = shards
+        self.counts = [int((owner == j).sum()) for j in range(p)]
+        self.idx = (owner == me).nonzero(as_tuple=True)[0].to(rows.device)
+        self.slots = rows[self.idx] - me * per
+        self.order = torch.cat([(owner == j).nonzero(as_tuple=True)[0]
+                                for j in range(p)]).to(rows.device)
+
+    def merge(self, x: torch.Tensor) -> torch.Tensor:
+        """The call's rows of ``x`` from each rank's own rows."""
+        got = self.shards.gather_rows(x, "batch", self.counts)
+        out = torch.empty_like(got)
+        out[self.order] = got
+        return out
+
+
+def _owned(rows: torch.Tensor, n: int) -> Optional[_Owned]:
+    """None when this rank holds every slot of an ``n``-slot cache."""
+    shards = current_shards()
+    if shards is None or shards.parts("batch", n) == 1:
+        return None
+    return _Owned(shards, rows, n)
+
+
+def _row_block(n: int) -> Tuple[int, int]:
+    """This rank's rows of a paged call of ``n`` rows: an even block of
+    the batch axis, or all of them when it does not divide ``n``."""
+    shards = current_shards()
+    return (0, n) if shards is None else shards.block(n, "batch")
+
+
+def _gather_batch(x: torch.Tensor, n: int) -> torch.Tensor:
+    """Dim 0 (``n`` rows) whole from each rank's ``_row_block``."""
+    shards = current_shards()
+    if shards is None or shards.parts("batch", n) == 1:
+        return x
+    return shards.gather(x, 0, "batch")
 
 
 def _last_real(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -82,15 +155,34 @@ def _masked_attention(q, k_c, v_c, valid, config: LlamaConfig):
     probabilities rounded to the cache dtype and the output to the compute
     dtype, as in the JAX package."""
     c = config
-    B, S = q.shape[:2]
-    G = c.n_heads // c.n_kv_heads
-    qg = q.reshape(B, S, c.n_kv_heads, G, c.head_dim)
+    B, S, H = q.shape[:3]
+    KV = k_c.shape[2]  # the local heads on a mesh
+    qg = q.reshape(B, S, KV, H // KV, c.head_dim)
     scores = torch.einsum("bskgd,bckd->bkgsc", qg.float(),
                           k_c.float()) * c.head_dim ** -0.5
     scores = scores.masked_fill(~valid[:, None, None], _NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(v_c.dtype)
     att = torch.einsum("bkgsc,bckd->bskgd", probs.float(), v_c.float())
-    return att.to(v_c.dtype).reshape(B, S, c.n_heads, c.head_dim).to(q.dtype)
+    return att.to(v_c.dtype).reshape(B, S, H, c.head_dim).to(q.dtype)
+
+
+def _empty_logits(config: LlamaConfig, device) -> torch.Tensor:
+    return torch.empty((0, config.vocab_size), dtype=torch.float32,
+                       device=device)
+
+
+def _prefill_hidden(params, tokens: torch.Tensor, config: LlamaConfig,
+                    write) -> torch.Tensor:
+    """The full causal forward of (B, S) prompts, handing each layer's
+    roped k and v (the ones it attended with) to ``write(i, k, v)``.
+    Returns the final-norm hidden states (B, S, E)."""
+    c = config
+    x = embed(params, tokens, c)
+    cos, sin = rope_tables(c, tokens.device)
+    for i in range(c.n_layers):
+        x, k, v = decoder_layer_kv(c, x, layer_params(params, i), cos, sin)
+        write(i, k, v)
+    return rms_norm(x, params["final_norm"], c.norm_eps)
 
 
 def prefill(params, tokens: torch.Tensor, cache: Cache, config: LlamaConfig,
@@ -114,16 +206,21 @@ def prefill(params, tokens: torch.Tensor, cache: Cache, config: LlamaConfig,
     if lengths is None:
         lengths = torch.full((B,), S, dtype=torch.int32, device=dev)
     rows = _rows(rows, B, dev)
-    x = embed(params, tokens, c)
-    cos, sin = rope_tables(c, dev)
-    for i in range(c.n_layers):
-        x, k, v = decoder_layer_kv(c, x, layer_params(params, i), cos, sin)
+    cache["length"][rows] = lengths.to(torch.int32)
+    own = _owned(rows, cache["length"].shape[0])
+    if own is not None:
+        tokens, lengths, rows = tokens[own.idx], lengths[own.idx], own.slots
+        if not len(rows):  # this rank holds none of the call's slots
+            return own.merge(_empty_logits(c, dev)), cache
+
+    def write(i, k, v):
         cache["k"][i, rows, :S] = k.to(cache["k"].dtype)
         cache["v"][i, rows, :S] = v.to(cache["v"].dtype)
-    cache["length"][rows] = lengths.to(torch.int32)
-    x = rms_norm(x, params["final_norm"], c.norm_eps)
+
+    x = _prefill_hidden(params, tokens, c, write)
     x_last = _last_real(x, (lengths - 1).clamp(0, S - 1))
-    return logits_f32(params, x_last), cache
+    logits = logits_f32(params, x_last)
+    return (logits if own is None else own.merge(logits)), cache
 
 
 def prefill_suffix(params, tokens: torch.Tensor, cache: Cache,
@@ -145,10 +242,19 @@ def prefill_suffix(params, tokens: torch.Tensor, cache: Cache,
     capacity = cache["k"].shape[2]
     dev = tokens.device
     rows = _rows(rows, B, dev)
+    lengths = lengths.to(dev)
+    cache["length"][rows] = lengths.to(torch.int32)
     prefix_lens = prefix_lens.to(dev).long()
     abs_pos = prefix_lens[:, None] + torch.arange(S, device=dev)[None, :]
-    # Attention reads only up to the furthest position written or needed.
+    # Attention reads only up to the furthest position written or needed
+    # by any row of the call.
     lim = min(capacity, int(abs_pos.max()) + 1)
+    own = _owned(rows, cache["length"].shape[0])
+    if own is not None:
+        tokens, lengths, rows = tokens[own.idx], lengths[own.idx], own.slots
+        prefix_lens, abs_pos = prefix_lens[own.idx], abs_pos[own.idx]
+        if not len(rows):
+            return own.merge(_empty_logits(c, dev)), cache
     valid = (torch.arange(lim, device=dev)[None, None, :]
              <= abs_pos[:, :, None])                           # (B, S, lim)
     wb, ws = (abs_pos < capacity).nonzero(as_tuple=True)      # kept writes
@@ -167,10 +273,10 @@ def prefill_suffix(params, tokens: torch.Tensor, cache: Cache,
         vc[w_rows, w_pos] = v_new[wb, ws].to(vc.dtype)
         att = _masked_attention(q, kc[rows, :lim], vc[rows, :lim], valid, c)
         x = mlp(layer, x + out_proj(layer, att.to(x.dtype)), c)
-    cache["length"][rows] = lengths.to(dev, torch.int32)
     x = rms_norm(x, params["final_norm"], c.norm_eps)
-    idx = (lengths.to(dev).long() - prefix_lens - 1).clamp(0, S - 1)
-    return logits_f32(params, _last_real(x, idx)), cache
+    idx = (lengths.long() - prefix_lens - 1).clamp(0, S - 1)
+    logits = logits_f32(params, _last_real(x, idx))
+    return (logits if own is None else own.merge(logits)), cache
 
 
 def decode_step(params, cache: Cache, tokens: torch.Tensor,
@@ -182,12 +288,16 @@ def decode_step(params, cache: Cache, tokens: torch.Tensor,
     every length advances by one. A row whose cursor has walked past the
     cache (an idle slot never re-parked) has its write dropped, as XLA
     drops it. Attention runs over the live prefix ``[0, max(length)]``
-    only: the positions past it are masked to exact zeros anyway."""
+    of all slots only: the positions past it are masked to exact zeros
+    anyway."""
     c = config
     dev = tokens.device
     capacity = cache["k"].shape[2]
+    n = cache["length"].shape[0]
     pos = cache["length"].long()
     lim = min(capacity, int(pos.max()) + 1)
+    lo, hi = _row_block(n)  # the slots this rank's cache holds
+    pos, tokens = pos[lo:hi], tokens[lo:hi]
     w_rows = (pos < capacity).nonzero(as_tuple=True)[0]
     w_pos = pos[w_rows]
     valid = (torch.arange(lim, device=dev)[None, :]
@@ -208,7 +318,7 @@ def decode_step(params, cache: Cache, tokens: torch.Tensor,
         x = mlp(layer, x + out_proj(layer, att.to(x.dtype)), c)
     cache["length"] += 1
     x = rms_norm(x, params["final_norm"], c.norm_eps)
-    return logits_f32(params, x[:, 0]), cache
+    return _gather_batch(logits_f32(params, x[:, 0]), n), cache
 
 
 def decode_chunk(params, cache: Cache, tokens: torch.Tensor,
@@ -245,10 +355,12 @@ def decode_chunk(params, cache: Cache, tokens: torch.Tensor,
 def init_page_pool(config: LlamaConfig, pages: int, page_tokens: int,
                    dtype: Optional[torch.dtype] = None, device=None) -> Cache:
     """Zeroed paged KV pool: ``pages`` usable pages of ``page_tokens``
-    tokens each, plus the scratch page 0 (so ``pages + 1`` page rows)."""
+    tokens each, plus the scratch page 0 (so ``pages + 1`` page rows);
+    under ``local_shards``, of this rank's kv heads."""
     c = config
     dev = resolve_device(device)
-    shape = (c.n_layers, pages + 1, page_tokens, c.n_kv_heads, c.head_dim)
+    shape = _local((c.n_layers, pages + 1, page_tokens, c.n_kv_heads,
+                    c.head_dim), POOL_AXES)
     dt = dtype or c.dtype
     return {"k": torch.zeros(shape, dtype=dt, device=dev),
             "v": torch.zeros(shape, dtype=dt, device=dev)}
@@ -277,15 +389,24 @@ def _gather_pages(pool_layer: torch.Tensor, block_tables: torch.Tensor
     return pool_layer[block_tables].reshape(B, W * T, *pool_layer.shape[2:])
 
 
+def _write_pages(pool: Cache, i: int, pages, offs, k, v, n: int) -> None:
+    """Layer ``i``'s K/V of this rank's rows into the pool at
+    (``pages``, ``offs``) of all ``n`` rows: on a batch-split mesh the rows
+    are gathered first, so every rank's pool gets every write."""
+    kp, vp = pool["k"][i], pool["v"][i]
+    kp[pages, offs] = _gather_batch(k, n).to(kp.dtype)
+    vp[pages, offs] = _gather_batch(v, n).to(vp.dtype)
+
+
 def paged_prefill(params, tokens: torch.Tensor, pool: Cache,
                   block_tables: torch.Tensor, config: LlamaConfig,
                   lengths: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, Cache]:
     """Full prefill of right-padded prompts (B, S) scattered into pool
-    pages. The attention is the plain causal ``prefill`` (a fresh prompt
-    attends only to itself, no pool reads) into a scratch cache; position
-    ``p`` of row ``b`` then lands in page ``block_tables[b, p // T]`` at
-    offset ``p % T``, in place.
+    pages. The attention is the plain causal forward (a fresh prompt
+    attends only to itself, no pool reads); each layer's position ``p``
+    of row ``b`` lands in page ``block_tables[b, p // T]`` at offset
+    ``p % T``, in place.
 
     ``block_tables``: (B, W) with ``W * T >= S``. Pad positions past a
     row's real length scatter into whatever page backs them, the row's own
@@ -300,17 +421,17 @@ def paged_prefill(params, tokens: torch.Tensor, pool: Cache,
     if bt.shape[1] * T < S:
         raise ValueError(f"block tables of {bt.shape[1]} pages x {T} "
                          f"tokens do not cover the prompt bucket {S}")
-    shape = (c.n_layers, B, S, c.n_kv_heads, c.head_dim)
-    scratch = {"k": torch.empty(shape, dtype=pool["k"].dtype, device=dev),
-               "v": torch.empty(shape, dtype=pool["v"].dtype, device=dev),
-               "length": torch.zeros((B,), dtype=torch.int32, device=dev)}
-    logits, scratch = prefill(params, tokens, scratch, c, lengths)
+    if lengths is None:
+        lengths = torch.full((B,), S, dtype=torch.int32, device=dev)
     pos = torch.arange(S, device=dev)
     pages = bt[:, pos // T]                                     # (B, S)
     offs = (pos % T).expand(B, S)
-    pool["k"][:, pages, offs] = scratch["k"]
-    pool["v"][:, pages, offs] = scratch["v"]
-    return logits, pool
+    lo, hi = _row_block(B)
+    x = _prefill_hidden(
+        params, tokens[lo:hi], c,
+        lambda i, k, v: _write_pages(pool, i, pages, offs, k, v, B))
+    x_last = _last_real(x, (lengths.to(dev)[lo:hi] - 1).clamp(0, S - 1))
+    return _gather_batch(logits_f32(params, x_last), B), pool
 
 
 def _paged_forward(params, tokens: torch.Tensor, pool: Cache,
@@ -320,7 +441,8 @@ def _paged_forward(params, tokens: torch.Tensor, pool: Cache,
     against the pages ``block_tables`` (B, W) maps: each layer writes its
     K/V in place at the rows' absolute positions (past the ``W * T``
     window: the scratch page) BEFORE it gathers, so each query sees its
-    own causal K/V. Returns the final-norm hidden states (B, S, E)."""
+    own causal K/V. Returns the final-norm hidden states of this rank's
+    rows (``_row_block(B)``; all B without a mesh), (B, S, E)."""
     c = config
     B, S = tokens.shape
     dev = tokens.device
@@ -330,10 +452,12 @@ def _paged_forward(params, tokens: torch.Tensor, pool: Cache,
     abs_pos = prefix_lens.to(dev).long()[:, None] \
         + torch.arange(S, device=dev)[None, :]
     pages, offs = _page_slots(bt, abs_pos, T)                   # (B, S)
+    lo, hi = _row_block(B)
+    bt, abs_pos = bt[lo:hi], abs_pos[lo:hi]
     valid = (torch.arange(C, device=dev)[None, None, :]
              <= abs_pos[:, :, None])                            # (B, S, C)
     rope_pos = abs_pos.clamp(max=c.max_seq_len - 1)
-    x = embed(params, tokens, c)
+    x = embed(params, tokens[lo:hi], c)
     cos, sin = rope_tables(c, dev)
     for i in range(c.n_layers):
         layer = layer_params(params, i)
@@ -341,11 +465,9 @@ def _paged_forward(params, tokens: torch.Tensor, pool: Cache,
         q, k_new, v_new = qkv(layer, h, c)
         q = apply_rope(q, cos, sin, positions=rope_pos)
         k_new = apply_rope(k_new, cos, sin, positions=rope_pos)
-        kp, vp = pool["k"][i], pool["v"][i]
-        kp[pages, offs] = k_new.to(kp.dtype)
-        vp[pages, offs] = v_new.to(vp.dtype)
-        att = _masked_attention(q, _gather_pages(kp, bt),
-                                _gather_pages(vp, bt), valid, c)
+        _write_pages(pool, i, pages, offs, k_new, v_new, B)
+        att = _masked_attention(q, _gather_pages(pool["k"][i], bt),
+                                _gather_pages(pool["v"][i], bt), valid, c)
         x = mlp(layer, x + out_proj(layer, att.to(x.dtype)), c)
     return rms_norm(x, params["final_norm"], c.norm_eps)
 
@@ -367,13 +489,14 @@ def paged_prefill_suffix(params, tokens: torch.Tensor, pool: Cache,
     pad positions past the window go to the scratch page. ``lengths`` is
     each row's TOTAL length. Returns ``(last_logits (B, V) fp32, pool)``
     at each row's final real token."""
-    S = tokens.shape[1]
+    B, S = tokens.shape
     x = _paged_forward(params, tokens, pool, block_tables, config,
                        prefix_lens)
     dev = tokens.device
+    lo, hi = _row_block(B)
     idx = (lengths.to(dev).long() - prefix_lens.to(dev).long() - 1).clamp(
-        0, S - 1)
-    return logits_f32(params, _last_real(x, idx)), pool
+        0, S - 1)[lo:hi]
+    return _gather_batch(logits_f32(params, _last_real(x, idx)), B), pool
 
 
 def paged_decode_step(params, pool: Cache, block_tables: torch.Tensor,
@@ -392,15 +515,18 @@ def paged_decode_step(params, pool: Cache, block_tables: torch.Tensor,
     host."""
     c = config
     dev = tokens.device
+    B = tokens.shape[0]
     T = pool["k"].shape[2]
     bt = block_tables.to(dev).long()
     C = bt.shape[1] * T
     pos = lengths.to(dev).long()
     page, off = _page_slots(bt, pos, T)                         # (B,)
+    lo, hi = _row_block(B)
+    bt, rpos = bt[lo:hi], pos[lo:hi]
     valid = (torch.arange(C, device=dev)[None, :]
-             <= pos[:, None])[:, None, :]                       # (B, 1, C)
-    rope_pos = pos.clamp(max=c.max_seq_len - 1)[:, None]
-    x = embed(params, tokens, c)[:, None]                       # (B, 1, E)
+             <= rpos[:, None])[:, None, :]                      # (B, 1, C)
+    rope_pos = rpos.clamp(max=c.max_seq_len - 1)[:, None]
+    x = embed(params, tokens[lo:hi], c)[:, None]                # (B, 1, E)
     cos, sin = rope_tables(c, dev)
     for i in range(c.n_layers):
         layer = layer_params(params, i)
@@ -408,14 +534,13 @@ def paged_decode_step(params, pool: Cache, block_tables: torch.Tensor,
         q, k_new, v_new = qkv(layer, h, c)                      # (B, 1, ., D)
         q = apply_rope(q, cos, sin, positions=rope_pos)
         k_new = apply_rope(k_new, cos, sin, positions=rope_pos)
-        kp, vp = pool["k"][i], pool["v"][i]
-        kp[page, off] = k_new[:, 0].to(kp.dtype)
-        vp[page, off] = v_new[:, 0].to(vp.dtype)
-        att = _masked_attention(q, _gather_pages(kp, bt),
-                                _gather_pages(vp, bt), valid, c)
+        _write_pages(pool, i, page, off, k_new[:, 0], v_new[:, 0], B)
+        att = _masked_attention(q, _gather_pages(pool["k"][i], bt),
+                                _gather_pages(pool["v"][i], bt), valid, c)
         x = mlp(layer, x + out_proj(layer, att.to(x.dtype)), c)
     x = rms_norm(x, params["final_norm"], c.norm_eps)
-    return logits_f32(params, x[:, 0]), pool, (pos + 1).to(torch.int32)
+    logits = _gather_batch(logits_f32(params, x[:, 0]), B)
+    return logits, pool, (pos + 1).to(torch.int32)
 
 
 def paged_decode_chunk(params, pool: Cache, block_tables: torch.Tensor,
@@ -466,7 +591,7 @@ def paged_verify(params, tokens: torch.Tensor, pool: Cache,
     ``prefix_lens + S`` positions of every live row."""
     x = _paged_forward(params, tokens, pool, block_tables, config,
                        prefix_lens)
-    return logits_f32(params, x), pool
+    return _gather_batch(logits_f32(params, x), tokens.shape[0]), pool
 
 
 def paged_spec_draft(params, pool: Cache, block_tables: torch.Tensor,
@@ -495,6 +620,112 @@ def paged_spec_draft(params, pool: Cache, block_tables: torch.Tensor,
         tok = torch.argmax(logits, dim=-1).to(torch.int32)
         out.append(tok)
     return torch.stack(out, dim=1), pool
+
+
+# ------------------------------------------------- serving on a mesh
+#
+# One replica over a ``parallel.mesh.decode_mesh`` ("batch", "model"):
+# ``shard_decode_state`` cuts the weights to this rank's shards under the
+# decode rules, and the functions above, run under ``local_shards`` of the
+# bundle's ``"local"``, keep the KV state in the bundle's layouts.
+
+
+def decode_shardings(config: LlamaConfig, mesh) -> Dict[str, Any]:
+    """The decode replica's layouts on ``mesh``: the rule table resolved
+    for ``config`` (``decode_rules``), ``NamedSharding``s of the params,
+    the contiguous cache, the paged pool, the contiguous prefix pool and
+    the replicated outputs, and ``"local"``: this rank's ``LocalShards``
+    under those rules."""
+    from ray_tpu_torch.models.llama import decode_param_axes
+
+    rules = decode_rules(config, mesh)
+    return {"rules": rules,
+            "params": tree_shardings(mesh, decode_param_axes(config), rules),
+            **decode_state_shardings(mesh, rules),
+            "local": LocalShards(mesh, rules)}
+
+
+def _take_fused(config: LlamaConfig, shards: LocalShards):
+    """``shard_local``'s hook for the fused projections: a rank's block of
+    ``wqkv`` is its q heads, then its k and v heads, and of ``w_gate_up``
+    its gate columns, then its up columns, so ``qkv`` and ``mlp_hidden``
+    split their local products as they split the whole ones."""
+    c = config
+
+    def take(path, t, axes):
+        if path.endswith("layers/wqkv"):
+            q, k, v = t.split([c.n_heads, c.n_kv_heads, c.n_kv_heads], 2)
+            return torch.cat([shards.take(q, 2, "heads"),
+                              shards.take(k, 2, "kv_heads"),
+                              shards.take(v, 2, "kv_heads")], 2)
+        if path.endswith("layers/w_gate_up"):
+            return torch.cat([shards.take(w, 2, "mlp")
+                              for w in t.chunk(2, 2)], 2)
+        return None
+
+    return take
+
+
+def shard_decode_state(params: Dict[str, Any], config: LlamaConfig, mesh
+                       ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """``(this rank's shards of params, decode_shardings(config, mesh))``.
+    ``params`` is the full tree (the same on every rank); a weight that
+    stays whole on this mesh is returned as is, a sharded one as a copy of
+    this rank's block."""
+    from ray_tpu_torch.models.llama import decode_param_axes
+
+    bundle = decode_shardings(config, mesh)
+    local = bundle["local"]
+    return shard_local(params, decode_param_axes(config), local,
+                       take=_take_fused(config, local)), bundle
+
+
+def init_prefix_pool(config: LlamaConfig, entries: int, capacity: int,
+                     dtype: Optional[torch.dtype] = None,
+                     device=None) -> Cache:
+    """Zeroed contiguous prefix pool: ``entries`` rows of ``capacity``
+    tokens (under ``local_shards``: every row, this rank's kv heads)."""
+    c = config
+    shape = _local((c.n_layers, entries, capacity, c.n_kv_heads,
+                    c.head_dim), POOL_AXES)
+    dt = dtype or c.dtype
+    dev = resolve_device(device)
+    return {"k": torch.zeros(shape, dtype=dt, device=dev),
+            "v": torch.zeros(shape, dtype=dt, device=dev)}
+
+
+def prefix_splice(cache: Cache, pool: Cache, slots: torch.Tensor,
+                  entries: torch.Tensor) -> None:
+    """Copy contiguous prefix-pool rows ``entries`` into cache rows
+    ``slots`` (the whole pool row, positions ``[0, Cp)``) in place; on a
+    mesh each rank copies into the slots its cache holds (the pool is
+    whole over "batch")."""
+    own = _owned(slots, cache["length"].shape[0])
+    if own is not None:
+        slots, entries = own.slots, entries[own.idx]
+    cp = pool["k"].shape[2]
+    cache["k"][:, slots, :cp] = pool["k"][:, entries]
+    cache["v"][:, slots, :cp] = pool["v"][:, entries]
+
+
+def prefix_insert(cache: Cache, pool: Cache, slot: int, row: int) -> None:
+    """Copy cache row ``slot``'s leading ``Cp`` positions into prefix-pool
+    row ``row`` in place; on a batch-split mesh the rank holding the slot
+    copies it and broadcasts the row over "batch"."""
+    cp = pool["k"].shape[2]
+    shards = current_shards()
+    n = cache["length"].shape[0]
+    p = 1 if shards is None else shards.parts("batch", n)
+    if p == 1:
+        pool["k"][:, row] = cache["k"][:, slot, :cp]
+        pool["v"][:, row] = cache["v"][:, slot, :cp]
+        return
+    per = n // p
+    owner, me = slot // per, shards.index[shards.axis("batch")]
+    for name in ("k", "v"):
+        buf = (cache[name][:, slot - me * per, :cp].contiguous()
+               if me == owner else torch.empty_like(pool[name][:, row]))
+        pool[name][:, row] = shards.broadcast(buf, "batch", owner)
 
 
 def _sample(logits: torch.Tensor, temperature: float,

@@ -18,6 +18,12 @@ with only the axes larger than one. Sharding propagation enumerates its
 strategies over every mesh dim, so size-1 axes would cost it time for
 nothing; ``on_mesh`` moves a DTensor between the two meshes without a
 copy.
+
+Serving on a decode mesh takes no DTensor: each rank keeps its local
+shard of every weight and of the KV state as a plain tensor
+(``shard_local``), and the model gathers at the points where the JAX
+package's ``constrain`` sites replicate a dim (``LocalShards``,
+``gather_local``), a no-op outside ``local_shards``.
 """
 
 from __future__ import annotations
@@ -325,3 +331,188 @@ def shard_map(fn: Callable, mesh, in_specs: Sequence[Spec],
         return tuple(res) if multi else res[0]
 
     return wrapped
+
+
+# ------------------------------------------------ local shards (serving)
+#
+# The decode mesh runs the serving functions on plain local tensors: each
+# rank holds its block of every sharded dim, and the model all-gathers
+# where the rules replicate a dim the tensor is sharded on (before ``wo``,
+# before ``w_down``, over the vocab before sampling, over the batch for
+# outputs every rank needs). No contraction dim is ever split, so every
+# output element is computed in the single-device order, and a gather
+# only moves bits.
+
+# Decode-state layouts, the JAX ``decode_shardings``: contiguous KV rows
+# shard slots over "batch" and kv heads over "model"; the paged pool and
+# the contiguous prefix pool shard only kv heads, so every batch rank
+# holds every page; the per-slot ``length`` cursor is replicated.
+KV_ROW_AXES = ("layers", "batch", None, "kv_heads", "head_dim")
+POOL_AXES = ("layers", None, None, "kv_heads", "head_dim")
+LENGTH_AXES: Spec = ()
+
+
+def decode_state_shardings(mesh, rules: Rules) -> Dict[str, Any]:
+    """``NamedSharding``s of the decode state on ``mesh``: the contiguous
+    cache, the paged pool, the contiguous prefix pool and the replicated
+    host-facing outputs."""
+    def ns(axes):
+        return NamedSharding(mesh, spec_for(axes, rules))
+
+    rep = NamedSharding(mesh, ())
+    return {"cache": {"k": ns(KV_ROW_AXES), "v": ns(KV_ROW_AXES),
+                      "length": rep},
+            "pool": {"k": ns(POOL_AXES), "v": ns(POOL_AXES),
+                     "length": rep},
+            "prefix_pool": {"k": ns(POOL_AXES), "v": ns(POOL_AXES)},
+            "replicated": rep}
+
+
+class LocalShards:
+    """This rank's view of a decode mesh under a rule table: the mesh axis
+    each logical axis shards over (axes of size one never shard), this
+    rank's block of such a dim, and the collectives over that axis's
+    process group. Dims split into equal blocks in mesh order, as
+    ``Shard(d)`` splits them; a dim the axis does not divide stays whole
+    (``block``), and is never padded."""
+
+    def __init__(self, mesh, rules: Rules):
+        self.mesh = mesh
+        self.rules = rules
+        self.sizes = axis_sizes(mesh)
+        self.index = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+        self._groups = {a: mesh.get_group(a)
+                        for a, s in self.sizes.items() if s > 1}
+
+    def axis(self, logical: Optional[str]) -> Optional[str]:
+        """The mesh axis (larger than one) ``logical`` shards over."""
+        part = None if logical is None else self.rules[logical]
+        if isinstance(part, tuple):
+            raise ValueError(f"local shards take one mesh axis a logical "
+                             f"axis, {logical!r} maps to {part}")
+        return part if part is not None and self.sizes[part] > 1 else None
+
+    def parts(self, logical: Optional[str], n: Optional[int] = None) -> int:
+        """How many blocks ``logical`` splits a dim of ``n`` into."""
+        a = self.axis(logical)
+        if a is None or (n is not None and n % self.sizes[a]):
+            return 1
+        return self.sizes[a]
+
+    def block(self, n: int, logical: Optional[str]) -> Tuple[int, int]:
+        """This rank's ``[lo, hi)`` of a dim of ``n`` split by ``logical``."""
+        p = self.parts(logical, n)
+        if p == 1:
+            return 0, n
+        i = self.index[self.axis(logical)]
+        return i * n // p, (i + 1) * n // p
+
+    def local_shape(self, shape: Sequence[int],
+                    axes: Sequence[Optional[str]]) -> Tuple[int, ...]:
+        """This rank's shard shape of a tensor of ``shape`` laid out by
+        ``axes``."""
+        return tuple(hi - lo for lo, hi in (
+            self.block(n, a) for n, a in zip(shape, axes)))
+
+    def take(self, x: torch.Tensor, dim: int,
+             logical: Optional[str]) -> torch.Tensor:
+        """This rank's block of the full ``x`` along ``dim`` (a view)."""
+        lo, hi = self.block(x.shape[dim], logical)
+        return x if hi - lo == x.shape[dim] else x.narrow(dim, lo, hi - lo)
+
+    def gather(self, x: torch.Tensor, dim: int,
+               logical: Optional[str]) -> torch.Tensor:
+        """The whole dim from each rank's block along ``dim``."""
+        a = self.axis(logical)
+        if a is None:
+            return x
+        import torch.distributed as dist
+
+        parts = [torch.empty_like(x) for _ in range(self.sizes[a])]
+        dist.all_gather(parts, x.contiguous(), group=self._groups[a])
+        return torch.cat(parts, dim)
+
+    def gather_rows(self, x: torch.Tensor, logical: Optional[str],
+                    counts: Sequence[int]) -> torch.Tensor:
+        """Dim 0 from blocks of ``counts[j]`` rows on the ``j``-th rank of
+        ``logical``'s axis (uneven, some possibly empty): each block is
+        padded to the largest, gathered and cut back."""
+        a = self.axis(logical)
+        if a is None:
+            return x
+        import torch.distributed as dist
+
+        most = max(counts)
+        pad = x.new_zeros((most,) + tuple(x.shape[1:]))
+        pad[:x.shape[0]] = x
+        parts = [torch.empty_like(pad) for _ in counts]
+        dist.all_gather(parts, pad, group=self._groups[a])
+        return torch.cat([p[:n] for p, n in zip(parts, counts)])
+
+    def sum(self, x: torch.Tensor, logical: Optional[str]) -> torch.Tensor:
+        """The sum over ``logical``'s axis (in place)."""
+        a = self.axis(logical)
+        if a is not None:
+            import torch.distributed as dist
+
+            dist.all_reduce(x, group=self._groups[a])
+        return x
+
+    def broadcast(self, x: torch.Tensor, logical: Optional[str],
+                  src: int) -> torch.Tensor:
+        """``x`` from the rank at index ``src`` of ``logical``'s axis (in
+        place, on every rank of the axis)."""
+        a = self.axis(logical)
+        if a is not None:
+            import torch.distributed as dist
+
+            group = self._groups[a]
+            dist.broadcast(x, src=dist.get_global_rank(group, src),
+                           group=group)
+        return x
+
+
+_local = threading.local()
+
+
+@contextmanager
+def local_shards(shards: Optional[LocalShards]):
+    """Run the serving functions on this rank's local shards."""
+    prev = getattr(_local, "value", None)
+    _local.value = shards
+    try:
+        yield
+    finally:
+        _local.value = prev
+
+
+def current_shards() -> Optional[LocalShards]:
+    return getattr(_local, "value", None)
+
+
+def gather_local(x: torch.Tensor, dim: int,
+                 logical: Optional[str]) -> torch.Tensor:
+    """All-gather ``x``'s ``dim``, sharded by ``logical``, under
+    ``local_shards``; ``x`` itself outside it (one device, or DTensors)."""
+    shards = current_shards()
+    return x if shards is None else shards.gather(x, dim, logical)
+
+
+def shard_local(tree: Any, axes_tree: Any, shards: LocalShards,
+                take: Optional[Callable] = None) -> Any:
+    """This rank's shard of every leaf of a tree of full tensors, by the
+    matching tree of logical axes. A leaf that is a strict block of its
+    tensor is copied, so the full tensor can be freed; a whole one is
+    returned as is. ``take(path, leaf, axes)`` may return a leaf's shard
+    itself (fused projections), or None for the default."""
+    def go(t, axes, path):
+        if isinstance(t, dict):
+            return {k: go(t[k], axes[k], f"{path}{k}/") for k in t}
+        x = take(path[:-1], t, axes) if take is not None else None
+        if x is None:
+            x = t
+            for dim, logical in enumerate(axes or ()):
+                x = shards.take(x, dim, logical)
+        return x.clone() if x.numel() < t.numel() else x
+
+    return go(tree, axes_tree, "")

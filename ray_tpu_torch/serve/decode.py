@@ -58,13 +58,23 @@ handoff).
   publishes payloads as leases on the object plane's stand-in
   (``core.api``) and the ledger of ``serve.handoff``.
 
+* Decode mesh (``mesh_shape`` / ``mesh``, or the ``decode_mesh_shape``
+  knob): one replica over a ``(batch, model)`` mesh of ranks, one process
+  a card, each running this engine on its local shards of the weights
+  and the KV state (``llama_decode.shard_decode_state``); logits come
+  back whole on every rank. Rank 0 alone takes ``submit`` and
+  ``cancel`` and reads the clock; every step it broadcasts the step's
+  intake, cancels, expired deadlines and stop (``serve.spmd.Lockstep``),
+  so all ranks take the same decisions and issue the same collectives.
+  Requests, outputs and metrics live on rank 0.
+
 Single-threaded by design: ``serve_forever`` is the only consumer; intake
 (``submit``/``cancel``) is thread-safe, and an adopt payload rides its
 request into the loop thread, which alone touches the pool. Not ported
-yet (ROADMAP.md queue 1): decode meshes (item 3); the trace spans (left
-from item 1: they record into the runtime's request traces), the actor
-runtime, serve controller, router splice and HTTP proxy that run the
-deployment as replicas (item 4).
+yet (ROADMAP.md queue 1, item 4): the trace spans (left from item 1: they
+record into the runtime's request traces), and the actor runtime, serve
+controller, router splice and HTTP proxy that run the deployment as
+replicas, and spawn a mesh replica's ranks.
 """
 
 from __future__ import annotations
@@ -84,15 +94,19 @@ import torch
 from ray_tpu_torch.core import api
 from ray_tpu_torch.core.config import config as rt_config
 from ray_tpu_torch.core.device import not_ported, resolve_device
+from ray_tpu_torch.core.topology import parse_topology
 from ray_tpu_torch.core.errors import (DeadlineExceededError,
                                        HandoffAdoptError, OverloadedError,
                                        RequestCancelledError)
 from ray_tpu_torch.models import llama
 from ray_tpu_torch.models import llama_decode as ld
+from ray_tpu_torch.parallel.mesh import axis_sizes, decode_mesh
+from ray_tpu_torch.parallel.sharding import local_shards
 from ray_tpu_torch.serve import metrics as smetrics
 from ray_tpu_torch.serve.handoff import HandoffLedger, descriptor_nbytes
 from ray_tpu_torch.serve.paging import PageAllocator, PagedPrefixIndex
 from ray_tpu_torch.serve.prefix_cache import PrefixCache
+from ray_tpu_torch.serve.spmd import Lockstep
 from ray_tpu_torch.serve.steplog import StepTimeline
 
 logger = logging.getLogger(__name__)
@@ -144,6 +158,8 @@ class _Request:
     spec_proposed: int = 0                 # draft tokens proposed for this
     #   request across its spec rounds
     spec_accepted: int = 0                 # of those, verified-accepted
+    expired: bool = False                  # a mesh replica's rank 0 found
+    #   its deadline passed (the only deadline decision on a mesh)
 
     def raise_for_status(self) -> None:
         """Re-raise this request's terminal outcome as its typed error."""
@@ -178,7 +194,16 @@ class DecodeEngine:
     as the target's). ``step_timeline`` sizes the step-timeline ring (0
     turns it off). ``metrics_enabled`` (default ``serve_metrics_enabled``)
     observes the serve SLO metrics under the tag ``{"deployment":
-    metrics_deployment or "-"}``."""
+    metrics_deployment or "-"}``.
+
+    ``mesh_shape`` (``(batch, model)``; default the ``decode_mesh_shape``
+    knob) or ``mesh`` (a ``parallel.mesh.decode_mesh``) makes the engine
+    one replica over a mesh that spans every rank of the default process
+    group: build it on every rank from the same full ``params``; drive it
+    with ``serve_forever`` on every rank, or with ``step()`` on every rank
+    the same number of times. Only rank 0 takes ``submit``/``cancel``;
+    its ``shutdown()`` stops every rank's loop (outside ``serve_forever``,
+    at once)."""
 
     def __init__(self, params, config, slots: int = 4,
                  capacity: int = 1024, prefill_bucket: int = 128,
@@ -191,7 +216,7 @@ class DecodeEngine:
                  pool_pages: Optional[int] = None,
                  prefill_chunk_tokens: Optional[int] = None,
                  prefix_max_pages: Optional[int] = None,
-                 mesh_shape=None,
+                 mesh_shape=None, mesh=None,
                  spec_draft_params=None, spec_draft_config=None,
                  spec_k: Optional[int] = None,
                  spec_draft_pool_pages: Optional[int] = None,
@@ -201,9 +226,6 @@ class DecodeEngine:
                  trace_spans: Optional[bool] = None,
                  metrics_deployment: Optional[str] = None,
                  device=None):
-        if mesh_shape is not None or rt_config.decode_mesh_shape:
-            raise not_ported("decode meshes (mesh_shape)",
-                             "item 3, the decode mesh")
         if trace_spans:
             raise not_ported("serve trace spans (trace_spans)",
                              _ENGINE_PATHS)
@@ -214,6 +236,7 @@ class DecodeEngine:
                              f"to run on {self.device}")
         self.params = params
         self.config = config
+        self._init_mesh(mesh, mesh_shape, slots)
         self.slots = slots
         self.capacity = capacity
         self.prefill_bucket = prefill_bucket
@@ -245,8 +268,10 @@ class DecodeEngine:
                   else pool_pages)
             self.pool_pages = int(pp) or slots * self.slot_pages_max
             self._pages = PageAllocator(self.pool_pages)
-            pool = ld.init_page_pool(config, self.pool_pages,
-                                     self.page_tokens, device=self.device)
+            with local_shards(self._shards):
+                pool = ld.init_page_pool(config, self.pool_pages,
+                                         self.page_tokens,
+                                         device=self.device)
             self.cache = {"k": pool["k"], "v": pool["v"],
                           "length": torch.zeros((slots,), dtype=torch.int32,
                                                 device=self.device)}
@@ -254,13 +279,23 @@ class DecodeEngine:
                                           np.int32)
             self._slot_pages: List[List[int]] = [[] for _ in range(slots)]
         else:
-            self.cache = ld.init_cache(config, slots, capacity,
-                                       device=self.device)
+            with local_shards(self._shards):
+                self.cache = ld.init_cache(config, slots, capacity,
+                                           device=self.device)
         self._free = list(range(slots))
         self._active: Dict[int, _Request] = {}
         self._prefilling: Dict[int, _Request] = {}  # chunked, mid-prefill
         self._requeue: List[_Request] = []  # preempted / pushed back, FIFO
         self._pending: "queue.Queue[_Request]" = queue.Queue()
+        # On a mesh, rank 0's intake waits here for the next control
+        # message, which enqueues it on every rank at the same point.
+        self._intake: List[_Request] = []
+        self._intake_cancels: List[str] = []
+        self._purge_due = False  # rank 0's purge decision, broadcast
+        self._halted = False     # a control message said stop
+        self._looping = False    # serve_forever is running
+        self._sync_lock = threading.RLock()  # one control exchange at a
+        #   time: shutdown's, or the loop's
         self._tokens = np.zeros((slots,), np.int32)
         self._rng = np.random.default_rng(0)
         self._stop = threading.Event()
@@ -310,12 +345,9 @@ class DecodeEngine:
         elif entries > 0 and prefix_capacity >= max(2, min_tokens):
             self.prefix = PrefixCache(entries, prefix_capacity,
                                       min_tokens=min_tokens)
-            c = config
-            shape = (c.n_layers, entries, prefix_capacity, c.n_kv_heads,
-                     c.head_dim)
-            self._pool = {
-                "k": torch.zeros(shape, dtype=c.dtype, device=self.device),
-                "v": torch.zeros(shape, dtype=c.dtype, device=self.device)}
+            with local_shards(self._shards):
+                self._pool = ld.init_prefix_pool(
+                    config, entries, prefix_capacity, device=self.device)
         # Device sampler: the step samples on the device and only (slots,)
         # token ids reach the host. Greedy rows equal the host sampler's;
         # sampled rows draw from this generator, re-seeded from the step
@@ -345,9 +377,11 @@ class DecodeEngine:
         self._compiled: set = set()  # program keys dispatched once
         # SLO metrics are per REQUEST (submit, admission, preemption,
         # terminal): nothing here touches the per-token or per-step path.
-        self._obs_metrics = bool(rt_config.serve_metrics_enabled
-                                 if metrics_enabled is None
-                                 else metrics_enabled)
+        # On a mesh only rank 0 observes: the other ranks' requests are
+        # mirrors of its own.
+        self._obs_metrics = self._lead and bool(
+            rt_config.serve_metrics_enabled if metrics_enabled is None
+            else metrics_enabled)
         self._mtags = {"deployment": metrics_deployment or "-"}
         # Disaggregated handoff accounting (engine side; the lease ledger
         # lives on the deployment).
@@ -355,6 +389,51 @@ class DecodeEngine:
         self.handoffs_adopted = 0    # adopted seats completed
         self._init_spec(spec_draft_params, spec_draft_config, spec_k,
                         spec_draft_pool_pages)
+
+    def _init_mesh(self, mesh, mesh_shape, slots: int) -> None:
+        """The decode mesh, if any: this rank's shards of the weights, the
+        kv heads its KV state holds, and the lockstep. The mesh must span
+        exactly the default process group's ranks: a replica never runs
+        on fewer devices than asked."""
+        if mesh is None:
+            shape = mesh_shape
+            if shape is None and rt_config.decode_mesh_shape:
+                shape = parse_topology(rt_config.decode_mesh_shape)
+            if shape is not None:
+                import torch.distributed as dist
+
+                n = int(shape[0]) * int(shape[1])
+                if dist.is_initialized() and dist.get_world_size() != n:
+                    raise ValueError(
+                        f"decode mesh {tuple(shape)} needs {n} ranks, the "
+                        f"process group has {dist.get_world_size()}")
+                mesh = decode_mesh(tuple(shape),
+                                   device_type=self.device.type)
+        self.mesh = mesh
+        self._shards = None
+        self._ctl: Optional[Lockstep] = None
+        if mesh is None:
+            self._lead = True
+            return
+        import torch.distributed as dist
+
+        if mesh.device_type != self.device.type:
+            raise ValueError(f"the mesh is on {mesh.device_type}, the "
+                             f"engine runs on {self.device}")
+        if dist.get_world_size() != mesh.size():
+            raise ValueError(
+                f"the decode mesh spans {mesh.size()} ranks, the process "
+                f"group {dist.get_world_size()}: a replica spans them all")
+        batch = axis_sizes(mesh).get("batch", 1)
+        if slots % batch:
+            raise ValueError(
+                f"slots ({slots}) must be a multiple of the mesh batch "
+                f"axis ({batch}): per-slot cache rows shard over it")
+        self.params, bundle = ld.shard_decode_state(self.params,
+                                                    self.config, mesh)
+        self._shards = bundle["local"]
+        self._ctl = Lockstep(mesh.mesh.flatten().tolist())
+        self._lead = self._ctl.lead
 
     def _init_spec(self, draft_params, draft_config, spec_k,
                    draft_pool_pages) -> None:
@@ -380,12 +459,20 @@ class DecodeEngine:
                              f"on {self.device}")
         self._draft_params = draft_params
         self._draft_config = draft_config
+        self._draft_shards = None
+        if self.mesh is not None:
+            # The draft shards under its own config's rules (its head
+            # counts may divide the model axis where the target's do not).
+            self._draft_params, dsh = ld.shard_decode_state(
+                draft_params, draft_config, self.mesh)
+            self._draft_shards = dsh["local"]
         dpp = (rt_config.spec_draft_pool_pages if draft_pool_pages is None
                else draft_pool_pages)
         self.draft_pool_pages = int(dpp) or self.pool_pages
         self._draft_pages = PageAllocator(self.draft_pool_pages)
-        dpool = ld.init_page_pool(draft_config, self.draft_pool_pages,
-                                  self.page_tokens, device=self.device)
+        with local_shards(self._draft_shards):
+            dpool = ld.init_page_pool(draft_config, self.draft_pool_pages,
+                                      self.page_tokens, device=self.device)
         self._draft_cache = {
             "k": dpool["k"], "v": dpool["v"],
             "length": torch.zeros((self.slots,), dtype=torch.int32,
@@ -588,7 +675,9 @@ class DecodeEngine:
         """Enqueue a request. ``prefill_only`` (paged engines) ends it at
         its first token with ``req.handoff`` holding its pages on the
         host; ``adopt`` (such a payload, shaped as ``_fetch_adopt``
-        returns it) seats it from those pages with no prefill."""
+        returns it) seats it from those pages with no prefill. On a mesh,
+        only rank 0 takes requests."""
+        self._check_lead("submit")
         req = _Request(np.asarray(prompt_tokens, np.int32).reshape(-1),
                        int(max_new_tokens), float(temperature), eos_id,
                        on_token)
@@ -629,7 +718,8 @@ class DecodeEngine:
                     f"expired deadline ({deadline_s:.3f}s)")
             req.deadline = time.monotonic() + float(deadline_s)
         # Load shedding happens HERE, at enqueue.
-        if self._pending.qsize() - self._queued_cancelled >= self.queue_max:
+        if (self._pending.qsize() + len(self._intake)
+                - self._queued_cancelled >= self.queue_max):
             self.shed += 1
             if self._obs_metrics:
                 smetrics.REQUESTS.inc(1.0, {**self._mtags,
@@ -640,10 +730,20 @@ class DecodeEngine:
                 retry_after_s=self.retry_after_estimate_s())
         with self._reqs_lock:
             self._requests[req.request_id] = req
-        self._queued_tokens += len(req.tokens)
-        self._pending.put(req)
+            if self._ctl is not None:
+                # Enqueued on every rank by the next control message.
+                self._intake.append(req)
+        if self._ctl is None:
+            self._queued_tokens += len(req.tokens)
+            self._pending.put(req)
         self._work.set()
         return req
+
+    def _check_lead(self, what: str) -> None:
+        if not self._lead:
+            raise RuntimeError(
+                f"{what} goes to rank 0 of the mesh replica; this is rank "
+                f"{self._ctl.rank}, which follows rank 0's control messages")
 
     def _validate_adopt(self, req: _Request,
                         adopt: Dict[str, Any]) -> None:
@@ -662,7 +762,7 @@ class DecodeEngine:
             raise HandoffAdoptError(
                 f"handoff committed_len ({adopt['committed_len']}) != "
                 f"prompt length ({len(req.tokens)})")
-        pool = tuple(self.cache["k"].shape)  # (L, pages + 1, T, KV, D)
+        pool = self._pool_shape()  # (L, pages + 1, T, KV, D)
         for name in ("k", "v"):
             t = adopt[name]
             if (not isinstance(t, torch.Tensor) or t.ndim != 5
@@ -692,16 +792,102 @@ class DecodeEngine:
     def cancel(self, request_id: str) -> bool:
         """Cooperative cancellation: a queued request is dropped before
         prefill, an active one frees its slot at the next ``step()``.
-        Returns False for unknown or finished requests (idempotent)."""
+        Returns False for unknown or finished requests (idempotent). On a
+        mesh, only rank 0 takes cancels, and every rank applies them at
+        the next control message."""
+        self._check_lead("cancel")
         with self._reqs_lock:
             req = self._requests.get(request_id)
-            if req is None or req.done.is_set() or req.cancelled:
+            if (req is None or req.done.is_set() or req.cancelled
+                    or request_id in self._intake_cancels):
                 return False
-            req.cancelled = True
-            if not req.admitted:
-                self._queued_cancelled += 1
+            if self._ctl is not None:
+                self._intake_cancels.append(request_id)
+            else:
+                self._mark_cancelled(req)
         self._work.set()
         return True
+
+    def _mark_cancelled(self, req: _Request) -> None:
+        """Under ``_reqs_lock``."""
+        req.cancelled = True
+        if not req.admitted:
+            self._queued_cancelled += 1
+
+    def _expired(self, req: _Request, now: float) -> bool:
+        """Past its deadline: on a mesh, as rank 0's clock found it."""
+        if self._ctl is not None:
+            return req.expired
+        return req.deadline is not None and now > req.deadline
+
+    # ------------------------------------------------- the SPMD lockstep
+
+    def _sync(self) -> bool:
+        """Exchange this step's control message (rank 0 sends, the others
+        receive) and apply it on every rank at the same point: the new
+        requests enqueue in order, then the cancels, then the expired
+        deadlines. False when it says stop (and from then on)."""
+        with self._sync_lock:
+            return not self._halted and self._sync_locked()
+
+    def _sync_locked(self) -> bool:
+        msg = None
+        if self._lead:
+            with self._reqs_lock:
+                new, self._intake = self._intake, []
+                cancels, self._intake_cancels = self._intake_cancels, []
+                now = time.monotonic()
+                expired = [rid for rid, r in self._requests.items()
+                           if r.deadline is not None and now > r.deadline
+                           and not r.expired]
+            msg = {"new": [self._wire(r) for r in new], "cancel": cancels,
+                   "expired": expired,
+                   "purge": now - self._last_purge > 0.5,
+                   "stop": self._stop.is_set()}
+        msg = self._ctl.exchange(msg)
+        for i, wire in enumerate(msg["new"]):
+            req = new[i] if self._lead else self._mirror(wire)
+            self._queued_tokens += len(req.tokens)
+            self._pending.put(req)
+        with self._reqs_lock:
+            for rid in msg["cancel"]:
+                req = self._requests.get(rid)
+                if req is not None and not req.done.is_set() \
+                        and not req.cancelled:
+                    self._mark_cancelled(req)
+            for rid in msg["expired"]:
+                req = self._requests.get(rid)
+                if req is not None:
+                    req.expired = True
+        self._purge_due = msg["purge"]
+        self._halted = msg["stop"]
+        return not self._halted
+
+    @staticmethod
+    def _wire(req: _Request) -> Dict[str, Any]:
+        """What the other ranks need of a new request: its tokens,
+        sampling, its place in the age order and its handoff payload."""
+        return {"tokens": req.tokens, "max_new_tokens": req.max_new_tokens,
+                "temperature": req.temperature, "eos_id": req.eos_id,
+                "request_id": req.request_id,
+                "submitted_at": req.submitted_at,
+                "prefill_only": req.prefill_only, "adopt": req.adopt}
+
+    def _mirror(self, wire: Dict[str, Any]) -> _Request:
+        """A follower's copy of rank 0's request: no callback, no
+        deadline (rank 0 decides expiry), rank 0's submit time (the age
+        order preemption and chunking follow)."""
+        req = _Request(wire["tokens"], wire["max_new_tokens"],
+                       wire["temperature"], wire["eos_id"], None,
+                       submitted_at=wire["submitted_at"])
+        req.request_id = wire["request_id"]
+        req.prompt_len = len(req.tokens)
+        req.prefill_only = wire["prefill_only"]
+        req.adopt = wire["adopt"]
+        with self._reqs_lock:
+            self._requests[req.request_id] = req
+        return req
+
 
     # ------------------------------------------------- observability hooks
     #
@@ -778,7 +964,7 @@ class DecodeEngine:
                         self._queued_cancelled -= 1
                 if req.cancelled:
                     self._retire(req, "cancelled")
-                elif req.deadline is not None and now > req.deadline:
+                elif self._expired(req, now):
                     self._retire(req, "deadline_exceeded")
                 else:
                     live.append(req)
@@ -902,9 +1088,11 @@ class DecodeEngine:
         ids = self._dev(pages)
         for name in ("k", "v"):
             # One payload tensor on the card at a time; index_copy_ writes
-            # the pool in place (no pool-sized temporary).
-            self.cache[name].index_copy_(1, ids,
-                                         adopt[name].to(self.device))
+            # the pool in place (no pool-sized temporary). On a mesh each
+            # rank takes its kv heads of the payload.
+            part = (adopt[name] if self._shards is None
+                    else self._shards.take(adopt[name], 3, "kv_heads"))
+            self.cache[name].index_copy_(1, ids, part.to(self.device))
         self.cache["length"][slot] = clen
         if self.steplog.enabled:
             self.steplog.event("handoff-adopt", slot=slot,
@@ -1069,12 +1257,10 @@ class DecodeEngine:
                 suffix = req.tokens[req.prefix_len:]
                 rows[i, :len(suffix)] = suffix
             slot_ids = self._dev(slots)
-            entries = self._dev([r.prefix_entry for r in group])
-            cp = self._pool["k"].shape[2]
             # The splice copies the WHOLE entry region: positions past
             # the match are overwritten by the suffix or causally masked.
-            self.cache["k"][:, slot_ids, :cp] = self._pool["k"][:, entries]
-            self.cache["v"][:, slot_ids, :cp] = self._pool["v"][:, entries]
+            ld.prefix_splice(self.cache, self._pool, slot_ids,
+                             self._dev([r.prefix_entry for r in group]))
             self.suffix_waves += 1
             t0 = time.time()
             self._mark_compile(("suffix", len(group), bucket))
@@ -1125,15 +1311,13 @@ class DecodeEngine:
         # K/V (a _finish only parks ``length``). Inserts run before any
         # later admission can recycle these slots.
         if self.prefix is not None and not self.paged:
-            cp = self._pool["k"].shape[2]
             for req, slot in zip(group, slots):
                 ins = self.prefix.insert(req.tokens,
                                          matched_len=req.prefix_len)
                 if ins is not None:
                     row, _ins_len = ins
                     self._mark_compile(("pool_insert",))
-                    self._pool["k"][:, row] = self.cache["k"][:, slot, :cp]
-                    self._pool["v"][:, row] = self.cache["v"][:, slot, :cp]
+                    ld.prefix_insert(self.cache, self._pool, slot, row)
         if self.spec:
             self._draft_seat([r for r in group if not r.done.is_set()])
 
@@ -1146,23 +1330,42 @@ class DecodeEngine:
         payload: the gather makes a new tensor, and ``copy=True`` copies
         on every device (on a CPU engine ``.to("cpu")`` alone returns its
         input). The copy to pageable host memory returns once the bytes
-        are there."""
+        are there. On a mesh every rank gathers the kv heads over "model"
+        and rank 0 alone copies them to the host."""
         t0 = time.time()
         ids = self._dev(self._slot_pages[slot])
-        k = self.cache["k"][:, ids].to("cpu", copy=True)
-        v = self.cache["v"][:, ids].to("cpu", copy=True)
+        k, v = (self._whole_heads(self.cache[name][:, ids])
+                for name in ("k", "v"))
+        nbytes = int(k.nbytes + v.nbytes)
+        # The payload lives on rank 0 only.
+        k, v = ((k.to("cpu", copy=True), v.to("cpu", copy=True))
+                if self._lead else (None, None))
         req.handoff = {
             "k": k, "v": v,
             "committed_len": int(req.prompt_len),
             "first_token": int(first_token),
             "page_tokens": self.page_tokens,
-            "nbytes": int(k.nbytes + v.nbytes),
+            "nbytes": nbytes,
         }
         self.handoffs_published += 1
         if self.steplog.enabled:
             self.steplog.event("handoff", slot=slot, pages=len(ids),
                                nbytes=req.handoff["nbytes"])
         self._phase("handoff", t0, slot=slot, pages=len(ids))
+
+    def _pool_shape(self) -> Tuple[int, ...]:
+        """The page pool's shape with all kv heads (a mesh rank holds its
+        block of them)."""
+        shape = list(self.cache["k"].shape)
+        shape[3] = self.config.n_kv_heads
+        return tuple(shape)
+
+    def _whole_heads(self, pages: torch.Tensor) -> torch.Tensor:
+        """(L, n, T, KV, D) pages with every kv head: this rank's gathered
+        over "model" on a mesh."""
+        if self._shards is None:
+            return pages
+        return self._shards.gather(pages, 3, "kv_heads")
 
     # ------------------------------------------------------ draft seats
 
@@ -1202,11 +1405,12 @@ class DecodeEngine:
         rows[0, :len(seq)] = seq
         t0 = time.time()
         self._mark_compile(("draft_prefill", 1, bucket))
-        ld.paged_prefill(
-            self._draft_params, self._dev(rows), self._draft_cache,
-            self._dev(self._draft_bt[slot:slot + 1,
-                                     :self._seq_pages(bucket)]),
-            self._draft_config, lengths=self._dev([len(seq)]))
+        with local_shards(self._draft_shards):
+            ld.paged_prefill(
+                self._draft_params, self._dev(rows), self._draft_cache,
+                self._dev(self._draft_bt[slot:slot + 1,
+                                         :self._seq_pages(bucket)]),
+                self._draft_config, lengths=self._dev([len(seq)]))
         self._draft_cache["length"][slot] = len(seq)
         self._draft_committed[slot] = len(seq)
         self._phase("draft-prefill", t0, tokens=len(seq))
@@ -1354,7 +1558,7 @@ class DecodeEngine:
             if dead:
                 self._queued_tokens -= len(req.tokens)
                 self._retire(req, "cancelled")
-            elif req.deadline is not None and now > req.deadline:
+            elif self._expired(req, now):
                 with self._reqs_lock:
                     req.admitted = True
                 self._queued_tokens -= len(req.tokens)
@@ -1369,8 +1573,7 @@ class DecodeEngine:
                 if dead:
                     self._queued_cancelled -= 1
                     req.admitted = True
-            expired = (not dead and req.deadline is not None
-                       and now > req.deadline)
+            expired = not dead and self._expired(req, now)
             if dead or expired:
                 self._requeue.remove(req)
                 self._queued_tokens -= len(req.tokens)
@@ -1384,9 +1587,10 @@ class DecodeEngine:
         """Free slots whose requests are dead (cancelled, or past their
         deadline): a dead request costs at most ONE more decode step."""
         now = time.monotonic()
+        due = (self._purge_due if self._ctl is not None
+               else now - self._last_purge > 0.5)
         if (self._queued_cancelled > 0
-                or (now - self._last_purge > 0.5
-                    and (self._requeue or not self._pending.empty()))):
+                or (due and (self._requeue or not self._pending.empty()))):
             self._last_purge = now
             self._purge_pending()
         # Mid-chunked-prefill slots die the same way as active ones: their
@@ -1396,7 +1600,7 @@ class DecodeEngine:
                 req = slots[slot]
                 if req.cancelled:
                     self._finish(slot, "cancelled")
-                elif req.deadline is not None and now > req.deadline:
+                elif self._expired(req, now):
                     self._finish(slot, "deadline_exceeded")
 
     # --------------------------------------------------------- the loop
@@ -1463,10 +1667,17 @@ class DecodeEngine:
         when spec mode is on and every request is greedy, else one token
         (or one greedy chunk). Returns the number of slots stepped. With
         the step timeline on, the step's phases and events land as one
-        ring row."""
+        ring row. On a mesh every rank first takes rank 0's control
+        message; after a stop it returns 0 and does nothing."""
+        if self._ctl is not None and not self._sync():
+            return 0
+        return self._step_logged()
+
+    def _step_logged(self) -> int:
         t0 = time.time()
         self._step_phases = []
-        stepped = self._step()
+        with local_shards(self._shards):
+            stepped = self._step()
         self._steplog_row(t0)
         return stepped
 
@@ -1596,11 +1807,12 @@ class DecodeEngine:
             clens[slot] = cl
         t0 = time.time()
         self._mark_compile(("spec_draft", k))
-        toks_d, _ = ld.paged_spec_draft(
-            self._draft_params, self._draft_cache,
-            self._decode_tables(k, self._draft_bt),
-            self._draft_cache["length"], self._dev(catchup),
-            self._dev(clens), self._draft_config, k)
+        with local_shards(self._draft_shards):
+            toks_d, _ = ld.paged_spec_draft(
+                self._draft_params, self._draft_cache,
+                self._decode_tables(k, self._draft_bt),
+                self._draft_cache["length"], self._dev(catchup),
+                self._dev(clens), self._draft_config, k)
         # Copies: on the CPU a .numpy() view aliases the tensor.
         toks_d = toks_d.cpu().numpy().copy()               # (slots, k)
         self._phase("draft", t0, batch=stepped, k=k)
@@ -1716,6 +1928,10 @@ class DecodeEngine:
         KV lengths are zeroed after."""
         if self._active or self._prefilling:
             raise RuntimeError("warmup needs an idle engine")
+        with local_shards(self._shards):
+            self._warmup()
+
+    def _warmup(self) -> None:
         toks = self._dev(self._tokens)
         temps = torch.zeros((self.slots,), device=self.device)
         if self.paged:
@@ -1746,15 +1962,16 @@ class DecodeEngine:
             if self.spec:
                 k = self.spec_k
                 self._mark_compile(("spec_draft", k))
-                ld.paged_spec_draft(
-                    self._draft_params, self._draft_cache,
-                    self._dev(self._draft_bt[:, :1]),
-                    self._draft_cache["length"],
-                    torch.zeros((self.slots, 2), dtype=torch.int32,
-                                device=self.device),
-                    torch.ones((self.slots,), dtype=torch.int32,
-                               device=self.device),
-                    self._draft_config, k)
+                with local_shards(self._draft_shards):
+                    ld.paged_spec_draft(
+                        self._draft_params, self._draft_cache,
+                        self._dev(self._draft_bt[:, :1]),
+                        self._draft_cache["length"],
+                        torch.zeros((self.slots, 2), dtype=torch.int32,
+                                    device=self.device),
+                        torch.ones((self.slots,), dtype=torch.int32,
+                                   device=self.device),
+                        self._draft_config, k)
                 self._mark_compile(("spec_verify", k))
                 ld.paged_verify(
                     self.params, torch.zeros((self.slots, k + 1),
@@ -1783,19 +2000,33 @@ class DecodeEngine:
         """Decode loop for a serving thread: steps while work exists,
         parks on an event while idle. If a step raises, every live
         request ends with the error (instead of waiting forever) and the
-        loop stops."""
+        loop stops. On a mesh it runs on every rank: each iteration takes
+        rank 0's control message first (rank 0 sends one at least every
+        ``idle_wait_s`` while idle), and every rank stops at rank 0's
+        stop."""
+        with self._sync_lock:
+            self._looping = True
         try:
-            while not self._stop.is_set():
-                if (self._active or self._prefilling or self._requeue
-                        or not self._pending.empty()):
-                    self.step()
-                else:
+            while not self._stop.is_set() or self._ctl is not None:
+                if self._ctl is not None and not self._sync():
+                    return
+                if self._has_work():
+                    self._step_logged()
+                elif self._lead:
                     self._work.clear()
-                    self._work.wait(timeout=idle_wait_s)
+                    if not (self._intake or self._intake_cancels
+                            or self._stop.is_set()):
+                        self._work.wait(timeout=idle_wait_s)
         except Exception as e:
             logger.exception("decode loop failed")
             self._fail_all(f"decode loop failed: {type(e).__name__}: {e}")
             raise
+        finally:
+            self._looping = False
+
+    def _has_work(self) -> bool:
+        return bool(self._active or self._prefilling or self._requeue
+                    or not self._pending.empty())
 
     def _fail_all(self, message: str) -> None:
         with self._reqs_lock:
@@ -1807,8 +2038,15 @@ class DecodeEngine:
             req.done.set()
 
     def shutdown(self) -> None:
+        """Stop the decode loop. On a mesh rank 0 stops every rank: its
+        next control message says stop, sent at once when no loop is
+        running (the other ranks' ``shutdown`` only wakes their loop)."""
         self._stop.set()
         self._work.set()
+        if self._ctl is not None and self._lead:
+            with self._sync_lock:
+                if not self._looping:
+                    self._sync()
 
     # ------------------------------------------------------------ stats
 
@@ -1832,10 +2070,10 @@ class DecodeEngine:
         out = {
             "steps": self.steps,
             "tokens_out": self.tokens_out,
-            # Chips this engine spans: one until decode meshes (ROADMAP
-            # queue 1, item 3).
-            "chips": 1,
-            "mesh_shape": None,
+            # Chips this engine spans, and its (batch, model) mesh.
+            "chips": self.mesh.size() if self.mesh is not None else 1,
+            "mesh_shape": (list(self.mesh.shape) if self.mesh is not None
+                           else None),
             "active": active,
             "prefilling": prefilling,
             "slots": self.slots,
@@ -1923,6 +2161,9 @@ class LlamaDecodeDeployment:
     ``warmup`` runs ``DecodeEngine.warmup`` before the decode loop
     starts. ``metrics_deployment`` labels the engine's SLO metrics (the
     JAX deployment takes the label from its replica context).
+    ``mesh_shape`` serves one replica over a decode mesh of every rank of
+    the default process group: build the deployment on every rank (same
+    ``seed``); rank 0 answers calls, and its ``shutdown`` stops them all.
 
     Disaggregated serving: ``prefill_handoff`` prefills a request and
     publishes its pages as a lease (refs on the object plane's stand-in,

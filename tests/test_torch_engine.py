@@ -18,6 +18,7 @@ from ray_tpu_torch.core.errors import (DeadlineExceededError,
                                        OverloadedError)
 from ray_tpu_torch.serve.decode import DecodeEngine, LlamaDecodeDeployment
 from torch_parity import assert_greedy_agrees, greedy_with_margins, tiny_pair
+from torch_parity import world_of_one  # noqa: F401
 
 TOL = 1e-4
 
@@ -192,19 +193,42 @@ def test_engine_matches_jax_engine(tiny):
 
 @pytest.mark.parametrize("kw", [dict(mesh_shape=(1, 1)),
                                 dict(trace_spans=True)])
-def test_unported_engine_knobs_raise(tiny, kw):
-    """The decode mesh waits for item 3's second half, the trace spans for
-    item 4."""
+def test_unported_engine_knobs_raise(tiny, kw, request):
+    """The trace spans wait for item 4 and raise. The decode mesh, which
+    raised until it was ported, now builds a 1-rank (1, 1) replica on a
+    gloo group of one whose streams equal the mesh-less engine's
+    (tests/test_torch_sharded_decode.py holds larger meshes)."""
     _, _, tcfg, tp = tiny
-    item = "item 3" if "mesh_shape" in kw else "item 4"
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
-        _engine(tp, tcfg, **kw)
+    if "trace_spans" in kw:
+        with pytest.raises(NotImplementedError, match="ROADMAP.*item 4"):
+            _engine(tp, tcfg, **kw)
+        return
+    request.getfixturevalue("world_of_one")
+    prompts = [[5, 9, 2], [7], [11, 3, 4, 8, 1]]
+    outs = []
+    for eng in (_engine(tp, tcfg), _engine(tp, tcfg, **kw)):
+        reqs = [eng.submit(p, max_new_tokens=6) for p in prompts]
+        _drive(eng, reqs)
+        outs.append([r.output for r in reqs])
+        eng.shutdown()
+    assert outs[1] == outs[0]
+    assert eng.stats()["chips"] == 1 and eng.stats()["mesh_shape"] == [1, 1]
 
 
-def test_unported_deployment_knobs_raise(tiny):
+def test_unported_deployment_knobs_raise(tiny, world_of_one):
+    """The deployment's mesh knob, which raised until the decode mesh was
+    ported, serves on a 1-rank (1, 1) replica what the mesh-less
+    deployment serves."""
     _, _, tcfg, tp = tiny
-    with pytest.raises(NotImplementedError, match="mesh"):
-        LlamaDecodeDeployment(config=tcfg, mesh_shape=(1, 1), device="cpu")
+    outs = []
+    for kw in ({}, dict(mesh_shape=(1, 1))):
+        dep = LlamaDecodeDeployment(config=tcfg, slots=2, capacity=64,
+                                    device="cpu", **kw)
+        outs.append(dep({"tokens": [5, 9, 2], "max_new_tokens": 5}))
+        assert dep.replica_metrics()["mesh_shape"] == (
+            [1, 1] if kw else None)
+        dep.shutdown()
+    assert outs[1]["tokens"] == outs[0]["tokens"]
     # The handoff is ported: a contiguous engine refuses it as the JAX
     # one does (tests/test_torch_handoff.py drives the paged one).
     eng = _engine(tp, tcfg)

@@ -120,3 +120,46 @@ def test_entry_points_refuse_without_card(no_card):
     meta = {"w": torch.empty(2, device="meta")}
     with pytest.raises(ValueError, match="cuda or cpu"):
         step(meta, None, {})
+
+
+@pytest.mark.parametrize("spec", ["2x4", "8", " 1X2 ", "7", "1"])
+def test_decode_mesh_shape_parses_as_jax(spec):
+    """The port's own copies of ``parse_topology`` and ``most_square``
+    read a ``decode_mesh_shape`` as the JAX package does."""
+    from ray_tpu.core import topology as jtopo
+    from ray_tpu_torch.core import topology as ttopo
+
+    assert ttopo.parse_topology(spec) == jtopo.parse_topology(spec)
+    assert ttopo.parse_topology("2x4") == (2, 4)
+    assert ttopo.parse_topology("8") == (2, 4)
+    for chips in range(1, 13):
+        assert ttopo.most_square(chips) == jtopo.most_square(chips)
+    with pytest.raises(ValueError):
+        ttopo.most_square(0)
+
+
+def test_decode_mesh_shape_knob_builds_the_mesh():
+    """An engine with no ``mesh_shape`` takes the knob's; a knob that asks
+    for more ranks than the process group has raises, and nothing falls
+    back to one device."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch.core.config import config as rt_config
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.parallel.mesh import init_distributed
+    from ray_tpu_torch.serve.decode import DecodeEngine
+
+    cfg = llama.PRESETS["debug"]
+    params = llama.init_params(cfg, device="cpu")
+    init_distributed(0, 1, device_type="cpu")
+    try:
+        rt_config.decode_mesh_shape = "1"
+        eng = DecodeEngine(params, cfg, slots=2, capacity=32, device="cpu")
+        assert eng.stats()["mesh_shape"] == [1, 1]
+        eng.shutdown()
+        rt_config.decode_mesh_shape = "2x4"
+        with pytest.raises(ValueError, match="needs 8 ranks"):
+            DecodeEngine(params, cfg, slots=2, capacity=32, device="cpu")
+    finally:
+        rt_config.decode_mesh_shape = ""
+        dist.destroy_process_group()

@@ -386,3 +386,277 @@ def train_cases(rank: int, world: int, payload) -> Dict[str, Any]:
         "local": [_np(b["labels"]) for b in got],
         "spec": ts.batch_spec(3)}
     return out
+
+
+# ------------------------------------------------- sharded decode cases
+
+
+def _decode_logits(ld, params, cfg, prompts, half=6, pages=80, T=8):
+    """Prefill, 4 decode steps, a suffix prefill, and a paged prefill with
+    4 paged decode steps on ``prompts`` (B, S): the logits of each and
+    the greedy tokens that fed the steps. Runs on local shards when the
+    caller is inside ``local_shards``."""
+    B, S = prompts.shape
+    out = {}
+    toks = torch.from_numpy(prompts).long()
+    lg, cache = ld.prefill(params, toks, ld.init_cache(cfg, B, 64,
+                                                       device="cpu"), cfg)
+    out["prefill"] = lg
+    steps = []
+    for _ in range(4):
+        tok = torch.argmax(lg, -1).to(torch.int32)
+        steps.append(tok)
+        lg, cache = ld.decode_step(params, cache, tok, cfg)
+    out["decode"], out["decode_tokens"] = lg, torch.stack(steps)
+    _, warm = ld.prefill(params, toks[:, :half],
+                         ld.init_cache(cfg, B, 64, device="cpu"), cfg)
+    out["suffix"], _ = ld.prefill_suffix(
+        params, toks[:, half:], warm, cfg, torch.full((B,), half),
+        torch.full((B,), S))
+    W = pages // B
+    bt = torch.arange(1, 1 + B * W, dtype=torch.int32).reshape(B, W)
+    plg, pool = ld.paged_prefill(params, toks, ld.init_page_pool(
+        cfg, pages, T, device="cpu"), bt, cfg)
+    lens = torch.full((B,), S, dtype=torch.int32)
+    steps = []
+    for _ in range(4):
+        tok = torch.argmax(plg, -1).to(torch.int32)
+        steps.append(tok)
+        plg, pool, lens = ld.paged_decode_step(params, pool, bt, lens, tok,
+                                               cfg)
+    out["paged"], out["paged_tokens"] = plg, torch.stack(steps)
+    return {k: v.numpy() for k, v in out.items()}
+
+
+def _engine_plan(payload):
+    """(engine kwargs, schedule) of each engine case: the schedule maps a
+    step index to the actions taken on rank 0 before that step."""
+    p = payload["engine_prompts"]
+    paged = dict(page_tokens=8, pool_pages=10, prefill_chunk_tokens=16,
+                 prefix_pool_entries=8, prefix_match_min_tokens=8)
+    sub = lambda name, n, temp=0.0, dl=None: ("submit", name, p[name], n,  # noqa: E731
+                                             temp, dl)
+    return {
+        "contiguous": (dict(prefix_pool_entries=4, prefix_capacity=16,
+                            prefix_match_min_tokens=8),
+                       {0: [sub("src", 6), sub("a", 6), sub("b", 6)],
+                        2: [sub("sharer", 6), sub("c", 5)]}),
+        "paged": (dict(paged, device_sampler=True),
+                  {0: [sub("long", 8), sub("src", 8),
+                       sub("sampled", 8, 0.8)],
+                   1: [sub("sharer", 8)],
+                   3: [sub("a", 8), sub("b", 6), sub("c", 6)]}),
+        "spec": (dict(page_tokens=8, pool_pages=40, spec_k=3,
+                      prefill_bucket=16),
+                 {0: [sub("src", 8), sub("a", 8), sub("b", 8)],
+                  2: [sub("c", 6)]}),
+        "cancel_deadline": (dict(page_tokens=8, pool_pages=40),
+                            {0: [sub("src", 12), sub("a", 12),
+                                 sub("b", 12, dl=1e-4)],
+                             2: [sub("c", 12, dl=0.25)],
+                             3: [("cancel", "a")],
+                             4: [("sleep", 0.3)]}),
+    }
+
+
+def _drive_plan(eng, schedule, steps=200):
+    """Rank 0's drive: the schedule's actions before their steps, then
+    steps until every request ended. Returns {name: request}."""
+    reqs = {}
+    for i in range(steps):
+        for act in schedule.get(i, []):
+            if act[0] == "submit":
+                _, name, prompt, n, temp, dl = act
+                reqs[name] = eng.submit(prompt, max_new_tokens=n,
+                                        temperature=temp, deadline_s=dl,
+                                        request_id=name)
+                if dl is not None and dl < 0.01:
+                    time.sleep(0.01)  # expired before the next step
+            elif act[0] == "cancel":
+                assert eng.cancel(act[1])
+            elif act[0] == "sleep":
+                time.sleep(act[1])
+        if i > max(schedule) and all(r.done.is_set() for r in reqs.values()):
+            return reqs
+        eng.step()
+    raise AssertionError("requests did not finish")
+
+
+def _ended(reqs):
+    return {n: (r.status, list(r.output)) for n, r in reqs.items()}
+
+
+def _mesh_engine_case(rank, make, schedule):
+    """One engine on the mesh: rank 0 drives ``schedule``, the others
+    follow in ``serve_forever`` until rank 0's stop. Every rank reports
+    its requests (followers: their mirrors) and its lockstep counters."""
+    eng = make()
+    mirrors = []
+    if rank:
+        orig = eng._mirror
+        eng._mirror = lambda wire: mirrors.append(orig(wire)) or mirrors[-1]
+        eng.serve_forever()
+        reqs = {r.request_id: r for r in mirrors}
+    else:
+        reqs = _drive_plan(eng, schedule)
+        eng.shutdown()
+    s = eng.stats()
+    return eng, {"ended": _ended(reqs), "sent": eng._ctl.sent,
+                 "steps": eng.steps, "chips": s["chips"],
+                 "mesh_shape": s["mesh_shape"],
+                 "counts": (s["cancelled"], s["deadline_exceeded"],
+                            s.get("preempted", 0), s["prefill_chunks"],
+                            s.get("prefix", {}).get("hits", 0),
+                            s.get("spec", {}).get("accepted_tokens", 0))}
+
+
+def sharded_decode_cases(rank: int, world: int, payload) -> Dict[str, Any]:
+    """The decode mesh at ``world`` ranks: model-level logits on each mesh
+    shape of ``payload["meshes"]`` (and of the GQA config) beside this
+    rank's single-device logits, the local shapes of an indivisible
+    config, and the engine cases on ``payload["engine_mesh"]``."""
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.models import llama_decode as ld
+    from ray_tpu_torch.parallel.mesh import decode_mesh
+    from ray_tpu_torch.parallel.sharding import local_shards
+    from ray_tpu_torch.serve.decode import DecodeEngine, LlamaDecodeDeployment
+
+    out: Dict[str, Any] = {"logits": {}, "single": {}}
+    prompts = payload["prompts"]
+    models = {}
+    for name, (cfg_kw, arrays) in payload["models"].items():
+        cfg = llama.LlamaConfig(dtype=torch.float32, **cfg_kw)
+        params = llama.params_from_numpy(arrays, cfg, device="cpu",
+                                         dtype=torch.float32)
+        models[name] = (cfg, params)
+        if name == "draft":
+            continue
+        out["single"][name] = _decode_logits(ld, params, cfg, prompts)
+        for shape in payload["meshes"]:
+            mesh = decode_mesh(shape, device_type="cpu")
+            sparams, sh = ld.shard_decode_state(params, cfg, mesh)
+            with local_shards(sh["local"]):
+                out["logits"][(name, shape)] = _decode_logits(
+                    ld, sparams, cfg, prompts)
+            if name == "gqa":
+                out[("local_shapes", shape)] = {
+                    k: tuple(v.shape)
+                    for k, v in llama._flat(sparams).items()}
+                out[("rules", shape)] = dict(sh["rules"])
+
+    cfg, params = models["main"]
+    if world == 4:
+        # One row a batch rank: BLAS's matrix-vector path on the CPU.
+        few = prompts[:4]
+        mesh = decode_mesh((4, 1), device_type="cpu")
+        sparams, sh = ld.shard_decode_state(params, cfg, mesh)
+        with local_shards(sh["local"]):
+            out["one_row"] = _decode_logits(ld, sparams, cfg, few, pages=40)
+        out["one_row_single"] = _decode_logits(ld, params, cfg, few,
+                                               pages=40)
+    shape = payload["engine_mesh"]
+    plans = _engine_plan(payload)
+    dcfg, dparams = models["draft"]
+    out["engines"] = {}
+    for case, (kw, schedule) in plans.items():
+        kw = dict(kw, slots=4, capacity=64, device="cpu")
+        if case == "spec":
+            kw.update(spec_draft_params=dparams, spec_draft_config=dcfg)
+
+        def make(**mesh):
+            eng = DecodeEngine(params, cfg, **mesh, **kw)
+            if case == "spec":
+                eng.warmup()  # every rank: the draft's and target's calls
+            return eng
+
+        if rank == 0:  # the single-device engine on the same schedule
+            out["engines"][(case, "single")] = _ended(
+                _drive_plan(make(), schedule))
+        _, got = _mesh_engine_case(rank, lambda: make(mesh_shape=shape),
+                                   schedule)
+        out["engines"][(case, "mesh")] = got
+
+    # The handoff: a prefill-only request captured on the mesh, adopted by
+    # another mesh engine; the single-device capture and colocated stream
+    # beside them.
+    hk = dict(slots=4, capacity=64, page_tokens=8, pool_pages=40,
+              device="cpu")
+    prompt = payload["engine_prompts"]["src"]
+    if rank == 0:
+        single = DecodeEngine(params, cfg, **hk)
+        r = single.submit(prompt, max_new_tokens=1, prefill_only=True)
+        while not r.done.is_set():
+            single.step()
+        want = r.handoff
+    meng = DecodeEngine(params, cfg, mesh_shape=shape, **hk)
+    if rank == 0:
+        r = meng.submit(prompt, max_new_tokens=1, prefill_only=True,
+                        request_id="cap")
+        while not r.done.is_set():
+            meng.step()
+        meng.shutdown()
+        got = r.handoff
+        out["capture_equal"] = (torch.equal(got["k"], want["k"])
+                                and torch.equal(got["v"], want["v"])
+                                and got["first_token"]
+                                == want["first_token"])
+        payload_adopt = {k: got[k] for k in ("k", "v", "committed_len",
+                                             "first_token", "page_tokens")}
+        colo = DecodeEngine(params, cfg, **hk)
+        c = colo.submit(prompt, max_new_tokens=8)
+        while not c.done.is_set():
+            colo.step()
+        out["colocated"] = list(c.output)
+    else:
+        meng.serve_forever()
+    aeng = DecodeEngine(params, cfg, mesh_shape=shape, **hk)
+    if rank == 0:
+        a = aeng.submit(prompt, max_new_tokens=8, adopt=payload_adopt,
+                        request_id="adopt")
+        while not a.done.is_set():
+            aeng.step()
+        aeng.shutdown()
+        out["adopted"] = list(a.output)
+    else:
+        aeng.serve_forever()
+    out["adopted_pages"] = aeng.handoffs_adopted
+
+    # Validation: slots the batch axis does not divide, a mesh the process
+    # group does not match, requests to a follower.
+    errors = {}
+    for what, fn in (
+            ("slots", lambda: DecodeEngine(params, cfg, slots=3,
+                                           capacity=64, device="cpu",
+                                           mesh_shape=(world, 1))),
+            ("world", lambda: DecodeEngine(params, cfg, slots=4,
+                                           capacity=64, device="cpu",
+                                           mesh_shape=(1, 1)))):
+        try:
+            fn()
+            errors[what] = None
+        except ValueError as e:
+            errors[what] = str(e)
+    out["errors"] = errors
+
+    # The deployment on the mesh: rank 0 serves a request; a follower
+    # refuses one.
+    dep = LlamaDecodeDeployment(config=cfg, slots=4, capacity=64, seed=0,
+                                mesh_shape=shape, device="cpu")
+    if rank == 0:
+        out["deployment"] = dep({"tokens": [5, 9, 2],
+                                 "max_new_tokens": 5})["tokens"]
+        solo = LlamaDecodeDeployment(config=cfg, slots=4, capacity=64,
+                                     seed=0, device="cpu")
+        out["deployment_single"] = solo({"tokens": [5, 9, 2],
+                                         "max_new_tokens": 5})["tokens"]
+        solo.shutdown()
+        out["deployment_stats"] = dep.replica_metrics()["mesh_shape"]
+    else:
+        try:
+            dep({"tokens": [1, 2], "max_new_tokens": 2})
+            out["follower_refuses"] = None
+        except RuntimeError as e:
+            out["follower_refuses"] = str(e)
+    dep.shutdown(timeout_s=60.0)
+    out["deployment_stopped"] = not dep._thread.is_alive()
+    return out
