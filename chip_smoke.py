@@ -1,5 +1,6 @@
-"""Drive the PyTorch/CUDA port's splash, serving (a decode mesh among
-them), training (Llama and ViT) and mesh paths on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's splash, serving (a decode mesh and the
+runtime's serve plane among them), training (Llama and ViT) and mesh paths
+on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -59,7 +60,10 @@ Phases, one JSON line each (``{"phase": ..., "ok": ...}``):
    finish (1100 tokens, a sharer of its first 1061 plus 200 sent after
    its first token, 1500, 900, 800, 700 sampled at temperature 0.8, 300
    and 20; every prompt over 512 tokens prefills in chunks, the 1500 one
-   in three). It must preempt at least once, run at
+   in three), on one schedule in every run: the loop's steps wait for
+   the source alone before the first step, the six others (queued in
+   this order) before the second, and the sharer before the step after
+   the source's first token. It must preempt at least once, run at
    least three prefill chunks, hit the prefix cache, return every page
    (free or pinned by the prefix index) and launch the flash forward 32
    times per full prefill wave, all on wgmma. Greedy streams are held
@@ -70,7 +74,8 @@ Phases, one JSON line each (``{"phase": ..., "ok": ...}``):
    ``spec_k=4``, 8 slots of 2048 tokens on 128 pages of 64, a draft pool
    of 48 pages (3072 tokens, too few to seat every prompt), the device
    sampler and warmup. Before any request the warmup's step keys must be
-   marked and both pools idle. Seven requests sent at once: greedy
+   marked and both pools idle. Seven requests, all queued (in this
+   order) before the loop's first step: greedy
    prompts of 20, 300, 700, 900, 1100 and 1500 tokens with 32 new tokens
    each, and 400 tokens at temperature 0.8 with 16 (rounds fall back to
    plain steps while it is active). It must run spec rounds, demote or
@@ -84,8 +89,25 @@ Phases, one JSON line each (``{"phase": ..., "ok": ...}``):
    least 0.5, at most half the plain engine's steps in rounds, streams
    under the margin rule.
 8. serve_disagg: two deployments of the same model, prefill and decode,
-   seven requests through the handoff (prefill, capture, lease, adopt).
-9. serve_mesh: the serve_paged geometry and requests served by one
+   seven requests through the handoff (prefill, capture, lease, adopt),
+   the payloads through the runtime's object store (``rt.init()`` for the
+   phase, each put and get timed).
+9. serve_runtime: ``rt.init()`` on the host (its node must advertise
+   ``GPU: 1``), the median host latency of 200 noop tasks and of 200
+   actor method round trips, the store's put and get rates for a 1 GiB
+   bf16 tensor on the card and a 256 MB one passed as a task argument;
+   then ``serve.run`` of a ``LlamaDecodeDeployment`` subclass at the
+   7B preset with ``attention_impl="flash"`` (full width and depth,
+   ``slots=4``, ``capacity=2048``, seed 0) holding ``num_gpus=1`` in a
+   replica actor of its own process, its start time, the serve phase's
+   six prompts one at a time through ``handle.remote``, ``handle.stream``
+   and the HTTP proxy (each equal, token for token, to an in-process
+   deployment on the same seed and config replaying the same order), a
+   burst of the six over HTTP at once (client TTFT p50 / p99 and tokens/s
+   beside the replica's ``slo_summary``), flash #1's launches read in the
+   replica's process (32 per full prefill wave, all on wgmma), and a
+   teardown that leaves no process of the node and no store file.
+10. serve_mesh: the serve_paged geometry and requests served by one
    ``DecodeEngine`` replica over a (1, 1) decode mesh at world size 1
    (one NCCL process group of one rank, in process) beside the mesh-less
    engine on the same weights from seed 0, both driven through
@@ -96,7 +118,7 @@ Phases, one JSON line each (``{"phase": ..., "ok": ...}``):
    must launch the flash forward 32 times per full prefill wave, all on
    wgmma. Prints each run's mean and decode step time, tokens/s, TTFT
    and ``slo_summary``, and the lockstep's control messages.
-10. train: the 1B Llama (``PRESETS["1b"]``, full width and depth, fp32
+11. train: the 1B Llama (``PRESETS["1b"]``, full width and depth, fp32
    masters from seed 0, ``attention_impl="flash"``, full remat,
    ``loss_chunk=512``) takes four AdamW steps through ``build_train_step``
    with two microbatches of 4 x 2048 tokens. Launch counters are zeroed
@@ -105,7 +127,7 @@ Phases, one JSON line each (``{"phase": ..., "ok": ...}``):
    and the forward twice (the remat recompute). Losses must be finite
    and falling. A 2-layer model of the same width then holds the flash
    gradients against the plain-attention ones.
-11. vit: ViT-B/16 (``vit.PRESETS["vit_b16"]``, full width and depth, fp32
+12. vit: ViT-B/16 (``vit.PRESETS["vit_b16"]``, full width and depth, fp32
    masters from seed 0, bf16 compute, full remat) takes six AdamW(3e-4,
    weight decay 0.1) steps through ``build_train_step`` at batch 256, fed
    by ``device_prefetch(prefetch=2)`` from seeded numpy batches of float32
@@ -121,7 +143,7 @@ Phases, one JSON line each (``{"phase": ..., "ok": ...}``):
    size in float32 (random head), ``pad_tokens_to=256`` logits equal the
    unpadded ones at B=4, and none of the seven hand-written kernels
    launched (ViT attention is the plain path, as in the JAX package).
-12. mesh: the mesh plane at world size 1: one NCCL process group of one
+13. mesh: the mesh plane at world size 1: one NCCL process group of one
    rank, rendezvoused in process (``parallel.mesh.init_distributed``).
    The train phase's 1B setup (2 steps of 2 microbatches of 4 x 2048)
    mesh-less, then through ``build_train_step`` on
@@ -156,7 +178,7 @@ the backward's entries the same way, and every backward launch must have
 taken a wgmma kernel.
 
 Each main path (splash, serve, serve_paged, serve_spec, serve_disagg,
-serve_mesh, train, mesh) must have launched each of its kernels at least
+serve_runtime, serve_mesh, train, mesh) must have launched each of its kernels at least
 once. Then a ``{"kernels": [...]}`` line
 with all seven kernels (the six attention kernels with their main-path
 launches by kernel, and each with its ptxas lines: registers, shared
@@ -171,6 +193,7 @@ from __future__ import annotations
 import gc
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -269,6 +292,7 @@ PATH_KERNELS = {
     "serve_paged": ["flash_fwd"],
     "serve_spec": ["flash_fwd"],
     "serve_disagg": ["flash_fwd"],
+    "serve_runtime": ["flash_fwd"],
     "serve_mesh": ["flash_fwd"],
     "train": ["flash_fwd", "flash_bwd_dkv", "flash_bwd_dq",
               "attention_delta"],
@@ -1524,6 +1548,26 @@ def slo_line(summary: dict) -> dict:
             "outcomes": summary.get("outcomes", {})}
 
 
+def _serve_plan(cfg) -> dict:
+    """The serve phase's six requests: name -> (prompt, max_new_tokens,
+    streamed). ``r5_prefix_hit`` shares the first 1061 tokens of
+    ``r1_shared_src``."""
+    rng = np.random.default_rng(0)
+
+    def prompt(n):
+        return rng.integers(1, cfg.vocab_size, n).tolist()
+
+    shared = prompt(1100)
+    return {
+        "r1_shared_src": (shared, 32, True),
+        "r2_short": (prompt(20), 16, False),
+        "r3": (prompt(300), 24, False),
+        "r4": (prompt(700), 32, True),
+        "r5_prefix_hit": (shared[:1061] + prompt(200), 24, False),
+        "r6_long": (prompt(1500), 16, False),
+    }
+
+
 def phase_serve(cfg, device="cuda") -> dict:
     from ray_tpu_torch.serve.decode import LlamaDecodeDeployment
 
@@ -1533,20 +1577,8 @@ def phase_serve(cfg, device="cuda") -> dict:
     _sync(device)
     init_s = time.perf_counter() - t0
     eng = dep.engine
-    rng = np.random.default_rng(0)
-
-    def prompt(n):
-        return rng.integers(1, cfg.vocab_size, n).tolist()
-
-    shared = prompt(1100)
-    plan = {  # name -> (prompt, max_new_tokens, streamed)
-        "r1_shared_src": (shared, 32, True),
-        "r2_short": (prompt(20), 16, False),
-        "r3": (prompt(300), 24, False),
-        "r4": (prompt(700), 32, True),
-        "r5_prefix_hit": (shared[:1061] + prompt(200), 24, False),
-        "r6_long": (prompt(1500), 16, False),
-    }
+    plan = _serve_plan(cfg)
+    shared = plan["r1_shared_src"][0]
     results, errors, token_times = {}, {}, {}
     first_token = threading.Event()
 
@@ -1746,6 +1778,45 @@ def _paged_plan(cfg) -> dict:
     }
 
 
+def _gate_steps(eng, need, after=None) -> list:
+    """Hold each step of the decode loop until ``need(submitted)`` requests
+    have been submitted (``submitted``: the engine's requests in order),
+    so a phase's requests reach the engine at the same steps in every run;
+    the checks that need a pool to run dry depend on it. ``after()`` runs
+    on the loop's thread after every step. Returns ``submitted``."""
+    submitted = []
+    submit, step = eng.submit, eng._step_logged
+
+    def counted_submit(*args, **kwargs):
+        req = submit(*args, **kwargs)
+        submitted.append(req)
+        return req
+
+    def gated():
+        deadline = time.monotonic() + REQUEST_TIMEOUT_S
+        while (len(submitted) < need(submitted)
+               and time.monotonic() < deadline):
+            time.sleep(0.001)
+        stepped = step()
+        if after is not None:
+            after()
+        return stepped
+
+    eng.submit, eng._step_logged = counted_submit, gated
+    return submitted
+
+
+def _start_in_order(threads, submitted, timeout_s=REQUEST_TIMEOUT_S):
+    """Start ``threads`` one at a time, each once the one before it has
+    submitted its request: the engine's queue holds them in this order."""
+    for t in threads:
+        n = len(submitted)
+        t.start()
+        deadline = time.monotonic() + timeout_s
+        while len(submitted) == n and time.monotonic() < deadline:
+            time.sleep(0.001)
+
+
 def phase_serve_paged(cfg, device="cuda") -> dict:
     """Llama-2-7B behind a paged ``LlamaDecodeDeployment``: 8 slots of
     2048 tokens on a pool of 64 pages of 64 tokens (4096 tokens for
@@ -1754,7 +1825,8 @@ def phase_serve_paged(cfg, device="cuda") -> dict:
     1100-token prefix source; a sharer of its first 1061 tokens plus 200,
     sent after the source's first token; a 1500-token prompt (3 chunks);
     prompts of 900, 800, 700, 300 and 20 tokens, the 700 one sampled at
-    temperature 0.8."""
+    temperature 0.8. The loop's steps follow one schedule in every run
+    (``_gate_steps``), so the pool runs dry the same way each time."""
     from ray_tpu_torch.serve.decode import LlamaDecodeDeployment
 
     gc.collect()
@@ -1796,23 +1868,37 @@ def phase_serve_paged(cfg, device="cuda") -> dict:
     # thread: a read from another thread could land inside an admission,
     # whose pages are taken before its prefill has filled them.
     samples = []
-    step = eng.step
 
-    def step_and_sample():
-        n = step()
+    def sample():
         s = eng.stats()
         if s["active"] or s["prefilling"]:
             samples.append((s["kv_fragmentation"], s["pages_free"]))
-        return n
 
-    eng.step = step_and_sample
+    # The schedule every run sees: the source alone in the first step,
+    # the six others (in plan order) before the second, the sharer before
+    # the step after the source's first token.
+    stepped = threading.Event()
+
+    def need(sub):
+        if not stepped.is_set():
+            return 1
+        if sub[0].first_token_at is not None:
+            return len(plan)
+        return len(plan) - 1
+
+    def after():
+        stepped.set()
+        sample()
+
+    queued = _gate_steps(eng, need, after=after)
     reset_counts()
     fwd0 = fwd_kernel_counts(device)
     t_start = time.perf_counter()
     threads = [threading.Thread(target=run, args=(n,))
                for n in plan if n != "p8_prefix_hit"]
-    for t in threads:
-        t.start()
+    _start_in_order(threads[:1], queued)
+    stepped.wait(REQUEST_TIMEOUT_S)
+    _start_in_order(threads[1:], queued)
     # The prefix index takes the source's pages at its admission: send the
     # sharer after the source's first token.
     first_token.wait(REQUEST_TIMEOUT_S)
@@ -2051,12 +2137,13 @@ def phase_serve_spec(cfg, device="cuda", draft=None) -> dict:
         return resync(slot, req)
 
     eng._draft_resync = counted_resync
+    # All seven reach the queue, in plan order, before the first step.
+    queued = _gate_steps(eng, lambda sub: len(plan))
     reset_counts()
     fwd0 = fwd_kernel_counts(device)
     t_start = time.perf_counter()
     threads = [threading.Thread(target=run, args=(n,)) for n in plan]
-    for t in threads:
-        t.start()
+    _start_in_order(threads, queued)
     for t in threads:
         t.join(REQUEST_TIMEOUT_S)
     _sync(device)
@@ -2173,7 +2260,19 @@ def phase_serve_disagg(cfg, device="cuda") -> dict:
     plus 200 sent after that prompt's descriptor returns (a prefix hit on
     the prefill side), and 400 tokens at temperature 0.8 with 16. Then a
     descriptor whose adopt is refused (page_tokens altered) and aborted,
-    and one lease left to expire through the TTL sweep."""
+    and one lease left to expire through the TTL sweep. The payloads go
+    through the runtime's object store (``rt.init`` for the phase), with
+    each put and get timed."""
+    import ray_tpu_torch as rt
+
+    _runtime_init(device)
+    try:
+        return _serve_disagg(cfg, device)
+    finally:
+        rt.shutdown()
+
+
+def _serve_disagg(cfg, device) -> dict:
     from ray_tpu_torch.core import api
     from ray_tpu_torch.core.config import config as rt_config
     from ray_tpu_torch.core.errors import HandoffAdoptError
@@ -2186,7 +2285,23 @@ def phase_serve_disagg(cfg, device="cuda") -> dict:
     common = dict(config=cfg, slots=geo["slots"], capacity=geo["capacity"],
                   seed=0, kv_page_tokens=geo["page_tokens"],
                   device_sampler=True, device=device)
-    objects0 = len(api._store)
+    objects0 = _live_objects()
+    store_put, store_get = [], []
+    put_fn, get_fn = api.put, api.get
+
+    def timed_put(value):
+        t = time.perf_counter()
+        ref = put_fn(value)
+        store_put.append((value.nbytes, time.perf_counter() - t))
+        return ref
+
+    def timed_get(refs, timeout=None):
+        t = time.perf_counter()
+        got = get_fn(refs, timeout)
+        store_get.append((sum(v.nbytes for v in got),
+                          time.perf_counter() - t))
+        return got
+
     t0 = time.perf_counter()
     # The prefill side's ledger takes a 1 s TTL (read at construction) so
     # the phase can let one lease expire; the sweep runs only when
@@ -2256,6 +2371,7 @@ def phase_serve_disagg(cfg, device="cuda") -> dict:
 
     peng._capture_handoff = timed_capture
     deng._seat_adopted = timed_seat
+    api.put, api.get = timed_put, timed_get
     results, descs, errors, times = {}, {}, {}, {}
     src_published = threading.Event()
 
@@ -2327,6 +2443,7 @@ def phase_serve_disagg(cfg, device="cuda") -> dict:
     # Stop both loops before reading their state.
     pre.shutdown()
     dec.shutdown()
+    api.put, api.get = put_fn, get_fn
     counts = launch_counts()
     by_kernel = fwd_kernels_since(fwd0, device)
     pstats, dstats = peng.stats(), deng.stats()
@@ -2353,6 +2470,12 @@ def phase_serve_disagg(cfg, device="cuda") -> dict:
            "handoff_descriptor_bytes": summary["prefill"].get(
                "handoff_bytes"),
            "handoff_events": books,
+           "object_store": {
+               "puts": len(store_put), "gets": len(store_get),
+               "put_gb_s_median": _median_rate(store_put),
+               "get_gb_s_median": _median_rate(store_get),
+               "put_bytes_max": max((b for b, _ in store_put), default=0),
+               "config": _store_config(device)},
            "slo": {dep: slo_line(v) for dep, v in summary.items()}}
     checks = {}
     checks["all_answered"] = (not errors and not hung
@@ -2382,7 +2505,7 @@ def phase_serve_disagg(cfg, device="cuda") -> dict:
     checks["ledger_drained"] = (
         rm["handoffs_live"] == 0 and rm["handoff_live_bytes"] == 0
         and pre._handoffs.live() == 0 and pre._handoffs.live_bytes() == 0)
-    checks["refs_freed"] = len(api._store) == objects0
+    checks["refs_freed"] = _live_objects() == objects0
     checks["pages_returned"] = all(
         s["active"] == s["prefilling"] == s["queued"] == 0
         and s["pages_free"] + s["pages_pinned"] == s["pages_total"]
@@ -3316,6 +3439,401 @@ def phase_mesh(cfg, device="cuda", batch=8, seq=2048, steps=2,
     return out
 
 
+# ----------------------------------------------------------- the runtime
+
+# The object store's size on the card's host: room for the handoff's
+# concurrent payloads (805 MB for a 1500-token 7B prompt) and the 1 GiB
+# put below. A CPU rehearsal takes a small one.
+STORE_BYTES = {"cuda": 8 << 30, "cpu": 1 << 30}
+RUNTIME_ROUND_TRIPS = 200
+PUT_BYTES = {"cuda": 1 << 30, "cpu": 64 << 20}     # bf16 tensor put / get
+ARG_BYTES = {"cuda": 256 << 20, "cpu": 16 << 20}   # tensor task argument
+
+
+def _store_config(device) -> dict:
+    """The runtime's store size, and its directory: ``/dev/shm`` when it
+    has room for the store, else the temp directory (a store file past a
+    full tmpfs would fault on write)."""
+    import shutil
+    import tempfile
+
+    want = STORE_BYTES[torch.device(device).type]
+    cfg = {"object_store_memory_bytes": want}
+    try:
+        free = shutil.disk_usage("/dev/shm").free
+    except OSError:
+        free = 0
+    if free < want * 5 // 4:
+        cfg["object_store_fallback_dir"] = tempfile.gettempdir()
+    return cfg
+
+
+def _runtime_init(device):
+    """``rt.init()`` as a user calls it on this host, with the store sized
+    for the phase; off the card the node is told of one GPU so the GPU
+    lease path still runs."""
+    import ray_tpu_torch as rt
+
+    kw = {"_system_config": _store_config(device)}
+    if torch.device(device).type != "cuda":
+        kw["resources"] = {"GPU": 1}
+    return rt.init(**kw)
+
+
+def _live_objects() -> int:
+    """Objects the driver's store holds a value for (a freed object
+    leaves a tombstone, not a value)."""
+    from ray_tpu_torch.core.runtime import get_core_worker
+
+    store = get_core_worker().store
+    with store._lock:
+        return sum(1 for e in store._entries.values() if not e.freed
+                   and (e.data is not None or e.shm_ref is not None))
+
+
+def _median(xs):
+    """The upper median (None for no values)."""
+    xs = sorted(xs)
+    return xs[len(xs) // 2] if xs else None
+
+
+def _median_rate(samples) -> float:
+    """Median GB/s of (bytes, seconds) samples (None without any)."""
+    return _median(b / t / 1e9 for b, t in samples if t > 0)
+
+
+def _noop():
+    return None
+
+
+def _tensor_bytes(t):
+    return t.numel() * t.element_size()
+
+
+class _Pinger:
+    def ping(self):
+        return None
+
+
+def _median_ms(fn, n: int) -> float:
+    times = []
+    for _ in range(n):
+        t = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t)
+    return 1e3 * _median(times)
+
+
+def _runtime_rates(device) -> dict:
+    """Host latency of a noop task and of an actor method round trip
+    (median of ``RUNTIME_ROUND_TRIPS`` after a warm-up), and the store's
+    rates: put and get of a bf16 tensor on the card (staged to the host
+    on put; the get is a view of the store's mapping, then copied back to
+    the card), and a tensor passed as a task argument (median of 3)."""
+    import ray_tpu_torch as rt
+
+    kind = torch.device(device).type
+    noop = rt.remote(_noop)
+    pinger = rt.remote(_Pinger).remote()
+    for _ in range(10):
+        rt.get([noop.remote(), pinger.ping.remote()])
+    out = {"noop_task_ms": _median_ms(lambda: rt.get(noop.remote()),
+                                      RUNTIME_ROUND_TRIPS),
+           "actor_call_ms": _median_ms(lambda: rt.get(
+               pinger.ping.remote()), RUNTIME_ROUND_TRIPS)}
+    rt.kill(pinger)
+    g = torch.Generator(device=device).manual_seed(0)
+    n = PUT_BYTES[kind]
+    big = torch.randn(n // 2, generator=g, device=device,
+                      dtype=torch.float32).to(torch.bfloat16)
+    put_s, get_s, back_s, ok = [], [], [], True
+    for _ in range(3):
+        _sync(device)
+        t = time.perf_counter()
+        ref = rt.put(big)
+        put_s.append(time.perf_counter() - t)
+        t = time.perf_counter()
+        got = rt.get(ref)
+        get_s.append(time.perf_counter() - t)
+        t = time.perf_counter()
+        dev_copy = got.to(device)
+        _sync(device)
+        back_s.append(time.perf_counter() - t)
+        ok = ok and got.device.type == "cpu" and torch.equal(dev_copy, big)
+        del got, dev_copy
+        rt.free(ref)
+    arg = big[: ARG_BYTES[kind] // 2]
+    sized = rt.remote(_tensor_bytes)
+    arg_s, arg_ok = [], True
+    for _ in range(3):
+        t = time.perf_counter()
+        arg_ok = arg_ok and rt.get(sized.remote(arg)) == arg.nbytes
+        arg_s.append(time.perf_counter() - t)
+    out.update({
+        "put_bytes": n, "put_gb_s": n / _median(put_s) / 1e9,
+        "get_view_gb_s": n / _median(get_s) / 1e9,
+        "get_to_card_gb_s": n / (_median(get_s) + _median(back_s)) / 1e9,
+        "put_get_equal": ok,
+        "task_arg_bytes": arg.nbytes,
+        "task_arg_gb_s": arg.nbytes / _median(arg_s) / 1e9,
+        "task_arg_ok": arg_ok})
+    del big, arg
+    return out
+
+
+def _replica_cls():
+    """The 7B deployment the phase serves: ``LlamaDecodeDeployment`` plus
+    one method that reads, in the replica's own process, the flash
+    forward's launch counts, the engine's full prefill waves and where it
+    runs. Defined in a function, so it travels to the replica by value."""
+    from ray_tpu_torch.serve.decode import LlamaDecodeDeployment
+
+    class SmokeReplica(LlamaDecodeDeployment):
+        def flash_window(self, reset: bool = False) -> dict:
+            import os
+
+            from ray_tpu_torch.ops import flash_attention as fa
+
+            card = self.engine.device.type == "cuda"
+            out = {"launches": fa.flash_attention.launches,
+                   "by_kernel": fa.forward_kernel_launches() if card
+                   else {},
+                   "prefill_waves": self.engine.stats()["prefill_waves"],
+                   "device": str(self.engine.device), "pid": os.getpid(),
+                   "cuda_visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+                   "card": torch.cuda.get_device_name(0) if card else None}
+            if reset:
+                fa.flash_attention.launches = 0
+            return out
+
+    return SmokeReplica
+
+
+def _http_stream(addr, route, req, timeout):
+    """POST a streaming request: (tokens, seconds to the first chunk,
+    seconds to the end)."""
+    import http.client
+
+    conn = http.client.HTTPConnection(addr[0], addr[1], timeout=timeout)
+    t = time.perf_counter()
+    try:
+        conn.request("POST", f"/{route}", body=json.dumps(
+            {**req, "stream": True}), headers={"X-Serve-Stream": "1"})
+        resp = conn.getresponse()
+        if resp.status != 200:
+            raise RuntimeError(f"HTTP {resp.status}: {resp.read()[:200]}")
+        toks, first, buf = [], None, b""
+        while True:
+            chunk = resp.read1(65536) if hasattr(resp, "read1") \
+                else resp.read(1)
+            if not chunk:
+                break
+            if first is None:
+                first = time.perf_counter() - t
+            buf += chunk
+            *lines, buf = buf.split(b"\n")
+            toks += [json.loads(x) for x in lines if x.strip()]
+        if buf.strip():
+            toks.append(json.loads(buf))
+        return toks, first, time.perf_counter() - t
+    finally:
+        conn.close()
+
+
+def _live_node_pids(node_hex: str) -> list:
+    """Pids of processes whose command line names this node (its
+    forkserver and workers)."""
+    pids = []
+    for pid in os.listdir("/proc"):
+        if not pid.isdigit():
+            continue
+        try:
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                if node_hex.encode() in f.read():
+                    pids.append(int(pid))
+        except OSError:
+            continue
+    return pids
+
+
+def phase_serve_runtime(cfg, device="cuda") -> dict:
+    """Llama-2-7B served the way a user serves it: ``rt.init()``, then
+    ``serve.run`` of a ``LlamaDecodeDeployment`` subclass holding the
+    ``GPU`` lease in a replica actor (its own process), reached through
+    ``handle.remote``, ``handle.stream`` and the HTTP proxy. See the module
+    docstring."""
+    import ray_tpu_torch as rt
+
+    gc.collect()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    _runtime_init(device)
+    init_s = time.perf_counter() - t0
+    try:
+        return _serve_runtime(cfg, device, init_s)
+    finally:
+        if rt.is_initialized():  # a failure before the phase's teardown
+            from ray_tpu_torch import serve
+
+            try:
+                serve.shutdown()
+            finally:
+                rt.shutdown()
+
+
+def _serve_runtime(cfg, device, init_s) -> dict:
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.core.node import shm_store_path
+    from ray_tpu_torch.core.runtime import get_core_worker
+    from ray_tpu_torch.serve.decode import LlamaDecodeDeployment
+
+    core = get_core_worker()
+    node_hex, store = core.node_id.hex(), shm_store_path(core.node_id)
+    out = {"init_s": init_s, "resources": rt.cluster_resources(),
+           "runtime": _runtime_rates(device)}
+    checks = {"gpu_resource": out["resources"].get("GPU") == 1.0,
+              "store_round_trip": out["runtime"]["put_get_equal"]
+              and out["runtime"]["task_arg_ok"]}
+    geo = dict(config=cfg, slots=4, capacity=2048, seed=0)
+    t = time.perf_counter()
+    serve.run(serve.deployment(_replica_cls()).options(
+        ray_actor_options={"num_gpus": 1}, max_concurrency=8).bind(
+            **geo, device=device), name="llm", ready_timeout_s=900.0)
+    out["serve_run_s"] = time.perf_counter() - t
+    h = serve.get_deployment_handle("llm")
+    window = h.options(method_name="flash_window", timeout_s=900.0)
+    # The first reply comes once the replica's constructor (the 7B
+    # weights, the engine) has run: that is the replica's start.
+    w0 = window.remote(True).result(timeout=900)
+    out["replica_start_s"] = time.perf_counter() - t
+    addr = serve.start_http()
+    plan = _serve_plan(cfg)
+    out["replica"] = {k: w0[k] for k in ("device", "pid", "cuda_visible",
+                                         "card")}
+    kind = torch.device(device).type
+    checks["replica_on_card"] = (
+        w0["pid"] != os.getpid() and w0["device"].startswith(kind)
+        and w0["cuda_visible"] != "" and (kind != "cuda" or bool(w0["card"])))
+    # One at a time: each prompt through the handle, the handle's stream
+    # and HTTP, in this order; the solo engine below replays the order.
+    order = [(path, name) for path in ("handle", "stream", "http")
+             for name in plan]
+    got, client = {}, {}
+    t_seq = time.perf_counter()
+    for path, name in order:
+        toks, n, _ = plan[name]
+        req = {"tokens": toks, "max_new_tokens": n}
+        t = time.perf_counter()
+        if path == "handle":
+            reply = h.remote(req).result(timeout=REQUEST_TIMEOUT_S)
+            got[path, name] = reply["tokens"]
+            client[path, name] = reply["ttft_s"]
+        elif path == "stream":
+            stream, first = [], None
+            for tok in h.stream({**req, "stream": True}):
+                if first is None:
+                    first = time.perf_counter() - t
+                stream.append(tok)
+            got[path, name], client[path, name] = stream, first
+        else:
+            got[path, name], client[path, name], _ = _http_stream(
+                addr, "llm", req, REQUEST_TIMEOUT_S)
+    out["sequential_s"] = time.perf_counter() - t_seq
+    # The burst: all six at once over HTTP.
+    burst, errors = {}, {}
+
+    def fire(name):
+        toks, n, _ = plan[name]
+        try:
+            burst[name] = _http_stream(addr, "llm", {
+                "tokens": toks, "max_new_tokens": n}, REQUEST_TIMEOUT_S)
+        except Exception as e:  # reported as a failed check below
+            errors[name] = f"{type(e).__name__}: {e}"
+
+    threads = [threading.Thread(target=fire, args=(n,)) for n in plan]
+    t_burst = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(REQUEST_TIMEOUT_S)
+    burst_s = time.perf_counter() - t_burst
+    w1 = window.remote(False).result(timeout=60)
+    launches = w1["launches"]
+    waves = w1["prefill_waves"] - w0["prefill_waves"]
+    by_kernel = {k: n - w0["by_kernel"].get(k, 0)
+                 for k, n in w1["by_kernel"].items()}
+    out.update({"launches": {"flash_fwd": launches},
+                "flash_fwd_by_kernel": by_kernel,
+                "replica_full_prefill_waves": waves})
+    checks["flash_launches_32_per_full_wave"] = (
+        waves > 0 and launches == cfg.n_layers * waves)
+    checks["flash_fwd_on_wgmma"] = all_on_wgmma(by_kernel, launches, device)
+    checks["burst_complete"] = (not errors and set(burst) == set(plan)
+                                and all(len(burst[n][0]) == plan[n][1]
+                                        for n in plan))
+    ttft = sorted(b[1] for b in burst.values())
+    tokens = sum(len(b[0]) for b in burst.values())
+    out["burst"] = {"wall_s": burst_s, "tokens": tokens,
+                    "tokens_per_s": tokens / burst_s,
+                    "client_ttft_p50_s": ttft[len(ttft) // 2]
+                    if ttft else None,
+                    "client_ttft_p99_s": ttft[-1] if ttft else None,
+                    "errors": errors}
+    out["client_ttft_s"] = {f"{p}/{n}": v for (p, n), v in client.items()}
+    want = len(order) + len(plan)
+    summary = _poll_until(lambda: serve.status()["llm"].get("slo", {}),
+                        lambda v: v.get("ttft_s", {}).get("count") == want)
+    out["replica_slo"] = slo_line(summary)
+    checks["replica_slo_counts"] = (
+        summary.get("outcomes", {}).get("completed") == want)
+    # The solo in-process engine on the same seed and config, replaying
+    # the sequential order one request at a time.
+    solo = LlamaDecodeDeployment(**geo, device=device)
+    try:
+        for path, name in order:
+            toks, n, _ = plan[name]
+            req = {"tokens": toks, "max_new_tokens": n}
+            want_toks = (solo(req)["tokens"] if path == "handle"
+                         else list(solo.stream({**req, "stream": True})))
+            if got[path, name] != want_toks:
+                out.setdefault("mismatch", []).append(
+                    {"path": path, "request": name,
+                     "first_difference": _first_difference(
+                         {name: got[path, name]}, {name: want_toks})[name]})
+    finally:
+        solo.shutdown()
+        del solo
+        gc.collect()
+    checks["streams_equal_solo_engine"] = "mismatch" not in out
+    checks["token_counts"] = all(len(got[k]) == plan[k[1]][1]
+                                 for k in order)
+    serve.shutdown()
+    rt.shutdown()
+    out["store_file_left"] = os.path.exists(store)
+    out["processes_left"] = _poll_until(lambda: _live_node_pids(node_hex),
+                                      lambda v: not v, 15.0)
+    checks["teardown_clean"] = (not out["store_file_left"]
+                                and not out["processes_left"])
+    out["checks"] = checks
+    if torch.device(device).type == "cuda":
+        out["device"] = smi_line()
+    out["ok"] = all(checks.values()) and len(checks) == 10
+    return out
+
+
+def _poll_until(fn, done, timeout_s: float = 20.0):
+    """``fn()`` once ``done`` holds for it, or its last value at the
+    deadline."""
+    deadline = time.monotonic() + timeout_s
+    val = fn()
+    while not done(val) and time.monotonic() < deadline:
+        time.sleep(0.25)
+        val = fn()
+    return val
+
+
 def _sync(device) -> None:
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize()
@@ -3347,6 +3865,8 @@ def main() -> int:
                      ("serve_spec", lambda: phase_serve_spec(serve_cfg)),
                      ("serve_disagg",
                       lambda: phase_serve_disagg(serve_cfg)),
+                     ("serve_runtime",
+                      lambda: phase_serve_runtime(serve_cfg)),
                      ("serve_mesh", lambda: phase_serve_mesh(serve_cfg)),
                      ("train", lambda: phase_train(train_cfg)),
                      ("vit", lambda: phase_vit(vit.PRESETS["vit_b16"])),

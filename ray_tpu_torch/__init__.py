@@ -7,4 +7,47 @@ path is a kernel written by hand for ``sm_90a`` under ``ops/csrc/``, built
 at first use into ``ray_tpu_torch/_build/``.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
+
+The core API mirrors ``ray_tpu``'s (``init``, ``remote``, ``get``,
+``put``, ``wait``, ``free``, ``kill``, ``get_actor``, placement groups):
+tasks, actors and objects on the shared-memory store, with cards leased as
+the ``GPU`` resource. ``HostGroup`` waits for the train plane (ROADMAP.md
+queue 1, item 4). Importing the package starts nothing; ``init()`` does.
 """
+
+from ray_tpu_torch.core.api import (  # noqa: F401
+    available_resources,
+    cluster_resources,
+    free,
+    get,
+    get_actor,
+    init,
+    is_initialized,
+    kill,
+    nodes,
+    put,
+    remote,
+    shutdown,
+    wait,
+)
+from ray_tpu_torch.core.errors import (  # noqa: F401
+    ActorDiedError,
+    GetTimeoutError,
+    ObjectLostError,
+    OutOfMemoryError,
+    RayTpuError,
+    TaskError,
+    WorkerCrashedError,
+)
+from ray_tpu_torch.core.object_ref import ObjectRef  # noqa: F401
+from ray_tpu_torch.core.runtime import ObjectRefGenerator  # noqa: F401
+from ray_tpu_torch.core.placement import (  # noqa: F401
+    NodeAffinitySchedulingStrategy,
+    PlacementGroup,
+    PlacementGroupSchedulingStrategy,
+    SubSliceReservation,
+    cluster_topology,
+    placement_group,
+    remove_placement_group,
+    reserve_subslice,
+)

@@ -11,6 +11,8 @@ from typing import Union
 
 import torch
 
+from ray_tpu_torch.core.errors import not_ported  # noqa: F401  (re-export)
+
 DeviceLike = Union[str, torch.device, None]
 
 
@@ -22,11 +24,3 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
             "no CUDA device is available; pass device='cpu' to run the "
             "port's plain PyTorch path on the CPU")
     return dev
-
-
-def not_ported(what: str, roadmap_item: str) -> NotImplementedError:
-    """The error every knob the port does not carry yet raises."""
-    return NotImplementedError(
-        f"{what} is not ported to ray_tpu_torch yet (ROADMAP.md queue 1: "
-        f"{roadmap_item})")
-

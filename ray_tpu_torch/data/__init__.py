@@ -2,8 +2,8 @@
 
 ``device_prefetch`` streams host batches onto the card while the previous
 step computes. The Dataset API (``ray_tpu/data/dataset.py``,
-``read_api.py``) imports the runtime, so it waits for the runtime's slice
-(ROADMAP.md queue 1, item 4).
+``read_api.py``), which runs on the runtime, is not ported yet (ROADMAP.md
+queue 1, item 4).
 """
 
 from ray_tpu_torch.data.ingest import DevicePrefetch, device_prefetch

@@ -55,8 +55,9 @@ handoff).
   payload (``_capture_handoff``); another engine ``adopt``s the payload,
   scattering it into fresh pages with no model math (``_seat_adopted``),
   and decodes from the handed-off first token. ``LlamaDecodeDeployment``
-  publishes payloads as leases on the object plane's stand-in
-  (``core.api``) and the ledger of ``serve.handoff``.
+  publishes payloads as leases on the runtime's object store
+  (``core.api``) and the ledger of ``serve.handoff``; the router splices
+  the two halves across fleets (``serve.deployment``).
 
 * Decode mesh (``mesh_shape`` / ``mesh``, or the ``decode_mesh_shape``
   knob): one replica over a ``(batch, model)`` mesh of ranks, one process
@@ -67,14 +68,18 @@ handoff).
   intake, cancels, expired deadlines and stop (``serve.spmd.Lockstep``),
   so all ranks take the same decisions and issue the same collectives.
   Requests, outputs and metrics live on rank 0.
+* Request traces (``trace_spans`` or the ``serve_trace_spans`` knob): a
+  request submitted under an active trace context (``util.tracing``)
+  gets the JAX engine's engine-side spans recorded into it: queue-wait,
+  the device waves it rode (prefill, suffix-prefill, prefill-chunk,
+  adopt, draft-prefill), preempt and engine-shed markers, its decode
+  slice and the whole engine-request.
 
 Single-threaded by design: ``serve_forever`` is the only consumer; intake
 (``submit``/``cancel``) is thread-safe, and an adopt payload rides its
 request into the loop thread, which alone touches the pool. Not ported
-yet (ROADMAP.md queue 1, item 4): the trace spans (left from item 1: they
-record into the runtime's request traces), and the actor runtime, serve
-controller, router splice and HTTP proxy that run the deployment as
-replicas, and spawn a mesh replica's ranks.
+yet (ROADMAP.md queue 1, item 4): the mesh replica, which spawns a mesh
+deployment's ranks as actors and routes to rank 0.
 """
 
 from __future__ import annotations
@@ -93,7 +98,7 @@ import torch
 
 from ray_tpu_torch.core import api
 from ray_tpu_torch.core.config import config as rt_config
-from ray_tpu_torch.core.device import not_ported, resolve_device
+from ray_tpu_torch.core.device import resolve_device
 from ray_tpu_torch.core.topology import parse_topology
 from ray_tpu_torch.core.errors import (DeadlineExceededError,
                                        HandoffAdoptError, OverloadedError,
@@ -106,14 +111,14 @@ from ray_tpu_torch.serve import metrics as smetrics
 from ray_tpu_torch.serve.handoff import HandoffLedger, descriptor_nbytes
 from ray_tpu_torch.serve.paging import PageAllocator, PagedPrefixIndex
 from ray_tpu_torch.serve.prefix_cache import PrefixCache
+from ray_tpu_torch.serve.replica import replica_ident, request_deadline_s
 from ray_tpu_torch.serve.spmd import Lockstep
 from ray_tpu_torch.serve.steplog import StepTimeline
+from ray_tpu_torch.util import tracing
 
 logger = logging.getLogger(__name__)
 
 _req_ids = itertools.count(1)
-_ENGINE_PATHS = ("item 4, the runtime's request traces, which the trace "
-                 "spans left from item 1 record into")
 
 
 @dataclass(eq=False)  # identity semantics: numpy token arrays inside
@@ -160,6 +165,8 @@ class _Request:
     spec_accepted: int = 0                 # of those, verified-accepted
     expired: bool = False                  # a mesh replica's rank 0 found
     #   its deadline passed (the only deadline decision on a mesh)
+    trace: Optional[tuple] = None          # submitter's span context: the
+    #   engine-side spans of this request attach there
 
     def raise_for_status(self) -> None:
         """Re-raise this request's terminal outcome as its typed error."""
@@ -226,9 +233,6 @@ class DecodeEngine:
                  trace_spans: Optional[bool] = None,
                  metrics_deployment: Optional[str] = None,
                  device=None):
-        if trace_spans:
-            raise not_ported("serve trace spans (trace_spans)",
-                             _ENGINE_PATHS)
         self.device = resolve_device(device)
         pdev = params["tok_embed"].device
         if pdev.type != self.device.type:
@@ -382,7 +386,13 @@ class DecodeEngine:
         self._obs_metrics = self._lead and bool(
             rt_config.serve_metrics_enabled if metrics_enabled is None
             else metrics_enabled)
-        self._mtags = {"deployment": metrics_deployment or "-"}
+        ident = replica_ident()
+        self._mtags = {"deployment": (metrics_deployment
+                                      or ident["deployment"] or "-")}
+        self._replica_id = ident["replica_id"]
+        self._obs_spans = self._lead and bool(
+            rt_config.serve_trace_spans if trace_spans is None
+            else trace_spans)
         # Disaggregated handoff accounting (engine side; the lease ledger
         # lives on the deployment).
         self.handoffs_published = 0  # prefill_only captures completed
@@ -656,6 +666,11 @@ class DecodeEngine:
         if self.steplog.enabled:
             self.steplog.event("preempt", request=req.request_id,
                                tokens=req.generated)
+        if self._obs_spans and req.trace is not None:
+            now = time.time()
+            tracing.record_span("preempt", now, now, ctx=req.trace,
+                                request=req.request_id,
+                                tokens=req.generated)
         self._requeue.insert(0, req)
         self._queued_tokens += len(req.tokens)
         with self._reqs_lock:
@@ -717,6 +732,8 @@ class DecodeEngine:
                     f"request {req.request_id} arrived with an already-"
                     f"expired deadline ({deadline_s:.3f}s)")
             req.deadline = time.monotonic() + float(deadline_s)
+        if self._obs_spans:
+            req.trace = tracing.current()  # loop-thread spans attach here
         # Load shedding happens HERE, at enqueue.
         if (self._pending.qsize() + len(self._intake)
                 - self._queued_cancelled >= self.queue_max):
@@ -724,6 +741,11 @@ class DecodeEngine:
             if self._obs_metrics:
                 smetrics.REQUESTS.inc(1.0, {**self._mtags,
                                             "outcome": "shed"})
+            if req.trace is not None:
+                now = time.time()
+                tracing.record_span("engine-shed", now, now,
+                                    ctx=req.trace,
+                                    request=req.request_id)
             raise OverloadedError(
                 f"decode queue at capacity ({self.queue_max} pending, "
                 f"{self.slots} slots)",
@@ -909,11 +931,44 @@ class DecodeEngine:
         if self._obs_metrics:
             smetrics.QUEUE_WAIT.observe_many(
                 [now - r.submitted_at for r in fresh], self._mtags)
+        if self._obs_spans:
+            wall = time.time()
+            for req in fresh:
+                if req.trace is not None:
+                    tracing.record_span(
+                        "queue-wait", wall - (now - req.submitted_at),
+                        wall, ctx=req.trace, request=req.request_id)
+
+    def _wave_span(self, name: str, t0_wall: float,
+                   reqs: List[_Request], **attrs: Any) -> None:
+        """One span per request of a batched device call (the wave is
+        one call; each request's trace gets its own slice of it)."""
+        if not self._obs_spans:
+            return
+        t1 = time.time()
+        for req in reqs:
+            if req.trace is not None:
+                tracing.record_span(name, t0_wall, t1, ctx=req.trace,
+                                    request=req.request_id, **attrs)
 
     def _observe_terminal(self, req: _Request, status: str) -> None:
         """Terminal bookkeeping shared by _finish and _retire: the outcome
-        counter, TTFT and inter-token histograms, and the speculative
-        counters and accept-rate histogram, once per request."""
+        counter, TTFT and inter-token histograms, the speculative counters
+        and accept-rate histogram, and the request's engine-side spans
+        (decode slice and whole-request outcome), once per request."""
+        if self._obs_spans and req.trace is not None:
+            off = time.time() - time.monotonic()  # mono -> wall
+            if (req.first_token_at is not None
+                    and req.finished_at > req.first_token_at):
+                tracing.record_span(
+                    "decode", req.first_token_at + off,
+                    req.finished_at + off, ctx=req.trace,
+                    request=req.request_id, tokens=req.generated)
+            tracing.record_span(
+                "engine-request", req.submitted_at + off,
+                req.finished_at + off, ctx=req.trace,
+                request=req.request_id, outcome=status,
+                tokens=req.generated, preemptions=req.preemptions)
         if not self._obs_metrics:
             return
         smetrics.REQUESTS.inc(1.0, {**self._mtags, "outcome": status})
@@ -1098,6 +1153,7 @@ class DecodeEngine:
             self.steplog.event("handoff-adopt", slot=slot,
                                pages=len(pages), committed=clen)
         self._phase("handoff", t0, slot=slot, pages=len(pages))
+        self._wave_span("adopt", t0, [req], pages=len(pages))
         self._mark_admitted([req])
         self._post_adopt(req, slot)
         return True
@@ -1143,6 +1199,8 @@ class DecodeEngine:
             self.cache["length"][self._dev(slots)] = lengths.to(torch.int32)
             logits = logits.cpu().numpy()
             self._phase("prefill", t0, n=len(group), bucket=bucket)
+            self._wave_span("prefill", t0, group, n=len(group),
+                            bucket=bucket)
             self._post_admit(group, slots, logits)
 
     def _admit_paged_suffix(self, reqs: List[_Request]) -> None:
@@ -1170,6 +1228,8 @@ class DecodeEngine:
             self.cache["length"][self._dev(slots)] = lengths.to(torch.int32)
             logits = logits.cpu().numpy()
             self._phase("suffix-prefill", t0, n=len(group), bucket=bucket)
+            self._wave_span("suffix-prefill", t0, group, n=len(group),
+                            bucket=bucket)
             self._post_admit(group, slots, logits)
 
     def _prefill_tick(self) -> None:
@@ -1212,6 +1272,8 @@ class DecodeEngine:
         req.prefilled = end
         self._phase("prefill-chunk", t0, tokens=step_tok, prefilled=end,
                     prompt=len(req.tokens))
+        self._wave_span("prefill-chunk", t0, [req], tokens=step_tok,
+                        prefilled=end, prompt=len(req.tokens))
         if req.prefilled >= len(req.tokens):
             self._prefilling.pop(slot)
             self._post_admit([req], [slot], logits.cpu().numpy())
@@ -1243,6 +1305,8 @@ class DecodeEngine:
                 lengths=self._dev(lengths), rows=self._dev(slots))
             logits = logits.cpu().numpy()
             self._phase("prefill", t0, n=len(group), bucket=bucket)
+            self._wave_span("prefill", t0, group, n=len(group),
+                            bucket=bucket)
             self._post_admit(group, slots, logits)
 
     def _admit_suffix(self, reqs: List[_Request]) -> None:
@@ -1270,6 +1334,8 @@ class DecodeEngine:
                 self._dev([len(r.tokens) for r in group]), rows=slot_ids)
             logits = logits.cpu().numpy()
             self._phase("suffix-prefill", t0, n=len(group), bucket=bucket)
+            self._wave_span("suffix-prefill", t0, group, n=len(group),
+                            bucket=bucket)
             for req in group:
                 # Stream order makes the splice read precede any later
                 # write to the entry, so the row may now be recycled.
@@ -1414,6 +1480,7 @@ class DecodeEngine:
         self._draft_cache["length"][slot] = len(seq)
         self._draft_committed[slot] = len(seq)
         self._phase("draft-prefill", t0, tokens=len(seq))
+        self._wave_span("draft-prefill", t0, [req], tokens=len(seq))
         return True
 
     def _draft_resync(self, slot: int, req: _Request) -> bool:
@@ -1908,6 +1975,7 @@ class DecodeEngine:
         """The step-timeline dump with the engine's shape."""
         out = self.steplog.dump()
         out["deployment"] = self._mtags["deployment"]
+        out["replica_id"] = self._replica_id
         out["paged"] = self.paged
         out["slots"] = self.slots
         out["spec_k"] = self.spec_k if self.spec else 0
@@ -2159,21 +2227,24 @@ class LlamaDecodeDeployment:
     ``spec_draft_model`` (a preset over the target's vocab) and
     ``spec_k``, a draft model with random weights from ``seed + 1``.
     ``warmup`` runs ``DecodeEngine.warmup`` before the decode loop
-    starts. ``metrics_deployment`` labels the engine's SLO metrics (the
-    JAX deployment takes the label from its replica context).
+    starts. ``metrics_deployment`` labels the engine's SLO metrics
+    (default: the hosting replica's deployment name, as the JAX
+    deployment labels them). As a serve replica, schedule it with
+    ``ray_actor_options={"num_gpus": 1}``: the node spawns it a fresh
+    worker that sees the card.
     ``mesh_shape`` serves one replica over a decode mesh of every rank of
     the default process group: build the deployment on every rank (same
     ``seed``); rank 0 answers calls, and its ``shutdown`` stops them all.
 
     Disaggregated serving: ``prefill_handoff`` prefills a request and
-    publishes its pages as a lease (refs on the object plane's stand-in,
+    publishes its pages as a lease (refs on the runtime's object store,
     ``core.api``, plus a small descriptor); ``decode_adopted`` /
     ``stream_adopted`` on another deployment adopt the pages and decode;
     the caller then ``discharge_handoff``s or ``abort_handoff``s the
     lease, and ``replica_metrics`` sweeps leases past
-    ``serve_handoff_ttl_s``. Driven in-process here; the runtime that runs
-    deployments as replicas, and the router that splices the two halves,
-    are ROADMAP.md queue 1, item 4."""
+    ``serve_handoff_ttl_s``. Under ``serve.run`` with ``role="prefill"``
+    the router does all of that: it splices the two halves across the
+    prefill and decode fleets."""
 
     def __init__(self, preset: str = "debug", slots: int = 4,
                  capacity: int = 1024, seed: int = 0,
@@ -2244,8 +2315,8 @@ class LlamaDecodeDeployment:
         self._thread.join(timeout_s)
 
     def set_topology(self, assignment: Dict[str, Any]) -> None:
-        """Sub-slice assignment pushed by the serve controller (item 4's
-        runtime); reported back through ``replica_metrics``."""
+        """Sub-slice assignment pushed by the serve controller; reported
+        back through ``replica_metrics``."""
         self._sub_slice = dict(assignment)
 
     def replica_metrics(self) -> Dict[str, Any]:
@@ -2284,13 +2355,20 @@ class LlamaDecodeDeployment:
     def _submit(self, request: Dict[str, Any], on_token=None,
                 prefill_only: bool = False,
                 adopt: Optional[Dict[str, Any]] = None) -> _Request:
+        """Admission with the request's deadline attached: an explicit
+        ``deadline_s`` in the payload wins, else the deadline the serve
+        stack propagated with this call (proxy header, handle
+        ``timeout_s`` or ``serve_request_timeout_s``)."""
+        deadline_s = request.get("deadline_s")
+        if deadline_s is None:
+            deadline_s = request_deadline_s()
         return self.engine.submit(
             request["tokens"],
             max_new_tokens=int(request.get("max_new_tokens", 32)),
             temperature=float(request.get("temperature", 0.0)),
             eos_id=request.get("eos_id"),
             on_token=on_token,
-            deadline_s=request.get("deadline_s"),
+            deadline_s=deadline_s,
             request_id=request.get("request_id"),
             prefill_only=prefill_only,
             adopt=adopt)
@@ -2430,8 +2508,10 @@ class LlamaDecodeDeployment:
         engine's adopt argument. Refs that are gone (freed, expired, or
         never in this process) raise the typed adopt error the router
         maps to re-prefill."""
+        timeout = request_deadline_s() or 30.0
         try:
-            k, v = api.get([desc["k_ref"], desc["v_ref"]], timeout=30.0)
+            k, v = api.get([desc["k_ref"], desc["v_ref"]],
+                           timeout=max(1.0, timeout))
         except Exception as e:
             raise HandoffAdoptError(
                 f"handoff {desc.get('handoff_id')} page payload "

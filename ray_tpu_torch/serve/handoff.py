@@ -6,9 +6,9 @@ deployment absorbs the prompt into its paged pool, then publishes the
 filled KV pages as object-plane refs plus a few hundred bytes of
 descriptor; a DECODE deployment adopts the pages into its own pool and
 streams from the first decode step. Between publish and adopt the pages
-live as host-side objects owned by the prefill side (in the port, the
-process-local stand-in of ``core/api.py``); this ledger is the accounting
-for that window.
+live as host-side objects owned by the prefill side (in the port, on the
+runtime's shared-memory object store through ``core/api.py``); this
+ledger is the accounting for that window.
 
 Lease discipline: ``publish_handoff`` registers a descriptor whose refs
 the process keeps alive; ``discharge_handoff`` (adopt-ack or abort, either

@@ -5,17 +5,12 @@ The SLOs a serving deployment is judged by are latency distributions
 (TTFT and time per output token), not point gauges. This module registers
 them as ``util.metrics`` Counter / Histogram instruments labeled by
 deployment, with the JAX package's names, bucket boundaries and tag keys,
-recorded by the decode engine and its deployment per REQUEST (never per
-token or per step: the decode loop must not pay a registry lock per step),
-and read back through ``slo_summary`` over ``{source: snapshot}`` maps.
-
-Observed by the port: TTFT, inter-token, queue wait, request outcomes,
-preemptions, the speculative counters and accept-rate histogram (the
-engine), and the handoff bytes, latency and lease events (the
-deployment). Defined but observed by no port code until the runtime copy
-(ROADMAP.md queue 1, item 4) brings the HTTP proxy, the router and the
-serve controller: ``HTTP_LATENCY``, ``HTTP_REQUESTS``, ``RETRIES``,
-``PENDING_RELEASES``, ``CONTROLLER_EPOCH`` and ``REPLICA_EPOCH``.
+recorded by the decode engine, its deployment, the router and the HTTP
+proxy per REQUEST (never per token or per step: the decode loop must not
+pay a registry lock per step), pushed by each process's metrics flusher to
+the cluster controller, and read back through ``slo_summary`` (the
+controller's ``list_metrics``, which ``serve.status()`` uses, or one
+process's ``{"local": _Registry.get().snapshot()}``).
 """
 
 from __future__ import annotations

@@ -1,18 +1,13 @@
-"""Metrics: Counter / Gauge / Histogram on a per-process registry (copy of
-``ray_tpu/util/metrics.py``).
+"""Metrics: Counter / Gauge / Histogram with cluster export.
 
-The user API (Counter / Gauge / Histogram, ``observe_many``), the registry
-with snapshot-time collectors and the ``metrics_max_series`` cap, and the
-aggregation helpers every surface shares (``merge_histograms``,
-``histogram_quantile``, ``histogram_summary``, ``counter_totals``,
-``gauge_totals``, ``delta_aggregated``, ``prometheus_text``). Same names,
-semantics and default buckets as the JAX package.
-
-Not carried: the cluster push (the flusher thread and the pusher claim
-that ship snapshots to the runtime's controller, ROADMAP.md queue 1, item
-4). The port's registry is read in process with ``snapshot()``; the
-aggregation helpers take ``{source: snapshot}`` maps, so a caller wraps
-one process's snapshot as ``{"local": _Registry.get().snapshot()}``.
+Analogue of the reference's two-layer metrics pipeline: the user API
+(``python/ray/util/metrics.py`` Counter/Gauge/Histogram) and the C++
+registry exported to the node agent and on to Prometheus
+(``src/ray/stats/metric_defs.cc:44-183``, ``metric_exporter.cc``).
+Here: every process has a registry; a daemon flusher pushes snapshots to
+the cluster controller (tagged with node/worker identity), which aggregates
+them and serves them via the state API (``list_metrics``) and a
+Prometheus-text endpoint (``metrics_text``).
 """
 
 from __future__ import annotations
@@ -20,11 +15,8 @@ from __future__ import annotations
 import bisect
 import logging
 import threading
-import weakref
+import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
-
-from ray_tpu_torch.core.config import config as rt_config
-from ray_tpu_torch.util.ratelimit import log_every
 
 _DEFAULT_BUCKETS = (0.001, 0.005, 0.01, 0.05, 0.1, 0.5, 1, 5, 10, 60)
 
@@ -36,12 +28,18 @@ class _Registry:
     def __init__(self):
         self._lock = threading.Lock()
         self._metrics: Dict[Tuple[str, tuple], Dict[str, Any]] = {}
+        self._flusher: Optional[threading.Thread] = None
         # Snapshot-time collectors (see add_collector): hot paths keep
         # plain attribute counters at zero registry cost; these callables
         # publish them (gauges / counter deltas / batched histogram
         # observations) only when a snapshot is actually taken.
         self._collectors: List[Any] = []
         self._collectors_lock = threading.Lock()
+        # One process, one pusher: the core-worker flusher owns the push
+        # when a runtime is connected; a node's MetricsAgent claims it
+        # otherwise. Two pushers shipping the same (cumulative) registry
+        # under different source keys would double every counter.
+        self._pusher: Optional[str] = None
 
     @classmethod
     def get(cls) -> "_Registry":
@@ -81,18 +79,29 @@ class _Registry:
                     entry["counts"][idx] += 1
                     entry["sum"] += value
                     entry["count"] += 1
+            self._ensure_flusher()
+
+    def _ensure_flusher(self) -> None:
+        if self._flusher is None or not self._flusher.is_alive():
+            self._flusher = threading.Thread(
+                target=self._flush_loop, name="metrics-flush", daemon=True)
+            self._flusher.start()
 
     def add_collector(self, fn) -> None:
         """Register a snapshot-time collector. Bound methods are held
         weakly so registering never pins its owner (an RpcServer that is
         simply dropped must still be collectable); dead entries are
         pruned at the next snapshot."""
+        import weakref
+
         ref = (weakref.WeakMethod(fn)
                if getattr(fn, "__self__", None) is not None else fn)
         with self._collectors_lock:
             self._collectors.append(ref)
 
     def _run_collectors(self) -> None:
+        import weakref
+
         with self._collectors_lock:
             refs = list(self._collectors)
         dead = []
@@ -104,7 +113,9 @@ class _Registry:
             try:
                 fn()
             except Exception:
-                # A broken collector must never take down the snapshot;
+                from ray_tpu_torch.util.ratelimit import log_every
+
+                # A broken collector must never take down the flusher;
                 # systematically failing ones still leave a trail.
                 log_every("metrics.collector", 60.0,
                           logging.getLogger(__name__),
@@ -115,26 +126,55 @@ class _Registry:
                     if ref in self._collectors:
                         self._collectors.remove(ref)
 
+    def claim_pusher(self, owner: str) -> bool:
+        """First caller per process wins; the core-worker flusher passes
+        the reserved name 'core' which always wins (it has the richest
+        source identity). A stale 'core' claim is reclaimable once the
+        runtime disconnects (driver shutdown in a long-lived node
+        process). Returns True when ``owner`` should push."""
+        with self._collectors_lock:
+            if owner == "core":
+                self._pusher = "core"
+                return True
+            if self._pusher == "core":
+                from ray_tpu_torch.core import runtime
+
+                if runtime._core_worker is not None:
+                    return False
+                self._pusher = owner
+                return True
+            if self._pusher in (None, owner):
+                self._pusher = owner
+                return True
+            return False
+
+    def release_pusher(self, owner: str) -> None:
+        with self._collectors_lock:
+            if self._pusher == owner:
+                self._pusher = None
+
     def snapshot(self, run_collectors: bool = True) -> List[Dict[str, Any]]:
         if run_collectors:
             self._run_collectors()
+        from ray_tpu_torch.core.config import config as rt_config
+
         limit = rt_config.metrics_max_series
         with self._lock:
             out = []
             dropped = 0
             for e in self._metrics.values():
                 if limit and len(out) >= limit:
-                    # Bounded snapshot: a runaway-cardinality producer
-                    # must not grow every snapshot without limit.
-                    # Insertion order is stable, so established series
-                    # keep flowing and the overflow is visible below.
+                    # Bounded push: a runaway-cardinality producer must
+                    # not grow every snapshot RPC without limit. Insertion
+                    # order is stable, so established series keep
+                    # flowing and the overflow is visible below.
                     dropped += 1
                     continue
                 d = dict(e)
                 if "counts" in d:
                     # Deep-copy the mutable histogram state: the shallow
                     # dict still aliases the live counts list, and the
-                    # caller reads this snapshot OUTSIDE the lock.
+                    # flusher serializes this snapshot OUTSIDE the lock.
                     d["counts"] = list(d["counts"])
                     d["buckets"] = list(d["buckets"])
                 out.append(d)
@@ -142,6 +182,53 @@ class _Registry:
                 out.append({"name": "metrics_series_dropped", "kind": "gauge",
                             "tags": {}, "value": float(dropped)})
             return out
+
+    def flush_now(self) -> bool:
+        """Push one snapshot to the cluster controller synchronously
+        (tests and benches that cannot wait out the flush interval).
+        Returns False when no runtime is connected or the push failed."""
+        from ray_tpu_torch.core import runtime
+
+        core = runtime._core_worker
+        if core is None:
+            return False
+        self.claim_pusher("core")
+        try:
+            core.controller.notify("push_metrics", self._source(core),
+                                   self.snapshot())
+            return True
+        except Exception:
+            return False
+
+    @staticmethod
+    def _source(core) -> Dict[str, Any]:
+        return {"node_id": core.node_id.binary(),
+                "worker_id": core.worker_id.binary(),
+                "role": getattr(core, "mode", "worker"),
+                "pid": __import__("os").getpid()}
+
+    def _flush_loop(self) -> None:
+        from ray_tpu_torch.core import runtime
+        from ray_tpu_torch.core.config import config as rt_config
+
+        while True:
+            time.sleep(max(0.1, rt_config.metrics_flush_interval_s))
+            core = runtime._core_worker
+            if core is None:
+                continue
+            self.claim_pusher("core")
+            try:
+                core.controller.notify("push_metrics", self._source(core),
+                                       self.snapshot())
+            except Exception:
+                from ray_tpu_torch.util.ratelimit import log_every
+
+                # Metrics are droppable, but a push that fails every
+                # 5 s tick means the head is unreachable — worth a line.
+                log_every("metrics.push", 60.0,
+                          logging.getLogger(__name__),
+                          "metrics push to controller failed",
+                          exc_info=True)
 
 
 def add_collector(fn) -> None:

@@ -194,16 +194,15 @@ def test_engine_matches_jax_engine(tiny):
 @pytest.mark.parametrize("kw", [dict(mesh_shape=(1, 1)),
                                 dict(trace_spans=True)])
 def test_unported_engine_knobs_raise(tiny, kw, request):
-    """The trace spans wait for item 4 and raise. The decode mesh, which
-    raised until it was ported, now builds a 1-rank (1, 1) replica on a
-    gloo group of one whose streams equal the mesh-less engine's
-    (tests/test_torch_sharded_decode.py holds larger meshes)."""
+    """Both knobs raised until they were ported. The decode mesh builds a
+    1-rank (1, 1) replica on a gloo group of one, and the trace spans
+    (ported with the runtime's request traces) build an engine; each
+    engine's streams equal the plain engine's
+    (tests/test_torch_sharded_decode.py holds larger meshes,
+    ``test_trace_spans_match_jax_engine`` the spans)."""
     _, _, tcfg, tp = tiny
-    if "trace_spans" in kw:
-        with pytest.raises(NotImplementedError, match="ROADMAP.*item 4"):
-            _engine(tp, tcfg, **kw)
-        return
-    request.getfixturevalue("world_of_one")
+    if "mesh_shape" in kw:
+        request.getfixturevalue("world_of_one")
     prompts = [[5, 9, 2], [7], [11, 3, 4, 8, 1]]
     outs = []
     for eng in (_engine(tp, tcfg), _engine(tp, tcfg, **kw)):
@@ -212,6 +211,8 @@ def test_unported_engine_knobs_raise(tiny, kw, request):
         outs.append([r.output for r in reqs])
         eng.shutdown()
     assert outs[1] == outs[0]
+    if "trace_spans" in kw:
+        return
     assert eng.stats()["chips"] == 1 and eng.stats()["mesh_shape"] == [1, 1]
 
 
@@ -242,3 +243,34 @@ def test_engine_rejects_params_on_other_device(tiny):
         pytest.skip("checks the CPU-only refusal path")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         DecodeEngine(tp, tcfg)
+
+
+def test_trace_spans_match_jax_engine(tiny, monkeypatch):
+    """One request submitted under a trace context: the port's engine
+    records the JAX engine's engine-side spans (same names, same
+    attribute keys, same order), each parented under the submitter's
+    span and inside the trace."""
+    from ray_tpu.serve.decode import DecodeEngine as JaxEngine
+    from ray_tpu.util import tracing as jtracing
+    from ray_tpu_torch.util import tracing as ttracing
+
+    jcfg, jp, tcfg, tp = tiny
+    got = {}
+    for name, mod, eng in (
+            ("jax", jtracing, JaxEngine(jp, jcfg, slots=2, capacity=64,
+                                        trace_spans=True)),
+            ("port", ttracing, _engine(tp, tcfg, slots=2,
+                                       trace_spans=True))):
+        events = []
+        monkeypatch.setattr(mod, "_record", events.append)
+        with mod.trace("client") as (trace_id, span_id):
+            req = eng.submit([5, 9, 2, 6], max_new_tokens=4)
+        _drive(eng, [req])
+        spans = [e for e in events if e["desc"] != "client"]
+        assert all(e["trace_id"] == trace_id and e["parent_span"] == span_id
+                   and e["lease_ts"] <= e["end_ts"] for e in spans), spans
+        got[name] = [(e["desc"], sorted(e["attrs"] or {})) for e in spans]
+        assert events[0]["desc"] == "client"  # closed before the engine ran
+    assert got["port"] == got["jax"]
+    assert [n for n, _ in got["port"]] == ["queue-wait", "prefill",
+                                           "decode", "engine-request"]

@@ -1,6 +1,7 @@
 """The port's disaggregated prefill/decode handoff on the CPU (tiny
-models): the lease ledger against ``ray_tpu.serve.handoff``, the object
-plane's stand-in, the engine's ``prefill_only`` capture and ``adopt``
+models): the lease ledger against ``ray_tpu.serve.handoff``, the
+runtime's object plane (one cluster for the module, as
+``tests/test_disagg_serve.py`` runs under one), the engine's ``prefill_only`` capture and ``adopt``
 scatter within the port, payloads carried between the port and the JAX
 package's engine in both directions, and the deployment's two halves
 (``tests/test_disagg_serve.py`` on the port).
@@ -40,7 +41,43 @@ from torch_parity import (assert_greedy_agrees, greedy_with_margins,
 
 VOCAB = 61
 TOL = {"f32": 1e-4, "bf16": 5e-2}
-pytestmark = pytest.mark.usefixtures("one_torch_thread")
+pytestmark = pytest.mark.usefixtures("one_torch_thread", "runtime")
+
+
+@pytest.fixture(scope="module")
+def runtime():
+    """The port's runtime for the module: ``put`` / ``get`` / ``free`` of
+    the handoff's payloads go through its object store."""
+    import ray_tpu_torch as rt
+
+    rt.init(num_cpus=2)
+    yield
+    rt.shutdown()
+
+
+def _lost_ref():
+    """A ref whose owner is gone (nothing listens at its address): the
+    runtime's ``get`` raises ``ObjectLostError``."""
+    import socket
+
+    from ray_tpu_torch.core.ids import ObjectID
+    from ray_tpu_torch.core.object_ref import ObjectRef
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    return ObjectRef(ObjectID.from_random(), owner_addr=("127.0.0.1", port))
+
+
+def _live_objects() -> int:
+    """Objects the driver's store holds a value for (freed ones leave a
+    tombstone, not a value)."""
+    from ray_tpu_torch.core.runtime import get_core_worker
+
+    store = get_core_worker().store
+    with store._lock:
+        return sum(1 for e in store._entries.values() if not e.freed
+                   and (e.data is not None or e.shm_ref is not None))
 
 
 @pytest.fixture(scope="module")
@@ -135,14 +172,21 @@ def test_ledger_matches_jax():
 
 
 def test_object_plane_stand_in():
-    """put / get / free within the process: a ref pickles to its id, a
-    descriptor of two refs stays far under the budget whatever the
-    payload, and a freed or unknown ref raises."""
-    big = torch.zeros(1 << 18)  # 1 MiB
+    """put / get / free on the runtime's object store: ``get`` returns an
+    equal value (a tensor read back from the store), a ref pickles to its
+    id and owner, a descriptor of two refs stays far under the budget
+    whatever the payload, a freed ref raises ``ObjectFreedError`` and a
+    ref whose owner is gone ``ObjectLostError``."""
+    big = torch.randn(1 << 18)  # 1 MiB: the shared-memory path
     k, v = api.put(big), api.put("v")
-    assert api.get(k) is big and api.get([k, v]) == [big, "v"]
+    got = api.get(k)
+    assert got is not big and torch.equal(got, big)
+    assert got.dtype == big.dtype and got.shape == big.shape
+    both = api.get([k, v])
+    assert torch.equal(both[0], big) and both[1] == "v"
     again = pickle.loads(pickle.dumps(k))
-    assert again == k and hash(again) == hash(k) and api.get(again) is big
+    assert again == k and hash(again) == hash(k)
+    assert torch.equal(api.get(again), big)
     desc = {"handoff_id": "0123456789abcdef", "k_ref": k, "v_ref": v,
             "committed_len": 1500, "first_token": 7, "page_tokens": 64,
             "nbytes": 805306368, "prefill_ttft_s": 0.25}
@@ -150,11 +194,11 @@ def test_object_plane_stand_in():
     api.free([k, None])
     api.free(k)  # twice: a no-op
     with pytest.raises(ObjectFreedError):
-        api.get(k)
+        api.get(k, timeout=10)
     with pytest.raises(ObjectFreedError):
-        api.get([v, k])
+        api.get([v, k], timeout=10)
     with pytest.raises(ObjectLostError):
-        api.get(api.ObjectRef("obj-never-stored"))
+        api.get(_lost_ref(), timeout=10)
     api.free(v)
 
 
@@ -502,21 +546,21 @@ def _slo(tag):
 
 
 def test_deployment_unary_and_stream_adopt(tiny):
-    """The two halves on the stand-in object plane: a descriptor of a
+    """The two halves on the runtime's object plane: a descriptor of a
     few hundred bytes, a unary and a streaming adopt equal to the
     colocated answers, the leases discharged, and ``replica_metrics``
     with the handoff fields and the lease metrics."""
     _, _, tcfg, _ = tiny
     tag = f"dep-{time.monotonic_ns()}"
     pre, dec, col = _deployments(tcfg, tag)
-    objects = len(api._store)
+    objects = _live_objects()
     try:
         p1, p2 = _prompts(12, 18, 33)
         req = {"tokens": p1, "max_new_tokens": 6}
         desc = pre.prefill_handoff(req)
         assert thandoff.descriptor_nbytes(desc) < 512
         assert desc["nbytes"] == 2 * api.get(desc["k_ref"]).nbytes
-        assert len(api._store) == objects + 2
+        assert _live_objects() == objects + 2
         out = dec.decode_adopted(req, desc)
         pre.discharge_handoff(desc["handoff_id"])
         assert out == {"tokens": col(req)["tokens"],
@@ -529,7 +573,7 @@ def test_deployment_unary_and_stream_adopt(tiny):
         pre.discharge_handoff(desc2["handoff_id"])  # adopted: ack now
         got += list(stream)
         assert got == list(col(req2))
-        assert len(api._store) == objects
+        assert _live_objects() == objects
         pre.set_topology({"slice_id": "s0", "hosts": 1})
         rm, dm = pre.replica_metrics(), dec.replica_metrics()
         assert rm["handoffs_published"] == 2 and rm["handoffs_live"] == 0
@@ -574,7 +618,7 @@ def test_deployment_dead_leases(tiny, handoff_ttl):
         assert isinstance(e.value.__cause__, ObjectFreedError)
         with pytest.raises(HandoffAdoptError) as e:
             dec.decode_adopted(req, {**desc,
-                                     "k_ref": api.ObjectRef("obj-lost")})
+                                     "k_ref": _lost_ref()})
         assert isinstance(e.value.__cause__, ObjectLostError)
         expiring = pre.prefill_handoff(req)
         assert pre.replica_metrics()["handoffs_live"] == 1

@@ -53,12 +53,22 @@ def test_no_jax_or_ray_tpu_imports(path):
 
 
 def test_import_loads_no_jax_and_builds_nothing():
-    code = ("import importlib, sys\n"
+    # The runtime's store library is built (at most once, under its file
+    # lock) before the snapshot, so a test worker that opens a store
+    # meanwhile cannot change _build/; the child still proves that the
+    # imports load no native library and start no thread.
+    from ray_tpu_torch._native.build import build_library
+
+    build_library("shm_store", ["shm_store.cpp"])
+    code = ("import importlib, sys, threading\n"
             f"for m in {_modules()!r}:\n"
             "    importlib.import_module(m)\n"
             "assert 'jax' not in sys.modules, 'jax imported'\n"
             "assert not any(k == 'ray_tpu' or k.startswith('ray_tpu.') "
-            "for k in sys.modules), 'ray_tpu imported'\n")
+            "for k in sys.modules), 'ray_tpu imported'\n"
+            "from ray_tpu_torch._native import objstore\n"
+            "assert objstore._lib is None, 'store library loaded'\n"
+            "assert threading.active_count() == 1, threading.enumerate()\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = str(ROOT)
     built = set((PORT / "_build").glob("*")) if (PORT / "_build").exists() \
