@@ -1,6 +1,6 @@
 """Drive the PyTorch/CUDA port's splash, serving (a decode mesh and the
-runtime's serve plane among them), training (Llama and ViT) and mesh paths
-on one NVIDIA GPU.
+runtime's serve plane among them), training (Llama, through the runtime's
+train and tune planes too, and ViT) and mesh paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -127,7 +127,33 @@ Phases, one JSON line each (``{"phase": ..., "ok": ...}``):
    and the forward twice (the remat recompute). Losses must be finite
    and falling. A 2-layer model of the same width then holds the flash
    gradients against the plain-attention ones.
-12. vit: ViT-B/16 (``vit.PRESETS["vit_b16"]``, full width and depth, fp32
+12. train_runtime: the train phase's model, weights, tokens and steps
+   through the train and tune planes: ``rt.init()`` (its node must
+   advertise ``GPU: 1``), then ``TorchTrainer`` with
+   ``ScalingConfig(num_workers=1, use_gpu=True,
+   torch_config=TorchConfig(distributed=True))`` and
+   ``FailureConfig(max_failures=1)``: one GPU-leased worker (its own
+   process) joins a one-rank NCCL group through the gang registry's
+   bootstrap barrier and a tcp rendezvous and takes the 4 steps, each
+   reporting its loss, gradient norm, time, peak memory and the launch
+   counts (zeroed before the step, read after it in the worker's
+   process). After step 2 ``save_pytree`` writes params and AdamW state
+   (14 GB at 1B, the free bytes of the storage path printed first) and
+   reports it as the checkpoint (copied into the run's storage); the
+   first attempt then raises an injected error, and the second restores
+   it through ``train.get_checkpoint()`` and ``restore_pytree`` and takes
+   steps 3-4. Checks: one restart, the four losses equal to the train
+   phase's within ``TRAIN_RUNTIME_REL_TOL``, exact launches a step, all on
+   wgmma. Prints the card's memory before ``fit()``, the worker's start
+   time, save / persist / restore seconds and GB/s, the restart time and
+   the step times beside train's. Then a ``Tuner`` over the same trainer
+   with ``lr`` in ``grid_search([3e-4, 3e-5])``, 2 steps a trial: each
+   trial's gang holds the one ``GPU``, so the second waits out the first
+   (its reservation is refused and requeued); both finish, with equal
+   first losses and the same launches, and the best result is the lower
+   final loss. Teardown: no gang record, no process of the node, no store
+   file and no checkpoint directory left, ``GPU`` available again.
+13. vit: ViT-B/16 (``vit.PRESETS["vit_b16"]``, full width and depth, fp32
    masters from seed 0, bf16 compute, full remat) takes six AdamW(3e-4,
    weight decay 0.1) steps through ``build_train_step`` at batch 256, fed
    by ``device_prefetch(prefetch=2)`` from seeded numpy batches of float32
@@ -143,7 +169,7 @@ Phases, one JSON line each (``{"phase": ..., "ok": ...}``):
    size in float32 (random head), ``pad_tokens_to=256`` logits equal the
    unpadded ones at B=4, and none of the seven hand-written kernels
    launched (ViT attention is the plain path, as in the JAX package).
-13. mesh: the mesh plane at world size 1: one NCCL process group of one
+14. mesh: the mesh plane at world size 1: one NCCL process group of one
    rank, rendezvoused in process (``parallel.mesh.init_distributed``).
    The train phase's 1B setup (2 steps of 2 microbatches of 4 x 2048)
    mesh-less, then through ``build_train_step`` on
@@ -178,8 +204,8 @@ the backward's entries the same way, and every backward launch must have
 taken a wgmma kernel.
 
 Each main path (splash, serve, serve_paged, serve_spec, serve_disagg,
-serve_runtime, serve_mesh, train, mesh) must have launched each of its kernels at least
-once. Then a ``{"kernels": [...]}`` line
+serve_runtime, serve_mesh, train, train_runtime, mesh) must have launched
+each of its kernels at least once. Then a ``{"kernels": [...]}`` line
 with all seven kernels (the six attention kernels with their main-path
 launches by kernel, and each with its ptxas lines: registers, shared
 memory and spills of each instantiation), the nvidia-smi
@@ -296,6 +322,8 @@ PATH_KERNELS = {
     "serve_mesh": ["flash_fwd"],
     "train": ["flash_fwd", "flash_bwd_dkv", "flash_bwd_dq",
               "attention_delta"],
+    "train_runtime": ["flash_fwd", "flash_bwd_dkv", "flash_bwd_dq",
+                      "attention_delta"],
     "splash": ["splash_fwd", "splash_bwd_dq", "splash_bwd_dkv",
                "attention_delta"],
     "mesh": ["flash_fwd", "flash_bwd_dkv", "flash_bwd_dq",
@@ -2854,6 +2882,389 @@ def phase_train(cfg, device="cuda", batch=8, seq=2048, steps=4,
     return out
 
 
+# ----------------------------------------------------- the train runtime
+
+# The worker's losses against the train phase's, step for step: the
+# largest relative difference allowed. The step is deterministic on the
+# card (the flash kernels issue no atomics, the embedding's gradient is a
+# matmul, and the train phase's losses repeat to the last bit between two
+# runs), so the worker, a fresh process on the same card, must reproduce
+# them exactly.
+TRAIN_RUNTIME_REL_TOL = 0.0
+# The train phase's schedule, run by the worker: steps, the step after
+# which the first attempt checkpoints and then fails once; then each tune
+# trial's steps, and the trials' learning rates.
+TRAIN_RUNTIME = dict(steps=4, ckpt_after=2, tune_steps=2,
+                     tune_lrs=(3e-4, 3e-5))
+
+
+def _state_bytes(tree) -> int:
+    from ray_tpu_torch.ops.optim import tree_leaves
+
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def _dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def _train_runtime_loop(config):
+    """The train phase's setup and steps inside a ``TorchTrainer`` worker:
+    each step reports its loss, gradient norm, time, peak memory and the
+    kernels' launch counts read in this process. With ``ckpt_after`` the
+    params and AdamW state are saved and reported as the checkpoint after
+    that step, and the first attempt (no marker file yet) then fails; a
+    later attempt restores from ``train.get_checkpoint()``."""
+    t_enter = time.time()
+    import shutil
+
+    import torch.distributed as dist
+
+    from ray_tpu_torch import train
+    from ray_tpu_torch.core import multihost
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.ops.optim import adamw
+    from ray_tpu_torch.parallel import train_step
+
+    cfg, device = config["cfg"], config["device"]
+    cuda = torch.device(device).type == "cuda"
+    params = train_step.init_sharded_params(
+        lambda seed: llama.init_params(cfg, device=device,
+                                       dtype=torch.float32, seed=seed),
+        llama.param_axes(cfg), key=0)
+    opt = adamw(config["lr"], weight_decay=0.1)
+    opt_state = train_step.init_optimizer_state(opt, params)
+    step = train_step.build_train_step(
+        lambda p, b: llama.loss_fn(p, b, cfg), opt,
+        accum_steps=config["accum_steps"])
+    g = torch.Generator(device=device).manual_seed(0)
+    data = {"tokens": torch.randint(0, cfg.vocab_size,
+                                    (config["batch"], config["seq"] + 1),
+                                    generator=g, device=device)}
+    start, extra = 0, {}
+    ckpt = train.get_checkpoint()
+    if ckpt is not None:
+        _sync(device)
+        t = time.perf_counter()
+        tree, meta = train.restore_pytree(ckpt, {"params": params,
+                                                 "opt": opt_state})
+        _sync(device)
+        restore_s = time.perf_counter() - t
+        params, opt_state, start = tree["params"], tree["opt"], meta["step"]
+        del tree
+        nbytes = _dir_bytes(os.path.join(ckpt.path, "state"))
+        extra = {"restore_s": restore_s, "restore_bytes": nbytes,
+                 "restore_gb_s": nbytes / restore_s / 1e9,
+                 "resumed_from": start, "restored_count": opt_state.count}
+    _sync(device)
+    t_ready = time.time()
+    where = {"pid": os.getpid(), "device": str(torch.device(
+        device, torch.cuda.current_device()) if cuda else device),
+        "card": torch.cuda.get_device_name() if cuda else None,
+        "cuda_visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+        "backend": dist.get_backend() if dist.is_initialized() else None,
+        "world": dist.get_world_size() if dist.is_initialized() else 0,
+        "groups": [(r["owner"], r["num_hosts"], r["epoch"])
+                   for r in multihost.registry_state().values()],
+        "state_bytes": _state_bytes({"p": params, "mu": opt_state.mu,
+                                     "nu": opt_state.nu})}
+    for s in range(start, config["steps"]):
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        fwd0, bwd0 = fwd_kernel_counts(device), bwd_kernel_counts(device)
+        t = time.perf_counter()
+        params, opt_state, m = step(params, opt_state, data)
+        _sync(device)
+        metrics = {"step": s + 1, "loss": float(m["loss"]),
+                   "grad_norm": float(m["grad_norm"]),
+                   "step_s": time.perf_counter() - t,
+                   "launches": launch_counts(),
+                   "fwd_by_kernel": fwd_kernels_since(fwd0, device),
+                   "bwd_by_kernel": bwd_kernels_since(bwd0, device),
+                   "peak_bytes": (torch.cuda.max_memory_allocated()
+                                  if cuda else None),
+                   "t_enter": t_enter, "t_ready": t_ready, **where, **extra}
+        extra = {}
+        if s + 1 != config.get("ckpt_after"):
+            metrics["t_report"] = time.time()
+            train.report(metrics)
+            continue
+        staging = os.path.join(config["staging"], f"step{s + 1}")
+        t = time.perf_counter()
+        saved = train.save_pytree(staging, {"params": params,
+                                            "opt": opt_state}, step=s + 1)
+        save_s = time.perf_counter() - t
+        nbytes = _dir_bytes(os.path.join(staging, "state"))
+        metrics.update(save_s=save_s, save_bytes=nbytes,
+                       save_gb_s=nbytes / save_s / 1e9,
+                       t_report=time.time())
+        t = time.perf_counter()
+        train.report(metrics, checkpoint=saved)  # copies it into storage
+        persist_s = time.perf_counter() - t
+        shutil.rmtree(staging)
+        if not os.path.exists(config["marker"]):
+            with open(config["marker"], "w") as f:
+                json.dump({"t_error": time.time(), "persist_s": persist_s,
+                           "persist_gb_s": nbytes / persist_s / 1e9}, f)
+            raise RuntimeError("injected failure after the step-"
+                               f"{s + 1} checkpoint")
+
+
+def _step_checks(history, want, device) -> dict:
+    """Each reported step launched ``want``, the forward on wgmma and the
+    backward on its wgmma kernels."""
+    return {"launches_per_step_exact": all(
+                m["launches"] == want for m in history),
+            "flash_fwd_on_wgmma": all(all_on_wgmma(
+                m["fwd_by_kernel"], m["launches"]["flash_fwd"], device)
+                for m in history),
+            "flash_bwd_on_wgmma": all(all_bwd_on_wgmma(
+                m["bwd_by_kernel"], m["launches"]["flash_bwd_dkv"],
+                m["launches"]["flash_bwd_dq"], device) for m in history)}
+
+
+def _sum_counts(history, key) -> dict:
+    total: dict = {}
+    for m in history:
+        for k, n in m[key].items():
+            total[k] = total.get(k, 0) + n
+    return total
+
+
+def phase_train_runtime(cfg, train: dict, device="cuda", batch=8,
+                        seq=2048, accum_steps=2) -> dict:
+    """The train phase's model and steps through the train and tune
+    planes on the runtime: ``rt.init()``, a ``TorchTrainer`` whose one
+    GPU-leased worker joins a one-rank NCCL group through the gang
+    registry, a checkpoint of params and AdamW state after step 2, an
+    injected failure, a restart restored from the checkpoint, then a
+    ``Tuner`` of two learning rates over the same trainer, each trial's
+    gang on the one card in turn. ``train`` is the train phase's result
+    (its losses and step times). See the module docstring."""
+    import shutil
+    import tempfile
+
+    import ray_tpu_torch as rt
+
+    cuda = torch.device(device).type == "cuda"
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    out = {"card_memory_before_fit": (
+        dict(zip(("free", "total"), torch.cuda.mem_get_info()))
+        if cuda else None)}
+    storage = tempfile.mkdtemp(prefix="train_runtime_")
+    # Params and AdamW's two moments in fp32: staged and persisted copies.
+    need = 2 * 3 * 4 * cfg.num_params()
+    out["storage"] = {"path": storage, "free_bytes":
+                      shutil.disk_usage(storage).free, "need_bytes": need}
+    print(json.dumps({"train_runtime_storage": out["storage"]}),
+          flush=True)
+    try:
+        if out["storage"]["free_bytes"] < need:
+            raise RuntimeError(
+                f"the storage path {storage} has "
+                f"{out['storage']['free_bytes']} bytes free; the 1B "
+                f"checkpoint's staged and persisted copies need {need}")
+        _runtime_init(device)
+        try:
+            return _train_runtime(cfg, train, device, batch, seq,
+                                  accum_steps, storage, out)
+        finally:
+            if rt.is_initialized():  # a failure before the teardown
+                rt.shutdown()
+    finally:
+        shutil.rmtree(storage, ignore_errors=True)
+
+
+def _train_runtime(cfg, train, device, batch, seq, accum_steps, storage,
+                   out) -> dict:
+    import shutil
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import tune
+    from ray_tpu_torch.core import multihost
+    from ray_tpu_torch.core.node import shm_store_path
+    from ray_tpu_torch.core.runtime import get_core_worker
+    from ray_tpu_torch.train import (FailureConfig, RunConfig,
+                                     ScalingConfig, TorchTrainer)
+    from ray_tpu_torch.train.torch_backend import TorchConfig
+
+    cuda = torch.device(device).type == "cuda"
+    core = get_core_worker()
+    node_hex, store = core.node_id.hex(), shm_store_path(core.node_id)
+    resources = rt.cluster_resources()
+    gpus = rt.available_resources().get("GPU")
+    checks = {"gpu_resource": resources.get("GPU") == 1.0 and gpus == 1.0}
+    marker = os.path.join(storage, "failed_once")
+    loop_config = dict(cfg=cfg, device=device, batch=batch, seq=seq,
+                       accum_steps=accum_steps, lr=3e-4,
+                       steps=TRAIN_RUNTIME["steps"],
+                       ckpt_after=TRAIN_RUNTIME["ckpt_after"],
+                       staging=os.path.join(storage, "staging"),
+                       marker=marker)
+    scaling = ScalingConfig(num_workers=1, use_gpu=True,
+                            torch_config=TorchConfig(
+                                distributed=True,
+                                device_type=None if cuda else "cpu"))
+    arrivals = []
+    trainer = TorchTrainer(
+        _train_runtime_loop, train_loop_config=loop_config,
+        scaling_config=scaling,
+        run_config=RunConfig(name="train_runtime", storage_path=storage,
+                             failure_config=FailureConfig(max_failures=1)),
+        result_callback=lambda r: arrivals.append(time.time()))
+    t_fit = time.time()
+    result = trainer.fit()
+    fit_s = time.time() - t_fit
+    if result.error is not None:
+        raise RuntimeError(f"TorchTrainer.fit failed: {result.error}")
+    hist = [r["metrics"] for r in result.metrics_history]
+    with open(marker) as f:
+        failed = json.load(f)
+    by_step = {m["step"]: m for m in hist}
+    steps = [by_step[s]["step_s"] for s in sorted(by_step)]
+    losses = [by_step[s]["loss"] for s in sorted(by_step)]
+    first_after = min((m for m in hist if m["t_enter"] > failed["t_error"]),
+                      key=lambda m: m["t_report"])
+    saved = by_step[TRAIN_RUNTIME["ckpt_after"]]
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, train["losses"])]
+    w = hist[0]
+    out.update({
+        "resources": resources, "fit_s": fit_s, "error": result.error,
+        "worker": {k: w[k] for k in ("pid", "device", "card", "backend",
+                                     "world", "groups", "cuda_visible",
+                                     "state_bytes")},
+        "losses": losses, "train_losses": train["losses"],
+        "loss_max_rel_diff": max(rel) if rel else None,
+        "tol": TRAIN_RUNTIME_REL_TOL,
+        "grad_norms": [by_step[s]["grad_norm"] for s in sorted(by_step)],
+        "step_s": steps, "median_step_s": _median(steps),
+        "train_step_s": train["step_s"],
+        "train_median_step_s": _median(train["step_s"]),
+        # Past each process's first step (its warm-up), as train's 2-4.
+        "steady_median_step_s": _median(
+            [m["step_s"] for m in hist
+             if m["step"] != min(x["step"] for x in hist
+                                 if x["pid"] == m["pid"])]),
+        "train_steady_median_step_s": _median(train["step_s"][1:]),
+        "peak_bytes": [by_step[s]["peak_bytes"] for s in sorted(by_step)],
+        "worker_start_s": w["t_enter"] - t_fit,
+        "worker_ready_s": w["t_ready"] - t_fit,
+        "fit_to_first_report_s": arrivals[0] - t_fit if arrivals else None,
+        "checkpoint": {
+            "bytes": saved["save_bytes"], "save_s": saved["save_s"],
+            "save_gb_s": saved["save_gb_s"],
+            "persist_s": failed["persist_s"],
+            "persist_gb_s": failed["persist_gb_s"],
+            "restore_s": first_after["restore_s"],
+            "restore_gb_s": first_after["restore_gb_s"],
+            "path": (os.path.relpath(result.checkpoint.path, storage)
+                     if result.checkpoint else None)},
+        "restart": {"error_to_first_report_s":
+                    first_after["t_report"] - failed["t_error"],
+                    "error_to_loop_s":
+                    first_after["t_enter"] - failed["t_error"],
+                    "loop_to_ready_s":
+                    first_after["t_ready"] - first_after["t_enter"]}})
+    # Every kernel of the train path once per layer and microbatch (the
+    # forward twice, for the remat recompute).
+    want = {**{k: 0 for k in KERNELS},
+            "flash_fwd": 2 * cfg.n_layers * accum_steps,
+            "flash_bwd_dkv": cfg.n_layers * accum_steps,
+            "flash_bwd_dq": cfg.n_layers * accum_steps,
+            "attention_delta": cfg.n_layers * accum_steps}
+    checks.update(_step_checks(hist, want, device))
+    checks.update({
+        "one_restart": (len({m["pid"] for m in hist}) == 2
+                        and first_after["resumed_from"]
+                        == TRAIN_RUNTIME["ckpt_after"]
+                        and first_after["restored_count"]
+                        == TRAIN_RUNTIME["ckpt_after"]),
+        "four_steps": sorted(by_step) == list(
+            range(1, TRAIN_RUNTIME["steps"] + 1)),
+        "losses_match_train": (len(rel) == TRAIN_RUNTIME["steps"]
+                               and max(rel) <= TRAIN_RUNTIME_REL_TOL),
+        "checkpoint_holds_the_state": (saved["save_bytes"]
+                                       >= w["state_bytes"]),
+        "nccl_group_of_one_through_the_registry": all(
+            m["backend"] == ("nccl" if cuda else "gloo") and m["world"] == 1
+            and m["groups"] == [("train-worker-group", 1, 1)]
+            for m in hist),
+        "worker_on_the_card": all(
+            m["pid"] != os.getpid() and m["device"].startswith(device)
+            and (not cuda or bool(m["card"])) for m in hist),
+    })
+    # Tune: two learning rates over the same trainer, each trial's gang
+    # holding the one GPU in turn.
+    tune_config = {**loop_config, "steps": TRAIN_RUNTIME["tune_steps"],
+                   "ckpt_after": None}
+    t_tune = time.time()
+    grid = tune.Tuner(
+        TorchTrainer(_train_runtime_loop, train_loop_config=tune_config,
+                     scaling_config=scaling,
+                     run_config=RunConfig(storage_path=storage)),
+        param_space={"lr": tune.grid_search(
+            list(TRAIN_RUNTIME["tune_lrs"]))},
+        tune_config=tune.TuneConfig(metric="loss", mode="min")).fit()
+    tune_s = time.time() - t_tune
+    trials = sorted(grid, key=lambda r: r.config["lr"], reverse=True)
+    th = [r.metrics_history for r in trials]
+    best = grid.get_best_result()
+    out["tune"] = {
+        "wall_s": tune_s,
+        "trials": [{"lr": r.config["lr"], "error": r.error,
+                    "losses": [m["loss"] for m in h],
+                    "step_s": [m["step_s"] for m in h],
+                    "start_s": h[0]["t_enter"] - t_tune if h else None,
+                    "end_s": h[-1]["t_report"] - t_tune if h else None,
+                    "pid": h[0]["pid"] if h else None}
+                   for r, h in zip(trials, th)],
+        "best_lr": best.config["lr"]}
+    tune_steps = [m for h in th for m in h]
+    checks.update({
+        "tune_trials_finish": all(r.error is None and len(h)
+                                  == TRAIN_RUNTIME["tune_steps"]
+                                  for r, h in zip(trials, th)),
+        "tune_first_losses_equal": len({h[0]["loss"] for h in th
+                                        if h}) == 1,
+        "tune_best_is_lowest_final_loss": best.config["lr"] == min(
+            trials, key=lambda r: r.metrics["loss"]).config["lr"],
+        "tune_trials_in_turn_on_the_card": (
+            len(th) == 2 and all(th) and th[1][0]["t_enter"]
+            > th[0][-1]["t_report"]),
+        **{f"tune_{k}": v for k, v in _step_checks(
+            tune_steps, want, device).items()}})
+    all_steps = hist + tune_steps
+    out.update({"launches": {k: sum(m["launches"][k] for m in all_steps)
+                             for k in KERNELS},
+                "launches_want_per_step": want,
+                "flash_fwd_by_kernel": _sum_counts(all_steps,
+                                                   "fwd_by_kernel"),
+                "flash_bwd_by_kernel": _sum_counts(all_steps,
+                                                   "bwd_by_kernel")})
+    out["gpu_returned"] = _poll_until(
+        lambda: rt.available_resources().get("GPU"), lambda v: v == gpus)
+    out["groups_left"] = multihost.registry_state()
+    rt.shutdown()
+    out["store_file_left"] = os.path.exists(store)
+    out["processes_left"] = _poll_until(lambda: _live_node_pids(node_hex),
+                                      lambda v: not v, 15.0)
+    shutil.rmtree(storage)
+    checks["teardown_clean"] = (out["gpu_returned"] == gpus
+                                and not out["groups_left"]
+                                and not out["store_file_left"]
+                                and not out["processes_left"]
+                                and not os.path.exists(storage))
+    out["checks"] = checks
+    if cuda:
+        out["device"] = smi_line()
+    out["ok"] = all(checks.values())
+    return out
+
+
 # The ViT-B/16 train loop (``bench.py``'s ViT workload): batch, steps (the
 # first a warm-up), the prefetch depth.
 VIT_TRAIN = dict(batch=256, steps=6, prefetch=2)
@@ -3851,6 +4262,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     record: dict = {}
+    results: dict = {}
     paths: dict = {}
     by_kernel: dict = {}
     bwd_by_kernel: dict = {}
@@ -3869,6 +4281,8 @@ def main() -> int:
                       lambda: phase_serve_runtime(serve_cfg)),
                      ("serve_mesh", lambda: phase_serve_mesh(serve_cfg)),
                      ("train", lambda: phase_train(train_cfg)),
+                     ("train_runtime", lambda: phase_train_runtime(
+                         train_cfg, results["train"])),
                      ("vit", lambda: phase_vit(vit.PRESETS["vit_b16"])),
                      ("mesh", lambda: phase_mesh(train_cfg))):
         t0 = time.perf_counter()
@@ -3883,6 +4297,7 @@ def main() -> int:
         emit(res)
         if not res["ok"]:
             return 1
+        results[name] = res
         if name in PATH_KERNELS:
             paths[name] = res["launches"]
             for k, n in res.get("flash_fwd_by_kernel", {}).items():

@@ -11,8 +11,11 @@ Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 The core API mirrors ``ray_tpu``'s (``init``, ``remote``, ``get``,
 ``put``, ``wait``, ``free``, ``kill``, ``get_actor``, placement groups):
 tasks, actors and objects on the shared-memory store, with cards leased as
-the ``GPU`` resource. ``HostGroup`` waits for the train plane (ROADMAP.md
-queue 1, item 4). Importing the package starts nothing; ``init()`` does.
+the ``GPU`` resource. The train and tune planes (``ray_tpu_torch.train``:
+``TorchTrainer``, one ``torch.distributed`` group per gang;
+``ray_tpu_torch.tune``: ``Tuner``) run on it; ``HostGroup`` is not ported
+yet (ROADMAP.md queue 1, item 4). Importing the package starts nothing;
+``init()`` does.
 """
 
 from ray_tpu_torch.core.api import (  # noqa: F401

@@ -113,11 +113,6 @@ def _utilization(rec: NodeRecord) -> float:
 
 
 
-def _gang_not_ported(*_args, **_kwargs):
-    raise not_ported("the multi-host gang registry (HostGroup)",
-                     "item 4, HostGroup and the gang registry")
-
-
 def _pipeline_not_ported(*_args, **_kwargs):
     raise not_ported("the pipeline registry", "item 4, the pipeline plane")
 
@@ -175,10 +170,16 @@ class Controller:
         # + serve's LongPollHost): actor/job/PG state transitions and KV
         # writes publish here so clients wait on pushes, not poll loops.
         self.pubsub = Pubsub()
-        # The multi-host gang registry (core/multihost.py) and the
-        # pipeline-parallel training registry (core/pipereg.py) belong to
-        # the train and pipeline planes, which the port does not carry
-        # yet: their handlers answer with the not-ported error.
+        # Multi-host gang registry (core/multihost.py): group epochs,
+        # rendezvous barriers (program-hash checks park handler threads
+        # here exactly like the pubsub long-polls), fenced group KV and
+        # membership beats. Internally locked — accessed off self._lock.
+        from ray_tpu_torch.core.multihost import GroupRegistry
+
+        self.multihost = GroupRegistry()
+        # The pipeline-parallel training registry (core/pipereg.py)
+        # belongs to the pipeline plane, which the port does not carry
+        # yet: its handlers answer with the not-ported error.
         self._server = RpcServer(
             handlers={
                 "register_node": self.register_node,
@@ -215,13 +216,13 @@ class Controller:
                 "taint_host": self.taint_host,
                 "untaint_host": self.untaint_host,
                 "taint_state": self.taint_state,
-                "mh_register_group": _gang_not_ported,
-                "mh_drop_group": _gang_not_ported,
-                "mh_barrier": _gang_not_ported,
-                "mh_member_beat": _gang_not_ported,
-                "mh_group_put": _gang_not_ported,
-                "mh_group_get": _gang_not_ported,
-                "mh_group_state": _gang_not_ported,
+                "mh_register_group": self.multihost.register_group,
+                "mh_drop_group": self.multihost.drop_group,
+                "mh_barrier": self.multihost.barrier,
+                "mh_member_beat": self.multihost.member_beat,
+                "mh_group_put": self.multihost.group_put,
+                "mh_group_get": self.multihost.group_get,
+                "mh_group_state": self.multihost.group_state,
                 "pipe_register": _pipeline_not_ported,
                 "pipe_drop": _pipeline_not_ported,
                 "pipe_step_complete": _pipeline_not_ported,

@@ -48,15 +48,19 @@ def backend_for(device_type: Optional[str]) -> str:
 def init_distributed(rank: int = 0, world_size: int = 1,
                      init_method: Optional[str] = None,
                      device_type: Optional[str] = None,
-                     timeout_s: float = 120.0) -> None:
+                     timeout_s: float = 120.0,
+                     local_rank: Optional[int] = None) -> None:
     """Initialize the default process group for the mesh: NCCL on the
-    card (rank ``r`` on ``cuda:r % device_count``), gloo only when the
-    caller passes ``device_type="cpu"``. ``init_method`` is a rendezvous
-    URL (``file://...`` or ``tcp://localhost:<port>``); a world of one
-    rendezvouses in process and needs none."""
+    card (rank ``r`` on ``cuda:local_rank``, by default
+    ``cuda:r % device_count``, which holds only while the world spans
+    one node), gloo only when the caller passes ``device_type="cpu"``.
+    ``init_method`` is a rendezvous URL (``file://...`` or
+    ``tcp://localhost:<port>``); a world of one rendezvouses in process
+    and needs none."""
     dtype = _device_type(device_type)
     if dtype == "cuda":
-        torch.cuda.set_device(rank % torch.cuda.device_count())
+        torch.cuda.set_device(rank % torch.cuda.device_count()
+                              if local_rank is None else local_rank)
     kwargs = dict(backend=backend_for(device_type), rank=rank,
                   world_size=world_size, timeout=timedelta(seconds=timeout_s))
     if init_method is None:
