@@ -1,6 +1,7 @@
 """Drive the PyTorch/CUDA port's splash, serving (a decode mesh and the
 runtime's serve plane among them), training (Llama, through the runtime's
-train and tune planes too, and ViT) and mesh paths on one NVIDIA GPU.
+train and tune planes and fed by its Dataset API too, and ViT) and mesh
+paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -169,7 +170,34 @@ Phases, one JSON line each (``{"phase": ..., "ok": ...}``):
    size in float32 (random head), ``pad_tokens_to=256`` logits equal the
    unpadded ones at B=4, and none of the seven hand-written kernels
    launched (ViT attention is the plain path, as in the JAX package).
-14. mesh: the mesh plane at world size 1: one NCCL process group of one
+14. data_train: the Dataset API on the runtime feeding both train steps
+   (``rt.init()``; its node must advertise ``GPU: 1``). (a) The train
+   phase's tokens, drawn as it draws them ((8, 2049) from a generator
+   seeded 0 on the card), copied to the host and repeated for its 4
+   steps (32 rows) through ``data.from_numpy(num_blocks=8)``, a
+   ``map_batches`` task adding each row's checksum (run on CPU workers
+   by ``materialize``, the blocks in the shared-memory store), then
+   ``TorchTrainer(datasets={"train": ds})`` with one GPU-leased worker in
+   a one-rank NCCL group: the train phase's setup stepping on
+   ``train.get_dataset_shard("train").iter_device_batches(batch_size=8)``
+   (two microbatches of 4 x 2048, AdamW(3e-4, wd 0.1)). Checks: the four
+   losses equal the train phase's within ``TRAIN_RUNTIME_REL_TOL``; each
+   device batch's row sums equal the host rows' and the map task's
+   column; the batches land on the worker's card; each step launches
+   88 / 44 / 44 / 44 (forward, dK/dV, dQ, delta), all on wgmma, read in
+   the worker; the shard ends after 4 batches. It prints the worker's
+   wait on the iterator for each step, each step time beside the train
+   phase's, and the bytes put into the store. (b) ViT-B/16 in process:
+   8 batches of 256 uint8 NHWC 224x224x3 images and int64 labels from a
+   numpy seed, one block a batch, a ``map_batches`` task casting them to
+   float32 / 255 (154 MB a batch out of the store), streamed by
+   ``ds.iter_device_batches(batch_size=256)`` into ``build_train_step``.
+   Checks: finite losses, each device batch's checksum equals the same
+   cast done in numpy in this process, all 8 batches, no hand-written
+   kernel launched. It prints images/s from the second step on beside
+   the vit phase's and the consumer's wait for each step. Teardown: no
+   process of the node, no store file, ``GPU`` available again.
+15. mesh: the mesh plane at world size 1: one NCCL process group of one
    rank, rendezvoused in process (``parallel.mesh.init_distributed``).
    The train phase's 1B setup (2 steps of 2 microbatches of 4 x 2048)
    mesh-less, then through ``build_train_step`` on
@@ -204,11 +232,12 @@ the backward's entries the same way, and every backward launch must have
 taken a wgmma kernel.
 
 Each main path (splash, serve, serve_paged, serve_spec, serve_disagg,
-serve_runtime, serve_mesh, train, train_runtime, mesh) must have launched
-each of its kernels at least once. Then a ``{"kernels": [...]}`` line
-with all seven kernels (the six attention kernels with their main-path
-launches by kernel, and each with its ptxas lines: registers, shared
-memory and spills of each instantiation), the nvidia-smi
+serve_runtime, serve_mesh, train, train_runtime, data_train, mesh) must
+have launched each of its kernels at least once. Then a
+``{"kernels": [...]}`` line with all seven kernels (the six attention
+kernels with their main-path launches by kernel, and each with its ptxas
+lines: registers, shared memory and spills of each instantiation), the
+nvidia-smi
 name/power-limit line, and, last, ``{"ok": true, "device": {...}}``.
 Any failed phase exits 1 without that last line; so does a machine
 without a card.
@@ -324,6 +353,8 @@ PATH_KERNELS = {
               "attention_delta"],
     "train_runtime": ["flash_fwd", "flash_bwd_dkv", "flash_bwd_dq",
                       "attention_delta"],
+    "data_train": ["flash_fwd", "flash_bwd_dkv", "flash_bwd_dq",
+                   "attention_delta"],
     "splash": ["splash_fwd", "splash_bwd_dq", "splash_bwd_dkv",
                "attention_delta"],
     "mesh": ["flash_fwd", "flash_bwd_dkv", "flash_bwd_dq",
@@ -3483,6 +3514,290 @@ def phase_vit(cfg, device="cuda", batch=None, steps=None,
     return out
 
 
+# ----------------------------------------------------------- data_train
+
+# The Dataset feeds: (a) the train phase's tokens repeated for its steps,
+# in ``blocks`` blocks, to a ``TorchTrainer`` worker; (b) ``vit_steps``
+# batches of ``vit_batch`` uint8 images, one block a batch, cast to float
+# by a map task, to ViT-B/16 in process (``seed`` makes them).
+DATA_TRAIN = dict(steps=4, blocks=8, vit_batch=256, vit_steps=8, seed=4)
+
+
+def _row_sums(block):
+    """data_train (a)'s map task (numpy, in a CPU worker): the tokens and
+    each row's checksum."""
+    return {"tokens": block["tokens"],
+            "row_sum": block["tokens"].sum(axis=1, dtype=np.int64)}
+
+
+def _unit_images(block):
+    """data_train (b)'s map task (numpy, in a CPU worker): uint8 images as
+    float32 in [0, 1]. The check in this process runs the same
+    function."""
+    return {"images": block["images"].astype(np.float32) / np.float32(255),
+            "labels": block["labels"]}
+
+
+def _data_train_loop(config):
+    """The train phase's setup in a ``TorchTrainer`` worker, stepping on
+    ``train.get_dataset_shard("train").iter_device_batches``: each step
+    reports its wait on the iterator, its loss, time and launch counts,
+    and the batch's row checksums on the card against the map task's; the
+    last also whether the shard is exhausted and the copies' stats."""
+    t_enter = time.time()
+    from ray_tpu_torch import train
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.ops.optim import adamw
+    from ray_tpu_torch.parallel import train_step
+
+    cfg, device = config["cfg"], config["device"]
+    cuda = torch.device(device).type == "cuda"
+    params = train_step.init_sharded_params(
+        lambda seed: llama.init_params(cfg, device=device,
+                                       dtype=torch.float32, seed=seed),
+        llama.param_axes(cfg), key=0)
+    opt = adamw(3e-4, weight_decay=0.1)
+    opt_state = train_step.init_optimizer_state(opt, params)
+    step = train_step.build_train_step(
+        lambda p, b: llama.loss_fn(p, b, cfg), opt,
+        accum_steps=config["accum_steps"])
+    # The card the runner thread set (this worker's local rank), unless
+    # the rehearsal asks for the CPU.
+    it = train.get_dataset_shard("train").iter_device_batches(
+        batch_size=config["batch"], device=None if cuda else "cpu")
+    _sync(device)
+    where = {"pid": os.getpid(), "batch_device": str(it.device),
+             "current_device": (torch.cuda.current_device() if cuda
+                                else None),
+             "t_enter": t_enter, "t_ready": time.time()}
+    for s in range(config["steps"]):
+        t = time.perf_counter()
+        batch = next(it)
+        wait_s = time.perf_counter() - t
+        sums = batch["tokens"].sum(dim=1)
+        metrics = {"step": s + 1, "wait_s": wait_s,
+                   "row_sums": sums.tolist(),
+                   "row_sums_match_task": bool(torch.equal(
+                       sums, batch["row_sum"])),
+                   "on": str(batch["tokens"].device), **where}
+        reset_counts()
+        fwd0, bwd0 = fwd_kernel_counts(device), bwd_kernel_counts(device)
+        t = time.perf_counter()
+        params, opt_state, m = step(params, opt_state,
+                                    {"tokens": batch["tokens"]})
+        _sync(device)
+        metrics.update(loss=float(m["loss"]),
+                       step_s=time.perf_counter() - t,
+                       launches=launch_counts(),
+                       fwd_by_kernel=fwd_kernels_since(fwd0, device),
+                       bwd_by_kernel=bwd_kernels_since(bwd0, device))
+        if s + 1 == config["steps"]:
+            metrics["exhausted"] = next(it, None) is None
+            metrics["prefetch"] = {k: v for k, v in it.stats().items()
+                                   if k != "wait_s"}
+        train.report(metrics)
+
+
+def phase_data_train(cfg, train: dict, vit_cfg, vit_rate=None,
+                     device="cuda", batch=8, seq=2048, accum_steps=2,
+                     vit_batch=None, vit_steps=None) -> dict:
+    """The Dataset API on the runtime feeding the train steps: (a) the
+    train phase's tokens through ``from_numpy`` -> a ``map_batches`` task
+    -> ``TorchTrainer(datasets=...)`` -> ``get_dataset_shard`` ->
+    ``iter_device_batches`` into the 1B step in a GPU-leased worker; (b)
+    uint8 images through a casting ``map_batches`` task, streamed by
+    ``Dataset.iter_device_batches`` into the ViT step in process. ``train``
+    is the train phase's result, ``vit_rate`` the vit phase's images/s.
+    See the module docstring."""
+    import ray_tpu_torch as rt
+
+    gc.collect()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    _runtime_init(device)
+    try:
+        return _data_train(cfg, train, vit_cfg, vit_rate, device, batch,
+                           seq, accum_steps,
+                           vit_batch or DATA_TRAIN["vit_batch"],
+                           vit_steps or DATA_TRAIN["vit_steps"])
+    finally:
+        if rt.is_initialized():  # a failure before the phase's teardown
+            rt.shutdown()
+
+
+def _data_train(cfg, train, vit_cfg, vit_rate, device, batch, seq,
+                accum_steps, vit_batch, vit_steps) -> dict:
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import data
+    from ray_tpu_torch.core.node import shm_store_path
+    from ray_tpu_torch.core.runtime import get_core_worker
+    from ray_tpu_torch.train import RunConfig, ScalingConfig, TorchTrainer
+    from ray_tpu_torch.train.torch_backend import TorchConfig
+
+    cuda = torch.device(device).type == "cuda"
+    core = get_core_worker()
+    node_hex, store = core.node_id.hex(), shm_store_path(core.node_id)
+    resources = rt.cluster_resources()
+    gpus = rt.available_resources().get("GPU")
+    checks = {"gpu_resource": resources.get("GPU") == 1.0 and gpus == 1.0}
+    steps = DATA_TRAIN["steps"]
+    # The train phase's tokens, drawn as it draws them, then on the host.
+    g = torch.Generator(device=device).manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, seq + 1),
+                           generator=g, device=device).cpu().numpy()
+    rows = np.concatenate([tokens] * steps)
+    t = time.perf_counter()
+    ds = data.from_numpy({"tokens": rows}, num_blocks=DATA_TRAIN["blocks"]
+                         ).map_batches(_row_sums).materialize()
+    materialize_s = time.perf_counter() - t
+    stages = ds.stats()
+    result = TorchTrainer(
+        _data_train_loop,
+        train_loop_config=dict(cfg=cfg, device=device, batch=batch,
+                               accum_steps=accum_steps, steps=steps),
+        scaling_config=ScalingConfig(
+            num_workers=1, use_gpu=True, torch_config=TorchConfig(
+                distributed=True, device_type=None if cuda else "cpu")),
+        run_config=RunConfig(name="data_train"),
+        datasets={"train": ds}).fit()
+    if result.error is not None:
+        raise RuntimeError(f"TorchTrainer.fit failed: {result.error}")
+    hist = [r["metrics"] for r in result.metrics_history]
+    losses = [m["loss"] for m in hist]
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, train["losses"])]
+    want = {**{k: 0 for k in KERNELS},
+            "flash_fwd": 2 * cfg.n_layers * accum_steps,
+            "flash_bwd_dkv": cfg.n_layers * accum_steps,
+            "flash_bwd_dq": cfg.n_layers * accum_steps,
+            "attention_delta": cfg.n_layers * accum_steps}
+    host_sums = tokens.sum(axis=1).tolist()
+    last = hist[-1] if hist else {}
+    card = f"{device}:0" if cuda else device
+    step_s = [m["step_s"] for m in hist]
+    out = {"resources": resources,
+           "a": {"config": {"batch": batch, "seq": seq,
+                            "accum_steps": accum_steps, "steps": steps,
+                            "blocks": DATA_TRAIN["blocks"]},
+                 "materialize_s": materialize_s,
+                 "stages": stages.splitlines(),
+                 "store_bytes": {"put": rows.nbytes,
+                                 "task_out": rows.nbytes + 8 * len(rows)},
+                 "worker": {k: hist[0][k] for k in (
+                     "pid", "batch_device", "current_device")}
+                 if hist else None,
+                 "wait_s": [m["wait_s"] for m in hist],
+                 "losses": losses, "train_losses": train["losses"],
+                 "loss_max_rel_diff": max(rel) if rel else None,
+                 "tol": TRAIN_RUNTIME_REL_TOL,
+                 "step_s": step_s, "train_step_s": train["step_s"],
+                 "train_median_step_s": _median(train["step_s"]),
+                 "prefetch": last.get("prefetch")}}
+    checks.update(_step_checks(hist, want, device))
+    checks.update({
+        "four_steps": [m["step"] for m in hist] == list(range(1, steps + 1)),
+        "losses_match_train": (len(rel) == steps
+                               and max(rel) <= TRAIN_RUNTIME_REL_TOL),
+        "device_batches_match_host_rows": all(
+            m["row_sums"] == host_sums and m["row_sums_match_task"]
+            for m in hist),
+        "batches_on_the_workers_card": all(
+            m["on"] == card and m["batch_device"] == card
+            and m["pid"] != os.getpid() for m in hist),
+        "shard_exhausted": bool(last.get("exhausted")),
+    })
+    out["a"]["launches_want_per_step"] = want
+    out.update({"launches": {k: sum(m["launches"][k] for m in hist)
+                             for k in KERNELS},
+                "flash_fwd_by_kernel": _sum_counts(hist, "fwd_by_kernel"),
+                "flash_bwd_by_kernel": _sum_counts(hist, "bwd_by_kernel")})
+    b, b_checks = _data_train_vit(vit_cfg, vit_rate, device, vit_batch,
+                                  vit_steps)
+    out["b"] = b
+    checks.update({f"vit_{k}": v for k, v in b_checks.items()})
+    out["gpu_returned"] = _poll_until(
+        lambda: rt.available_resources().get("GPU"), lambda v: v == gpus)
+    rt.shutdown()
+    out["store_file_left"] = os.path.exists(store)
+    out["processes_left"] = _poll_until(lambda: _live_node_pids(node_hex),
+                                        lambda v: not v, 15.0)
+    checks["teardown_clean"] = (out["gpu_returned"] == gpus
+                                and not out["store_file_left"]
+                                and not out["processes_left"])
+    out["checks"] = checks
+    if cuda:
+        out["device"] = smi_line()
+    out["ok"] = all(checks.values())
+    return out
+
+
+def _data_train_vit(cfg, vit_rate, device, batch, steps):
+    """data_train (b): seeded uint8 NHWC images and int64 labels, one
+    block a batch, cast by a ``map_batches`` task and streamed through
+    ``Dataset.iter_device_batches`` into ViT's step (fp32 masters from
+    seed 0, AdamW(3e-4, wd 0.1)) on this process's card."""
+    from ray_tpu_torch import data
+    from ray_tpu_torch.models import vit
+    from ray_tpu_torch.ops.optim import adamw
+    from ray_tpu_torch.parallel import train_step
+
+    rng = np.random.default_rng(DATA_TRAIN["seed"])
+    n = batch * steps
+    images = rng.integers(0, 256, (n, cfg.image_size, cfg.image_size,
+                                   cfg.channels), dtype=np.uint8)
+    labels = rng.integers(0, cfg.num_classes, n)
+    want_sums = []
+    for i in range(steps):
+        host = _unit_images({"images": images[i * batch:(i + 1) * batch],
+                             "labels": labels[i * batch:(i + 1) * batch]})
+        want_sums.append(_checksum(host["images"], host["labels"]))
+    ds = data.from_numpy({"images": images, "labels": labels},
+                         num_blocks=steps).map_batches(_unit_images)
+    params = vit.init_params(
+        cfg, torch.Generator(device=device).manual_seed(0), device=device)
+    opt = adamw(3e-4, weight_decay=0.1)
+    state = train_step.init_optimizer_state(opt, params)
+    step = train_step.build_train_step(
+        lambda p, b: vit.loss_fn(p, b, cfg)[0], opt)
+    _sync(device)
+    reset_counts()
+    it = ds.iter_device_batches(batch_size=batch, device=device)
+    losses, times, waits, got_sums = [], [], [], []
+    for _ in range(steps):
+        t = time.perf_counter()
+        b = next(it)
+        waits.append(time.perf_counter() - t)
+        params, state, m = step(params, state, b)
+        got_sums.append(_checksum(b["images"], b["labels"]))
+        _sync(device)
+        times.append(time.perf_counter() - t)
+        losses.append(float(m["loss"]))
+    exhausted = next(it, None) is None
+    got_sums = [tuple(int(x) for x in t) for t in got_sums]
+    stats = it.stats()
+    launches = launch_counts()
+    del params, state, step, b, it
+    gc.collect()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    out = {"config": {"batch": batch, "steps": steps,
+                      "image_size": cfg.image_size, "dtype_in": "uint8",
+                      "dtype_out": "float32",
+                      "store_bytes_per_batch_out":
+                      batch * cfg.image_size ** 2 * cfg.channels * 4},
+           "losses": losses, "step_s": times, "wait_s": waits,
+           "prefetch": {k: v for k, v in stats.items() if k != "wait_s"},
+           "launches": launches}
+    if torch.device(device).type == "cuda":
+        out["images_per_s"] = batch / _steady(times)
+        out["vit_phase_images_per_s"] = vit_rate
+    checks = {"finite": all(math.isfinite(x) for x in losses),
+              "device_batches_equal_host": (
+                  got_sums == [tuple(s) for s in want_sums]),
+              "all_batches": len(losses) == steps and exhausted,
+              "no_hand_written_kernel_launched": not any(launches.values())}
+    return out, checks
+
+
 # ----------------------------------------------------------------- mesh
 
 # Mesh step against the mesh-less step on one card, bf16 compute: losses
@@ -4284,6 +4599,10 @@ def main() -> int:
                      ("train_runtime", lambda: phase_train_runtime(
                          train_cfg, results["train"])),
                      ("vit", lambda: phase_vit(vit.PRESETS["vit_b16"])),
+                     ("data_train", lambda: phase_data_train(
+                         train_cfg, results["train"],
+                         vit.PRESETS["vit_b16"],
+                         results["vit"].get("images_per_s"))),
                      ("mesh", lambda: phase_mesh(train_cfg))):
         t0 = time.perf_counter()
         try:

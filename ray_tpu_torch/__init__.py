@@ -13,11 +13,13 @@ The core API mirrors ``ray_tpu``'s (``init``, ``remote``, ``get``,
 tasks, actors and objects on the shared-memory store, with cards leased as
 the ``GPU`` resource. The train and tune planes (``ray_tpu_torch.train``:
 ``TorchTrainer``, one ``torch.distributed`` group per gang;
-``ray_tpu_torch.tune``: ``Tuner``) run on it; ``HostGroup`` is not ported
-yet (ROADMAP.md queue 1, item 4). Importing the package starts nothing;
-``init()`` does.
+``ray_tpu_torch.tune``: ``Tuner``) and the Dataset API
+(``ray_tpu_torch.data``) run on it; ``HostGroup`` is exported but not
+ported yet: constructing it raises (ROADMAP.md queue 1, item 4). Importing
+the package starts nothing; ``init()`` does.
 """
 
+from ray_tpu_torch._version import version as __version__  # noqa: F401
 from ray_tpu_torch.core.api import (  # noqa: F401
     available_resources,
     cluster_resources,
@@ -54,3 +56,4 @@ from ray_tpu_torch.core.placement import (  # noqa: F401
     remove_placement_group,
     reserve_subslice,
 )
+from ray_tpu_torch.core.multihost import HostGroup  # noqa: F401

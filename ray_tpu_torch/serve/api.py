@@ -17,6 +17,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import ray_tpu_torch
 from ray_tpu_torch.core import serialization
+from ray_tpu_torch.core.errors import not_ported
 from ray_tpu_torch.serve.controller import get_or_create_controller
 from ray_tpu_torch.serve.deployment import Deployment, DeploymentHandle, _Router
 
@@ -24,12 +25,20 @@ from ray_tpu_torch.serve.deployment import Deployment, DeploymentHandle, _Router
 def run(app: Deployment, name: Optional[str] = None,
         route_prefix: Optional[str] = None,
         ready_timeout_s: float = 60.0) -> DeploymentHandle:
-    """Deploy (or redeploy) an application; returns its handle."""
+    """Deploy (or redeploy) an application; returns its handle. A
+    ``mesh_shape`` of more than one rank is refused here, before the
+    controller reserves a sub-slice: the port's replica is one process on
+    one card, and a larger mesh needs one process a rank."""
+    cfg = app.config_dict()
+    mesh = cfg["mesh_shape"]
+    if mesh and int(mesh[0]) * int(mesh[1]) > 1:
+        raise not_ported(f"a deployment with mesh_shape={tuple(mesh)}",
+                         "item 4, the mesh replica")
     name = name or app.name
     controller = get_or_create_controller()
     version = ray_tpu_torch.get(controller.deploy.remote(
         name, serialization.dumps_function(app.cls), app._init_args,
-        app._init_kwargs, app.config_dict()), timeout=ready_timeout_s)
+        app._init_kwargs, cfg), timeout=ready_timeout_s)
     # HTTP route: explicit prefix, or /<name> by default. Stored on the
     # controller so proxies on ANY node resolve it.
     ray_tpu_torch.get(controller.set_route.remote(

@@ -9,8 +9,6 @@ for the driver and persists checkpoints to run storage — plus world/rank
 introspection for process-group and mesh construction. ``local_rank`` is
 the worker's index among its gang's workers on its node (the card it
 trains on); the JAX package sets 0 (one process per TPU-VM host).
-``get_dataset_shard`` waits for the Dataset API (ROADMAP.md queue 1,
-item 4).
 """
 
 from __future__ import annotations
@@ -22,7 +20,6 @@ import threading
 from dataclasses import dataclass
 from typing import Any, Dict, Optional
 
-from ray_tpu_torch.core.errors import not_ported
 from ray_tpu_torch.train.checkpoint import Checkpoint
 
 _session = threading.local()
@@ -39,7 +36,8 @@ class WorldInfo:
 class TrainSession:
     def __init__(self, world: WorldInfo, storage_path: Optional[str],
                  experiment_name: str,
-                 latest_checkpoint: Optional[str] = None):
+                 latest_checkpoint: Optional[str] = None,
+                 dataset_shards: Optional[Dict[str, Any]] = None):
         self.world = world
         self.storage_path = storage_path
         self.experiment_name = experiment_name
@@ -48,6 +46,9 @@ class TrainSession:
         self.iteration = 0
         self.finished = threading.Event()
         self.error: Optional[BaseException] = None
+        # This worker's per-rank DataIterators (reference:
+        # session.get_dataset_shard / streaming_split ingest).
+        self.dataset_shards: Dict[str, Any] = dataset_shards or {}
 
     # -------------------------------------------------------------- api
 
@@ -113,9 +114,17 @@ def get_checkpoint() -> Optional[Checkpoint]:
 
 
 def get_dataset_shard(name: str = "train"):
-    """This worker's DataIterator for ``datasets={name: ds}`` in the JAX
-    package; the Dataset API is not ported yet."""
-    raise not_ported("train.get_dataset_shard", "item 4, the Dataset API")
+    """This worker's DataIterator for ``TorchTrainer(datasets={name: ds})``
+    (reference: ``ray.train.get_dataset_shard`` — each worker pulls its
+    own streaming split; pair with ``iter_device_batches()`` for
+    prefetched batches on this worker's card, or ``mesh=`` for
+    mesh-sharded ones)."""
+    shards = get_session().dataset_shards
+    if name not in shards:
+        raise KeyError(
+            f"no dataset shard {name!r}; pass datasets={{{name!r}: ds}} "
+            f"to TorchTrainer (have: {sorted(shards)})")
+    return shards[name]
 
 
 def get_world_rank() -> int:

@@ -11,8 +11,9 @@ across the gang when ``ScalingConfig.torch_config`` asks for it
 gang placement, session plumbing, result streaming, and restart-based
 fault tolerance (``FailureConfig.max_failures``; recovery resumes from the
 latest reported checkpoint — reference: ``backend_executor.py:727``).
-``datasets=`` waits for the Dataset API (ROADMAP.md queue 1, item 4); no
-usage report is written.
+``datasets=`` splits each ``ray_tpu_torch.data.Dataset`` into one
+streaming shard per worker on every attempt and every trial; no usage
+report is written.
 
 Unlike the reference, ``fit()`` does not route through the HPO engine for
 single runs (no hidden single-trial Tuner); ``ray_tpu_torch.tune``
@@ -26,7 +27,6 @@ from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional
 
 import ray_tpu_torch
-from ray_tpu_torch.core.errors import not_ported
 from ray_tpu_torch.train.checkpoint import Checkpoint
 from ray_tpu_torch.train.config import RunConfig, ScalingConfig
 from ray_tpu_torch.train.worker_group import (GangReservationError,
@@ -56,15 +56,28 @@ class TorchTrainer:
         datasets: Optional[Dict[str, Any]] = None,
         result_callback: Optional[Callable[[Dict], None]] = None,
     ):
-        if datasets:
-            raise not_ported("TorchTrainer(datasets=...)",
-                             "item 4, the Dataset API")
         self._train_fn = train_loop_per_worker
         self._config = train_loop_config
         self.scaling_config = scaling_config or ScalingConfig()
         self.run_config = run_config or RunConfig()
+        # name -> ray_tpu_torch.data.Dataset; each attempt re-splits into
+        # one streaming shard per worker, consumed via
+        # ``train.get_dataset_shard(name)`` (reference:
+        # DataParallelTrainer datasets + data_config.py ingest).
+        self._datasets = datasets
         self._callback = result_callback
         self._name = self.run_config.name or f"train_{uuid.uuid4().hex[:8]}"
+
+    def dataset_shards_per_rank(self) -> Optional[List[Dict[str, Any]]]:
+        """Fresh streaming splits, one dict of shards per worker rank
+        (fresh per attempt/trial: a DataIterator is single-consumption)."""
+        if not self._datasets:
+            return None
+        n = self.scaling_config.num_workers
+        split = {name: ds.streaming_split(n)
+                 for name, ds in self._datasets.items()}
+        return [{name: its[rank] for name, its in split.items()}
+                for rank in range(n)]
 
     def fit(self) -> Result:
         max_failures = self.run_config.failure_config.max_failures
@@ -121,7 +134,9 @@ class TorchTrainer:
             # core/multihost.py. All-or-nothing: a failure inside hands
             # back a fully torn-down gang.
             group = launch_gang(sc, self.run_config.storage_path,
-                                self._name, latest_checkpoint)
+                                self._name, latest_checkpoint,
+                                dataset_shards_per_rank=(
+                                    self.dataset_shards_per_rank()))
         except GangReservationError:
             raise  # the cluster cannot fit the gang: not retriable here
         except Exception as e:

@@ -42,13 +42,14 @@ class TrainWorker:
 
     def __init__(self, world: Dict[str, Any], storage_path: Optional[str],
                  experiment_name: str, latest_checkpoint: Optional[str],
-                 card: Optional[int] = None):
+                 card: Optional[int] = None,
+                 dataset_shards: Optional[Dict[str, Any]] = None):
         from ray_tpu_torch.train.session import (TrainSession, WorldInfo,
                                                  init_session)
 
         self._session = TrainSession(
             WorldInfo(**world), storage_path, experiment_name,
-            latest_checkpoint)
+            latest_checkpoint, dataset_shards=dataset_shards)
         init_session(self._session)
         # The card this worker drives (None: a worker without a GPU lease).
         self._card = card
@@ -212,7 +213,9 @@ class WorkerGroup:
         self._gang_id: Optional[str] = None
 
     def start(self, storage_path: Optional[str], experiment_name: str,
-              latest_checkpoint: Optional[str]) -> None:
+              latest_checkpoint: Optional[str],
+              dataset_shards_per_rank: Optional[List[Dict[str, Any]]] = None
+              ) -> None:
         actor_cls = ray_tpu_torch.remote(TrainWorker)
         self.local_ranks = local_ranks(self.pg, self.num_workers)
         gpus = self.resources.get("GPU", 0)
@@ -220,13 +223,16 @@ class WorkerGroup:
         for rank in range(self.num_workers):
             world = {"world_rank": rank, "world_size": self.num_workers,
                      "local_rank": self.local_ranks[rank]}
+            shards = (dataset_shards_per_rank[rank]
+                      if dataset_shards_per_rank else None)
             self.workers.append(actor_cls.options(
                 num_cpus=0,
                 resources=self.resources,
                 scheduling_strategy=PlacementGroupSchedulingStrategy(
                     self.pg, rank),
             ).remote(world, storage_path, experiment_name,
-                     latest_checkpoint, self.cards[rank] if gpus else None))
+                     latest_checkpoint, self.cards[rank] if gpus else None,
+                     shards))
         if self.torch_config is not None and self.torch_config.distributed:
             self._bootstrap_torch()
 
@@ -284,8 +290,9 @@ class WorkerGroup:
 
 
 def launch_gang(scaling_config, storage_path: Optional[str],
-                experiment_name: str,
-                latest_checkpoint: Optional[str]) -> WorkerGroup:
+                experiment_name: str, latest_checkpoint: Optional[str],
+                dataset_shards_per_rank: Optional[List[Dict[str, Any]]]
+                = None) -> WorkerGroup:
     """The ONE gang-request path for trainer attempts AND tune trials:
     reserve the placement gang, start the workers, and (when the
     scaling config asks for it) form the process group through
@@ -299,7 +306,8 @@ def launch_gang(scaling_config, storage_path: Optional[str],
                         scaling_config.placement_strategy,
                         torch_config=scaling_config.torch_config)
     try:
-        group.start(storage_path, experiment_name, latest_checkpoint)
+        group.start(storage_path, experiment_name, latest_checkpoint,
+                    dataset_shards_per_rank=dataset_shards_per_rank)
     except BaseException:
         group.shutdown()
         raise

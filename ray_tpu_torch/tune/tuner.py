@@ -378,7 +378,9 @@ class Tuner:
             # trainable).
             group = launch_gang(
                 self._trainer.scaling_config, self._storage, experiment,
-                start_ckpt)
+                start_ckpt,
+                dataset_shards_per_rank=(
+                    self._trainer.dataset_shards_per_rank()))
             try:
                 merged = {**(self._trainer._config or {}), **trial.config}
                 group.run(None, merged, fn_blob=fn_blob)

@@ -81,6 +81,21 @@ def test_import_loads_no_jax_and_builds_nothing():
     assert after == built
 
 
+def test_models_package_imports_its_families_without_a_context():
+    """In a fresh interpreter ``import ray_tpu_torch.models`` resolves
+    ``models.llama`` and ``models.vit``, as ``ray_tpu.models`` does, and
+    creates no CUDA context."""
+    code = ("import ray_tpu_torch.models as m\n"
+            "import torch\n"
+            "assert m.llama.PRESETS['1b'].dim and m.vit.PRESETS['vit_b16']\n"
+            "assert not torch.cuda.is_initialized()\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
 @pytest.fixture
 def no_card():
     if torch.cuda.is_available():

@@ -162,3 +162,15 @@ def test_not_ported_surfaces_raise():
         _resources_from_options({"num_tpus": 1})
     assert _resources_from_options({"num_gpus": 1}) == {"CPU": 1.0,
                                                          "GPU": 1.0}
+
+
+def test_top_level_exports_version_and_host_group():
+    """``ray_tpu_torch`` exports what ``ray_tpu`` does at the top level:
+    the same ``__version__`` (the port's own copy) and ``HostGroup``,
+    which raises its ``not_ported`` error when constructed."""
+    import ray_tpu
+    import ray_tpu_torch
+
+    assert ray_tpu_torch.__version__ == ray_tpu.__version__
+    with pytest.raises(NotImplementedError, match="item 4, HostGroup"):
+        ray_tpu_torch.HostGroup(2, name="g")

@@ -259,3 +259,32 @@ def test_teardown_leaves_no_worker_or_store_file(sides):
     assert t["store_bytes_while_up"] is True
     assert t["store_left"] is False
     assert t["workers_left"] == []
+
+
+def test_mesh_deployment_of_more_than_one_rank_is_refused(monkeypatch):
+    """On a virtual 2x4 slice, ``serve.run`` of a deployment with
+    ``mesh_shape=(2, 1)`` raises the mesh replica's ``not_ported`` error
+    to its caller and reserves no sub-slice; a ``(1, 1)`` mesh is placed
+    on a one-chip sub-slice and serves."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
+
+    from torch_serve_apps import MeshEcho
+
+    monkeypatch.setenv("RAY_TPU_VIRTUAL_SLICE", "2x4")
+    rt.init(num_cpus=2)
+    try:
+        with pytest.raises(NotImplementedError,
+                           match="item 4, the mesh replica"):
+            serve.run(serve.deployment(MeshEcho, mesh_shape=(2, 1)).bind(),
+                      name="mesh2", ready_timeout_s=20)
+        assert rt.cluster_topology()["owners"] == {}
+        handle = serve.run(serve.deployment(MeshEcho,
+                                            mesh_shape=(1, 1)).bind(),
+                           name="mesh1", ready_timeout_s=60)
+        assert handle.remote({"x": 3}).result(timeout=30) == {
+            "mesh_shape": [1, 1], "x": 3}
+        assert len(rt.cluster_topology()["owners"]) == 1
+        serve.shutdown()
+    finally:
+        rt.shutdown()

@@ -74,15 +74,30 @@ def test_session_api_outside_a_loop(results):
 
 
 def test_not_ported_surfaces_name_their_item():
-    """``datasets=``, ``get_dataset_shard`` and the pipeline plane name
-    their ROADMAP item; ``use_tpu`` has no chip to lease, as ``num_tpus``
-    has none."""
+    """``datasets=`` and ``get_dataset_shard`` are ported (outside a loop
+    the shard call raises as the JAX package's does); the pipeline plane
+    names its ROADMAP item; ``use_tpu`` has no chip to lease, as
+    ``num_tpus`` has none."""
+    from ray_tpu import train as jtrain
     from ray_tpu_torch import train
+    from ray_tpu_torch.train import session
 
-    with pytest.raises(NotImplementedError, match="item 4, the Dataset API"):
-        train.TorchTrainer(prog.failing_loop, datasets={"train": object()})
-    with pytest.raises(NotImplementedError, match="item 4, the Dataset API"):
+    trainer = train.TorchTrainer(prog.failing_loop,
+                                 datasets={"train": object()})
+    assert trainer.scaling_config.num_workers == 1
+    with pytest.raises(RuntimeError, match="No train session active"):
         train.get_dataset_shard("train")
+    with pytest.raises(RuntimeError, match="No train session active"):
+        jtrain.get_dataset_shard("train")
+    session.init_session(session.TrainSession(session.WorldInfo(), None,
+                                              "shardless"))
+    try:
+        with pytest.raises(KeyError, match=r"no dataset shard 'eval'; pass "
+                           r"datasets=\{'eval': ds\} to TorchTrainer "
+                           r"\(have: \[\]\)"):
+            train.get_dataset_shard("eval")
+    finally:
+        session._session.value = None
     for name in ("PipelinePlane", "StageActor", "PipelineError"):
         with pytest.raises(NotImplementedError,
                            match="item 4, the pipeline plane"):

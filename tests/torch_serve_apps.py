@@ -26,3 +26,14 @@ class NumpyWeightsLlama(LlamaDecodeDeployment):
         self._thread = threading.Thread(target=self.engine.serve_forever,
                                         name="decode-loop", daemon=True)
         self._thread.start()
+
+
+class MeshEcho:
+    """A plain deployment that takes the ``mesh_shape`` the controller
+    binds into a mesh deployment's init kwargs, and echoes it."""
+
+    def __init__(self, mesh_shape=None):
+        self.mesh_shape = mesh_shape
+
+    def __call__(self, payload):
+        return {"mesh_shape": list(self.mesh_shape), "x": payload["x"]}
