@@ -1,7 +1,7 @@
 """Drive the PyTorch/CUDA port's splash, serving (a decode mesh and the
 runtime's serve plane among them), training (Llama, through the runtime's
-train and tune planes and fed by its Dataset API too, and ViT) and mesh
-paths on one NVIDIA GPU.
+train and tune planes and fed by its Dataset API too, and ViT), RL and
+mesh paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -197,7 +197,41 @@ Phases, one JSON line each (``{"phase": ..., "ok": ...}``):
    kernel launched. It prints images/s from the second step on beside
    the vit phase's and the consumer's wait for each step. Teardown: no
    process of the node, no store file, ``GPU`` available again.
-15. mesh: the mesh plane at world size 1: one NCCL process group of one
+15. rl: the RL plane with the learner on the card (``rt.init()``; its node
+   must advertise ``GPU: 1``); it prints whether ``gymnasium`` and
+   ``pyarrow`` are found and installs nothing. (a) Multi-agent PPO through
+   its entry point: ``MultiAgentPPOConfig(seed=0, num_env_runners=2,
+   episodes_per_sample=16, device="cuda").build().train()`` until the
+   guide's best return reaches 5.5 and the follower's 5.0 (the
+   reference's bar), within 60 iterations. Checks: both policies' params
+   and Adam state on the card after every iteration; the runners are CPU
+   workers (``GPU`` stays free) and no process of the node holds a card's
+   device file open (this process does); ``save``, one more iteration and
+   ``restore`` give back the saved params exactly, on the card. Prints
+   iterations, env steps/s, sample and learn time an iteration and the
+   learner's ms per update (CUDA events). (b) Every algorithm's update at
+   its JAX defaults, from one CPU generator's params, on seeded numpy
+   batches and the same draws: PPO on CartPole shapes (MLP 64x64,
+   minibatch 256) and through the Nature-DQN torso (84x84x4 uint8,
+   minibatch 256, with its FLOP count and rate), IMPALA and APPO (V-trace
+   over a (64, 8) rollout with dones and autoreset rows; APPO's target
+   interval 2, so it syncs), DQN (double Q, batch 128, priority weights),
+   SAC and CQL at Pendulum's shapes ((256, 256), batch 256; CQL's BC warm
+   start for 2 updates, then its SAC loss) and BC (batch 256). 5 updates
+   on the card against the same 5 on the CPU: each loss within
+   ``RL_LOSS_REL_TOL``, each param within ``RL_ADAM_BOUND`` x lr x 5, all
+   finite and on the card; then 20 more, each between CUDA events. (c)
+   4096 Pendulum-shaped transitions through ``data.from_numpy`` (and,
+   with pyarrow, ``save_transitions`` / ``load_transitions``) into
+   ``offline.dataset_to_buffer``, then 200 CQL updates on the card from
+   buffer samples: every row held, the critic loss finite, the params on
+   the card. (d) Only with gymnasium: PPO on ``ray_tpu/MiniCatch-v0`` at
+   84x84 with 4 stacked frames for 3 iterations, one iteration each of
+   IMPALA, APPO, DQN and SAC, and BC fed by ``collect_dataset``;
+   without it the phase prints ``"gymnasium": false`` and what it
+   skipped. No hand-written kernel may launch; teardown leaves no process
+   of the node, no store file, and ``GPU`` available again.
+16. mesh: the mesh plane at world size 1: one NCCL process group of one
    rank, rendezvoused in process (``parallel.mesh.init_distributed``).
    The train phase's 1B setup (2 steps of 2 microbatches of 4 x 2048)
    mesh-less, then through ``build_train_step`` on
@@ -3798,6 +3832,665 @@ def _data_train_vit(cfg, vit_rate, device, batch, steps):
     return out, checks
 
 
+# ------------------------------------------------------------------- rl
+
+# The rl phase. (a) multi-agent PPO to the reference's thresholds; (b)
+# every algorithm's update at the JAX defaults, ``updates`` of them on the
+# card against the same on the CPU, then ``timed`` more on the card; (c)
+# ``offline_rows`` Pendulum-shaped transitions through the Dataset into a
+# replay buffer, then ``offline_updates`` CQL updates (BC warm start for
+# the first ``offline_bc``); (d) with gymnasium, the env-driven algorithms.
+RL = dict(ma_iters=60, guide=5.5, follower=5.0, updates=5, timed=20,
+          offline_rows=4096, offline_updates=200, offline_bc=100,
+          gym_ppo_iters=3)
+# Card against CPU after ``updates`` updates: each loss within
+# RL_LOSS_REL_TOL relative; each param within RL_ADAM_BOUND x lr x updates
+# (Adam's early steps are near sign(g): an entry whose gradient is near
+# zero may step either way on two correct devices).
+RL_LOSS_REL_TOL = 1e-4
+RL_LOSS_FLOOR = 1e-3       # the relative difference's least denominator
+RL_ADAM_BOUND = 3.0
+
+
+def _agent_policy(agent: str) -> str:
+    return f"{agent}_policy"
+
+
+def _nvidia_fds(pid: int) -> list:
+    """The card device files (``/dev/nvidia<N>``) a process holds open:
+    a CUDA context on a card keeps its file open."""
+    try:
+        fds = os.listdir(f"/proc/{pid}/fd")
+    except OSError:
+        return []
+    out = []
+    for fd in fds:
+        try:
+            target = os.readlink(f"/proc/{pid}/fd/{fd}")
+        except OSError:
+            continue
+        if re.fullmatch(r"/dev/nvidia\d+", target):
+            out.append(target)
+    return sorted(set(out))
+
+
+def _on(tree, device) -> bool:
+    from ray_tpu_torch.rl.tree import tree_leaves
+
+    dev = torch.device(device).type
+    return all(t.device.type == dev for t in tree_leaves(tree)
+               if isinstance(t, torch.Tensor))
+
+
+def _rl_tree_equal(a, b) -> bool:
+    from ray_tpu_torch.rl.tree import tree_leaves
+
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(
+        torch.equal(x.cpu(), y.cpu()) for x, y in zip(la, lb))
+
+
+def _timed_calls(fn, events: list, cuda: bool):
+    """``fn`` with a pair of CUDA events recorded around each call."""
+    def run(*args):
+        if not cuda:
+            return fn(*args)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn(*args)
+        end.record()
+        events.append((start, end))
+        return out
+
+    return run
+
+
+def _event_ms(events: list) -> list:
+    torch.cuda.synchronize()
+    return [s.elapsed_time(e) for s, e in events]
+
+
+def phase_rl(device="cuda") -> dict:
+    """The RL plane with the learner on the card: multi-agent PPO through
+    its entry point on the runtime, every algorithm's update against the
+    CPU, the offline chain, and (with gymnasium) the env-driven
+    algorithms. See the module docstring."""
+    import importlib.util
+
+    import ray_tpu_torch as rt
+
+    found = {m: importlib.util.find_spec(m) is not None
+             for m in ("gymnasium", "pyarrow")}
+    gc.collect()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    _runtime_init(device)
+    try:
+        return _rl(device, found)
+    finally:
+        if rt.is_initialized():  # a failure before the phase's teardown
+            rt.shutdown()
+
+
+def _rl(device, found) -> dict:
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.core.node import shm_store_path
+    from ray_tpu_torch.core.runtime import get_core_worker
+
+    cuda = torch.device(device).type == "cuda"
+    core = get_core_worker()
+    node_hex, store = core.node_id.hex(), shm_store_path(core.node_id)
+    resources = rt.cluster_resources()
+    gpus = rt.available_resources().get("GPU")
+    checks = {"gpu_resource": resources.get("GPU") == 1.0 and gpus == 1.0}
+    out = {"gymnasium": found["gymnasium"], "pyarrow": found["pyarrow"],
+           "resources": resources}
+    reset_counts()
+    for key, part in (("a", lambda: _rl_multi_agent(device, node_hex)),
+                      ("b", lambda: _rl_updates(device)),
+                      ("c", lambda: _rl_offline(device, found["pyarrow"])),
+                      ("d", lambda: _rl_gym(device, found["gymnasium"]))):
+        res, part_checks = part()
+        out[key] = res
+        checks.update({f"{key}_{k}": v for k, v in part_checks.items()})
+    launches = launch_counts()
+    out["kernel_launches"] = launches
+    checks["no_hand_written_kernel_launched"] = not any(launches.values())
+    out["gpu_returned"] = _poll_until(
+        lambda: rt.available_resources().get("GPU"), lambda v: v == gpus)
+    rt.shutdown()
+    out["store_file_left"] = os.path.exists(store)
+    out["processes_left"] = _poll_until(lambda: _live_node_pids(node_hex),
+                                        lambda v: not v, 15.0)
+    checks["teardown_clean"] = (out["gpu_returned"] == gpus
+                                and not out["store_file_left"]
+                                and not out["processes_left"])
+    out["checks"] = checks
+    if cuda:
+        out["device"] = smi_line()
+    out["ok"] = all(checks.values())
+    return out
+
+
+def _rl_multi_agent(device, node_hex):
+    """(a) ``MultiAgentPPOConfig(...).build().train()`` until the guide's
+    best return reaches ``RL["guide"]`` and the follower's
+    ``RL["follower"]``, then save, one more iteration, restore."""
+    import shutil
+    import tempfile
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.rl import MultiAgentPPOConfig
+    from ray_tpu_torch.rl.tree import host
+
+    cuda = torch.device(device).type == "cuda"
+    t0 = time.perf_counter()
+    algo = MultiAgentPPOConfig(
+        seed=0, num_env_runners=2, episodes_per_sample=16,
+        policy_mapping_fn=_agent_policy, device=device).build()
+    build_s = time.perf_counter() - t0
+    events: list = []
+    algo._updates = {pid: _timed_calls(fn, events, cuda)
+                     for pid, fn in algo._updates.items()}
+    # Sample time ends where the first policy batch is built; learn time
+    # ends where the weights broadcast starts.
+    marks: dict = {}
+
+    def mark(name, fn):
+        def run(*args):
+            marks.setdefault(name, time.perf_counter())
+            return fn(*args)
+        return run
+
+    algo._policy_batch = mark("sampled", algo._policy_batch)
+    algo._broadcast_weights = mark("learned", algo._broadcast_weights)
+    best, rows, on_card = {}, [], True
+    try:
+        node_pids = sorted(set(_live_node_pids(node_hex)))
+        gpu_free = rt.available_resources().get("GPU")
+        for _ in range(RL["ma_iters"]):
+            marks.clear()
+            t = time.perf_counter()
+            m = algo.train()
+            wall = time.perf_counter() - t
+            on_card &= _on(algo.params, device) and _on(algo.opt_state,
+                                                        device)
+            for a, v in (m.get("agent_return_mean") or {}).items():
+                best[a] = max(best.get(a, -math.inf), v)
+            rows.append({
+                "iter": m["training_iteration"],
+                "env_steps": m["env_steps_this_iter"],
+                "wall_s": wall,
+                "sample_s": marks["sampled"] - t,
+                "learn_s": marks["learned"] - marks["sampled"],
+                "returns": m.get("agent_return_mean")})
+            if (best.get("guide", 0) >= RL["guide"]
+                    and best.get("follower", 0) >= RL["follower"]):
+                break
+        update_ms = _event_ms(events) if cuda else []
+        node_fds = {pid: _nvidia_fds(pid) for pid in node_pids}
+        own_fds = _nvidia_fds(os.getpid())
+        ckpt = tempfile.mkdtemp()
+        try:
+            saved = host(algo.params)
+            algo.save(ckpt)
+            algo.train()
+            moved = not _rl_tree_equal(algo.params, saved)
+            algo.restore(ckpt)
+            restored = _rl_tree_equal(algo.params, saved)
+            restored_on = _on(algo.params, device) and _on(algo.opt_state,
+                                                           device)
+        finally:
+            shutil.rmtree(ckpt, ignore_errors=True)
+    finally:
+        algo.stop()
+    steps = sum(r["env_steps"] for r in rows)
+    wall = sum(r["wall_s"] for r in rows)
+    res = {"config": {"seed": 0, "num_env_runners": 2,
+                      "episodes_per_sample": 16, "lr": algo.config.lr,
+                      "num_sgd_epochs": algo.config.num_sgd_epochs},
+           "build_s": build_s, "iterations": len(rows), "best": best,
+           "env_steps": steps, "env_steps_per_s": steps / wall,
+           "sample_s_mean": float(np.mean([r["sample_s"] for r in rows])),
+           "learn_s_mean": float(np.mean([r["learn_s"] for r in rows])),
+           "iterations_log": rows,
+           "node_pids": node_pids, "node_card_files": node_fds,
+           "own_card_files": own_fds}
+    if cuda:
+        res["update_ms_median"] = _median(update_ms)
+        res["updates"] = len(update_ms)
+    checks = {
+        "thresholds_met": (best.get("guide", 0) >= RL["guide"]
+                           and best.get("follower", 0) >= RL["follower"]),
+        "params_on_device_every_iteration": on_card,
+        "runners_are_cpu_workers": gpu_free == 1.0 and len(node_pids) >= 3,
+        "no_runner_cuda_context": not any(node_fds.values()),
+        "own_context_visible": bool(own_fds) or not cuda,
+        "restore_gives_saved_params": moved and restored,
+        "restore_on_device": restored_on,
+    }
+    return res, checks
+
+
+def _rl_cases() -> dict:
+    """(b)'s cases: name -> (fresh(dev) -> state, step(state, batch, draw)
+    -> the update's losses, trees(state) -> {name: (tree, lr)}, batches, draws,
+    extra). Params come from one CPU generator per case."""
+    from ray_tpu_torch.rl import appo, bc, cql, dqn, impala, ppo, sac
+    from ray_tpu_torch.rl.models import (build_policy,
+                                         build_squashed_gaussian_actor,
+                                         build_twin_q)
+    from ray_tpu_torch.rl.tree import adam, clone, to_device
+
+    n = RL["updates"]
+
+    def gen(seed):
+        return torch.Generator().manual_seed(seed)
+
+    def on(tree, dev):
+        return to_device(clone(tree), dev)
+
+    def obs(shape, dtype, b, rng):
+        if dtype == np.uint8:
+            return rng.integers(0, 256, (b,) + shape).astype(np.uint8)
+        return rng.normal(size=(b,) + shape).astype(np.float32)
+
+    cases = {}
+
+    def policy_case(name, shape, n_actions, lr, make_update, make_batch,
+                    bundle=None):
+        init, fwd = build_policy(shape, n_actions, (64, 64))
+        p0 = init(gen(0))
+        opt = adam(lr)
+        upd = make_update(fwd, opt)
+
+        def fresh(dev):
+            p = on(p0, dev)
+            s = opt.init(p)
+            return {"p": p, "s": bundle(p, s) if bundle else s,
+                    "t": clone(p)}
+
+        batches = [make_batch(np.random.default_rng(10 + i))
+                   for i in range(n)]
+        cases[name] = (fresh, upd, lambda s: {"params": (s["p"], lr)},
+                       batches, [None] * n)
+
+    def ppo_batch(shape, n_actions, dtype, b=256):
+        def make(rng):
+            return {"obs": obs(shape, dtype, b, rng),
+                    "actions": rng.integers(0, n_actions, b),
+                    "logp": rng.normal(-1.0, 0.3, b).astype(np.float32),
+                    "advantages": rng.normal(0.3, 1.5, b).astype(
+                        np.float32),
+                    "returns": rng.normal(size=b).astype(np.float32)}
+        return make
+
+    pcfg = ppo.PPOConfig()
+
+    def ppo_update(fwd, opt):
+        u = ppo.make_ppo_update(fwd, opt, pcfg.clip_eps, pcfg.vf_coeff,
+                                pcfg.entropy_coeff)
+
+        def step(s, batch, _draw):
+            s["p"], s["s"], aux = u(s["p"], s["s"], batch)
+            return aux["total_loss"][None]
+        return step
+
+    policy_case("ppo_mlp", (4,), 2, pcfg.lr, ppo_update,
+                ppo_batch((4,), 2, np.float32))
+    policy_case("ppo_nature_cnn", (84, 84, 4), 6, pcfg.lr, ppo_update,
+                ppo_batch((84, 84, 4), 6, np.uint8))
+
+    def rollout(rng, T=64, N=8):
+        dones = (rng.random((T, N)) < 0.05).astype(np.float32)
+        valids = np.ones((T, N), np.float32)
+        valids[1:][dones[:-1] > 0] = 0.0    # the autoreset rows
+        return {"obs": rng.normal(size=(T, N, 4)).astype(np.float32),
+                "actions": rng.integers(0, 2, (T, N)),
+                "logp": rng.normal(-0.7, 0.1, (T, N)).astype(np.float32),
+                "rewards": np.where(valids > 0, 1.0, 0.0).astype(
+                    np.float32),
+                "dones": dones, "valids": valids,
+                "last_value": rng.normal(size=N).astype(np.float32)}
+
+    icfg = impala.IMPALAConfig()
+
+    def impala_update(fwd, opt):
+        u = impala.make_impala_update(fwd, opt, icfg)
+
+        def step(s, batch, _draw):
+            s["p"], s["s"], aux = u(s["p"], s["s"], batch)
+            return aux["total_loss"][None]
+        return step
+
+    policy_case("impala", (4,), 2, icfg.lr, impala_update, rollout)
+    acfg = appo.APPOConfig(target_update_interval=2)
+
+    def appo_update(fwd, opt):
+        u = appo.make_appo_update(fwd, opt, acfg)
+
+        def step(s, batch, _draw):
+            s["p"], s["s"], aux = u(s["p"], s["s"], batch)
+            s.setdefault("syncs", 0)
+            s["syncs"] += s["s"][2] == 0
+            return aux["total_loss"][None]
+        return step
+
+    policy_case("appo", (4,), 2, acfg.lr, appo_update, rollout,
+                bundle=lambda p, s: (s, clone(p), 0))
+    dcfg = dqn.DQNConfig()
+
+    def dqn_batch(rng, b=dcfg.batch_size):
+        return {"obs": rng.normal(size=(b, 4)).astype(np.float32),
+                "actions": rng.integers(0, 2, b).astype(np.int32),
+                "rewards": rng.normal(size=b).astype(np.float32),
+                "next_obs": rng.normal(size=(b, 4)).astype(np.float32),
+                "dones": (rng.random(b) < 0.1).astype(np.float32),
+                "weights": rng.uniform(0.3, 1.0, b).astype(np.float32)}
+
+    def dqn_update(fwd, opt):
+        u = dqn.make_dqn_update(fwd, opt, dcfg.gamma, dcfg.double_q)
+
+        def step(s, batch, _draw):
+            s["p"], s["s"], loss, _aux = u(s["p"], s["t"], s["s"], batch)
+            return loss[None]
+        return step
+
+    policy_case("dqn", (4,), 2, dcfg.lr, dqn_update, dqn_batch)
+    bcfg = bc.BCConfig()
+
+    def bc_batch(rng, b=bcfg.batch_size):
+        return {"obs": rng.normal(size=(b, 4)).astype(np.float32),
+                "actions": rng.integers(0, 2, b)}
+
+    def bc_update(fwd, opt):
+        u = bc.make_bc_update(fwd, opt)
+
+        def step(s, batch, _draw):
+            s["p"], s["s"], loss, _acc = u(s["p"], s["s"], batch)
+            return loss[None]
+        return step
+
+    policy_case("bc", (4,), 2, bcfg.lr, bc_update, bc_batch)
+
+    # SAC and CQL at Pendulum's shapes (obs 3, action 1).
+    def transitions(rng, b=256):
+        return {"obs": rng.normal(size=(b, 3)).astype(np.float32),
+                "actions": rng.uniform(-1, 1, (b, 1)).astype(np.float32),
+                "rewards": rng.normal(-3.0, 1.0, b).astype(np.float32),
+                "next_obs": rng.normal(size=(b, 3)).astype(np.float32),
+                "terminateds": np.zeros(b, np.float32)}
+
+    def continuous_case(name, cfg, make_update, draw_fn, log_alpha0):
+        ai, af = build_squashed_gaussian_actor(3, 1, cfg.hidden)
+        ci, cf = build_twin_q(3, 1, cfg.hidden)
+        g = gen(0)
+        a0, c0 = ai(g), ci(g)
+        opts = (adam(cfg.actor_lr), adam(cfg.critic_lr), adam(cfg.alpha_lr))
+        upd = make_update(af, cf, *opts)
+
+        def fresh(dev):
+            a, c = on(a0, dev), on(c0, dev)
+            la = torch.full((), log_alpha0, device=dev)
+            return {"a": a, "c": c, "t": clone(c), "la": la, "i": 0,
+                    "s": tuple(o.init(x) for o, x in zip(opts, (a, c, la)))}
+
+        def step(s, batch, draw):
+            (s["a"], s["c"], s["t"], s["la"], s["s"], aux) = upd(
+                s, batch, draw)
+            s["i"] += 1
+            return torch.stack([aux["critic_loss"], aux["actor_loss"]])
+
+        def trees(s):
+            return {"actor": (s["a"], cfg.actor_lr),
+                    "critic": (s["c"], cfg.critic_lr),
+                    "target_critic": (s["t"], cfg.critic_lr),
+                    "log_alpha": (s["la"], cfg.alpha_lr)}
+
+        batches = [transitions(np.random.default_rng(20 + i))
+                   for i in range(n)]
+        draws = [draw_fn(gen(30 + i)) for i in range(n)]
+        cases[name] = (fresh, step, trees, batches, draws)
+
+    scfg = sac.SACConfig()
+
+    def sac_update(af, cf, ao, co, lo):
+        u = sac.make_sac_update(af, cf, ao, co, lo, scfg.gamma, scfg.tau,
+                                -1.0)
+        return lambda s, batch, draw: u(s["a"], s["c"], s["t"], s["la"],
+                                        s["s"], batch, draw)
+
+    continuous_case("sac", scfg, sac_update,
+                    lambda g: sac.sac_draws(g, scfg.batch_size, 1, "cpu"),
+                    0.0)
+    ccfg = cql.CQLConfig(bc_iters=2)
+
+    def cql_update(af, cf, ao, co, lo):
+        u = cql.make_cql_update(af, cf, ao, co, lo, ccfg, -1.0)
+        return lambda s, batch, draw: u(
+            s["a"], s["c"], s["t"], s["la"], s["s"], batch, draw,
+            s["i"] < ccfg.bc_iters)
+
+    continuous_case("cql", ccfg, cql_update,
+                    lambda g: cql.cql_draws(g, ccfg.batch_size, 1,
+                                            ccfg.cql_n_actions, "cpu"),
+                    math.log(ccfg.initial_alpha))
+    return cases
+
+
+def _nature_flops(obs_shape=(84, 84, 4), n_actions=6) -> int:
+    """Multiply-adds x 2 of one Nature-torso forward of one frame."""
+    from ray_tpu_torch.rl.models import _CNN_SPEC
+
+    h, w, c = obs_shape
+    flops = 0
+    for out_ch, k, stride in _CNN_SPEC:
+        h, w = (h - k) // stride + 1, (w - k) // stride + 1
+        flops += 2 * h * w * out_ch * k * k * c
+        c = out_ch
+    flops += 2 * h * w * c * 512 + 2 * 512 * (n_actions + 1)
+    return flops
+
+
+def _rl_updates(device):
+    """(b) Each case's updates on ``device`` against the same on the CPU,
+    then ``RL["timed"]`` more on the card, each between CUDA events."""
+    from ray_tpu_torch.rl.tree import batch_to, tree_leaves
+
+    cuda = torch.device(device).type == "cuda"
+    n = RL["updates"]
+    res, checks = {}, {}
+    for name, (fresh, step, trees, batches, draws) in _rl_cases().items():
+        runs = {}
+        for dev in ("cpu", device):
+            s = fresh(dev)
+            losses = [step(s, batch_to(b, dev), None if d is None else
+                           {k: v.to(dev) for k, v in d.items()})
+                      for b, d in zip(batches, draws)]
+            runs[dev] = (s, torch.stack(losses).cpu())
+        (cs, cl), (ds, dl) = runs["cpu"], runs[device]
+        rel = float(((dl - cl).abs() / cl.abs().clamp_min(
+            RL_LOSS_FLOOR)).max())
+        param = {}
+        for tname, (tree, lr) in trees(ds).items():
+            ctree = trees(cs)[tname][0]
+            diff = max(float((a.cpu() - b).abs().max())
+                       for a, b in zip(tree_leaves(tree),
+                                       tree_leaves(ctree)))
+            param[tname] = {"max_abs_diff": diff,
+                            "bound": RL_ADAM_BOUND * lr * n}
+        finite = bool(torch.isfinite(dl).all()) and all(
+            bool(torch.isfinite(t).all()) for t in tree_leaves(
+                [t for t, _ in trees(ds).values()]))
+        row = {"losses": dl.tolist(), "cpu_losses": cl.tolist(),
+               "loss_max_rel_diff": rel, "params": param}
+        if "syncs" in ds:
+            row["target_syncs"] = int(ds["syncs"])
+        if cuda:
+            events: list = []
+            timed = _timed_calls(step, events, True)
+            b = batch_to(batches[-1], device)
+            d = None if draws[-1] is None else {
+                k: v.to(device) for k, v in draws[-1].items()}
+            for _ in range(RL["timed"]):
+                timed(ds, b, d)
+            row["update_ms_median"] = _median(_event_ms(events))
+        res[name] = row
+        checks[f"{name}_matches_cpu"] = (rel <= RL_LOSS_REL_TOL and all(
+            p["max_abs_diff"] <= p["bound"] for p in param.values()))
+        checks[f"{name}_finite"] = finite
+        checks[f"{name}_on_device"] = _on(
+            [t for t, _ in trees(ds).values()], device)
+    checks["appo_target_synced"] = res["appo"].get("target_syncs", 0) >= 1
+    flops = 3 * 256 * _nature_flops()
+    res["ppo_nature_cnn"]["flops_per_update"] = flops
+    res["ppo_nature_cnn"]["flops_per_frame_forward"] = _nature_flops()
+    if cuda:
+        ms = res["ppo_nature_cnn"]["update_ms_median"]
+        res["ppo_nature_cnn"]["tflop_per_s"] = flops / (ms * 1e-3) / 1e12
+    return res, checks
+
+
+def _rl_offline(device, pyarrow: bool):
+    """(c) Pendulum-shaped transitions (seeded numpy) -> ``from_numpy`` ->
+    (with pyarrow: ``save_transitions`` / ``load_transitions``) ->
+    ``dataset_to_buffer`` -> CQL updates on the card from buffer
+    samples."""
+    import shutil
+    import tempfile
+
+    from ray_tpu_torch import data as rdata
+    from ray_tpu_torch.rl import cql
+    from ray_tpu_torch.rl.models import (build_squashed_gaussian_actor,
+                                         build_twin_q)
+    from ray_tpu_torch.rl.offline import (dataset_to_buffer,
+                                          load_transitions,
+                                          save_transitions)
+    from ray_tpu_torch.rl.tree import adam, batch_to, clone, to_device
+
+    rng = np.random.default_rng(6)
+    n = RL["offline_rows"]
+    theta = rng.uniform(-np.pi, np.pi, n)
+    cols = {"obs": np.stack([np.cos(theta), np.sin(theta),
+                             rng.uniform(-8, 8, n)], 1).astype(np.float32),
+            "actions": rng.uniform(-1, 1, (n, 1)).astype(np.float32),
+            "rewards": -(theta ** 2).astype(np.float32),
+            "next_obs": rng.normal(size=(n, 3)).astype(np.float32),
+            "terminateds": np.zeros(n, np.float32)}
+    t = time.perf_counter()
+    ds = rdata.from_numpy(cols, num_blocks=8)
+    tmp = None
+    if pyarrow:
+        tmp = tempfile.mkdtemp()
+        save_transitions(ds, tmp)
+        ds = load_transitions(tmp)
+    try:
+        buf = dataset_to_buffer(ds, seed=0)
+    finally:
+        if tmp:
+            shutil.rmtree(tmp, ignore_errors=True)
+    ingest_s = time.perf_counter() - t
+    held = buf._storage["rewards"][:len(buf)]
+    cfg = cql.CQLConfig(bc_iters=RL["offline_bc"])
+    ai, af = build_squashed_gaussian_actor(3, 1, cfg.hidden)
+    ci, cf = build_twin_q(3, 1, cfg.hidden)
+    g = torch.Generator().manual_seed(cfg.seed)
+    actor, critic = to_device(ai(g), device), to_device(ci(g), device)
+    target = clone(critic)
+    log_alpha = torch.full((), math.log(cfg.initial_alpha), device=device)
+    opts = (adam(cfg.actor_lr), adam(cfg.critic_lr), adam(cfg.alpha_lr))
+    states = tuple(o.init(x) for o, x in zip(opts, (actor, critic,
+                                                    log_alpha)))
+    upd = cql.make_cql_update(af, cf, *opts, cfg, -1.0)
+    draw_gen = torch.Generator().manual_seed(cfg.seed + 1)
+    _sync(device)
+    t = time.perf_counter()
+    losses = []
+    for i in range(RL["offline_updates"]):
+        batch, _idx, _w = buf.sample(cfg.batch_size)
+        draws = cql.cql_draws(draw_gen, cfg.batch_size, 1,
+                              cfg.cql_n_actions, device)
+        actor, critic, target, log_alpha, states, aux = upd(
+            actor, critic, target, log_alpha, states,
+            batch_to(batch, device), draws, i < cfg.bc_iters)
+        losses.append(aux["critic_loss"])
+    _sync(device)
+    learn_s = time.perf_counter() - t
+    losses = torch.stack(losses).cpu()
+    res = {"rows": n, "pyarrow_round_trip": pyarrow, "ingest_s": ingest_s,
+           "updates": RL["offline_updates"], "bc_updates": cfg.bc_iters,
+           "learn_s": learn_s,
+           "ms_per_update": 1e3 * learn_s / RL["offline_updates"],
+           "critic_loss_first_last": [float(losses[0]), float(losses[-1])]}
+    checks = {"buffer_holds_every_row": len(buf) == n and np.array_equal(
+        np.sort(held), np.sort(cols["rewards"])),
+        "critic_loss_finite": bool(torch.isfinite(losses).all()),
+        "params_on_device": _on([actor, critic, target, log_alpha],
+                                device)}
+    return res, checks
+
+
+def _rl_gym(device, have_gym: bool):
+    """(d) With gymnasium: PPO on MiniCatch at 84x84 with 4 stacked
+    frames (the Nature torso through env runners), one iteration each of
+    IMPALA, APPO, DQN and SAC, and BC fed by ``collect_dataset``."""
+    skipped = ["ppo_minicatch_84", "impala", "appo", "dqn", "sac",
+               "bc_collect_dataset"]
+    if not have_gym:
+        return {"gymnasium": False, "skipped": skipped}, {}
+    from ray_tpu_torch.rl import (APPOConfig, BCConfig, DQNConfig,
+                                  IMPALAConfig, PPOConfig, SACConfig,
+                                  collect_dataset)
+
+    res, checks = {"gymnasium": True}, {}
+
+    def finite(m):
+        return all(math.isfinite(v) for v in m.values()
+                   if isinstance(v, float))
+
+    t = time.perf_counter()
+    algo = PPOConfig(device=device).environment(
+        "ray_tpu/MiniCatch-v0", size=84).env_runners(
+        2, num_envs_per_runner=4).training(
+        rollout_length=32, frame_stack=4, seed=0).build()
+    try:
+        ms = [algo.train() for _ in range(RL["gym_ppo_iters"])]
+        ds = collect_dataset(algo, num_rollouts=1)
+        on_card = _on(algo.params, device)
+    finally:
+        algo.stop()
+    res["ppo_minicatch_84"] = {"s": time.perf_counter() - t, "metrics": ms}
+    checks["ppo_minicatch_84"] = all(finite(m) for m in ms) and on_card
+    for name, cfg, kw in (
+            ("impala", IMPALAConfig(device=device), {"min_rollouts": 2}),
+            ("appo", APPOConfig(device=device), {"min_rollouts": 2}),
+            ("dqn", DQNConfig(device=device, learning_starts=32,
+                              train_batches_per_iter=4), {}),
+            ("sac", SACConfig(device=device, warmup_steps=32,
+                              updates_per_iteration=4), {})):
+        t = time.perf_counter()
+        algo = cfg.build()
+        try:
+            m = algo.train(**kw)
+            tree = algo.actor if name == "sac" else algo.params
+            checks[name] = finite(m) and _on(tree, device)
+        finally:
+            algo.stop()
+        res[name] = {"s": time.perf_counter() - t, "metrics": m}
+    t = time.perf_counter()
+    bc_algo = BCConfig(device=device).environment(
+        "ray_tpu/MiniCatch-v0", size=84).training(
+        frame_stack=4, epochs=1).build(ds)
+    m = bc_algo.train()
+    res["bc_collect_dataset"] = {"s": time.perf_counter() - t, "metrics": m,
+                                 "rows": ds.count()}
+    checks["bc_collect_dataset"] = (m["rows_trained"] > 0
+                                    and math.isfinite(m["loss"])
+                                    and _on(bc_algo.params, device))
+    return res, checks
+
+
 # ----------------------------------------------------------------- mesh
 
 # Mesh step against the mesh-less step on one card, bf16 compute: losses
@@ -4603,6 +5296,7 @@ def main() -> int:
                          train_cfg, results["train"],
                          vit.PRESETS["vit_b16"],
                          results["vit"].get("images_per_s"))),
+                     ("rl", phase_rl),
                      ("mesh", lambda: phase_mesh(train_cfg))):
         t0 = time.perf_counter()
         try:

@@ -188,3 +188,55 @@ def test_decode_mesh_shape_knob_builds_the_mesh():
     finally:
         rt_config.decode_mesh_shape = ""
         dist.destroy_process_group()
+
+
+def test_rl_imports_and_trains_multi_agent_ppo_without_gymnasium(tmp_path):
+    """``import ray_tpu_torch.rl`` and a multi-agent PPO iteration need no
+    gymnasium (the card's machine has none): blocked in the driver through
+    ``sys.modules`` and in the runners' processes by a package on their
+    path that refuses to import."""
+    shadow = tmp_path / "gymnasium"
+    shadow.mkdir()
+    (shadow / "__init__.py").write_text(
+        "raise ImportError('gymnasium is blocked in this test')\n")
+    code = ("import sys\n"
+            "sys.modules['gymnasium'] = None\n"
+            "import ray_tpu_torch as rt\n"
+            "import ray_tpu_torch.rl as rl\n"
+            "rt.init(num_cpus=2)\n"
+            "try:\n"
+            "    algo = rl.MultiAgentPPOConfig(num_env_runners=1,\n"
+            "        episodes_per_sample=2, device='cpu').build()\n"
+            "    m = algo.train()\n"
+            "    assert m['env_steps_this_iter'] == 24, m\n"
+            "    algo.stop()\n"
+            "finally:\n"
+            "    rt.shutdown()\n"
+            "assert sys.modules['gymnasium'] is None\n"
+            "try:\n"
+            "    import gymnasium  # noqa: F401\n"
+            "except ImportError:\n"
+            "    print('blocked')\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = f"{tmp_path}{os.pathsep}{ROOT}"
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=150)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip().endswith("blocked")
+
+
+def test_rl_algorithms_refuse_without_card(no_card):
+    """Each algorithm's ``build()`` raises before it probes an env (the
+    env names here do not exist) or starts a runner."""
+    from ray_tpu_torch.rl import (APPOConfig, BCConfig, CQLConfig,
+                                  DQNConfig, IMPALAConfig,
+                                  MultiAgentPPOConfig, PPOConfig, SACConfig)
+
+    for cls in (PPOConfig, IMPALAConfig, APPOConfig, DQNConfig, SACConfig,
+                BCConfig, CQLConfig):
+        assert cls().device == "cuda"
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cls(env="NoSuchEnv-v0").build()
+    assert MultiAgentPPOConfig().device == "cuda"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        MultiAgentPPOConfig(env="no/SuchEnv-v0").build()
