@@ -1,7 +1,8 @@
-"""Drive the PyTorch/CUDA port's splash, serving (a decode mesh and the
-runtime's serve plane among them), training (Llama, through the runtime's
-train and tune planes and fed by its Dataset API too, and ViT), RL and
-mesh paths on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's splash, serving (a decode mesh, the
+runtime's serve plane and a one-host gang among them), training (Llama,
+through the runtime's train and tune planes and fed by its Dataset API
+too, and ViT), RL (its distributed plane too) and mesh paths on one
+NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -258,6 +259,64 @@ Phases, one JSON line each (``{"phase": ..., "ok": ...}``):
    visible hops; the 6 dead hops launch nothing), and each is timed
    beside the full call. Its hops' shapes (B=1, 2048, 16 on 8 heads,
    full and causal, with an lse cotangent) are kernel cases too.
+17. rl_dist: the RL distributed plane with the learner on the card
+   (``rt.init()``; its node must advertise ``GPU: 1``); it prints whether
+   ``gymnasium`` is found and installs nothing. (a) The policy inference
+   service on the card: for CartPole's shapes (MLP 64x64, 2 actions) and
+   the Nature torso's (84x84x4 uint8, 6 actions), in categorical and in
+   epsilon-greedy mode, a ``WeightFanout`` publishes version 1 (params
+   from one CPU generator, seed 1; epsilon 0.5 in the greedy service), a
+   ``PolicyInference`` actor takes the ``GPU`` lease, and eight CPU
+   actors each send 50 ``infer((obs, seed))`` requests of 4 seeded rows,
+   one after another, all eight at once; version 2 (seed 2; epsilon 0)
+   is published once the service has served 100 requests, before the
+   second half of each caller's requests. Checks: coalescing (``max_batch
+   >= 2``, fewer forwards than requests), each caller's reply versions
+   never go down and both versions were served, every value and log-prob
+   of a returned action within ``RL_LOSS_REL_TOL`` of a CPU forward of
+   that version's params on the same rows (max |difference| over max
+   |CPU|), and at epsilon 0 every action equal to the CPU's argmax where
+   its top-2 margin exceeds ``RL_DIST_MARGIN``. Prints the service's
+   start, forward calls, mean coalesced batch, request p50 / p99 (host
+   clock) and forward ms (CUDA events, read in the service). (b) Four CPU
+   tasks each put a seeded (64, 4) CartPole-shaped rollout into the store
+   and return a ``collect()``-style descriptor; each becomes a
+   ``TrajectoryShard`` through a ``ShardQueue(2)`` (a third put times out
+   while it is full) into a ``LearnerState`` on the card, which runs
+   ``make_impala_update`` on each under ``timed_update`` (CUDA events
+   around each) and publishes. Checks: descriptors under
+   ``DESCRIPTOR_BYTE_BUDGET``, ``plane_stats`` with staleness, update
+   time, descriptor bytes and env steps, losses within
+   ``RL_LOSS_REL_TOL`` of the same four updates on the CPU and params
+   within ``RL_ADAM_BOUND`` x lr x 4, params on the card, the fan-out at
+   version 5, its hub key gone after ``close()``. (c) Only with
+   gymnasium: ``IMPALAConfig().distributed_rollouts(4,
+   num_envs_per_actor=4)`` until the best return reaches 100 within 100
+   iterations, and ``DistributedDQN`` in inference mode for 3 iterations
+   (monotonic versions, descriptors in budget, a leak report with queue
+   depth 0 and no intake thread, the ``GPU`` lease back after stop);
+   without it the phase prints ``"gymnasium": false`` and what it
+   skipped. No hand-written kernel may launch; teardown leaves no
+   process of the node, no store file, and ``GPU`` available again.
+18. gang: ``HostGroup(1, worker_options={"num_gpus": 1})`` on
+   ``rt.init()``, whose node advertises a one-host slice of its one card.
+   (a) Formation (timed): the member is process 0 of 1 with one chip a
+   host and holds the ``GPU`` lease, ``form_mesh()`` forms a one-rank
+   NCCL group (``[1]``), a program barrier passes. (b) Through
+   ``broadcast`` the member builds the serve phase's engine on its card
+   (``PRESETS["7b"]``, full width and depth, bf16, seed 0, ``slots=4``,
+   ``capacity=2048``, flash) and serves the serve phase's six requests
+   one at a time: the streams must equal serve_runtime's sequential
+   handle streams (the same engine, requests and order) token for token;
+   flash #1's launches, read in the member, must be 32 per full prefill
+   wave, all on wgmma. Prints TTFT, decode tokens/s per request and
+   tokens/s. (c) The member is killed: the monitor reconciles the gang
+   under the next epoch, releasing the sub-slice once; the ``GPU`` lease
+   passes to the new member, a new coordinator is elected, and the
+   re-formed member serves the first request again with the same
+   stream. Prints the time from the kill to ``ALIVE`` and to the first
+   token. (d) Shutdown leaves no reservation, no group record, ``GPU``
+   available, no process of the node and no store file.
 
 Serve, serve_paged, serve_spec and train also read the forward's C
 entry's own launch count of each of its kernels over the same window:
@@ -266,8 +325,8 @@ the backward's entries the same way, and every backward launch must have
 taken a wgmma kernel.
 
 Each main path (splash, serve, serve_paged, serve_spec, serve_disagg,
-serve_runtime, serve_mesh, train, train_runtime, data_train, mesh) must
-have launched each of its kernels at least once. Then a
+serve_runtime, serve_mesh, train, train_runtime, data_train, mesh, gang)
+must have launched each of its kernels at least once. Then a
 ``{"kernels": [...]}`` line with all seven kernels (the six attention
 kernels with their main-path launches by kernel, and each with its ptxas
 lines: registers, shared memory and spills of each instantiation), the
@@ -393,6 +452,7 @@ PATH_KERNELS = {
                "attention_delta"],
     "mesh": ["flash_fwd", "flash_bwd_dkv", "flash_bwd_dq",
              "attention_delta"],
+    "gang": ["flash_fwd"],
 }
 # The sources to build: one library (and one nvcc) per .cu file.
 SOURCES = sorted({Path(k["source"]).stem for k in KERNELS.values()})
@@ -4491,6 +4551,523 @@ def _rl_gym(device, have_gym: bool):
     return res, checks
 
 
+# ----------------------------------------------------- the distributed plane
+
+# (a): eight caller actors, each sending its requests one after another
+# (as a rollout actor steps), all eight at once; the fan-out publishes
+# version 2 once the service has served ``flip_after`` requests, and the
+# second half of each caller's requests starts after that publish.
+RL_DIST = dict(callers=8, requests=50, rows=4, flip_after=100, shards=4,
+               T=64, N=4, impala_iters=100, impala_bar=100.0, dqn_iters=3)
+RL_DIST_SHAPES = {"mlp": ((4,), 2), "cnn": ((84, 84, 4), 6)}
+# The greedy check compares actions where the CPU's top-2 Q margin
+# exceeds this (float32 on both sides, TF32 off).
+RL_DIST_MARGIN = 1e-4
+
+
+def _rl_dist_obs(obs_shape, rows: int, seed: int) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    if len(obs_shape) == 3:
+        return rng.integers(0, 256, (rows,) + tuple(obs_shape),
+                            dtype=np.uint8)
+    return rng.normal(size=(rows,) + tuple(obs_shape)).astype(np.float32)
+
+
+def _inference_cls():
+    """``PolicyInference`` plus the forward's device time (CUDA events
+    around each forward, read in the service's process) and float32
+    products (TF32 off, as in this process). Defined in a function, so it
+    travels to the service's worker by value."""
+    from ray_tpu_torch.rl.distributed.inference import PolicyInference
+
+    class SmokeInference(PolicyInference):
+        def __init__(self, *args, **kwargs):
+            import torch
+
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+            super().__init__(*args, **kwargs)
+            sample, self._events = self._sample_fn, []
+
+            def timed(*a):
+                if self.device.type != "cuda":
+                    return sample(*a)
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = sample(*a)
+                end.record()
+                self._events.append((start, end))
+                return out
+
+            self._sample_fn = timed
+
+        def probe(self) -> dict:
+            import os
+
+            import torch
+
+            ms = []
+            if self.device.type == "cuda":
+                torch.cuda.synchronize()
+                ms = [s.elapsed_time(e) for s, e in self._events]
+            return {"forward_ms": ms, "device": str(self.device),
+                    "pid": os.getpid(),
+                    "cuda_visible": os.environ.get("CUDA_VISIBLE_DEVICES")}
+
+    return SmokeInference
+
+
+class _InferCaller:
+    """A CPU actor that sends inference requests one after another, as a
+    rollout actor steps."""
+
+    def run(self, svc, obs_shape, seeds, rows):
+        import ray_tpu_torch as rt
+
+        out = []
+        for seed in seeds:
+            obs = _rl_dist_obs(obs_shape, rows, seed)
+            t = time.perf_counter()
+            action, logp, value, version = rt.get(
+                svc.infer.remote((obs, seed)))
+            out.append({"seed": seed, "s": time.perf_counter() - t,
+                        "version": int(version), "action": action,
+                        "logp": logp, "value": value})
+        return out
+
+
+def phase_rl_dist(device="cuda") -> dict:
+    """The distributed RL plane with the learner on the card: the policy
+    inference service on the card behind eight CPU callers, the learner
+    host fed through the object plane and a shard queue, and (with
+    gymnasium) the distributed IMPALA and DQN entry points. See the
+    module docstring."""
+    import importlib.util
+
+    import ray_tpu_torch as rt
+
+    found = importlib.util.find_spec("gymnasium") is not None
+    gc.collect()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    _runtime_init(device)
+    try:
+        return _rl_dist(device, found)
+    finally:
+        if rt.is_initialized():  # a failure before the phase's teardown
+            rt.shutdown()
+
+
+def _rl_dist(device, found) -> dict:
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.core.node import shm_store_path
+    from ray_tpu_torch.core.runtime import get_core_worker
+
+    cuda = torch.device(device).type == "cuda"
+    core = get_core_worker()
+    node_hex, store = core.node_id.hex(), shm_store_path(core.node_id)
+    resources = rt.cluster_resources()
+    gpus = rt.available_resources().get("GPU")
+    checks = {"gpu_resource": resources.get("GPU") == 1.0 and gpus == 1.0}
+    out = {"gymnasium": found, "resources": resources}
+    reset_counts()
+    for key, part in (("a", lambda: _rl_dist_inference(device, gpus)),
+                      ("b", lambda: _rl_dist_learner(device)),
+                      ("c", lambda: _rl_dist_gym(device, found, gpus))):
+        res, part_checks = part()
+        out[key] = res
+        checks.update({f"{key}_{k}": v for k, v in part_checks.items()})
+    launches = launch_counts()
+    out["kernel_launches"] = launches
+    checks["no_hand_written_kernel_launched"] = not any(launches.values())
+    out["gpu_returned"] = _poll_until(
+        lambda: rt.available_resources().get("GPU"), lambda v: v == gpus)
+    rt.shutdown()
+    out["store_file_left"] = os.path.exists(store)
+    out["processes_left"] = _poll_until(lambda: _live_node_pids(node_hex),
+                                        lambda v: not v, 15.0)
+    checks["teardown_clean"] = (out["gpu_returned"] == gpus
+                                and not out["store_file_left"]
+                                and not out["processes_left"])
+    out["checks"] = checks
+    if cuda:
+        out["device"] = smi_line()
+    out["ok"] = all(checks.values())
+    return out
+
+
+def _rel_diff(got, want) -> float:
+    """Elementwise relative difference, its denominator at least
+    ``RL_LOSS_FLOOR`` (losses)."""
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    return float((np.abs(got - want) / np.maximum(
+        np.abs(want), RL_LOSS_FLOOR)).max())
+
+
+def _rel_to_max(got, want) -> float:
+    """max |got - want| over max |want| (a forward's outputs: values near
+    zero carry the rounding of sums of O(1) terms)."""
+    return _max_rel(torch.as_tensor(np.asarray(got, np.float64)),
+                    torch.as_tensor(np.asarray(want, np.float64)))
+
+
+def _rl_dist_inference(device, gpus):
+    """(a) For each shape (CartPole's MLP, the Nature torso) and mode
+    (categorical, epsilon-greedy): a ``PolicyInference`` actor holding
+    the ``GPU`` lease, ``RL_DIST["callers"]`` CPU callers, version 2
+    published mid-run (epsilon 0 in the greedy service), every reply held
+    against a CPU forward of the version's params."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.rl.distributed import WeightFanout, new_plane_key
+    from ray_tpu_torch.rl.models import build_policy, take_logp
+
+    cuda = torch.device(device).type == "cuda"
+    n, rows, flip = (RL_DIST["requests"], RL_DIST["rows"],
+                     RL_DIST["flip_after"])
+    caller_cls = rt.remote(_InferCaller).options(num_cpus=0.5)
+    callers = [caller_cls.remote() for _ in range(RL_DIST["callers"])]
+    res, checks = {}, {}
+    try:
+        for shape, (obs_shape, n_actions) in RL_DIST_SHAPES.items():
+            init_fn, forward = build_policy(obs_shape, n_actions)
+            params = {v: init_fn(torch.Generator().manual_seed(v))
+                      for v in (1, 2)}
+            for mode in ("categorical", "epsilon_greedy"):
+                name = f"{shape}_{mode}"
+                greedy = mode == "epsilon_greedy"
+                key = new_plane_key(f"smoke-{name}")
+                fan = WeightFanout(key)
+                fan.publish(params[1], {"epsilon": 0.5} if greedy else {})
+                t = time.perf_counter()
+                svc = rt.remote(_inference_cls()).options(
+                    num_cpus=0, num_gpus=1,
+                    max_concurrency=RL_DIST["callers"] + 1).remote(
+                        obs_shape, n_actions, key, mode, (64, 64), device)
+                try:
+                    probe0 = rt.get(svc.probe.remote(), timeout=300)
+                    start_s = time.perf_counter() - t
+                    held = _poll_until(
+                        lambda: rt.available_resources().get("GPU"),
+                        lambda v: v == gpus - 1)
+                    halves = [[(c * 1000 + j) for j in range(n)]
+                              for c in range(len(callers))]
+                    t = time.perf_counter()
+                    first = [c.run.remote(svc, obs_shape, s[:n // 2], rows)
+                             for c, s in zip(callers, halves)]
+                    _poll_until(lambda: rt.get(svc.stats.remote())[
+                        "requests"], lambda v: v >= flip, 60.0)
+                    fan.publish(params[2], {"epsilon": 0.0} if greedy
+                                else {})
+                    replies = rt.get(first, timeout=REQUEST_TIMEOUT_S)
+                    second = [c.run.remote(svc, obs_shape, s[n // 2:], rows)
+                              for c, s in zip(callers, halves)]
+                    replies = [a + b for a, b in zip(
+                        replies, rt.get(second, timeout=REQUEST_TIMEOUT_S))]
+                    wall = time.perf_counter() - t
+                    stats = rt.get(svc.stats.remote())
+                    probe = rt.get(svc.probe.remote())
+                finally:
+                    rt.kill(svc)
+                    fan.close()
+                lat = sorted(r["s"] for rs in replies for r in rs)
+                flat = [r for rs in replies for r in rs]
+                # The CPU's forward of each version's params on the same
+                # rows, in chunks.
+                logp_err = value_err = 0.0
+                compared = greedy_rows = mismatched = 0
+                for v in (1, 2):
+                    mine = [r for r in flat if r["version"] == v]
+                    for i in range(0, len(mine), 256):
+                        chunk = mine[i:i + 256]
+                        obs = torch.from_numpy(np.concatenate(
+                            [_rl_dist_obs(obs_shape, rows, r["seed"])
+                             for r in chunk]))
+                        with torch.no_grad():
+                            q, value = forward(params[v], obs)
+                        act = torch.from_numpy(np.concatenate(
+                            [np.asarray(r["action"]) for r in chunk]))
+                        got_v = np.concatenate([r["value"] for r in chunk])
+                        got_l = np.concatenate([r["logp"] for r in chunk])
+                        if greedy:
+                            value_err = max(value_err, _rel_to_max(
+                                got_v, q.max(-1).values.numpy()))
+                            logp_err = max(logp_err, float(np.abs(
+                                got_l).max()))
+                            if v == 2:
+                                top2 = torch.topk(q, 2).values
+                                clear = (top2[:, 0] - top2[:, 1]
+                                         ) > RL_DIST_MARGIN
+                                greedy_rows += len(act)
+                                compared += int(clear.sum())
+                                mismatched += int((act[clear] != q.argmax(
+                                    -1)[clear]).sum())
+                        else:
+                            value_err = max(value_err, _rel_to_max(
+                                got_v, value.numpy()))
+                            want_l = take_logp(torch.log_softmax(q, -1),
+                                               act)
+                            logp_err = max(logp_err, _rel_to_max(
+                                got_l, want_l.numpy()))
+                versions = [[r["version"] for r in rs] for rs in replies]
+                row = {"service_start_s": start_s, "wall_s": wall,
+                       "requests": stats["requests"],
+                       "forward_calls": stats["forward_calls"],
+                       "max_batch": stats["max_batch"],
+                       "mean_batch": stats["requests"]
+                       / max(1, stats["forward_calls"]),
+                       "request_ms_p50": 1e3 * lat[len(lat) // 2],
+                       "request_ms_p99": 1e3 * lat[
+                           min(len(lat) - 1, int(0.99 * len(lat)))],
+                       "replies_v1": sum(v == 1 for vs in versions
+                                         for v in vs),
+                       "replies_v2": sum(v == 2 for vs in versions
+                                         for v in vs),
+                       "logp_max_rel_diff": logp_err,
+                       "value_max_rel_diff": value_err,
+                       "service": {k: probe0[k] for k in
+                                   ("device", "pid", "cuda_visible")},
+                       "gpu_available_while_serving": held}
+                if cuda:
+                    row["forward_ms_median"] = _median(probe["forward_ms"])
+                    row["forward_ms_max"] = max(probe["forward_ms"])
+                if greedy:
+                    row["greedy_rows"] = greedy_rows
+                    row["greedy_rows_compared"] = compared
+                    row["greedy_rows_mismatched"] = mismatched
+                res[name] = row
+                checks[f"{name}_coalesced"] = (
+                    stats["max_batch"] >= 2
+                    and stats["forward_calls"] < stats["requests"]
+                    == len(flat))
+                checks[f"{name}_versions_monotonic"] = all(
+                    a <= b for vs in versions for a, b in zip(vs, vs[1:]))
+                checks[f"{name}_both_versions"] = (
+                    row["replies_v1"] > 0 and row["replies_v2"] > 0)
+                checks[f"{name}_matches_cpu"] = (
+                    value_err <= RL_LOSS_REL_TOL
+                    and logp_err <= RL_LOSS_REL_TOL)
+                checks[f"{name}_holds_gpu_lease"] = (
+                    held == gpus - 1 and probe0["pid"] != os.getpid()
+                    and probe0["device"].startswith(
+                        torch.device(device).type))
+                if greedy:
+                    checks[f"{name}_greedy_actions"] = (
+                        mismatched == 0 and compared >= greedy_rows // 2)
+    finally:
+        for c in callers:
+            rt.kill(c)
+    return res, checks
+
+
+def _put_rollout(seed: int, index: int, T: int, N: int) -> dict:
+    """A CPU task: one seeded CartPole-shaped (T, N) rollout with the
+    fields the IMPALA update reads, put into the object store; returns a
+    ``collect()``-style descriptor."""
+    import ray_tpu_torch as rt
+
+    rng = np.random.default_rng(seed)
+    dones = (rng.random((T, N)) < 0.05).astype(np.float32)
+    valids = np.ones((T, N), np.float32)
+    valids[1:] = 1.0 - dones[:-1]
+    ro = {"obs": rng.normal(size=(T, N, 4)).astype(np.float32),
+          "actions": rng.integers(0, 2, (T, N)).astype(np.int64),
+          "logp": np.log(rng.uniform(0.3, 0.7, (T, N))).astype(np.float32),
+          "rewards": valids.copy(), "dones": dones, "valids": valids,
+          "last_value": rng.normal(size=(N,)).astype(np.float32),
+          "weights_version": 1}
+    return {"ref": rt.put(ro), "weights_version": 1,
+            "env_steps": int(valids.sum()), "actor_index": index,
+            "seq": 1, "episodes": {"episodes": 0}}
+
+
+def _rl_dist_learner(device):
+    """(b) Four CPU tasks' rollouts through the object plane and a
+    ``ShardQueue(2)`` into a ``LearnerState`` on the card: four IMPALA
+    updates under ``timed_update`` (each between CUDA events), each
+    published, against the same four on the CPU."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.core.rpc_stubs import ControllerStub
+    from ray_tpu_torch.core.runtime import get_core_worker
+    from ray_tpu_torch.core.serialization import serialized_size
+    from ray_tpu_torch.rl import IMPALAConfig
+    from ray_tpu_torch.rl.distributed import (DESCRIPTOR_BYTE_BUDGET,
+                                              WEIGHTS_CHANNEL, LearnerState,
+                                              ShardQueue, TrajectoryShard,
+                                              new_plane_key, plane_stats)
+    from ray_tpu_torch.rl.distributed.learner import RL_DESC_BYTES
+    from ray_tpu_torch.rl.impala import make_impala_update
+    from ray_tpu_torch.rl.models import build_policy
+    from ray_tpu_torch.rl.tree import (adam, batch_to, clone, to_device,
+                                       tree_leaves)
+
+    cuda = torch.device(device).type == "cuda"
+    cfg = IMPALAConfig(device=device)
+    init_fn, forward = build_policy((4,), 2, cfg.hidden)
+    p0 = init_fn(torch.Generator().manual_seed(0))
+    runs = {}
+    for dev in ("cpu", device):
+        params = to_device(clone(p0), dev)
+        opt = adam(cfg.lr)
+        runs[dev] = {"params": params, "opt": opt,
+                     "state": opt.init(params),
+                     "update": make_impala_update(forward, opt, cfg),
+                     "losses": []}
+    key = new_plane_key("smoke-learner")
+    state = LearnerState(key, device)
+    state.publish(runs[device]["params"], version=1)
+    put = rt.remote(_put_rollout).options(num_cpus=1)
+    n = RL_DIST["shards"]
+    descs = rt.get([put.remote(100 + i, i, RL_DIST["T"], RL_DIST["N"])
+                    for i in range(n)], timeout=120)
+    sizes = [serialized_size(d) for d in descs]
+    shards = [TrajectoryShard(ref=d["ref"], weights_version=1,
+                              env_steps=d["env_steps"], actor_index=i,
+                              seq=d["seq"], desc_bytes=b,
+                              episodes=d["episodes"])
+              for i, (d, b) in enumerate(zip(descs, sizes))]
+    for b in sizes:
+        RL_DESC_BYTES.observe(b, {"plane": key})
+    queue = ShardQueue(2)
+    pending = list(shards)
+    queued = [queue.put(pending.pop(0), timeout=0.1) for _ in range(2)]
+    t = time.perf_counter()
+    full_put = queue.put(pending[0], timeout=0.2)
+    full_wait = time.perf_counter() - t
+    events: list = []
+    updates = 0
+    while updates < n:
+        shard = queue.get(timeout=10.0)
+        if pending:
+            queue.put(pending.pop(0), timeout=0.1)
+        ro = rt.get(shard.ref)
+        state.record_staleness(shard)
+        keys = ("obs", "actions", "logp", "rewards", "dones", "valids",
+                "last_value")
+        for dev, run in runs.items():
+            batch = (state.shard_batch({k: ro[k] for k in keys})
+                     if dev == device else
+                     batch_to({k: ro[k] for k in keys}, "cpu"))
+
+            def step(run=run, batch=batch):
+                return run["update"](run["params"], run["state"], batch)
+
+            if dev == device:
+                run["params"], run["state"], aux = state.timed_update(
+                    _timed_calls(step, events, cuda))
+            else:
+                run["params"], run["state"], aux = step()
+            run["losses"].append(float(aux["total_loss"]))
+        updates += 1
+        state.publish(runs[device]["params"], version=updates + 1)
+    stats = plane_stats(key, queue)
+    version = state.version
+    dl, cl = runs[device]["losses"], runs["cpu"]["losses"]
+    diff = max(float((a.cpu() - b).abs().max()) for a, b in zip(
+        tree_leaves(runs[device]["params"]),
+        tree_leaves(runs["cpu"]["params"])))
+    bound = RL_ADAM_BOUND * cfg.lr * n
+    state.close()
+    snap = ControllerStub(get_core_worker().controller).psub_snapshot(
+        WEIGHTS_CHANNEL)
+    res = {"descriptor_bytes": sizes, "full_put_wait_s": full_wait,
+           "losses": dl, "cpu_losses": cl,
+           "loss_max_rel_diff": _rel_diff(dl, cl),
+           "param_max_abs_diff": diff, "param_bound": bound,
+           "fanout_version": version, "plane_stats": stats}
+    if cuda:
+        res["update_ms"] = _event_ms(events)
+    checks = {
+        "descriptors_under_budget": max(sizes) <= DESCRIPTOR_BYTE_BUDGET,
+        "queue_full_put_timed_out": all(queued) and not full_put,
+        "plane_stats_fields": all(k in stats for k in (
+            "staleness", "learner_update_s", "shard_desc_bytes",
+            "env_steps")) and stats["shards"] == n,
+        "losses_match_cpu": res["loss_max_rel_diff"] <= RL_LOSS_REL_TOL,
+        "params_match_cpu": diff <= bound,
+        "params_on_device": _on(runs[device]["params"], device),
+        "fanout_version_5": version == n + 1,
+        "hub_key_gone_after_close": key not in snap,
+    }
+    return res, checks
+
+
+def _rl_dist_gym(device, have_gym: bool, gpus):
+    """(c) With gymnasium: ``IMPALAConfig().distributed_rollouts(4, ...)``
+    to the reference's bar, and ``DistributedDQN`` in inference mode for
+    ``RL_DIST["dqn_iters"]`` iterations."""
+    skipped = ["impala_distributed_to_100", "dqn_inference_mode"]
+    if not have_gym:
+        return {"gymnasium": False, "skipped": skipped}, {}
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.rl import DQNConfig, IMPALAConfig
+    from ray_tpu_torch.rl.distributed import DESCRIPTOR_BYTE_BUDGET
+
+    res, checks = {"gymnasium": True}, {}
+    t = time.perf_counter()
+    algo = IMPALAConfig().environment("CartPole-v1").distributed_rollouts(
+        4, num_envs_per_actor=4).training(
+        rollout_length=64, entropy_coeff=0.01, seed=1,
+        device=device).build()
+    best, rows = 0.0, []
+    try:
+        for _ in range(RL_DIST["impala_iters"]):
+            m = algo.train(min_rollouts=4)
+            best = max(best, m.get("episode_return_mean", 0.0))
+            rows.append({"iter": m["training_iteration"],
+                         "return": m.get("episode_return_mean"),
+                         "lag": m["mean_policy_lag"],
+                         "env_steps_per_s": m["env_steps_per_sec"]})
+            if best >= RL_DIST["impala_bar"]:
+                break
+        violations = algo.plane.monotonic_violations
+        desc_p99 = m["rl"]["shard_desc_bytes"]["p99"]
+        on_card = _on(algo.params, device)
+    finally:
+        algo.stop()
+    report = algo.last_leak_report
+    res["impala"] = {"s": time.perf_counter() - t, "best": best,
+                     "iterations": len(rows), "log": rows,
+                     "desc_p99": desc_p99, "leak_report": report}
+    checks["impala_reaches_bar"] = best >= RL_DIST["impala_bar"]
+    checks["impala_monotonic"] = violations == 0
+    checks["impala_descriptors_in_budget"] = desc_p99 <= \
+        DESCRIPTOR_BYTE_BUDGET
+    checks["impala_params_on_device"] = on_card
+    checks["impala_leak_report"] = (report["queue_depth"] == 0
+                                    and report["intake_alive"] is False)
+    t = time.perf_counter()
+    algo = DQNConfig(device=device).environment(
+        "CartPole-v1").distributed_rollouts(
+        3, num_envs_per_actor=2, mode="inference").training(
+        rollout_length=8, learning_starts=32, batch_size=32,
+        train_batches_per_iter=2).build()
+    try:
+        ms = [algo.train() for _ in range(RL_DIST["dqn_iters"])]
+        stats = rt.get(algo.plane.inference.stats.remote())
+        held = rt.available_resources().get("GPU")
+    finally:
+        algo.stop()
+    report = algo.last_leak_report
+    back = _poll_until(lambda: rt.available_resources().get("GPU"),
+                       lambda v: v == gpus)
+    res["dqn"] = {"s": time.perf_counter() - t, "inference": stats,
+                  "leak_report": report,
+                  "metrics": [{k: v for k, v in m.items() if k != "rl"}
+                              for m in ms]}
+    checks["dqn_ran"] = all(m["env_steps_this_iter"] > 0 for m in ms)
+    checks["dqn_inference_coalesced"] = (
+        stats["requests"] > 0
+        and stats["forward_calls"] <= stats["requests"])
+    checks["dqn_leak_report"] = (report["queue_depth"] == 0
+                                 and report["intake_alive"] is False)
+    cuda = torch.device(device).type == "cuda"
+    checks["dqn_gpu_lease_held_then_back"] = (
+        back == gpus and (held == gpus - 1 or not cuda))
+    return res, checks
+
+
 # ----------------------------------------------------------------- mesh
 
 # Mesh step against the mesh-less step on one card, bf16 compute: losses
@@ -5226,6 +5803,8 @@ def _serve_runtime(cfg, device, init_s) -> dict:
         del solo
         gc.collect()
     checks["streams_equal_solo_engine"] = "mismatch" not in out
+    # The gang phase's member replays these, on a fresh engine, in order.
+    out["handle_streams"] = {name: got["handle", name] for name in plan}
     checks["token_counts"] = all(len(got[k]) == plan[k[1]][1]
                                  for k in order)
     serve.shutdown()
@@ -5239,6 +5818,250 @@ def _serve_runtime(cfg, device, init_s) -> dict:
     if torch.device(device).type == "cuda":
         out["device"] = smi_line()
     out["ok"] = all(checks.values()) and len(checks) == 10
+    return out
+
+
+# ----------------------------------------------------------------- gang
+
+GANG_NAME = "smoke-gang"
+GANG_AGAIN = "r1_shared_src"      # the request served after the reconcile
+
+
+def _gang_serve(member, cfg, device, requests) -> dict:
+    """Run in the gang's member (through ``HostGroup.broadcast``): the
+    serve phase's engine (``LlamaDecodeDeployment``, ``slots=4``,
+    ``capacity=2048``, seed 0) built on the member's card, ``requests``
+    served one at a time, and flash #1's launches read in this
+    process."""
+    import gc
+    import os
+    import time
+
+    import torch
+
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.serve.decode import LlamaDecodeDeployment
+
+    t = time.perf_counter()
+    dep = LlamaDecodeDeployment(config=cfg, slots=4, capacity=2048, seed=0,
+                                device=device)
+    card = dep.engine.device.type == "cuda"
+    if card:
+        torch.cuda.synchronize()
+    out = {"build_s": time.perf_counter() - t, "pid": os.getpid(),
+           "cuda_visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+           "device": str(dep.engine.device),
+           "card": torch.cuda.get_device_name(0) if card else None,
+           "process_id": member.process_id,
+           "num_processes": member.num_processes, "requests": {}}
+    try:
+        fa.flash_attention.launches = 0
+        fwd0 = fa.forward_kernel_launches() if card else {}
+        waves0 = dep.engine.stats()["prefill_waves"]
+        for name, toks, n in requests:
+            start_at, t = time.time(), time.perf_counter()
+            reply = dep({"tokens": toks, "max_new_tokens": n})
+            wall = time.perf_counter() - t
+            out["requests"][name] = {
+                "tokens": reply["tokens"], "ttft_s": reply["ttft_s"],
+                "first_token_at": start_at + reply["ttft_s"],
+                "wall_s": wall,
+                "decode_tok_s": (len(reply["tokens"]) - 1)
+                / max(1e-9, wall - reply["ttft_s"])}
+        out["launches"] = {"flash_fwd": fa.flash_attention.launches}
+        out["flash_fwd_by_kernel"] = {
+            k: v - fwd0.get(k, 0)
+            for k, v in fa.forward_kernel_launches().items()} if card \
+            else {}
+        out["full_prefill_waves"] = (dep.engine.stats()["prefill_waves"]
+                                     - waves0)
+    finally:
+        dep.shutdown()
+        del dep
+        gc.collect()
+        if card:
+            torch.cuda.empty_cache()
+    return out
+
+
+def phase_gang(cfg, want: dict, device="cuda") -> dict:
+    """A one-host gang on the card's node serving Llama-2-7B in its
+    member, its reconcile after the member is killed, and its shutdown.
+    ``want``: the serve_runtime phase's sequential handle streams. See
+    the module docstring."""
+    import ray_tpu_torch as rt
+
+    cuda = torch.device(device).type == "cuda"
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    saved = os.environ.get("RAY_TPU_VIRTUAL_SLICE")
+    if not cuda:
+        # Off the card: a virtual one-host slice of one chip.
+        os.environ["RAY_TPU_VIRTUAL_SLICE"] = "1x1"
+    try:
+        _runtime_init(device)
+        try:
+            return _gang(cfg, want, device)
+        finally:
+            if rt.is_initialized():  # a failure before the teardown
+                rt.shutdown()
+    finally:
+        if saved is None:
+            os.environ.pop("RAY_TPU_VIRTUAL_SLICE", None)
+        else:
+            os.environ["RAY_TPU_VIRTUAL_SLICE"] = saved
+
+
+def _gang(cfg, want, device) -> dict:
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.core.multihost import (HostGroup,
+                                              program_fingerprint,
+                                              registry_state)
+    from ray_tpu_torch.core.node import shm_store_path
+    from ray_tpu_torch.core.placement import cluster_topology
+    from ray_tpu_torch.core.runtime import get_core_worker
+
+    cuda = torch.device(device).type == "cuda"
+    core = get_core_worker()
+    node_hex, store = core.node_id.hex(), shm_store_path(core.node_id)
+    resources = rt.cluster_resources()
+    gpus = rt.available_resources().get("GPU")
+    out = {"resources": resources}
+    checks = {"gpu_resource": resources.get("GPU") == 1.0 and gpus == 1.0}
+    plan = _serve_plan(cfg)
+    reset_counts()
+
+    def gpu_now():
+        return rt.available_resources().get("GPU")
+
+    # (a) formation
+    t = time.perf_counter()
+    g = HostGroup(1, name=GANG_NAME, worker_options={"num_gpus": 1}).start()
+    out["formation_s"] = time.perf_counter() - t
+    try:
+        [info] = g.call_all("member_info", timeout=60.0)
+        held = _poll_until(gpu_now, lambda v: v == gpus - 1)
+        t = time.perf_counter()
+        mesh = g.form_mesh(timeout=300.0)
+        out["form_mesh_s"] = time.perf_counter() - t
+        fp = program_fingerprint(text=f"serve|{cfg}|slots=4|capacity=2048")
+        barrier = g.call_all("program_barrier", "smoke-serve", fp, 60.0,
+                             timeout=120.0)
+        st = g.status()
+        out["formation"] = {k: info.get(k) for k in (
+            "process_id", "num_processes", "chips_per_host", "slice_id",
+            "device_type", "coordinator_address", "pid")}
+        out["formation"]["sub_slice"] = st["sub_slice"]
+        checks["a_formed_one_host"] = (
+            st["state"] == "ALIVE" and st["epoch"] == 1
+            and info["process_id"] == 0 and info["num_processes"] == 1
+            and info["chips_per_host"] == 1)
+        checks["a_one_rank_group"] = mesh == [1]
+        checks["a_program_barrier"] = barrier == [{"host-0": fp}]
+        checks["a_member_holds_gpu"] = held == gpus - 1
+
+        # (b) serving in the member
+        requests = [(n, plan[n][0], plan[n][1]) for n in plan]
+        t = time.perf_counter()
+        [served] = g.broadcast(_gang_serve, cfg, device, requests,
+                               timeout=900.0)
+        out["serve_s"] = time.perf_counter() - t
+        got = {n: served["requests"][n]["tokens"] for n in plan}
+        mismatch = {n: _first_difference({n: got[n]}, {n: want[n]})[n]
+                    for n in plan if got[n] != want[n]}
+        tokens = sum(len(v) for v in got.values())
+        serve_wall = sum(r["wall_s"] for r in served["requests"].values())
+        out["member"] = {k: served[k] for k in (
+            "build_s", "pid", "cuda_visible", "device", "card",
+            "launches", "flash_fwd_by_kernel", "full_prefill_waves")}
+        out["ttft_s"] = {n: served["requests"][n]["ttft_s"] for n in plan}
+        out["decode_tok_s"] = {n: served["requests"][n]["decode_tok_s"]
+                               for n in plan}
+        out["tokens_per_s"] = tokens / serve_wall
+        if mismatch:
+            out["mismatch"] = mismatch
+        launches = served["launches"]["flash_fwd"]
+        waves = served["full_prefill_waves"]
+        checks["b_streams_equal_serve_runtime"] = not mismatch
+        checks["b_member_on_card"] = (
+            served["pid"] != os.getpid() and served["cuda_visible"] != ""
+            and served["device"].startswith(torch.device(device).type)
+            and (not cuda or bool(served["card"])))
+        checks["b_flash_launches_32_per_full_wave"] = (
+            waves > 0 and launches == cfg.n_layers * waves)
+        checks["b_flash_fwd_on_wgmma"] = all_on_wgmma(
+            served["flash_fwd_by_kernel"], launches, device)
+
+        # (c) reconcile: kill the member
+        epoch0, coord0 = g.epoch, g.coordinator()
+        kill_at, t = time.time(), time.perf_counter()
+        rt.kill(g.members[0])
+        st = _poll_until(g.status, lambda s: s["epoch"] == epoch0 + 1
+                         and s["state"] == "ALIVE", 180.0)
+        out["kill_to_alive_s"] = time.perf_counter() - t
+        [info2] = g.call_all("member_info", timeout=60.0)
+        held2 = _poll_until(gpu_now, lambda v: v == gpus - 1)
+        coord = g.coordinator()
+        again = [(GANG_AGAIN, plan[GANG_AGAIN][0], plan[GANG_AGAIN][1])]
+        [served2] = g.broadcast(_gang_serve, cfg, device, again,
+                                timeout=900.0)
+        reply = served2["requests"][GANG_AGAIN]
+        out["kill_to_first_token_s"] = reply["first_token_at"] - kill_at
+        out["reconcile"] = {
+            "epoch": st["epoch"], "restarts": st["restarts"],
+            "releases": st["releases"], "death_cause": st["death_cause"],
+            "old_pid": info["pid"], "new_pid": info2["pid"],
+            "coordinator": coord, "old_coordinator": coord0,
+            "member_build_s": served2["build_s"],
+            "ttft_s": reply["ttft_s"], "launches": served2["launches"],
+            "full_prefill_waves": served2["full_prefill_waves"]}
+        checks["c_reconciled_under_next_epoch"] = (
+            st["epoch"] == epoch0 + 1 and st["state"] == "ALIVE"
+            and st["restarts"] == 1 and info2["epoch"] == epoch0 + 1)
+        checks["c_subslice_released_once"] = st["releases"] == 1
+        checks["c_lease_passed_to_new_member"] = (
+            info2["pid"] != info["pid"] and held2 == gpus - 1)
+        checks["c_new_coordinator_elected"] = (
+            coord["epoch"] == epoch0 + 1
+            and coord["address"] != coord0["address"])
+        checks["c_same_stream_again"] = reply["tokens"] == want[GANG_AGAIN]
+        checks["c_flash_launches_32_per_full_wave"] = (
+            served2["full_prefill_waves"] > 0
+            and served2["launches"]["flash_fwd"]
+            == cfg.n_layers * served2["full_prefill_waves"])
+    finally:
+        g.shutdown()
+
+    # (d) shutdown
+    out["reservations_left"] = {
+        rid: owner for sl in cluster_topology()["slices"].values()
+        for rid, owner in sl["reservations"].items()}
+    out["group_record_left"] = registry_state(GANG_NAME)
+    out["gpu_returned"] = _poll_until(gpu_now, lambda v: v == gpus)
+    out["releases"] = g.status()["releases"]
+    driver = launch_counts()
+    rt.shutdown()
+    out["store_file_left"] = os.path.exists(store)
+    out["processes_left"] = _poll_until(lambda: _live_node_pids(node_hex),
+                                        lambda v: not v, 15.0)
+    checks["d_shutdown_clean"] = (
+        not out["reservations_left"] and out["group_record_left"] is None
+        and out["gpu_returned"] == gpus and out["releases"] == 2
+        and not out["store_file_left"] and not out["processes_left"])
+    # Flash #1 ran in the members only (counted in their processes).
+    checks["no_kernel_in_driver"] = not any(driver.values())
+    out["launches"] = {"flash_fwd": served["launches"]["flash_fwd"]
+                       + served2["launches"]["flash_fwd"]}
+    out["flash_fwd_by_kernel"] = {
+        k: served["flash_fwd_by_kernel"].get(k, 0)
+        + served2["flash_fwd_by_kernel"].get(k, 0)
+        for k in set(served["flash_fwd_by_kernel"])
+        | set(served2["flash_fwd_by_kernel"])}
+    out["checks"] = checks
+    if cuda:
+        out["device"] = smi_line()
+    out["ok"] = all(checks.values()) and len(checks) == 17
     return out
 
 
@@ -5297,7 +6120,11 @@ def main() -> int:
                          vit.PRESETS["vit_b16"],
                          results["vit"].get("images_per_s"))),
                      ("rl", phase_rl),
-                     ("mesh", lambda: phase_mesh(train_cfg))):
+                     ("mesh", lambda: phase_mesh(train_cfg)),
+                     ("rl_dist", phase_rl_dist),
+                     ("gang", lambda: phase_gang(
+                         serve_cfg,
+                         results["serve_runtime"]["handle_streams"]))):
         t0 = time.perf_counter()
         try:
             res = fn()

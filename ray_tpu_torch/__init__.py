@@ -14,9 +14,10 @@ tasks, actors and objects on the shared-memory store, with cards leased as
 the ``GPU`` resource. The train and tune planes (``ray_tpu_torch.train``:
 ``TorchTrainer``, one ``torch.distributed`` group per gang;
 ``ray_tpu_torch.tune``: ``Tuner``) and the Dataset API
-(``ray_tpu_torch.data``) run on it; ``HostGroup`` is exported but not
-ported yet: constructing it raises (ROADMAP.md queue 1, item 4). Importing
-the package starts nothing; ``init()`` does.
+(``ray_tpu_torch.data``) run on it, and so does ``HostGroup``, a gang of
+one actor per host of a reserved sub-slice (its members' process group
+through the same ``torch.distributed`` bootstrap). Importing the package
+starts nothing; ``init()`` does.
 """
 
 from ray_tpu_torch._version import version as __version__  # noqa: F401

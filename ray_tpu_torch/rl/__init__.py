@@ -1,11 +1,10 @@
 """ray_tpu_torch.rl: reinforcement learning at scale (port of
 ``ray_tpu.rl``; reference: RLlib).
 
-The single-process algorithms and offline RL, with the learner on the
-card: PPO, IMPALA, APPO, DQN, SAC, CQL, BC and multi-agent PPO. The
-distributed plane (``DistributedDQN``, ``DistributedIMPALA``,
-``PolicyInference``, ``RolloutActor``, ``ShardQueue``, ``TrajectoryShard``)
-is not ported yet: its names raise (ROADMAP.md queue 1). Importing the
+The algorithms and offline RL, with the learner on the card: PPO,
+IMPALA, APPO, DQN, SAC, CQL, BC and multi-agent PPO, and the distributed
+plane (``DistributedDQN``, ``DistributedIMPALA``, ``PolicyInference``,
+``RolloutActor``, ``ShardQueue``, ``TrajectoryShard``). Importing the
 package imports no gymnasium; building an env-driven algorithm does.
 """
 
@@ -21,6 +20,14 @@ from ray_tpu_torch.rl.offline import (  # noqa: F401
     load_transitions,
     rollouts_to_dataset,
     save_transitions,
+)
+from ray_tpu_torch.rl.distributed import (  # noqa: F401
+    DistributedDQN,
+    DistributedIMPALA,
+    PolicyInference,
+    RolloutActor,
+    ShardQueue,
+    TrajectoryShard,
 )
 from ray_tpu_torch.rl.dqn import DQN, DQNConfig  # noqa: F401
 from ray_tpu_torch.rl.env_runner import EnvRunner  # noqa: F401
@@ -39,14 +46,3 @@ from ray_tpu_torch.rl.multi_agent import (  # noqa: F401
 )
 from ray_tpu_torch.rl.ppo import PPO, PPOConfig, compute_gae  # noqa: F401
 from ray_tpu_torch.rl.sac import SAC, SACConfig  # noqa: F401
-
-_DISTRIBUTED = ("DistributedDQN", "DistributedIMPALA", "PolicyInference",
-                "RolloutActor", "ShardQueue", "TrajectoryShard")
-
-
-def __getattr__(name):
-    if name in _DISTRIBUTED:
-        from ray_tpu_torch.core.errors import not_ported
-
-        raise not_ported(f"rl.{name}", "item 5, the distributed plane")
-    raise AttributeError(name)

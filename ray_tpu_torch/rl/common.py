@@ -38,9 +38,10 @@ class ConfigBuilderMixin:
         """Opt into the Podracer actor/learner substrate
         (``rl/distributed/``): ``num_rollout_actors`` RolloutActors ship
         trajectory shards through the object plane to one in-process
-        pjit learner; weights fan out over pubsub. ``mode="inference"``
-        uses the sebulba split (actors query a shared batched
-        policy-inference service instead of holding local weights)."""
+        learner on the config's ``device``; weights fan out over pubsub.
+        ``mode="inference"`` uses the sebulba split (actors query a
+        shared batched policy-inference service on the learner's device
+        instead of holding local weights)."""
         self.distributed = True
         self.num_rollout_actors = num_rollout_actors
         self.num_envs_per_runner = num_envs_per_actor

@@ -1,28 +1,37 @@
-"""The distributed RL substrate (port of ``ray_tpu/rl/distributed``).
+"""Podracer-style distributed RL substrate (port of
+``ray_tpu/rl/distributed``; PAPERS.md: "Podracer architectures for
+scalable Reinforcement Learning", RLAX).
 
-Carried: the versioned pubsub weight fan-out (``fanout.py``) and
-``new_plane_key``, which single-process IMPALA and APPO and the EnvRunner's
-``enable_weight_sync`` use. The rollout actors, shard queue, policy
-inference service and the distributed learners are ROADMAP.md queue 1's
-next RL slice; their names raise."""
+Actor/learner split over the runtime's existing planes: trajectory
+shards transit the OBJECT plane (descriptors only on the RPC plane),
+weights fan out versioned over core PUBSUB, policy inference optionally
+runs as a batched SERVE-style service on the learner's card (sebulba
+split, holding the node's ``GPU`` lease), and the learner is one
+in-process host on its ``device``. Rollout actors are CPU workers.
+"""
 
+from ray_tpu_torch.rl.distributed.dqn import DistributedDQN  # noqa: F401
 from ray_tpu_torch.rl.distributed.fanout import (  # noqa: F401
     WEIGHTS_CHANNEL,
     WeightFanout,
     WeightReceiver,
 )
-from ray_tpu_torch.rl.distributed.learner import new_plane_key  # noqa: F401
-
-NOT_PORTED = ("DistributedDQN", "PolicyInference", "LearnerState",
-              "RolloutPlane", "plane_stats", "DistributedIMPALA",
-              "RolloutActor", "DESCRIPTOR_BYTE_BUDGET", "ShardQueue",
-              "ShardQueueClosed", "TrajectoryShard")
-
-
-def __getattr__(name):
-    if name in NOT_PORTED:
-        from ray_tpu_torch.core.errors import not_ported
-
-        raise not_ported(f"rl.distributed.{name}",
-                         "item 5, the distributed plane")
-    raise AttributeError(name)
+from ray_tpu_torch.rl.distributed.inference import (  # noqa: F401
+    PolicyInference,
+)
+from ray_tpu_torch.rl.distributed.learner import (  # noqa: F401
+    LearnerState,
+    RolloutPlane,
+    new_plane_key,
+    plane_stats,
+)
+from ray_tpu_torch.rl.distributed.onpolicy import (  # noqa: F401
+    DistributedIMPALA,
+)
+from ray_tpu_torch.rl.distributed.rollout import RolloutActor  # noqa: F401
+from ray_tpu_torch.rl.distributed.shard import (  # noqa: F401
+    DESCRIPTOR_BYTE_BUDGET,
+    ShardQueue,
+    ShardQueueClosed,
+    TrajectoryShard,
+)

@@ -57,22 +57,24 @@ class DQNConfig(ConfigBuilderMixin):
     epsilon_decay_steps: int = 10_000    # env steps to anneal over
     hidden: tuple = (64, 64)
     seed: int = 0
-    # The distributed actor/learner substrate (rl/distributed/) is not
-    # ported yet: distributed=True raises at build.
+    # Podracer actor/learner substrate (rl/distributed/): same config
+    # surface, DQNConfig().distributed_rollouts(4).build(); see
+    # ConfigBuilderMixin.distributed_rollouts.
     distributed: bool = False
     num_rollout_actors: int = 4
     rollout_mode: str = "local"     # "inference" = sebulba split
     shard_queue_size: int = 8
+    # The JAX package's data-mesh switch; the port's learner drives one
+    # card whatever it says (a split across cards is ROADMAP's).
     learner_mesh: bool = True
     min_shards_per_iter: int = 0    # 0 = one per rollout actor
     device: str = "cuda"
 
     def build(self):
         if self.distributed:
-            from ray_tpu_torch.core.errors import not_ported
+            from ray_tpu_torch.rl.distributed.dqn import DistributedDQN
 
-            raise not_ported("DQNConfig(distributed=True)",
-                             "item 5, the distributed plane")
+            return DistributedDQN(self)
         return DQN(self)
 
     def env_runners(self, num_env_runners: int,

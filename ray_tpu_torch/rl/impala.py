@@ -116,22 +116,24 @@ class IMPALAConfig(ConfigBuilderMixin):
     hidden: tuple = (64, 64)
     seed: int = 0
     broadcast_interval: int = 1  # learner updates between weight pushes
-    # The distributed actor/learner substrate (rl/distributed/) is not
-    # ported yet: distributed=True raises at build.
+    # Podracer actor/learner substrate (rl/distributed/): see
+    # ConfigBuilderMixin.distributed_rollouts.
     distributed: bool = False
     num_rollout_actors: int = 4
     rollout_mode: str = "local"     # "inference" = sebulba split
     shard_queue_size: int = 8
+    # The JAX package's data-mesh switch; the port's learner drives one
+    # card whatever it says (a split across cards is ROADMAP's).
     learner_mesh: bool = False
     max_shard_staleness: int = 0    # 0 = keep everything; else drop
     device: str = "cuda"
 
     def build(self):
         if self.distributed and type(self) is IMPALAConfig:
-            from ray_tpu_torch.core.errors import not_ported
+            from ray_tpu_torch.rl.distributed.onpolicy import \
+                DistributedIMPALA
 
-            raise not_ported("IMPALAConfig(distributed=True)",
-                             "item 5, the distributed plane")
+            return DistributedIMPALA(self)
         return IMPALA(self)
 
 

@@ -240,3 +240,22 @@ def test_rl_algorithms_refuse_without_card(no_card):
     assert MultiAgentPPOConfig().device == "cuda"
     with pytest.raises(RuntimeError, match="no CUDA device"):
         MultiAgentPPOConfig(env="no/SuchEnv-v0").build()
+
+
+def test_distributed_rl_and_gang_refuse_without_card(no_card):
+    """The distributed learners' ``build()`` raises before it probes an env
+    (the env names here do not exist) or starts an actor; so do a policy
+    inference service and a learner state asked for the card."""
+    from ray_tpu_torch.rl import DQNConfig, IMPALAConfig
+    from ray_tpu_torch.rl.distributed import LearnerState, PolicyInference
+
+    for cfg in (IMPALAConfig(env="NoSuchEnv-v0", distributed=True),
+                IMPALAConfig(env="NoSuchEnv-v0").distributed_rollouts(2),
+                DQNConfig(env="NoSuchEnv-v0").distributed_rollouts(
+                    2, mode="inference")):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cfg.build()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PolicyInference((4,), 2, "k")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        LearnerState("k")

@@ -5,7 +5,8 @@ the CPU: one counterpart of each tier-1 case of ``tests/test_rl.py``,
 under one module-scoped ``init(num_cpus=4)``; the reference's
 run-to-reward soaks are ported too and stay ``slow``, as there. Plus the
 checks the port adds: learner state on the config's device after restore,
-and the distributed plane's names raising until it is ported."""
+and the distributed plane's exports and config fields against the JAX
+package's (its behaviour is ``tests/test_torch_rl_distributed.py``'s)."""
 
 import ast
 from pathlib import Path
@@ -326,19 +327,23 @@ def test_dqn_single_iteration(runtime):
 @pytest.mark.slow
 @pytest.mark.timeout_s(420)
 def test_dqn_learns_cartpole(runtime):
-    """The reference soak runs on the distributed plane (4 rollout actors
-    x 4 envs), which is not ported yet; this one keeps its settings on the
-    single-process DQN with the same sample rate (4 runners x 4 envs)."""
-    algo = DQNConfig(**CPU).environment("CartPole-v1").env_runners(
-        4, num_envs_per_runner=4).training(
+    """The reference soak, on the distributed plane as there (4 rollout
+    actors x 4 envs feeding prioritized replay through the object plane),
+    with its acceptance contracts asserted on the learning run."""
+    from ray_tpu_torch.rl.distributed import DESCRIPTOR_BYTE_BUDGET
+
+    algo = DQNConfig(**CPU).environment("CartPole-v1").distributed_rollouts(
+        4, num_envs_per_actor=4).training(
         rollout_length=64, lr=1e-3, batch_size=128,
         learning_starts=500, train_batches_per_iter=48,
         target_update_interval=100, epsilon_decay_steps=6000,
         prioritized_replay=True, seed=2).build()
     try:
         best, first = 0.0, None
+        metrics = {}
         for _ in range(60):
-            ret = algo.train().get("episode_return_mean")
+            metrics = algo.train()
+            ret = metrics.get("episode_return_mean")
             if ret is not None:
                 first = ret if first is None else first
                 best = max(best, ret)
@@ -347,6 +352,16 @@ def test_dqn_learns_cartpole(runtime):
         assert first is not None
         assert best >= 100.0, f"DQN failed to learn: first={first}, " \
                               f"best={best}"
+        assert algo.plane.monotonic_violations == 0
+        # Fan-out version clock: initial publish + one per iteration.
+        assert metrics["weights_version"] == \
+            metrics["training_iteration"] + 1
+        rl = metrics["rl"]
+        assert rl["env_steps"] > 0 and "queue_depth" in rl
+        assert rl["shard_desc_bytes"]["p99"] <= DESCRIPTOR_BYTE_BUDGET
+        assert rl["shard_desc_bytes"]["count"] >= rl["shards"]
+        assert rl["staleness"]["count"] == rl["shards"]
+        assert rl["learner_update_s"]["count"] == metrics["learner_steps"]
     finally:
         algo.stop()
 
@@ -848,28 +863,62 @@ def test_sac_checkpoint_carries_the_generator(runtime, tmp_path):
         algo.stop()
 
 
-@pytest.mark.parametrize("name", ["DistributedDQN", "DistributedIMPALA",
-                                  "PolicyInference", "RolloutActor",
-                                  "ShardQueue", "TrajectoryShard"])
-def test_distributed_names_raise_not_ported(name):
+def _package_exports(path: Path) -> list:
+    """Names a package ``__init__`` imports (its exports)."""
+    tree = ast.parse(path.read_text())
+    return sorted(a.asname or a.name for node in tree.body
+                  if isinstance(node, ast.ImportFrom) for a in node.names)
+
+
+_JAX_RL = Path(__file__).resolve().parents[1] / "ray_tpu" / "rl"
+
+
+@pytest.mark.parametrize(
+    "name", _package_exports(_JAX_RL / "distributed" / "__init__.py"))
+def test_distributed_plane_exports_each_reference_name(name):
+    """``ray_tpu_torch.rl.distributed`` exports each name the JAX
+    package's does, as the same kind of object (class, function or the
+    same constant); ``ray_tpu_torch.rl`` re-exports those it does."""
+    import ray_tpu.rl as jrl
+    import ray_tpu.rl.distributed as jdist
+
     import ray_tpu_torch.rl as rl
     import ray_tpu_torch.rl.distributed as dist
 
-    for mod in (rl, dist):
-        with pytest.raises(NotImplementedError,
-                           match="item 5, the distributed plane"):
-            getattr(mod, name)
+    got, want = getattr(dist, name), getattr(jdist, name)
+    if isinstance(want, type):
+        assert isinstance(got, type) and got.__name__ == want.__name__
+    elif callable(want):
+        assert callable(got) and got.__name__ == want.__name__
+    else:
+        assert got == want
+    if hasattr(jrl, name):
+        assert getattr(rl, name) is got
 
 
-def test_distributed_configs_raise_not_ported():
-    from ray_tpu_torch.rl import IMPALAConfig
-    from ray_tpu_torch.rl.distributed import (WEIGHTS_CHANNEL,
-                                              WeightFanout, new_plane_key)
+def test_rl_package_exports_every_reference_name():
+    import ray_tpu_torch.rl as rl
 
-    assert WEIGHTS_CHANNEL == "rl_weights" and WeightFanout
-    assert new_plane_key("impala") != new_plane_key("impala")
-    for cfg in (IMPALAConfig(distributed=True, **CPU),
-                DQNConfig(**CPU).distributed_rollouts(4)):
-        with pytest.raises(NotImplementedError,
-                           match="item 5, the distributed plane"):
-            cfg.build()
+    want = _package_exports(_JAX_RL / "__init__.py")
+    assert [n for n in want if not hasattr(rl, n)] == []
+
+
+@pytest.mark.parametrize("kind", ["IMPALA", "APPO", "DQN"])
+def test_distributed_rollouts_sets_the_reference_fields(kind):
+    """``distributed_rollouts`` and the distributed config fields match
+    the JAX package's (the port adds ``device``)."""
+    import dataclasses
+
+    import ray_tpu.rl as jrl
+
+    import ray_tpu_torch.rl as rl
+
+    jcfg = getattr(jrl, f"{kind}Config")().distributed_rollouts(
+        3, num_envs_per_actor=2, mode="inference", shard_queue_size=5)
+    cfg = getattr(rl, f"{kind}Config")(**CPU).distributed_rollouts(
+        3, num_envs_per_actor=2, mode="inference", shard_queue_size=5)
+    fields = {f.name for f in dataclasses.fields(jcfg)}
+    assert fields == {f.name for f in dataclasses.fields(cfg)} - {"device"}
+    for f in ("distributed", "num_rollout_actors", "num_envs_per_runner",
+              "rollout_mode", "shard_queue_size", "learner_mesh"):
+        assert getattr(cfg, f) == getattr(jcfg, f), f

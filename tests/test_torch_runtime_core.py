@@ -134,19 +134,16 @@ def test_gpu_detection_without_a_context(monkeypatch):
 
 
 def test_not_ported_surfaces_raise():
-    """Client mode, a non-empty runtime_env, ``HostGroup``,
-    ``cluster_utils.Cluster`` and the CLI name their ROADMAP item."""
+    """Client mode, a non-empty runtime_env, ``cluster_utils.Cluster`` and
+    the CLI name their ROADMAP item."""
     import subprocess
     import sys
 
     import ray_tpu_torch as rt
     from ray_tpu_torch.cluster_utils import Cluster
-    from ray_tpu_torch.core.multihost import HostGroup
     from ray_tpu_torch.core.remote_function import (_normalized_env,
                                                     _resources_from_options)
 
-    with pytest.raises(NotImplementedError, match="item 4, HostGroup"):
-        HostGroup(2, name="g")
     with pytest.raises(NotImplementedError,
                        match="item 4, cluster_utils.Cluster"):
         Cluster(initialize_head=False)
@@ -166,11 +163,25 @@ def test_not_ported_surfaces_raise():
 
 def test_top_level_exports_version_and_host_group():
     """``ray_tpu_torch`` exports what ``ray_tpu`` does at the top level:
-    the same ``__version__`` (the port's own copy) and ``HostGroup``,
-    which raises its ``not_ported`` error when constructed."""
+    the same ``__version__`` (the port's own copy) and ``HostGroup``, the
+    gang class of ``core/multihost.py``, which checks its arguments as the
+    JAX one does."""
     import ray_tpu
     import ray_tpu_torch
+    from ray_tpu_torch.core.multihost import HostGroup, HostWorker
 
     assert ray_tpu_torch.__version__ == ray_tpu.__version__
-    with pytest.raises(NotImplementedError, match="item 4, HostGroup"):
-        ray_tpu_torch.HostGroup(2, name="g")
+    assert ray_tpu_torch.HostGroup is HostGroup
+    g = ray_tpu_torch.HostGroup(2, name="g")
+    assert (g.group_id, g.num_hosts, g.state, g.members) == ("g", 2, "NEW",
+                                                             [])
+    for bad, err in ((dict(num_hosts=0), ValueError),
+                     (dict(num_hosts=1, worker_cls=dict), TypeError)):
+        for pkg in (ray_tpu, ray_tpu_torch):
+            with pytest.raises(err):
+                pkg.HostGroup(**bad)
+
+    class Member(HostWorker):
+        pass
+
+    assert HostGroup(1, worker_cls=Member)._worker_cls is Member
