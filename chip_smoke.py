@@ -1,8 +1,8 @@
 """Drive the PyTorch/CUDA port's splash, serving (a decode mesh, the
 runtime's serve plane and a one-host gang among them), training (Llama,
-through the runtime's train and tune planes and fed by its Dataset API
-too, and ViT), RL (its distributed plane too) and mesh paths on one
-NVIDIA GPU.
+through the runtime's train and tune planes, fed by its Dataset API and
+through its pipeline plane too, and ViT), RL (its distributed plane too)
+and mesh paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -93,7 +93,8 @@ Phases, one JSON line each (``{"phase": ..., "ok": ...}``):
 8. serve_disagg: two deployments of the same model, prefill and decode,
    seven requests through the handoff (prefill, capture, lease, adopt),
    the payloads through the runtime's object store (``rt.init()`` for the
-   phase, each put and get timed).
+   phase, each put and get timed). The prefix sharer goes once the
+   source's descriptor is back, the long prompt once the sharer's is.
 9. serve_runtime: ``rt.init()`` on the host (its node must advertise
    ``GPU: 1``), the median host latency of 200 noop tasks and of 200
    actor method round trips, the store's put and get rates for a 1 GiB
@@ -317,6 +318,35 @@ Phases, one JSON line each (``{"phase": ..., "ok": ...}``):
    stream. Prints the time from the kill to ``ALIVE`` and to the first
    token. (d) Shutdown leaves no reservation, no group record, ``GPU``
    available, no process of the node and no store file.
+19. pipeline: the train phase's model (``PRESETS["1b"]``, flash, full
+   remat, fp32 masters from seed 0, kept on the host) through the
+   pipeline plane (``PipelinePlane``: a ``HostGroup`` of ``StageActor``
+   processes, driver-side 1F1B, tensors through the object store and
+   descriptors through the RPCs), Adam at lr 3e-4, 3 steps of 4
+   microbatches of 2 x 2048 numpy-seeded tokens. (a) One stage at the
+   full depth on the card's own one-host slice (``rt.init()``,
+   ``snapshot_every=0``, the member holding ``num_gpus=1``): losses
+   equal to the last bit to ``single_process_baseline(n_stages=1)`` run
+   in this process on the card, and within ``PIPELINE_FULL_REL_TOL`` of
+   the full model's (``n_stages=None``, ``llama.loss_fn``). (b) Two
+   stages sharing the card on a virtual slice of two one-chip hosts
+   (``RAY_TPU_VIRTUAL_SLICE=1x2/1`` before init, each member holding
+   ``num_gpus=0.5``), window 2: losses equal to the in-process
+   ``n_stages=2`` chain; prints each step's wall time, each stage's busy
+   seconds, the bubble (``1 - sum(busy) / (stages x wall)``),
+   ``model_tflops``, the tensor bytes moved and the
+   ``pipeline_desc_bytes`` p99 (at most 8192). In (a) and (b) the counts
+   are zeroed in the stages' processes before the steps and read there
+   after them: each run launches the flash forward 3 times per layer and
+   microbatch (the stage forward, the backward's forward and its remat
+   recompute) and each backward kernel and delta once, all on wgmma,
+   and nothing in the driver. (c) The depth cut to ``kill_layers`` at
+   full width, two stages sharing the card, ``snapshot_every=1``: the
+   last stage's process is SIGKILLed after step 2 commits; the gang
+   reconciles under epoch 2, the registry's epoch bumps, step 3 replays,
+   the losses equal the uninterrupted in-process chain's, and ``stop()``
+   leaves no ref and no record. The in-process baselines are freed
+   before each plane starts.
 
 Serve, serve_paged, serve_spec and train also read the forward's C
 entry's own launch count of each of its kernels over the same window:
@@ -325,8 +355,8 @@ the backward's entries the same way, and every backward launch must have
 taken a wgmma kernel.
 
 Each main path (splash, serve, serve_paged, serve_spec, serve_disagg,
-serve_runtime, serve_mesh, train, train_runtime, data_train, mesh, gang)
-must have launched each of its kernels at least once. Then a
+serve_runtime, serve_mesh, train, train_runtime, data_train, mesh, gang,
+pipeline) must have launched each of its kernels at least once. Then a
 ``{"kernels": [...]}`` line with all seven kernels (the six attention
 kernels with their main-path launches by kernel, and each with its ptxas
 lines: registers, shared memory and spills of each instantiation), the
@@ -453,6 +483,8 @@ PATH_KERNELS = {
     "mesh": ["flash_fwd", "flash_bwd_dkv", "flash_bwd_dq",
              "attention_delta"],
     "gang": ["flash_fwd"],
+    "pipeline": ["flash_fwd", "flash_bwd_dkv", "flash_bwd_dq",
+                 "attention_delta"],
 }
 # The sources to build: one library (and one nvcc) per .cu file.
 SOURCES = sorted({Path(k["source"]).stem for k in KERNELS.values()})
@@ -2526,12 +2558,18 @@ def _serve_disagg(cfg, device) -> dict:
     deng._seat_adopted = timed_seat
     api.put, api.get = timed_put, timed_get
     results, descs, errors, times = {}, {}, {}, {}
-    src_published = threading.Event()
+    src_published, sharer_published = threading.Event(), threading.Event()
 
     def run(name):
         toks, n, temp = plan[name]
         req = {"tokens": toks, "max_new_tokens": n, "temperature": temp}
         desc = None
+        if name == "d5_long":
+            # Its 24 pages would evict the source's prefix entries from
+            # the full pool before the sharer's lookup, as soon as the
+            # leases of the others free pages: it goes once the sharer's
+            # descriptor is back.
+            sharer_published.wait(REQUEST_TIMEOUT_S)
         try:
             t = time.perf_counter()
             desc = pre.prefill_handoff({**req, "request_id": f"pf-{name}"})
@@ -2539,6 +2577,8 @@ def _serve_disagg(cfg, device) -> dict:
             t_desc = time.perf_counter() - t
             if name == "d4_shared_src":
                 src_published.set()
+            if name == "d7_prefix_hit":
+                sharer_published.set()
             dreq = {**req, "request_id": f"dc-{name}"}
             if temp > 0:
                 got, t_first = [], None
@@ -2560,6 +2600,7 @@ def _serve_disagg(cfg, device) -> dict:
             if desc is not None:
                 pre.abort_handoff(desc["handoff_id"])
             src_published.set()
+            sharer_published.set()
 
     reset_counts()
     fwd0 = fwd_kernel_counts(device)
@@ -6065,6 +6106,301 @@ def _gang(cfg, want, device) -> dict:
     return out
 
 
+# ------------------------------------------------------- the pipeline
+
+# The train cell's model through the pipeline plane: each step is
+# ``n_micro`` microbatches of ``micro_batch`` x ``seq`` tokens; (c) cuts
+# the depth to ``kill_layers`` at full width.
+PIPELINE = dict(steps=3, n_micro=4, micro_batch=2, seq=2048, lr=3e-4,
+                window=2, kill_layers=4, seed=0)
+# (a)'s losses against the full-model baseline (``llama.loss_fn``, whose
+# CE this config chunks in 512 tokens) at each step: one bf16 ulp. The two
+# paths compute the same bf16 activations; they differ in the fp32 head
+# and CE (the whole (2, 2048, 32000) logits against 512-token chunks:
+# another reduction order, ~1e-6 relative on a loss) and, through it, in
+# which backward values round to the next bf16 neighbour. Adam's first
+# steps move every weight by about lr whatever its gradient's size, so a
+# rounding flip changes an update only where the gradient's sign is
+# itself within rounding of zero, and the loss then moves by less than
+# one bf16 rounding (2^-8 relative) of its own value.
+PIPELINE_FULL_REL_TOL = 2.0 ** -8
+# Two stages share the one card (each holds half of its GPU lease).
+PIPE_SHARE = {"num_gpus": 0.5}
+
+
+def _pipe_steps(cfg, device_type: str) -> list:
+    """The phase's token batches, from a numpy generator: one list of
+    microbatches (``microbatches``' inputs and targets) a step."""
+    from ray_tpu_torch.train.pipeline_plane import microbatches
+
+    p = PIPELINE
+    seq = p["seq"] if device_type == "cuda" else 32
+    rng = np.random.default_rng(p["seed"])
+    return [microbatches({"tokens": rng.integers(
+        0, cfg.vocab_size, (p["n_micro"] * p["micro_batch"], seq + 1))
+        .astype(np.int32)}, p["n_micro"]) for _ in range(p["steps"])]
+
+
+def _pipe_member_counts(member, device, reset: bool) -> dict:
+    """Run in a stage's process (``HostGroup.broadcast``): zero its launch
+    counters, or read them with the C entries' per-kernel counts (which
+    count from the process's start)."""
+    import os
+
+    if reset:
+        reset_counts()
+    return {"pid": os.getpid(), "stage_host": member.process_id,
+            "launches": launch_counts(),
+            "fwd_by_kernel": fwd_kernel_counts(device),
+            "bwd_by_kernel": bwd_kernel_counts(device)}
+
+
+def _pipe_baseline(cfg, params, steps, device, n_stages) -> list:
+    """The in-process reference on the card (its params freed after)."""
+    from ray_tpu_torch.train.pipeline_plane import single_process_baseline
+
+    losses, _params = single_process_baseline(
+        cfg, params, PIPELINE["lr"], steps, n_stages=n_stages,
+        device=device)
+    del _params
+    gc.collect()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    return losses
+
+
+def _pipe_run(cfg, params, steps, device, n_stages, name, worker_options,
+              snapshot_every=0, kill_after=None) -> dict:
+    """One plane on the runtime: formation, ``steps`` train steps (each
+    timed, with every stage's busy seconds), the launch counts read in the
+    stages' processes, ``stop()``. ``kill_after``: SIGKILL the last
+    stage's process once that many steps committed."""
+    import signal
+
+    from ray_tpu_torch.train.pipeline_plane import PipelinePlane
+    from ray_tpu_torch.util import flightrec
+    from ray_tpu_torch.util import metrics as um
+
+    out = {"n_stages": n_stages, "worker_options": worker_options}
+    t = time.perf_counter()
+    plane = PipelinePlane(
+        cfg, params, n_stages=n_stages, n_microbatches=PIPELINE["n_micro"],
+        lr=PIPELINE["lr"], window=PIPELINE["window"], name=name,
+        snapshot_every=snapshot_every, device=device,
+        worker_options=worker_options).start()
+    out["start_s"] = time.perf_counter() - t
+    try:
+        before = plane.group.broadcast(_pipe_member_counts, device, True,
+                                       timeout=120.0)
+        reset_counts()
+        walls, busy, breakdowns = [], [], []
+        for i, mbs in enumerate(steps):
+            if kill_after is not None and i == kill_after:
+                infos = plane.group.call_all("member_info", timeout=60.0)
+                victim = infos[-1]
+                out["killed"] = {"member": victim["member"],
+                                 "pid": victim["pid"]}
+                os.kill(victim["pid"], signal.SIGKILL)
+            busy0 = plane.stats()["stage_busy_s"]
+            t = time.perf_counter()
+            plane.train_step(mbs)
+            walls.append(time.perf_counter() - t)
+            st = plane.stats()
+            busy.append([b - a for a, b in zip(busy0, st["stage_busy_s"])])
+            breakdowns.append(st["step_breakdown"])
+        out["driver_launches"] = launch_counts()
+        if kill_after is None:
+            after = plane.group.broadcast(_pipe_member_counts, device,
+                                          False, timeout=120.0)
+            out["stage_pids"] = [a["pid"] for a in after]
+            out["launches"] = {k: sum(a["launches"][k] for a in after)
+                               for k in KERNELS}
+            out["stage_launches"] = [a["launches"] for a in after]
+            for key, field in (("flash_fwd_by_kernel", "fwd_by_kernel"),
+                               ("flash_bwd_by_kernel", "bwd_by_kernel")):
+                out[key] = {k: sum(a[field].get(k, 0) - b[field].get(k, 0)
+                                   for a, b in zip(after, before))
+                            for k in after[0][field]}
+        st = plane.stats()
+        out["losses"] = plane.losses()
+        out["step_s"] = walls
+        out["stage_busy_s"] = busy
+        out["bubble"] = [1.0 - sum(b) / (n_stages * w)
+                         for b, w in zip(busy, walls)]
+        out["model_tflops"] = [bd["model_tflops"] for bd in breakdowns]
+        out["step_breakdown"] = breakdowns[-1]
+        out["tensor_bytes_moved"] = st["tensor_bytes_moved"]
+        out["ledger_refs"] = st["ledger_refs"]
+        out["gang_epoch"], out["epoch"] = st["gang_epoch"], st["epoch"]
+        out["restarts"] = st["group"]["restarts"]
+        out["registry"] = plane.registry_state()
+        snap = {"local": um._Registry.get().snapshot()}
+        entry = um.merge_histograms(snap, "pipeline_desc_bytes").get(
+            (("pipeline", name),))
+        out["desc_bytes_p99"] = (um.histogram_quantile(entry, 0.99)
+                                 if entry else None)
+        out["desc_count"] = entry["count"] if entry else 0
+        out["disrupted_steps"] = [
+            e["step"] for e in flightrec.dump()
+            if e.get("ev") == "pipe.disrupted"
+            and e.get("pipeline") == name]
+    finally:
+        t = time.perf_counter()
+        out["report"] = plane.stop()
+        out["stop_s"] = time.perf_counter() - t
+    out["registry_after"] = plane.registry_state()
+    return out
+
+
+def phase_pipeline(cfg, device="cuda") -> dict:
+    """The pipeline plane on the runtime: (a) one stage at the full depth
+    on the card's own slice, (b) two stages sharing the card on a virtual
+    two-host slice, (c) two stages at a cut depth, one killed and
+    resumed. See the module docstring."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.train.pipeline_plane import host_copies
+
+    cuda = torch.device(device).type == "cuda"
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    steps = _pipe_steps(cfg, torch.device(device).type)
+    out, checks = {}, {}
+    t0 = time.perf_counter()
+    # The train phase's weights (fp32 masters from seed 0), kept on the
+    # host: the plane pushes them to its stages, the baselines copy them.
+    on_card = llama.init_params(cfg, device=device, dtype=torch.float32,
+                                seed=0)
+    params = host_copies(on_card)
+    del on_card
+    out["init_s"] = time.perf_counter() - t0
+
+    # (a) one stage, full depth
+    t = time.perf_counter()
+    chain1 = _pipe_baseline(cfg, params, steps, device, 1)
+    full = _pipe_baseline(cfg, params, steps, device, None)
+    out["baseline_s"] = time.perf_counter() - t
+    _runtime_init(device)
+    try:
+        a = _pipe_run(cfg, params, steps, device, 1, "smoke-pipe-1", None)
+    finally:
+        rt.shutdown()
+    a["chain_losses"], a["full_losses"] = chain1, full
+    a["full_rel_diff"] = [abs(x - y) / abs(y) for x, y in zip(a["losses"],
+                                                            full)]
+    a["seconds"] = time.perf_counter() - t
+    out["a"] = a
+
+    # (b) two stages sharing the card
+    t = time.perf_counter()
+    chain2 = _pipe_baseline(cfg, params, steps, device, 2)
+    b = _pipe_virtual_slice(lambda: _pipe_run(
+        cfg, params, steps, device, 2, "smoke-pipe-2", PIPE_SHARE), device)
+    b["chain_losses"] = chain2
+    b["seconds"] = time.perf_counter() - t
+    out["b"] = b
+
+    # (c) two stages at a cut depth, the last one killed after step 2
+    t = time.perf_counter()
+    cut = replace(cfg, n_layers=PIPELINE["kill_layers"])
+    cut_params = {**params, "layers": {k: v[:cut.n_layers].clone()
+                                       for k, v in params["layers"].items()}}
+    del params
+    chain_cut = _pipe_baseline(cut, cut_params, steps, device, 2)
+    c = _pipe_virtual_slice(lambda: _pipe_run(
+        cut, cut_params, steps, device, 2, "smoke-pipe-kill", PIPE_SHARE,
+        snapshot_every=1, kill_after=2), device)
+    c["chain_losses"] = chain_cut
+    c["seconds"] = time.perf_counter() - t
+    out["c"] = c
+
+    n_steps, n_micro = PIPELINE["steps"], PIPELINE["n_micro"]
+    want = {**{k: 0 for k in KERNELS},
+            "flash_fwd": 3 * cfg.n_layers * n_micro * n_steps,
+            "flash_bwd_dkv": cfg.n_layers * n_micro * n_steps,
+            "flash_bwd_dq": cfg.n_layers * n_micro * n_steps,
+            "attention_delta": cfg.n_layers * n_micro * n_steps}
+    out["launches_want_per_run"] = want
+    for key, run in (("a", a), ("b", b)):
+        checks[f"{key}_losses_equal_chain"] = run["losses"] ==             run["chain_losses"]
+        checks[f"{key}_finite_and_falling"] = (
+            all(math.isfinite(x) for x in run["losses"])
+            and run["losses"][-1] < run["losses"][0])
+        checks[f"{key}_launches_exact"] = run["launches"] == want
+        checks[f"{key}_flash_fwd_on_wgmma"] = all_on_wgmma(
+            run["flash_fwd_by_kernel"], run["launches"]["flash_fwd"],
+            device)
+        checks[f"{key}_flash_bwd_on_wgmma"] = all_bwd_on_wgmma(
+            run["flash_bwd_by_kernel"], run["launches"]["flash_bwd_dkv"],
+            run["launches"]["flash_bwd_dq"], device)
+        checks[f"{key}_no_kernel_in_driver"] = not any(
+            run["driver_launches"].values())
+        checks[f"{key}_stages_in_own_processes"] = (
+            os.getpid() not in run["stage_pids"]
+            and len(set(run["stage_pids"])) == run["n_stages"])
+        checks[f"{key}_clean_stop"] = (
+            run["report"] == {"inflight_refs_dropped": 0, "ledger_refs": 0,
+                              "steps_completed": n_steps}
+            and run["registry_after"] is None and run["ledger_refs"] == 0)
+    checks["a_within_full_baseline"] = all(
+        d <= PIPELINE_FULL_REL_TOL for d in a["full_rel_diff"])
+    checks["b_desc_p99_in_budget"] = (
+        b["desc_count"] > 0 and b["desc_bytes_p99"] is not None
+        and b["desc_bytes_p99"] <= 8192)
+    checks["b_tensors_moved"] = b["tensor_bytes_moved"] > 0
+    checks["c_reconciled_next_epoch"] = (
+        c["gang_epoch"] == 2 and c["restarts"] == 1)
+    checks["c_registry_epoch_bumped"] = (
+        c["registry"]["epoch"] == 2 and c["registry"]["last_step"]
+        == n_steps - 1)
+    checks["c_step_3_replayed"] = (bool(c["disrupted_steps"])
+                                   and set(c["disrupted_steps"]) == {2})
+    checks["c_losses_equal_uninterrupted"] = c["losses"] == \
+        c["chain_losses"]
+    checks["c_clean_stop"] = (
+        c["report"] == {"inflight_refs_dropped": 0, "ledger_refs": 0,
+                        "steps_completed": n_steps}
+        and c["registry_after"] is None)
+    # The kernels line counts (a)'s and (b)'s launches, read in the stages.
+    out["launches"] = {k: a["launches"][k] + b["launches"][k]
+                       for k in KERNELS}
+    for key in ("flash_fwd_by_kernel", "flash_bwd_by_kernel"):
+        out[key] = {k: a[key].get(k, 0) + b[key].get(k, 0)
+                    for k in set(a[key]) | set(b[key])}
+    out["config"] = {"n_layers": cfg.n_layers, "dim": cfg.dim,
+                     "attention_impl": cfg.attention_impl,
+                     "remat_policy": cfg.remat_policy if cfg.remat
+                     else None, **PIPELINE}
+    out["full_rel_tol"] = PIPELINE_FULL_REL_TOL
+    out["checks"] = checks
+    if cuda:
+        out["device"] = smi_line()
+    out["ok"] = all(checks.values()) and len(checks) == 24
+    return out
+
+
+def _pipe_virtual_slice(fn, device):
+    """``fn()`` under ``rt.init()`` with the node advertising a virtual
+    slice of two one-chip hosts (set before init, as the gang phase sets
+    its slice off the card)."""
+    import ray_tpu_torch as rt
+
+    saved = os.environ.get("RAY_TPU_VIRTUAL_SLICE")
+    os.environ["RAY_TPU_VIRTUAL_SLICE"] = "1x2/1"
+    try:
+        _runtime_init(device)
+        try:
+            return fn()
+        finally:
+            rt.shutdown()
+    finally:
+        if saved is None:
+            os.environ.pop("RAY_TPU_VIRTUAL_SLICE", None)
+        else:
+            os.environ["RAY_TPU_VIRTUAL_SLICE"] = saved
+
+
 def _poll_until(fn, done, timeout_s: float = 20.0):
     """``fn()`` once ``done`` holds for it, or its last value at the
     deadline."""
@@ -6124,7 +6460,8 @@ def main() -> int:
                      ("rl_dist", phase_rl_dist),
                      ("gang", lambda: phase_gang(
                          serve_cfg,
-                         results["serve_runtime"]["handle_streams"]))):
+                         results["serve_runtime"]["handle_streams"])),
+                     ("pipeline", lambda: phase_pipeline(train_cfg))):
         t0 = time.perf_counter()
         try:
             res = fn()

@@ -26,7 +26,6 @@ from typing import Any, Dict, List, Optional, Tuple
 
 from ray_tpu_torch.core import resources as resmath
 from ray_tpu_torch.core.config import config
-from ray_tpu_torch.core.errors import not_ported
 from ray_tpu_torch.core.ids import ActorID, NodeID, PlacementGroupID
 from ray_tpu_torch.core.pubsub import Pubsub
 from ray_tpu_torch.core.rpc import ClientPool, RpcServer
@@ -113,10 +112,6 @@ def _utilization(rec: NodeRecord) -> float:
 
 
 
-def _pipeline_not_ported(*_args, **_kwargs):
-    raise not_ported("the pipeline registry", "item 4, the pipeline plane")
-
-
 class Controller:
     def __init__(self, host: str = "127.0.0.1", port: int = 0,
                  persist_path: Optional[str] = None):
@@ -177,9 +172,13 @@ class Controller:
         from ray_tpu_torch.core.multihost import GroupRegistry
 
         self.multihost = GroupRegistry()
-        # The pipeline-parallel training registry (core/pipereg.py)
-        # belongs to the pipeline plane, which the port does not carry
-        # yet: its handlers answer with the not-ported error.
+        # Pipeline-parallel training registry (core/pipereg.py): epoch-
+        # fenced per-pipeline progress records (the resume point a
+        # re-formed stage gang asks for). Internally locked — accessed
+        # off self._lock.
+        from ray_tpu_torch.core.pipereg import PipelineRegistry
+
+        self.pipelines = PipelineRegistry()
         self._server = RpcServer(
             handlers={
                 "register_node": self.register_node,
@@ -223,10 +222,10 @@ class Controller:
                 "mh_group_put": self.multihost.group_put,
                 "mh_group_get": self.multihost.group_get,
                 "mh_group_state": self.multihost.group_state,
-                "pipe_register": _pipeline_not_ported,
-                "pipe_drop": _pipeline_not_ported,
-                "pipe_step_complete": _pipeline_not_ported,
-                "pipe_state": _pipeline_not_ported,
+                "pipe_register": self.pipelines.register,
+                "pipe_drop": self.pipelines.drop,
+                "pipe_step_complete": self.pipelines.step_complete,
+                "pipe_state": self.pipelines.state,
                 "fr_dump": self.fr_dump,
                 "autoscaler_state": self.autoscaler_state,
                 "push_metrics": self.push_metrics,

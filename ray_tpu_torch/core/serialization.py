@@ -126,6 +126,27 @@ def _align(n: int) -> int:
     return (n + _ALIGN - 1) & ~(_ALIGN - 1)
 
 
+# A buffer at least this large is copied into its frame by numpy, which
+# releases the GIL while it copies. A memoryview slice assignment holds
+# the GIL for the whole copy: putting a multi-GB state blob stalled every
+# other thread of the process (the RPC reactor, the controller a driver
+# hosts, a gang's liveness pings) for seconds, long enough for a gang
+# monitor to declare a live member dead.
+_GIL_FREE_COPY_BYTES = 1 << 20
+
+
+def _copy_into(out, off: int, raw) -> None:
+    """``out[off:off + raw.nbytes] = raw``, without the GIL for a large
+    buffer."""
+    if raw.nbytes < _GIL_FREE_COPY_BYTES:
+        out[off:off + raw.nbytes] = raw
+        return
+    import numpy as np
+
+    np.copyto(np.frombuffer(out, np.uint8, raw.nbytes, off),
+              np.frombuffer(raw, np.uint8))
+
+
 def build_frame(value: Any):
     """Pickle ``value`` (protocol 5, out-of-band buffers) and compute the
     frame layout WITHOUT materializing it. Returns ``(total_size, write)``
@@ -157,8 +178,8 @@ def build_frame(value: Any):
             out[pos + 8:pos + 16] = _U64.pack(ln)
             pos += 16
         out[pos:pos + len(payload)] = payload
-        for raw, (off, ln) in zip(raws, offsets):
-            out[off:off + ln] = raw
+        for raw, (off, _ln) in zip(raws, offsets):
+            _copy_into(out, off, raw)
 
     return total, write
 

@@ -1,9 +1,9 @@
 """ray_tpu_torch.train: distributed training orchestration (port of
 ``ray_tpu.train``; reference: Ray Train).
 
-``TorchTrainer`` takes ``JaxTrainer``'s place; the pipeline plane
-(``PipelinePlane``, ``StageActor``, ``PipelineError``) is not ported yet
-(ROADMAP.md queue 1, item 4) and its names raise.
+``TorchTrainer`` takes ``JaxTrainer``'s place. The pipeline plane
+(``PipelinePlane``, ``StageActor``, ``PipelineError``) loads lazily, at
+the first use of one of its names.
 """
 
 from ray_tpu_torch.train.checkpoint import (  # noqa: F401
@@ -30,9 +30,17 @@ from ray_tpu_torch.train.trainer import Result, TorchTrainer  # noqa: F401
 
 
 def __getattr__(name):
+    # PipelinePlane pulls in the multihost/actor stack; keep the common
+    # `from ray_tpu_torch import train` import light by resolving the
+    # pipeline plane lazily. importlib, NOT a from-import: `from
+    # ray_tpu_torch.train import pipeline_plane` consults THIS
+    # __getattr__ before importing the submodule (infinite recursion).
     if name in ("PipelinePlane", "StageActor", "PipelineError",
                 "pipeline_plane"):
-        from ray_tpu_torch.core.errors import not_ported
+        import importlib
 
-        raise not_ported(f"train.{name}", "item 4, the pipeline plane")
+        mod = importlib.import_module("ray_tpu_torch.train.pipeline_plane")
+        if name == "pipeline_plane":
+            return mod
+        return getattr(mod, name)
     raise AttributeError(name)

@@ -259,3 +259,26 @@ def test_distributed_rl_and_gang_refuse_without_card(no_card):
         PolicyInference((4,), 2, "k")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         LearnerState("k")
+
+
+def test_pipeline_plane_refuses_without_card(no_card):
+    """``PipelinePlane`` runs its stages on the card unless told otherwise:
+    without one it raises before it reserves a sub-slice (no runtime is
+    up here, so reaching the reservation would fail differently), and so
+    do the in-process baseline and a stage worker asked for the card."""
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.parallel.pipeline import make_stage_worker
+    from ray_tpu_torch.train import PipelinePlane
+    from ray_tpu_torch.train.pipeline_plane import single_process_baseline
+
+    cfg = llama.PRESETS["debug"]
+    params = llama.init_params(cfg, device="cpu", dtype=torch.float32)
+    for device in (None, "cuda"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            PipelinePlane(cfg, params, n_stages=2, n_microbatches=2,
+                          device=device)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        single_process_baseline(cfg, params, 1e-3, [])
+    worker = make_stage_worker(cfg, 0, 2, params)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        worker(torch.zeros((1, 4), dtype=torch.int32))

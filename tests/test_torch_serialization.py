@@ -179,3 +179,67 @@ def test_shm_store_matches_jax_store(tmp_path):
     assert got == want
     # the sequence reached eviction: a live object stopped being there
     assert ("get", None) in got or ("contains", False) in got
+
+
+@pytest.mark.parametrize("dest", ["bytearray", "mmap"])
+def test_large_buffers_frame_as_small_ones(dest):
+    """Buffers above the GIL-free copy's threshold land in the frame byte
+    for byte as the JAX package frames them, whether the frame is a
+    bytearray or a memoryview of an mmap (the shm store's and the spill
+    file's case); the other package reads them back."""
+    import mmap
+
+    rng = np.random.default_rng(1)
+    big = rng.standard_normal(3 * tser._GIL_FREE_COPY_BYTES // 8)
+    value = {"big": big, "small": np.arange(7), "odd": big[1:].copy()}
+    total, write = tser.build_frame(value)
+    if dest == "bytearray":
+        out = bytearray(total)
+        write(out)
+        frame = bytes(out)
+    else:
+        with mmap.mmap(-1, total) as m:
+            write(memoryview(m))
+            frame = bytes(m)
+    assert frame == jser.serialize(value)
+    got = jser.deserialize(frame)
+    assert all(np.array_equal(got[k], value[k]) for k in value)
+    t = torch.from_numpy(big).to(torch.bfloat16)
+    assert torch.equal(tser.deserialize(tser.serialize(t)), t)
+
+
+def test_large_copy_leaves_the_gil_to_other_threads():
+    """While a large buffer is copied into its frame, the process's other
+    threads run: the longest pause of a ticking thread during the write
+    is a small part of the write. A copy under the GIL stalled a driver's
+    controller and its gang monitor for seconds when it put a multi-GB
+    stage state. Timed on a shared host, so the best of three writes
+    counts; a copy that holds the GIL pauses the ticker for all of it."""
+    import threading
+    import time
+
+    total, write = tser.build_frame(torch.ones(64 << 20, dtype=torch.uint8))
+    best = float("inf")
+    for _ in range(3):
+        out = bytearray(total)
+        ticks, stop = [], threading.Event()
+
+        def tick():
+            while not stop.is_set():
+                ticks.append(time.perf_counter())
+                time.sleep(0.0005)
+
+        th = threading.Thread(target=tick)
+        th.start()
+        while not ticks:
+            time.sleep(0.001)
+        t0 = time.perf_counter()
+        write(out)
+        t1 = time.perf_counter()
+        stop.set()
+        th.join()
+        edges = [t0] + [x for x in ticks if t0 < x < t1] + [t1]
+        pause = max(b - a for a, b in zip(edges, edges[1:]))
+        best = min(best, pause / (t1 - t0))
+        del out
+    assert best < 0.5, best

@@ -75,9 +75,9 @@ def test_session_api_outside_a_loop(results):
 
 def test_not_ported_surfaces_name_their_item():
     """``datasets=`` and ``get_dataset_shard`` are ported (outside a loop
-    the shard call raises as the JAX package's does); the pipeline plane
-    names its ROADMAP item; ``use_tpu`` has no chip to lease, as
-    ``num_tpus`` has none."""
+    the shard call raises as the JAX package's does); the pipeline plane's
+    names resolve to ``train.pipeline_plane``'s classes; ``use_tpu`` has
+    no chip to lease, as ``num_tpus`` has none."""
     from ray_tpu import train as jtrain
     from ray_tpu_torch import train
     from ray_tpu_torch.train import session
@@ -98,10 +98,11 @@ def test_not_ported_surfaces_name_their_item():
             train.get_dataset_shard("eval")
     finally:
         session._session.value = None
+    from ray_tpu_torch.train import pipeline_plane
+
     for name in ("PipelinePlane", "StageActor", "PipelineError"):
-        with pytest.raises(NotImplementedError,
-                           match="item 4, the pipeline plane"):
-            getattr(train, name)
+        assert getattr(train, name) is getattr(pipeline_plane, name)
+    assert train.pipeline_plane is pipeline_plane
     with pytest.raises(ValueError, match="use_gpu"):
         train.ScalingConfig(use_tpu=True)
     assert train.ScalingConfig(use_gpu=True).worker_resources() == {
