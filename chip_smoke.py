@@ -1,8 +1,9 @@
 """Drive the PyTorch/CUDA port's splash, serving (a decode mesh, the
-runtime's serve plane and a one-host gang among them), training (Llama,
-through the runtime's train and tune planes, fed by its Dataset API and
-through its pipeline plane too, and ViT), RL (its distributed plane too)
-and mesh paths on one NVIDIA GPU.
+runtime's serve plane, a one-host gang and a thin client on a two-node
+cluster among them), training (Llama, through the runtime's train and
+tune planes, fed by its Dataset API and through its pipeline plane too,
+and ViT), RL (its distributed plane too) and mesh paths on one NVIDIA
+GPU.
 
     python3 chip_smoke.py
 
@@ -130,10 +131,12 @@ Phases, one JSON line each (``{"phase": ..., "ok": ...}``):
    and the forward twice (the remat recompute). Losses must be finite
    and falling. A 2-layer model of the same width then holds the flash
    gradients against the plain-attention ones.
-12. train_runtime: the train phase's model, weights, tokens and steps
-   through the train and tune planes: ``rt.init()`` (its node must
-   advertise ``GPU: 1``), then ``TorchTrainer`` with
-   ``ScalingConfig(num_workers=1, use_gpu=True,
+12. train_runtime: the train phase's model cut to its first
+   ``TRAIN_RUNTIME["layers"]`` (4) layers at full width, with its tokens
+   and steps, through the train and tune planes. First the train phase's
+   setup at that depth in this process (``phase_train``: the reference
+   losses). Then ``rt.init()`` (its node must advertise ``GPU: 1``) and
+   ``TorchTrainer`` with ``ScalingConfig(num_workers=1, use_gpu=True,
    torch_config=TorchConfig(distributed=True))`` and
    ``FailureConfig(max_failures=1)``: one GPU-leased worker (its own
    process) joins a one-rank NCCL group through the gang registry's
@@ -141,21 +144,25 @@ Phases, one JSON line each (``{"phase": ..., "ok": ...}``):
    reporting its loss, gradient norm, time, peak memory and the launch
    counts (zeroed before the step, read after it in the worker's
    process). After step 2 ``save_pytree`` writes params and AdamW state
-   (14 GB at 1B, the free bytes of the storage path printed first) and
-   reports it as the checkpoint (copied into the run's storage); the
-   first attempt then raises an injected error, and the second restores
-   it through ``train.get_checkpoint()`` and ``restore_pytree`` and takes
-   steps 3-4. Checks: one restart, the four losses equal to the train
-   phase's within ``TRAIN_RUNTIME_REL_TOL``, exact launches a step, all on
-   wgmma. Prints the card's memory before ``fit()``, the worker's start
-   time, save / persist / restore seconds and GB/s, the restart time and
-   the step times beside train's. Then a ``Tuner`` over the same trainer
-   with ``lr`` in ``grid_search([3e-4, 3e-5])``, 2 steps a trial: each
-   trial's gang holds the one ``GPU``, so the second waits out the first
-   (its reservation is refused and requeued); both finish, with equal
-   first losses and the same launches, and the best result is the lower
-   final loss. Teardown: no gang record, no process of the node, no store
-   file and no checkpoint directory left, ``GPU`` available again.
+   (3.84 GB at 4 layers, the free bytes of the storage path printed
+   first) and reports it as the checkpoint (copied into the run's
+   storage); the first attempt then raises an injected error, and the
+   second restores it through ``train.get_checkpoint()`` and
+   ``restore_pytree`` and takes steps 3-4. Checks: one restart, the four
+   losses equal to the reference's within ``TRAIN_RUNTIME_REL_TOL``,
+   exact launches a step, all on wgmma. Prints the card's memory before
+   ``fit()``, the worker's start time, save / persist / restore seconds
+   and GB/s, the restart time and the step times beside the reference's.
+   Then a ``Tuner`` over the same trainer with ``lr`` in
+   ``grid_search([3e-4, 3e-5])``, 2 steps a trial, one trial at a time
+   (``max_concurrent_trials=1``): each trial's gang holds the one
+   ``GPU`` in turn; both finish, with equal first losses and the same
+   launches, and the best result is the lower final loss. (Run
+   together, the second trial's reservation would be refused after 60
+   s and requeued; ``tests/test_torch_tune_requeue.py`` holds that path
+   on the CPU.) Teardown: no gang record, no process
+   of the node, no store file and no checkpoint directory left, ``GPU``
+   available again.
 13. vit: ViT-B/16 (``vit.PRESETS["vit_b16"]``, full width and depth, fp32
    masters from seed 0, bf16 compute, full remat) takes six AdamW(3e-4,
    weight decay 0.1) steps through ``build_train_step`` at batch 256, fed
@@ -190,12 +197,12 @@ Phases, one JSON line each (``{"phase": ..., "ok": ...}``):
    the worker; the shard ends after 4 batches. It prints the worker's
    wait on the iterator for each step, each step time beside the train
    phase's, and the bytes put into the store. (b) ViT-B/16 in process:
-   8 batches of 256 uint8 NHWC 224x224x3 images and int64 labels from a
+   4 batches of 256 uint8 NHWC 224x224x3 images and int64 labels from a
    numpy seed, one block a batch, a ``map_batches`` task casting them to
    float32 / 255 (154 MB a batch out of the store), streamed by
    ``ds.iter_device_batches(batch_size=256)`` into ``build_train_step``.
    Checks: finite losses, each device batch's checksum equals the same
-   cast done in numpy in this process, all 8 batches, no hand-written
+   cast done in numpy in this process, all 4 batches, no hand-written
    kernel launched. It prints images/s from the second step on beside
    the vit phase's and the consumer's wait for each step. Teardown: no
    process of the node, no store file, ``GPU`` available again.
@@ -318,18 +325,55 @@ Phases, one JSON line each (``{"phase": ..., "ok": ...}``):
    stream. Prints the time from the kill to ``ALIVE`` and to the first
    token. (d) Shutdown leaves no reservation, no group record, ``GPU``
    available, no process of the node and no store file.
-19. pipeline: the train phase's model (``PRESETS["1b"]``, flash, full
-   remat, fp32 masters from seed 0, kept on the host) through the
-   pipeline plane (``PipelinePlane``: a ``HostGroup`` of ``StageActor``
-   processes, driver-side 1F1B, tensors through the object store and
-   descriptors through the RPCs), Adam at lr 3e-4, 3 steps of 4
-   microbatches of 2 x 2048 numpy-seeded tokens. (a) One stage at the
-   full depth on the card's own one-host slice (``rt.init()``,
-   ``snapshot_every=0``, the member holding ``num_gpus=1``): losses
-   equal to the last bit to ``single_process_baseline(n_stages=1)`` run
-   in this process on the card, and within ``PIPELINE_FULL_REL_TOL`` of
-   the full model's (``n_stages=None``, ``llama.loss_fn``). (b) Two
-   stages sharing the card on a virtual slice of two one-chip hosts
+19. cluster: two nodes on this machine through
+   ``cluster_utils.Cluster(initialize_head=False)``: a CPU node
+   (``add_node(num_cpus=4)``) and a node holding the card
+   (``add_node(num_cpus=2, resources={"GPU": 1}, labels={"gpu_name":
+   ...})``), each with a 4 GiB store, ``rt.init(address=...)`` and a
+   ``ClientServer`` in this process (the time to form printed). (a) A thin
+   client in its own process (``CLUSTER_CLIENT``, written to a temp file
+   and run with this interpreter) connects with
+   ``rt.init("ray-tpu://...")`` and creates the named actor ``smoke-llm``
+   with ``num_gpus=1`` and a ``runtime_env`` of a marker variable and a
+   working_dir holding a module the actor imports by name. The actor
+   builds serve_runtime's deployment in its constructor
+   (``LlamaDecodeDeployment`` at ``PRESETS["7b"]``, full width and depth,
+   flash, seed 0, ``slots=4``, ``capacity=2048``) and serves the serve
+   phase's six requests one at a time; the client uploads 256 MiB of
+   seeded random bytes, which the actor copies to its card and sums, then
+   disconnects and prints whether it created a CUDA context. (b) A task
+   pinned to the CPU node returns 1 GiB of seeded random bytes, and the
+   actor ``get``s them (a pull between the two nodes' stores), copies
+   them to its card and sums them. (c) ``JobSubmissionClient`` submits an
+   entrypoint (``CLUSTER_JOB``) with a ``runtime_env`` of a working_dir
+   and the cluster's address; it attaches to the cluster, looks up the
+   named actor (it outlived the client's session) and prints one
+   request's stream (``r5_prefix_hit``, whose repeat on the same engine
+   takes its first pass's prefix-hit path); the phase waits for
+   ``SUCCEEDED`` and reads the stream from ``get_job_logs``. Checks: the
+   client's and the job's streams equal serve_runtime's handle streams
+   token for token; the actor ran on the GPU node, on the card, saw the
+   marker and had the working_dir as its cwd; flash #1 launched 32 times
+   per full prefill wave in the actor's process, all on wgmma, and
+   nothing in the driver; both sums right; no CUDA context in the client;
+   the job ``SUCCEEDED``; after the kill, the actor's process and then
+   every process of both nodes gone. Prints the upload's and the pull's
+   GB/s, the actor's start, the TTFTs and each step's seconds.
+20. pipeline: the train phase's model and weights cut to their first
+   ``PIPELINE["layers"]`` (4) layers at full width (``PRESETS["1b"]``,
+   flash, full remat, fp32 masters from seed 0, kept on the host) through
+   the pipeline plane
+   (``PipelinePlane``: a ``HostGroup`` of ``StageActor`` processes,
+   driver-side 1F1B, tensors through the object store and descriptors
+   through the RPCs), Adam at lr 3e-4, 3 steps, each on the same batch
+   of 4 microbatches of 2 x 2048 numpy-seeded tokens (so a falling loss
+   reads learning, not another batch's noise). (a) One stage on the card's own one-host
+   slice (``rt.init()``, ``snapshot_every=0``, the member holding
+   ``num_gpus=1``): losses equal to the last bit to
+   ``single_process_baseline(n_stages=1)`` run in this process on the
+   card, and within ``PIPELINE_FULL_REL_TOL`` of the full model's
+   (``n_stages=None``, ``llama.loss_fn``). (b) Two stages sharing the
+   card on a virtual slice of two one-chip hosts
    (``RAY_TPU_VIRTUAL_SLICE=1x2/1`` before init, each member holding
    ``num_gpus=0.5``), window 2: losses equal to the in-process
    ``n_stages=2`` chain; prints each step's wall time, each stage's busy
@@ -340,13 +384,19 @@ Phases, one JSON line each (``{"phase": ..., "ok": ...}``):
    after them: each run launches the flash forward 3 times per layer and
    microbatch (the stage forward, the backward's forward and its remat
    recompute) and each backward kernel and delta once, all on wgmma,
-   and nothing in the driver. (c) The depth cut to ``kill_layers`` at
-   full width, two stages sharing the card, ``snapshot_every=1``: the
-   last stage's process is SIGKILLed after step 2 commits; the gang
-   reconciles under epoch 2, the registry's epoch bumps, step 3 replays,
-   the losses equal the uninterrupted in-process chain's, and ``stop()``
-   leaves no ref and no record. The in-process baselines are freed
-   before each plane starts.
+   and nothing in the driver. (c) Two stages sharing the card,
+   ``snapshot_every=1``: the last stage's process is SIGKILLed after step
+   2 commits; the gang reconciles under epoch 2, the registry's epoch
+   bumps, step 3 replays, the losses equal the uninterrupted in-process
+   chain's (b's), and ``stop()`` leaves no ref and no record. The
+   in-process baselines are freed before each plane starts.
+
+Depth, steps and schedule cut to keep the smoke near half its 1200 s
+limit: the pipeline and train_runtime run the 1B width at 4 layers
+(they ran (a), (b) and train_runtime at the full 22), data_train's ViT
+half takes 4 batches (it took 8), and the tune sweep of train_runtime
+runs one trial at a time (its second trial waited out a refused 60 s
+reservation). Every width, check and kernel of each path stays.
 
 Serve, serve_paged, serve_spec and train also read the forward's C
 entry's own launch count of each of its kernels over the same window:
@@ -356,7 +406,7 @@ taken a wgmma kernel.
 
 Each main path (splash, serve, serve_paged, serve_spec, serve_disagg,
 serve_runtime, serve_mesh, train, train_runtime, data_train, mesh, gang,
-pipeline) must have launched each of its kernels at least once. Then a
+cluster, pipeline) must have launched each of its kernels at least once. Then a
 ``{"kernels": [...]}`` line with all seven kernels (the six attention
 kernels with their main-path launches by kernel, and each with its ptxas
 lines: registers, shared memory and spills of each instantiation), the
@@ -483,6 +533,7 @@ PATH_KERNELS = {
     "mesh": ["flash_fwd", "flash_bwd_dkv", "flash_bwd_dq",
              "attention_delta"],
     "gang": ["flash_fwd"],
+    "cluster": ["flash_fwd"],
     "pipeline": ["flash_fwd", "flash_bwd_dkv", "flash_bwd_dq",
                  "attention_delta"],
 }
@@ -2941,11 +2992,12 @@ def _grad_check(cfg, device, b, s) -> dict:
 
 
 def phase_train(cfg, device="cuda", batch=8, seq=2048, steps=4,
-                accum_steps=2, check_batch=1, check_seq=1024) -> dict:
+                accum_steps=2, check_batch=1, check_seq=1024,
+                grad_check=True) -> dict:
     """``steps`` AdamW steps of ``cfg`` through ``build_train_step`` on one
     fixed batch of ``batch`` x (``seq`` + 1) random tokens, in
-    ``accum_steps`` microbatches, with per-step launch counts; then the
-    flash-vs-plain gradient check."""
+    ``accum_steps`` microbatches, with per-step launch counts; then, with
+    ``grad_check``, the flash-vs-plain gradient check."""
     from ray_tpu_torch.models import llama
     from ray_tpu_torch.ops.optim import adamw
     from ray_tpu_torch.parallel import train_step
@@ -3040,9 +3092,10 @@ def phase_train(cfg, device="cuda", batch=8, seq=2048, steps=4,
         out["mfu_bf16_peak"] = (llama.flops_per_token(cfg, seq) * tokens
                                 / (step_s * PEAK_BF16_FLOPS))
         out["peak_memory_bytes"] = peak
-    check = _grad_check(cfg, device, check_batch, check_seq)
-    checks["flash_grads_match_plain"] = check.pop("ok")
-    out["grad_check"] = check
+    if grad_check:
+        check = _grad_check(cfg, device, check_batch, check_seq)
+        checks["flash_grads_match_plain"] = check.pop("ok")
+        out["grad_check"] = check
     out["checks"] = checks
     out["ok"] = all(checks.values())
     return out
@@ -3059,9 +3112,11 @@ def phase_train(cfg, device="cuda", batch=8, seq=2048, steps=4,
 TRAIN_RUNTIME_REL_TOL = 0.0
 # The train phase's schedule, run by the worker: steps, the step after
 # which the first attempt checkpoints and then fails once; then each tune
-# trial's steps, and the trials' learning rates.
+# trial's steps, and the trials' learning rates; the depth every run is
+# cut to at full width (a 1B checkpoint is 14.03 GB, 3.84 GB at 4
+# layers).
 TRAIN_RUNTIME = dict(steps=4, ckpt_after=2, tune_steps=2,
-                     tune_lrs=(3e-4, 3e-5))
+                     tune_lrs=(3e-4, 3e-5), layers=4)
 
 
 def _state_bytes(tree) -> int:
@@ -3199,22 +3254,30 @@ def _sum_counts(history, key) -> dict:
     return total
 
 
-def phase_train_runtime(cfg, train: dict, device="cuda", batch=8,
-                        seq=2048, accum_steps=2) -> dict:
-    """The train phase's model and steps through the train and tune
-    planes on the runtime: ``rt.init()``, a ``TorchTrainer`` whose one
-    GPU-leased worker joins a one-rank NCCL group through the gang
-    registry, a checkpoint of params and AdamW state after step 2, an
-    injected failure, a restart restored from the checkpoint, then a
-    ``Tuner`` of two learning rates over the same trainer, each trial's
-    gang on the one card in turn. ``train`` is the train phase's result
-    (its losses and step times). See the module docstring."""
+def phase_train_runtime(cfg, device="cuda", batch=8, seq=2048,
+                        accum_steps=2) -> dict:
+    """The train phase's model, cut to ``TRAIN_RUNTIME["layers"]`` at full
+    width, and steps through the train and tune planes on the runtime:
+    ``rt.init()``, a ``TorchTrainer`` whose one GPU-leased worker joins a
+    one-rank NCCL group through the gang registry, a checkpoint of params
+    and AdamW state after step 2, an injected failure, a restart restored
+    from the checkpoint, then a ``Tuner`` of two learning rates over the
+    same trainer, each trial's gang on the one card in turn. The worker's
+    losses are held against the train phase's steps run in this process
+    at the cut depth. See the module docstring."""
     import shutil
     import tempfile
 
     import ray_tpu_torch as rt
 
     cuda = torch.device(device).type == "cuda"
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    cfg = replace(cfg, n_layers=TRAIN_RUNTIME["layers"])
+    ref = phase_train(cfg, device, batch, seq, TRAIN_RUNTIME["steps"],
+                      accum_steps, grad_check=False)
+    train = {"losses": ref["losses"], "step_s": ref["step_s"]}
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
@@ -3364,7 +3427,9 @@ def _train_runtime(cfg, train, device, batch, seq, accum_steps, storage,
             and (not cuda or bool(m["card"])) for m in hist),
     })
     # Tune: two learning rates over the same trainer, each trial's gang
-    # holding the one GPU in turn.
+    # holding the one GPU in turn. One trial at a time: run together, the
+    # second waits out a refused 60 s reservation before its requeue, a
+    # path tests/test_torch_tune_requeue.py holds on the CPU.
     tune_config = {**loop_config, "steps": TRAIN_RUNTIME["tune_steps"],
                    "ckpt_after": None}
     t_tune = time.time()
@@ -3374,7 +3439,8 @@ def _train_runtime(cfg, train, device, batch, seq, accum_steps, storage,
                      run_config=RunConfig(storage_path=storage)),
         param_space={"lr": tune.grid_search(
             list(TRAIN_RUNTIME["tune_lrs"]))},
-        tune_config=tune.TuneConfig(metric="loss", mode="min")).fit()
+        tune_config=tune.TuneConfig(metric="loss", mode="min",
+                                    max_concurrent_trials=1)).fit()
     tune_s = time.time() - t_tune
     trials = sorted(grid, key=lambda r: r.config["lr"], reverse=True)
     th = [r.metrics_history for r in trials]
@@ -3655,7 +3721,7 @@ def phase_vit(cfg, device="cuda", batch=None, steps=None,
 # in ``blocks`` blocks, to a ``TorchTrainer`` worker; (b) ``vit_steps``
 # batches of ``vit_batch`` uint8 images, one block a batch, cast to float
 # by a map task, to ViT-B/16 in process (``seed`` makes them).
-DATA_TRAIN = dict(steps=4, blocks=8, vit_batch=256, vit_steps=8, seed=4)
+DATA_TRAIN = dict(steps=4, blocks=8, vit_batch=256, vit_steps=4, seed=4)
 
 
 def _row_sums(block):
@@ -5487,20 +5553,21 @@ PUT_BYTES = {"cuda": 1 << 30, "cpu": 64 << 20}     # bf16 tensor put / get
 ARG_BYTES = {"cuda": 256 << 20, "cpu": 16 << 20}   # tensor task argument
 
 
-def _store_config(device) -> dict:
-    """The runtime's store size, and its directory: ``/dev/shm`` when it
-    has room for the store, else the temp directory (a store file past a
-    full tmpfs would fault on write)."""
+def _store_config(device, sizes=STORE_BYTES, stores: int = 1) -> dict:
+    """The runtime's store size (each of ``stores`` nodes'), and its
+    directory: ``/dev/shm`` when it has room for every store, else the
+    temp directory (a store file past a full tmpfs would fault on
+    write)."""
     import shutil
     import tempfile
 
-    want = STORE_BYTES[torch.device(device).type]
+    want = sizes[torch.device(device).type]
     cfg = {"object_store_memory_bytes": want}
     try:
         free = shutil.disk_usage("/dev/shm").free
     except OSError:
         free = 0
-    if free < want * 5 // 4:
+    if free < stores * want * 5 // 4:
         cfg["object_store_fallback_dir"] = tempfile.gettempdir()
     return cfg
 
@@ -6106,13 +6173,418 @@ def _gang(cfg, want, device) -> dict:
     return out
 
 
+# ------------------------------------------------------------ the cluster
+
+CLUSTER_ACTOR = "smoke-llm"
+CLUSTER_MARKER = "RTT_SMOKE_MARKER"
+# The job's request. Repeated on the actor's engine after the client's
+# pass, it splices the same cached prefix (r1's) as its first pass did, so
+# its stream is the first pass's; a repeat of r1 or r2 would hit its own
+# cached prefix and take another path.
+CLUSTER_JOB_REQUEST = "r5_prefix_hit"
+# Each node's store, the client's upload and the pull across nodes.
+CLUSTER_STORE_BYTES = {"cuda": 4 << 30, "cpu": 512 << 20}
+CLUSTER_UPLOAD_BYTES = {"cuda": 256 << 20, "cpu": 16 << 20}
+CLUSTER_PULL_BYTES = {"cuda": 1 << 30, "cpu": 64 << 20}
+
+# The thin client: its own process, written to a file and run with this
+# interpreter. It creates the named 7B actor on the GPU node with a
+# runtime_env, has it serve the serve phase's six requests one at a time,
+# uploads an array that the actor copies to its card, and reports whether
+# it created a CUDA context itself. Its actor class travels by value.
+CLUSTER_CLIENT = r'''
+import json
+import os
+import pickle
+import sys
+import time
+
+import numpy as np
+import torch
+
+import ray_tpu_torch as rt
+
+
+class SmokeLLM:
+    """The 7B deployment in the actor's process, as the gang's member
+    builds it."""
+
+    def __init__(self, cfg, device):
+        import smoke_env_mod  # imported by name from the working_dir
+
+        from ray_tpu_torch.serve.decode import LlamaDecodeDeployment
+
+        t = time.perf_counter()
+        self.dep = LlamaDecodeDeployment(config=cfg, slots=4, capacity=2048,
+                                         seed=0, device=device)
+        self.card = self.dep.engine.device.type == "cuda"
+        if self.card:
+            torch.cuda.synchronize()
+        self.build_s = time.perf_counter() - t
+        self.module = {"value": smoke_env_mod.VALUE, "dir": os.path.dirname(
+            os.path.abspath(smoke_env_mod.__file__))}
+
+    def info(self):
+        from ray_tpu_torch.core.runtime import get_core_worker
+
+        return {"node": get_core_worker().node_id.hex(), "pid": os.getpid(),
+                "cwd": os.getcwd(), "marker": os.environ.get("{marker}"),
+                "cuda_visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+                "device": str(self.dep.engine.device),
+                "card": torch.cuda.get_device_name(0) if self.card else None,
+                "build_s": self.build_s, "module": self.module}
+
+    def window(self, reset):
+        from ray_tpu_torch.ops import flash_attention as fa
+
+        out = {"launches": fa.flash_attention.launches,
+               "by_kernel": fa.forward_kernel_launches() if self.card
+               else {},
+               "prefill_waves": self.dep.engine.stats()["prefill_waves"]}
+        if reset:
+            fa.flash_attention.launches = 0
+        return out
+
+    def serve(self, requests):
+        out = {}
+        for name, toks, n in requests:
+            t = time.perf_counter()
+            reply = self.dep({"tokens": toks, "max_new_tokens": n})
+            out[name] = {"tokens": reply["tokens"],
+                         "ttft_s": reply["ttft_s"],
+                         "wall_s": time.perf_counter() - t}
+        return out
+
+    def one(self, toks, n):
+        return self.dep({"tokens": toks, "max_new_tokens": n})["tokens"]
+
+    def checksum(self, arr):
+        import warnings
+
+        t = time.perf_counter()
+        with warnings.catch_warnings():  # the store's view is read-only
+            warnings.simplefilter("ignore")
+            dev = torch.from_numpy(arr).to(self.dep.engine.device)
+        total = int(dev.sum(dtype=torch.int64))
+        return {"checksum": total, "bytes": int(arr.nbytes),
+                "on": str(dev.device), "to_card_s": time.perf_counter() - t}
+
+    def pull(self, refs):
+        t = time.perf_counter()
+        arr = rt.get(refs[0])
+        pull_s = time.perf_counter() - t
+        return {"pull_s": pull_s, **self.checksum(arr)}
+
+
+def main():
+    args = json.loads(sys.argv[1])
+    with open(args["cfg"], "rb") as f:
+        cfg = pickle.load(f)
+    out = {}
+    t = time.perf_counter()
+    rt.init(address=args["address"])
+    out["connect_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    actor = rt.remote(SmokeLLM).options(
+        name=args["name"], num_gpus=1,
+        runtime_env={"env_vars": {"{marker}": args["marker"]},
+                     "working_dir": args["working_dir"]},
+    ).remote(cfg, args["device"])
+    out["info"] = rt.get(actor.info.remote(), timeout=900)
+    out["actor_ready_s"] = time.perf_counter() - t
+    out["window0"] = rt.get(actor.window.remote(True), timeout=60)
+    t = time.perf_counter()
+    out["served"] = rt.get(actor.serve.remote(args["requests"]), timeout=900)
+    out["serve_s"] = time.perf_counter() - t
+    arr = np.frombuffer(np.random.default_rng(1).bytes(
+        args["upload_bytes"]), np.uint8)
+    t = time.perf_counter()
+    ref = rt.put(arr)
+    out["upload_s"] = time.perf_counter() - t
+    out["upload"] = rt.get(actor.checksum.remote(ref), timeout=300)
+    out["upload"]["want"] = int(arr.sum(dtype=np.int64))
+    out["handle_class"] = type(actor).__name__
+    del ref, arr
+    rt.shutdown()  # disconnects; the named actor outlives the session
+    out["cuda_initialized"] = torch.cuda.is_initialized()
+    with open(args["out"], "w") as f:
+        json.dump(out, f)
+    print("client cuda initialized:", out["cuda_initialized"], flush=True)
+
+
+main()
+'''.replace("{marker}", CLUSTER_MARKER)
+
+# The submitted job's entrypoint: attach to the cluster as a driver, find
+# the named actor and print one request's stream.
+CLUSTER_JOB = r'''
+import json
+import os
+
+import ray_tpu_torch as rt
+
+host, port = os.environ["SMOKE_CLUSTER_ADDRESS"].rsplit(":", 1)
+rt.init(address=(host, int(port)))
+with open("job_request.json") as f:
+    req = json.load(f)
+actor = rt.get_actor(req["actor"])
+tokens = rt.get(actor.one.remote(req["tokens"], req["max_new_tokens"]),
+                timeout=600)
+print("JOB_STREAM " + json.dumps(tokens), flush=True)
+rt.shutdown()
+'''
+
+
+def _cluster_big(n: int):
+    """The ``n`` random bytes the pull moves: made by a task on the CPU
+    node, so its return lands in that node's store."""
+    return np.frombuffer(np.random.default_rng(2).bytes(n), np.uint8)
+
+
+def phase_cluster(cfg, want: dict, device="cuda") -> dict:
+    """Two nodes on this machine, a thin client in its own process that
+    deploys a 7B serving actor with a ``runtime_env`` onto the node holding
+    the card, a pull across the nodes' stores, and a submitted job that
+    reaches the actor. ``want``: the serve_runtime phase's sequential
+    handle streams. See the module docstring."""
+    import shutil
+    import tempfile
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.client import ClientServer
+    from ray_tpu_torch.cluster_utils import Cluster
+    from ray_tpu_torch.core.api import detect_gpus
+    from ray_tpu_torch.core.config import config
+
+    gc.collect()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    saved = config.snapshot()
+    config.update(_store_config(device, CLUSTER_STORE_BYTES, stores=2))
+    tmp = tempfile.mkdtemp(prefix="smoke_cluster_")
+    cluster = server = None
+    try:
+        t = time.perf_counter()
+        cluster = Cluster(initialize_head=False)
+        cpu_node = cluster.add_node(num_cpus=4)
+        gpu_node = cluster.add_node(
+            num_cpus=2, resources={"GPU": 1},
+            labels={"gpu_name": detect_gpus()[1] or "none"})
+        cluster.wait_for_nodes(30)
+        rt.init(address=cluster.address)
+        server = ClientServer(host="127.0.0.1")
+        form_s = time.perf_counter() - t
+        out = _cluster(cfg, want, device, cluster, cpu_node, gpu_node,
+                       server, form_s, tmp)
+        t = time.perf_counter()
+    finally:
+        if server is not None:
+            server.stop()
+        if rt.is_initialized():
+            rt.shutdown()
+        if cluster is not None:
+            cluster.shutdown()
+        config.update(saved)
+        shutil.rmtree(tmp, ignore_errors=True)
+    # Teardown: every process of both nodes has exited.
+    nodes = out["nodes"]
+    out["processes_left"] = _poll_until(
+        lambda: _live_node_pids(nodes["cpu"]) + _live_node_pids(
+            nodes["gpu"]), lambda v: not v, 15.0)
+    out["step_seconds"]["teardown"] = (
+        out["step_seconds"]["actor_exit"] + time.perf_counter() - t)
+    checks = out["checks"]
+    checks["no_worker_left"] = (out["actor_exited"]
+                                and not out["processes_left"])
+    if torch.device(device).type == "cuda":
+        out["device"] = smi_line()
+    out["ok"] = all(checks.values()) and len(checks) == 16
+    return out
+
+
+def _cluster(cfg, want, device, cluster, cpu_node, gpu_node, server, form_s,
+             tmp) -> dict:
+    import pickle
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.core.placement import NodeAffinitySchedulingStrategy
+    from ray_tpu_torch.job_submission import JobSubmissionClient
+
+    kind = torch.device(device).type
+    cuda = kind == "cuda"
+    plan = _serve_plan(cfg)
+    nodes = {"cpu": cpu_node.node_id.hex(), "gpu": gpu_node.node_id.hex()}
+    resources = rt.cluster_resources()
+    out = {"form_s": form_s, "nodes": nodes, "resources": resources,
+           "step_seconds": {"form": form_s}}
+    checks = {"two_nodes_one_gpu": (
+        len([n for n in rt.nodes() if n["alive"]]) == 2
+        and resources.get("GPU") == 1.0 and resources.get("CPU") == 6.0)}
+    reset_counts()
+
+    # (a) The thin client in its own process.
+    env_dir = os.path.join(tmp, "env")
+    os.makedirs(env_dir)
+    with open(os.path.join(env_dir, "smoke_env_mod.py"), "w") as f:
+        f.write("VALUE = 'from-the-working-dir'\n")
+    paths = {k: os.path.join(tmp, k) for k in ("cfg.pkl", "client.py",
+                                                 "client.json")}
+    with open(paths["cfg.pkl"], "wb") as f:
+        pickle.dump(cfg, f)
+    with open(paths["client.py"], "w") as f:
+        f.write(CLUSTER_CLIENT)
+    marker = f"smoke-{os.getpid()}"
+    args = {"address": f"ray-tpu://{server.address[0]}:{server.address[1]}",
+            "cfg": paths["cfg.pkl"], "out": paths["client.json"],
+            "name": CLUSTER_ACTOR, "marker": marker, "device": device,
+            "working_dir": env_dir,
+            "requests": [(n, plan[n][0], plan[n][1]) for n in plan],
+            "upload_bytes": CLUSTER_UPLOAD_BYTES[kind]}
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [repo] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                  if p])
+    t = time.perf_counter()
+    proc = subprocess.run([sys.executable, paths["client.py"],
+                           json.dumps(args)], capture_output=True, text=True,
+                          env=env, timeout=1000)
+    out["step_seconds"]["client"] = time.perf_counter() - t
+    if proc.returncode != 0:
+        raise RuntimeError(f"the thin client exited {proc.returncode}: "
+                           f"{proc.stderr[-3000:]}")
+    with open(paths["client.json"]) as f:
+        got = json.load(f)
+    info = got["info"]
+    served = got["served"]
+    up = got["upload"]
+    streams = {n: served[n]["tokens"] for n in plan}
+    mismatch = {n: _first_difference({n: streams[n]}, {n: want[n]})[n]
+                for n in plan if streams[n] != want[n]}
+    if mismatch:
+        out["mismatch"] = mismatch
+    out["client"] = {
+        "connect_s": got["connect_s"], "actor_ready_s": got["actor_ready_s"],
+        "serve_s": got["serve_s"], "handle_class": got["handle_class"],
+        "cuda_initialized": got["cuda_initialized"],
+        "upload_bytes": up["bytes"], "upload_s": got["upload_s"],
+        "upload_gb_s": up["bytes"] / got["upload_s"] / 1e9,
+        "upload_to_card_s": up["to_card_s"]}
+    out["actor"] = {k: info[k] for k in ("node", "pid", "cwd", "device",
+                                         "cuda_visible", "card", "build_s",
+                                         "module")}
+    out["ttft_s"] = {n: served[n]["ttft_s"] for n in plan}
+    out["decode_tok_s"] = {
+        n: (len(served[n]["tokens"]) - 1)
+        / max(1e-9, served[n]["wall_s"] - served[n]["ttft_s"])
+        for n in plan}
+    checks.update({
+        "client_streams_equal_serve_runtime": not mismatch,
+        "client_holds_no_cuda_context": got["cuda_initialized"] is False,
+        "client_handle_is_thin": got["handle_class"] == "ClientActorHandle",
+        "actor_on_gpu_node": info["node"] == nodes["gpu"],
+        "actor_on_card": (info["pid"] != os.getpid()
+                          and info["cuda_visible"] != ""
+                          and info["device"].startswith(kind)
+                          and (not cuda or bool(info["card"]))),
+        "actor_sees_marker": info["marker"] == marker,
+        "actor_cwd_is_working_dir": (
+            info["cwd"] == info["module"]["dir"]
+            and info["module"]["value"] == "from-the-working-dir"),
+        "upload_checksum": (up["checksum"] == up["want"]
+                            and up["on"].startswith(kind)),
+    })
+
+    # (b) A pull across the nodes: a task on the CPU node makes the array,
+    # the GPU node's actor gets it.
+    actor = rt.get_actor(CLUSTER_ACTOR)
+    n = CLUSTER_PULL_BYTES[kind]
+    t = time.perf_counter()
+    big = rt.remote(_cluster_big).options(
+        scheduling_strategy=NodeAffinitySchedulingStrategy(nodes["cpu"]),
+        ).remote(n)
+    rt.wait([big], num_returns=1, timeout=300)
+    out["step_seconds"]["pull_source"] = time.perf_counter() - t
+    t = time.perf_counter()
+    pulled = rt.get(actor.pull.remote([big]), timeout=600)
+    out["step_seconds"]["pull"] = time.perf_counter() - t
+    del big
+    pull_want = int(_cluster_big(n).sum(dtype=np.int64))
+    out["pull"] = {"bytes": pulled["bytes"], "pull_s": pulled["pull_s"],
+                   "pull_gb_s": pulled["bytes"] / pulled["pull_s"] / 1e9,
+                   "to_card_s": pulled["to_card_s"]}
+    checks["pull_checksum"] = (pulled["checksum"] == pull_want
+                               and pulled["bytes"] == n
+                               and pulled["on"].startswith(kind))
+
+    # (c) A submitted job reaches the named actor, which outlived the
+    # client's session.
+    job_dir = os.path.join(tmp, "job")
+    os.makedirs(job_dir)
+    with open(os.path.join(job_dir, "job_entry.py"), "w") as f:
+        f.write(CLUSTER_JOB)
+    toks, max_new, _ = plan[CLUSTER_JOB_REQUEST]
+    with open(os.path.join(job_dir, "job_request.json"), "w") as f:
+        json.dump({"actor": CLUSTER_ACTOR, "tokens": toks,
+                   "max_new_tokens": max_new}, f)
+    host, port = cluster.address
+    jobs = JobSubmissionClient(cluster.address)
+    t = time.perf_counter()
+    job_id = jobs.submit_job(
+        entrypoint=f"{sys.executable} job_entry.py",
+        runtime_env={"working_dir": job_dir,
+                     "env_vars": {"SMOKE_CLUSTER_ADDRESS":
+                                  f"{host}:{port}"}})
+    status = jobs.wait_until_finished(job_id, timeout=600)
+    out["step_seconds"]["job"] = time.perf_counter() - t
+    logs = jobs.get_job_logs(job_id)
+    lines = [x for x in logs.splitlines() if x.startswith("JOB_STREAM ")]
+    job_stream = json.loads(lines[-1].split(" ", 1)[1]) if lines else None
+    out["job"] = {"id": job_id, "status": status,
+                  "stream_equal": job_stream == want[CLUSTER_JOB_REQUEST]}
+    if status != "SUCCEEDED" or not lines:
+        out["job"]["logs_tail"] = logs[-2000:]
+    checks["job_succeeded"] = status == "SUCCEEDED"
+    checks["job_stream_equals_serve_runtime"] = (
+        job_stream == want[CLUSTER_JOB_REQUEST])
+
+    # The actor's launches over the client's and the job's requests, read
+    # in its own process.
+    w0 = got["window0"]
+    w1 = rt.get(actor.window.remote(False), timeout=60)
+    launches = w1["launches"]
+    waves = w1["prefill_waves"] - w0["prefill_waves"]
+    by_kernel = {k: v - w0["by_kernel"].get(k, 0)
+                 for k, v in w1["by_kernel"].items()}
+    out.update({"launches": {"flash_fwd": launches},
+                "flash_fwd_by_kernel": by_kernel,
+                "actor_full_prefill_waves": waves})
+    checks["flash_launches_32_per_full_wave"] = (
+        waves > 0 and launches == cfg.n_layers * waves)
+    checks["flash_fwd_on_wgmma"] = all_on_wgmma(by_kernel, launches, device)
+    driver = launch_counts()
+    checks["no_kernel_in_driver"] = not any(driver.values())
+
+    # (d) Teardown, first the named actor: its process exits (the caller
+    # stops the rest).
+    t = time.perf_counter()
+    rt.kill(actor)
+    out["actor_exited"] = info["pid"] not in _poll_until(
+        lambda: _live_node_pids(nodes["gpu"]), lambda v: info["pid"] not in v,
+        30.0)
+    out["step_seconds"]["actor_exit"] = time.perf_counter() - t
+    out["checks"] = checks
+    return out
+
+
 # ------------------------------------------------------- the pipeline
 
 # The train cell's model through the pipeline plane: each step is
-# ``n_micro`` microbatches of ``micro_batch`` x ``seq`` tokens; (c) cuts
-# the depth to ``kill_layers`` at full width.
+# ``n_micro`` microbatches of ``micro_batch`` x ``seq`` tokens; every run
+# keeps the first ``layers`` layers of the 1B weights at full width (a 1B
+# stage state is 4.68 GB to push, 1.28 GB at 4 layers).
 PIPELINE = dict(steps=3, n_micro=4, micro_batch=2, seq=2048, lr=3e-4,
-                window=2, kill_layers=4, seed=0)
+                window=2, layers=4, seed=0)
 # (a)'s losses against the full-model baseline (``llama.loss_fn``, whose
 # CE this config chunks in 512 tokens) at each step: one bf16 ulp. The two
 # paths compute the same bf16 activations; they differ in the fp32 head
@@ -6129,16 +6601,19 @@ PIPE_SHARE = {"num_gpus": 0.5}
 
 
 def _pipe_steps(cfg, device_type: str) -> list:
-    """The phase's token batches, from a numpy generator: one list of
-    microbatches (``microbatches``' inputs and targets) a step."""
+    """The phase's token batches: one batch from a numpy generator, split
+    into ``microbatches``' inputs and targets, for every step (as the
+    train phase steps on one fixed batch), so a falling loss reads
+    learning and not the next batch's noise."""
     from ray_tpu_torch.train.pipeline_plane import microbatches
 
     p = PIPELINE
     seq = p["seq"] if device_type == "cuda" else 32
     rng = np.random.default_rng(p["seed"])
-    return [microbatches({"tokens": rng.integers(
-        0, cfg.vocab_size, (p["n_micro"] * p["micro_batch"], seq + 1))
-        .astype(np.int32)}, p["n_micro"]) for _ in range(p["steps"])]
+    tokens = rng.integers(0, cfg.vocab_size,
+                          (p["n_micro"] * p["micro_batch"], seq + 1))
+    return [microbatches({"tokens": tokens.astype(np.int32)}, p["n_micro"])
+            for _ in range(p["steps"])]
 
 
 def _pipe_member_counts(member, device, reset: bool) -> dict:
@@ -6253,10 +6728,11 @@ def _pipe_run(cfg, params, steps, device, n_stages, name, worker_options,
 
 
 def phase_pipeline(cfg, device="cuda") -> dict:
-    """The pipeline plane on the runtime: (a) one stage at the full depth
-    on the card's own slice, (b) two stages sharing the card on a virtual
-    two-host slice, (c) two stages at a cut depth, one killed and
-    resumed. See the module docstring."""
+    """The pipeline plane on the runtime, ``cfg`` cut to its first
+    ``PIPELINE["layers"]`` layers at full width: (a) one stage on the
+    card's own slice, (b) two stages sharing the card on a virtual
+    two-host slice, (c) two stages, one killed and resumed. See the module
+    docstring."""
     import ray_tpu_torch as rt
     from ray_tpu_torch.models import llama
     from ray_tpu_torch.train.pipeline_plane import host_copies
@@ -6265,18 +6741,24 @@ def phase_pipeline(cfg, device="cuda") -> dict:
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
-    steps = _pipe_steps(cfg, torch.device(device).type)
     out, checks = {}, {}
     t0 = time.perf_counter()
-    # The train phase's weights (fp32 masters from seed 0), kept on the
-    # host: the plane pushes them to its stages, the baselines copy them.
+    # The train phase's weights (fp32 masters from seed 0), their first
+    # layers kept on the host: the plane pushes them to its stages, the
+    # baselines copy them.
     on_card = llama.init_params(cfg, device=device, dtype=torch.float32,
                                 seed=0)
-    params = host_copies(on_card)
+    full_depth = host_copies(on_card)
     del on_card
+    cfg = replace(cfg, n_layers=PIPELINE["layers"])
+    params = {**full_depth, "layers": {
+        k: v[:cfg.n_layers].clone()
+        for k, v in full_depth["layers"].items()}}
+    del full_depth
+    steps = _pipe_steps(cfg, torch.device(device).type)
     out["init_s"] = time.perf_counter() - t0
 
-    # (a) one stage, full depth
+    # (a) one stage
     t = time.perf_counter()
     chain1 = _pipe_baseline(cfg, params, steps, device, 1)
     full = _pipe_baseline(cfg, params, steps, device, None)
@@ -6301,17 +6783,12 @@ def phase_pipeline(cfg, device="cuda") -> dict:
     b["seconds"] = time.perf_counter() - t
     out["b"] = b
 
-    # (c) two stages at a cut depth, the last one killed after step 2
+    # (c) two stages, the last one killed after step 2
     t = time.perf_counter()
-    cut = replace(cfg, n_layers=PIPELINE["kill_layers"])
-    cut_params = {**params, "layers": {k: v[:cut.n_layers].clone()
-                                       for k, v in params["layers"].items()}}
-    del params
-    chain_cut = _pipe_baseline(cut, cut_params, steps, device, 2)
     c = _pipe_virtual_slice(lambda: _pipe_run(
-        cut, cut_params, steps, device, 2, "smoke-pipe-kill", PIPE_SHARE,
+        cfg, params, steps, device, 2, "smoke-pipe-kill", PIPE_SHARE,
         snapshot_every=1, kill_after=2), device)
-    c["chain_losses"] = chain_cut
+    c["chain_losses"] = chain2
     c["seconds"] = time.perf_counter() - t
     out["c"] = c
 
@@ -6448,8 +6925,8 @@ def main() -> int:
                       lambda: phase_serve_runtime(serve_cfg)),
                      ("serve_mesh", lambda: phase_serve_mesh(serve_cfg)),
                      ("train", lambda: phase_train(train_cfg)),
-                     ("train_runtime", lambda: phase_train_runtime(
-                         train_cfg, results["train"])),
+                     ("train_runtime",
+                      lambda: phase_train_runtime(train_cfg)),
                      ("vit", lambda: phase_vit(vit.PRESETS["vit_b16"])),
                      ("data_train", lambda: phase_data_train(
                          train_cfg, results["train"],
@@ -6459,6 +6936,9 @@ def main() -> int:
                      ("mesh", lambda: phase_mesh(train_cfg)),
                      ("rl_dist", phase_rl_dist),
                      ("gang", lambda: phase_gang(
+                         serve_cfg,
+                         results["serve_runtime"]["handle_streams"])),
+                     ("cluster", lambda: phase_cluster(
                          serve_cfg,
                          results["serve_runtime"]["handle_streams"])),
                      ("pipeline", lambda: phase_pipeline(train_cfg))):

@@ -16,8 +16,11 @@ the ``GPU`` resource. The train and tune planes (``ray_tpu_torch.train``:
 ``ray_tpu_torch.tune``: ``Tuner``) and the Dataset API
 (``ray_tpu_torch.data``) run on it, and so does ``HostGroup``, a gang of
 one actor per host of a reserved sub-slice (its members' process group
-through the same ``torch.distributed`` bootstrap). Importing the package
-starts nothing; ``init()`` does.
+through the same ``torch.distributed`` bootstrap). ``cluster_utils``
+runs several nodes in one process, ``init("ray-tpu://host:port")``
+attaches a thin client to a ``client.ClientServer``, tasks and actors
+take a ``runtime_env``, and ``job_submission`` runs driver scripts on the
+cluster. Importing the package starts nothing; ``init()`` does.
 """
 
 from ray_tpu_torch._version import version as __version__  # noqa: F401

@@ -5,12 +5,14 @@ Analogue of the reference's ``python/ray/_private/worker.py`` module-level API
 (``ray.init`` :1225, ``get`` :2562, ``put`` :2688, ``wait`` :2753, ``remote``
 :3146). ``init()`` with no address boots an in-process cluster — controller +
 one node supervisor — then connects this process as the driver; ``init
-(address=(host, port))`` connects to an existing cluster.
+(address=(host, port))`` connects to an existing cluster (the
+multi-node-in-one-machine fixture from ``ray_tpu_torch.cluster_utils`` uses
+this), and ``init(address="ray-tpu://host:port")`` connects a thin client
+(``ray_tpu_torch.client``).
 
 Where the port differs: ``init()`` advertises the node's cards as the
 ``GPU`` resource (``nvidia-smi -L``, so the driver's node threads never
-create a CUDA context), and client mode (``address="ray-tpu://..."``) is
-not ported yet (ROADMAP.md queue 1, item 4).
+create a CUDA context).
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ from typing import Any, Dict, Optional, Sequence
 from ray_tpu_torch.core.actor import ActorClass
 from ray_tpu_torch.core.actor import get_actor as _get_actor_direct
 from ray_tpu_torch.core.config import config
-from ray_tpu_torch.core.errors import RayTpuError, not_ported
+from ray_tpu_torch.core.errors import RayTpuError
 from ray_tpu_torch.core.ids import NodeID
 from ray_tpu_torch.core.object_ref import ObjectRef
 from ray_tpu_torch.core.remote_function import RemoteFunction
@@ -52,11 +54,21 @@ def init(
     _system_config: Optional[Dict[str, Any]] = None,
     ignore_reinit_error: bool = False,
 ):
-    """Start (or connect to) a cluster and attach this process as a driver."""
+    """Start (or connect to) a cluster and attach this process as a driver.
+
+    ``address="ray-tpu://host:port"`` instead connects as a THIN CLIENT to a
+    :class:`ray_tpu_torch.client.ClientServer` running inside the cluster —
+    this process never joins the cluster, needs one outbound connection
+    only, and creates no CUDA context (reference: Ray Client,
+    ``util/client/``)."""
     global _local_cluster
     if isinstance(address, str) and address.startswith("ray-tpu://"):
-        raise not_ported("client mode (ray-tpu:// addresses)",
-                         "item 4, client mode")
+        from ray_tpu_torch import client as client_mod
+
+        client = client_mod.connect(address,
+                                    ignore_reinit_error=ignore_reinit_error)
+        atexit.register(shutdown)
+        return client
     if is_initialized():
         if ignore_reinit_error:
             return get_core_worker()
@@ -145,6 +157,10 @@ def _autodetect_gpu(resources: Dict[str, float],
 
 def shutdown() -> None:
     global _local_cluster, _config_snapshot, _log_streamer
+    client = _client()
+    if client is not None:
+        client.disconnect()
+        return
     if not is_initialized():
         return
     if _log_streamer is not None:
@@ -186,11 +202,24 @@ def shutdown() -> None:
     _actor._inflight.clear()
 
 
+def _client():
+    """Active thin-client connection, if this process is in client mode."""
+    from ray_tpu_torch import client as client_mod
+
+    return client_mod.current_client()
+
+
 def remote(*args, **options):
     """``@remote`` decorator for functions and classes (reference:
     ``worker.py:3146``)."""
 
     def decorate(target):
+        if _client() is not None:
+            from ray_tpu_torch import client as client_mod
+
+            if inspect.isclass(target):
+                return client_mod.ClientActorClass(target, options)
+            return client_mod.ClientRemoteFunction(target, options)
         if inspect.isclass(target):
             return ActorClass(target, options)
         return RemoteFunction(target, options)
@@ -203,15 +232,24 @@ def remote(*args, **options):
 
 
 def get(refs, timeout: Optional[float] = None):
+    client = _client()
+    if client is not None:
+        return client.get(refs, timeout)
     return get_core_worker().get(refs, timeout)
 
 
 def put(value: Any) -> ObjectRef:
+    client = _client()
+    if client is not None:
+        return client.put(value)
     return get_core_worker().put(value)
 
 
 def wait(refs: Sequence[ObjectRef], num_returns: int = 1,
          timeout: Optional[float] = None):
+    client = _client()
+    if client is not None:
+        return client.wait(refs, num_returns, timeout)
     return get_core_worker().wait(refs, num_returns, timeout)
 
 
@@ -243,15 +281,28 @@ def free(refs) -> None:
 
 
 def kill(actor_handle, no_restart: bool = True) -> None:
+    client = _client()
+    if client is not None:
+        from ray_tpu_torch.client import ClientActorHandle
+
+        if isinstance(actor_handle, ClientActorHandle):
+            client.kill(actor_handle, no_restart=no_restart)
+            return
     actor_handle.kill(no_restart=no_restart)
 
 
 def cluster_resources() -> Dict[str, float]:
+    client = _client()
+    if client is not None:
+        return client.cluster_resources()
     return get_core_worker().controller.call("cluster_resources")
 
 
 def get_actor(name: str):
     """Look up a named actor (reference: ``ray.get_actor``)."""
+    client = _client()
+    if client is not None:
+        return client.get_actor(name)
     return _get_actor_direct(name)
 
 

@@ -3,11 +3,13 @@
 Analogue of the reference's ``python/ray/util/placement_group.py`` API over
 the GCS-side 2PC scheduler (``gcs_placement_group_scheduler.h``). Strategies
 PACK / SPREAD / STRICT_PACK / STRICT_SPREAD match ``common.proto:937-944``.
-On TPU, a placement group is the gang-scheduling primitive: a pod slice is
-reserved as one STRICT_SPREAD group with a bundle per TPU-VM host (see
-``ray_tpu_torch.tpu.slice_placement_group``), generalizing the reference's
-``TPU-{pod_type}-head`` resource hack (``_private/accelerators/tpu.py:381``)
-into a scheduler-native mechanism.
+A placement group is the gang-scheduling primitive: a slice of hosts is
+reserved as one STRICT_SPREAD group with a bundle per host (the JAX
+package's ``ray_tpu/tpu.py::slice_placement_group`` does it for a TPU pod
+slice; the port reserves a node's cards through ``reserve_subslice`` and
+``HostGroup``), generalizing the reference's ``TPU-{pod_type}-head``
+resource hack (``_private/accelerators/tpu.py:381``) into a
+scheduler-native mechanism.
 """
 
 from __future__ import annotations

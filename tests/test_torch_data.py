@@ -6,9 +6,10 @@ One user program (``torch_data_program``) runs on ``ray_tpu`` and then on
 both up): ``data_program`` on a node of 4 CPUs holds a result for each of
 ``tests/test_data.py``'s one-node cases, and ``store_program`` on a node
 of 2 CPUs with a 48 MiB store holds its two ``cluster_utils.Cluster``
-cases (not ported; the JAX package's runs on that one node too, so the
-two compare). Results are plain values of numpy blocks and must be equal,
-rows in order where the JAX package is deterministic. Error classes are
+cases, which run again on each package's ``Cluster`` as the JAX tests run
+them (the shuffle on two such nodes). Results are plain values of numpy
+blocks and must be equal, rows in order where the JAX package is
+deterministic. Error classes are
 compared by name. Beside that: device batches on ``device="cpu"``,
 ``TorchTrainer(datasets=...)`` with two workers, a Tuner over it, and no
 data task's process loading torch or creating a CUDA context."""
@@ -63,6 +64,48 @@ def results(tmp_path_factory):
     return out
 
 
+@pytest.fixture(scope="module")
+def cluster_results():
+    """The two ``ray_start_cluster`` cases of ``tests/test_data.py`` on each
+    package's ``cluster_utils.Cluster`` (never both up), as the JAX tests
+    run them: the shuffle on two nodes of 2 CPUs, the bounded iteration on
+    one node of 2 CPUs, each node's store holding ``STORE_BYTES`` (set
+    before the nodes start). Run on two nodes, the bounded case's RSS
+    bound failed on both packages (both nodes' stores live in this
+    process), so it keeps the JAX test's one node."""
+    import importlib
+
+    out = {}
+    for pkg in RUNS:
+        rt = importlib.import_module(pkg)
+        cluster_utils = importlib.import_module(f"{pkg}.cluster_utils")
+        config = importlib.import_module(f"{pkg}.core.config").config
+        old = config.object_store_memory_bytes
+        config.object_store_memory_bytes = prog.STORE_BYTES
+        out[pkg] = {}
+        try:
+            for n_nodes, case in ((2, prog.shuffle_case),
+                                  (1, prog.bounded_case)):
+                cluster = cluster_utils.Cluster(initialize_head=False)
+                try:
+                    nodes = [cluster.add_node(num_cpus=2)
+                             for _ in range(n_nodes)]
+                    cluster.wait_for_nodes()
+                    rt.init(address=cluster.address)
+                    out[pkg].update(case(pkg))
+                    out[pkg][f"alive_nodes_{case.__name__}"] = (
+                        sorted(n["node_id"] for n in rt.nodes()
+                               if n["alive"]),
+                        sorted(n.node_id.hex() for n in nodes))
+                finally:
+                    if rt.is_initialized():
+                        rt.shutdown()
+                    cluster.shutdown()
+        finally:
+            config.object_store_memory_bytes = old
+    return out
+
+
 def test_every_case_of_the_jax_tests_has_a_counterpart():
     import ast
     from pathlib import Path
@@ -108,6 +151,27 @@ def test_case_values(results):
     assert tfr[2] == [f"record-{i}".encode() for i in range(10)] and tfr[3]
     shuffle = got["distributed_shuffle_multinode"]
     assert shuffle[1:] == (True, True, True)
+    big = got["shuffle_iterate_larger_than_store_bounded_memory"]
+    assert big[0] == prog.BIG_BLOCKS * prog.BIG_ROWS_PER
+    assert big[3:] == (True, True), got["peak_extra_rss"]
+
+
+@pytest.mark.parametrize("key", STORE_CASES)
+def test_two_node_cluster_case_matches_jax(cluster_results, key):
+    """The cluster cases on a ``Cluster``: the port's results equal the
+    JAX package's on the same cluster, every node of it alive."""
+    got = cluster_results["ray_tpu_torch"]
+    assert got[key] == cluster_results["ray_tpu"][key]
+    for case, nodes in (("shuffle_case", 2), ("bounded_case", 1)):
+        alive, started = got[f"alive_nodes_{case}"]
+        assert alive == started and len(alive) == nodes
+
+
+def test_two_node_cluster_case_values(cluster_results, results):
+    got = cluster_results["ray_tpu_torch"]
+    assert got["distributed_shuffle_multinode"][1:] == (True, True, True)
+    assert got["distributed_shuffle_multinode"] == \
+        results["ray_tpu_torch"]["distributed_shuffle_multinode"]
     big = got["shuffle_iterate_larger_than_store_bounded_memory"]
     assert big[0] == prog.BIG_BLOCKS * prog.BIG_ROWS_PER
     assert big[3:] == (True, True), got["peak_extra_rss"]

@@ -134,27 +134,49 @@ def test_gpu_detection_without_a_context(monkeypatch):
 
 
 def test_not_ported_surfaces_raise():
-    """Client mode, a non-empty runtime_env, ``cluster_utils.Cluster`` and
-    the CLI name their ROADMAP item."""
+    """The CLI and ``num_tpus`` still refuse (the CLI names its ROADMAP
+    item); ``cluster_utils.Cluster``, client mode and a non-empty
+    runtime_env work: a two-node cluster, a thin client on it, and a
+    spec normalized as the JAX package's."""
     import subprocess
     import sys
 
     import ray_tpu_torch as rt
+    from ray_tpu import runtime_env as jre
+    from ray_tpu_torch import client as client_mod
     from ray_tpu_torch.cluster_utils import Cluster
     from ray_tpu_torch.core.remote_function import (_normalized_env,
                                                     _resources_from_options)
 
-    with pytest.raises(NotImplementedError,
-                       match="item 4, cluster_utils.Cluster"):
-        Cluster(initialize_head=False)
     cli = subprocess.run([sys.executable, "-m", "ray_tpu_torch", "status"],
                          capture_output=True, text=True, timeout=60)
     assert cli.returncode == 2 and "item 4, the CLI" in cli.stderr
 
-    with pytest.raises(NotImplementedError, match="item 4, client mode"):
-        rt.init(address="ray-tpu://localhost:1")
-    with pytest.raises(NotImplementedError, match="item 4, runtime_env"):
-        _normalized_env({"runtime_env": {"env_vars": {"A": "1"}}})
+    spec = {"env_vars": {"A": 1}, "working_dir": "/w"}
+    assert _normalized_env({"runtime_env": spec}) == jre.normalize(spec) == {
+        "env_vars": {"A": "1"}, "working_dir": "/w"}
+    cluster = Cluster(initialize_head=False)
+    try:
+        cluster.add_node(num_cpus=1)
+        cluster.add_node(num_cpus=1, resources={"GPU": 1})
+        cluster.wait_for_nodes()
+        rt.init(address=cluster.address)
+        server = client_mod.ClientServer(host="127.0.0.1")
+        try:
+            client = rt.init(address=f"ray-tpu://{server.address[0]}:"
+                                     f"{server.address[1]}")
+            assert client_mod.current_client() is client
+            res = rt.cluster_resources()
+            assert (res["CPU"], res["GPU"], res["chips"]) == (2.0, 1.0, 1.0)
+            assert rt.get(rt.put(3)) == 3
+            rt.shutdown()  # disconnects the client only
+            assert client_mod.current_client() is None
+            assert rt.is_initialized()
+        finally:
+            server.stop()
+    finally:
+        rt.shutdown()
+        cluster.shutdown()
     with pytest.raises(ValueError, match="num_gpus"):
         _resources_from_options({"num_tpus": 1})
     assert _resources_from_options({"num_gpus": 1}) == {"CPU": 1.0,

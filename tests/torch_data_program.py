@@ -5,8 +5,10 @@
 that runs on one node, plus the device batches, the trainer's
 ``datasets=`` ingest, a Tuner over such a trainer and what a data task's
 process sees. ``store_program`` holds the two cases that the JAX tests run
-on a ``cluster_utils.Cluster`` (not ported), on one node with a 48 MiB
-store instead. Every result is plain values: numpy arrays become their
+on a ``cluster_utils.Cluster``, on one node with a 48 MiB store;
+``shuffle_case`` and ``bounded_case`` are its halves, which
+``tests/test_torch_data.py`` also runs on each package's ``Cluster``.
+Every result is plain values: numpy arrays become their
 dtype, shape and values, so results compare exactly, order included.
 
 Every function takes the package's name and imports it, so the same code
@@ -552,17 +554,29 @@ def store_program(pkg: str) -> dict:
     """The cluster cases of ``tests/test_data.py`` on one node whose store
     holds ``STORE_BYTES``: the shuffle exchange, then a dataset about 2.5x
     the store shuffled and iterated with this process's RSS bounded."""
+    return {**shuffle_case(pkg), **bounded_case(pkg)}
+
+
+def shuffle_case(pkg: str) -> dict:
+    """``test_distributed_shuffle_multinode``: 5000 rows in 8 blocks
+    shuffled twice with one seed."""
+    rdata = _data(pkg)
+    ds = rdata.range(5000).repartition(8)
+    vals = [int(r["id"]) for r in ds.random_shuffle(seed=3).iter_rows()]
+    again = [int(r["id"]) for r in ds.random_shuffle(seed=3).iter_rows()]
+    return {"distributed_shuffle_multinode": (
+        vals, sorted(vals) == list(range(5000)),
+        vals != list(range(5000)), vals == again)}
+
+
+def bounded_case(pkg: str) -> dict:
+    """``test_shuffle_iterate_larger_than_store_bounded_memory``: a dataset
+    about 2.5x the store shuffled and iterated, this process's RSS growth
+    kept."""
     import psutil
 
     rdata = _data(pkg)
     out = {}
-    ds = rdata.range(5000).repartition(8)
-    vals = [int(r["id"]) for r in ds.random_shuffle(seed=3).iter_rows()]
-    again = [int(r["id"]) for r in ds.random_shuffle(seed=3).iter_rows()]
-    out["distributed_shuffle_multinode"] = (
-        vals, sorted(vals) == list(range(5000)),
-        vals != list(range(5000)), vals == again)
-
     n = BIG_BLOCKS * BIG_ROWS_PER
     ds = rdata.from_numpy({"x": np.arange(n, dtype=np.int64)},
                           num_blocks=BIG_BLOCKS)
