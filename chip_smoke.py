@@ -110,7 +110,17 @@ Phases, one JSON line each (``{"phase": ..., "ok": ...}``):
    burst of the six over HTTP at once (client TTFT p50 / p99 and tokens/s
    beside the replica's ``slo_summary``), flash #1's launches read in the
    replica's process (32 per full prefill wave, all on wgmma), and a
-   teardown that leaves no process of the node and no store file.
+   teardown that leaves no process of the node and no store file. Before
+   the teardown, against the live cluster: ``python -m ray_tpu_torch
+   --address H:P`` with ``status`` (``GPU`` 1.0), ``list nodes``, ``list
+   actors`` (the replica's ``ReplicaActor`` alive), ``memory``,
+   ``metrics`` (the deployment's TTFT histogram counts every request of
+   the phase), ``doctor --interval 2 --json`` (parses, no ``slo-burn``)
+   and ``timeline --serve -o <tmp>`` (the replica's engine-step events),
+   each in a process of its own that must exit 0, each timed; then
+   ``dashboard.start`` in this process, whose ``/``, ``/api/nodes``,
+   ``/api/actors``, ``/api/serve`` (naming the deployment), ``/api/core``
+   and ``/metrics`` must answer 200, each timed.
 10. serve_mesh: the serve_paged geometry and requests served by one
    ``DecodeEngine`` replica over a (1, 1) decode mesh at world size 1
    (one NCCL process group of one rank, in process) beside the mesh-less
@@ -388,8 +398,11 @@ Phases, one JSON line each (``{"phase": ..., "ok": ...}``):
    ``snapshot_every=1``: the last stage's process is SIGKILLed after step
    2 commits; the gang reconciles under epoch 2, the registry's epoch
    bumps, step 3 replays, the losses equal the uninterrupted in-process
-   chain's (b's), and ``stop()`` leaves no ref and no record. The
-   in-process baselines are freed before each plane starts.
+   chain's (b's), and ``stop()`` leaves no ref and no record; then
+   ``python -m ray_tpu_torch --address H:P doctor --post-mortem --json``
+   against the live cluster must name ``gang-death`` for the killed
+   member and the stage it hosted. The in-process baselines are freed
+   before each plane starts.
 
 Depth, steps and schedule cut to keep the smoke near half its 1200 s
 limit: the pipeline and train_runtime run the 1B width at 4 layers
@@ -5892,6 +5905,10 @@ def _serve_runtime(cfg, device, init_s) -> dict:
     out["replica_slo"] = slo_line(summary)
     checks["replica_slo_counts"] = (
         summary.get("outcomes", {}).get("completed") == want)
+    # The CLI and the dashboard against the live cluster.
+    cli, cli_checks = _serve_cli(core.controller_addr, "llm", want)
+    out["cli"] = cli
+    checks.update(cli_checks)
     # The solo in-process engine on the same seed and config, replaying
     # the sequential order one request at a time.
     solo = LlamaDecodeDeployment(**geo, device=device)
@@ -5925,8 +5942,107 @@ def _serve_runtime(cfg, device, init_s) -> dict:
     out["checks"] = checks
     if torch.device(device).type == "cuda":
         out["device"] = smi_line()
-    out["ok"] = all(checks.values()) and len(checks) == 10
+    out["ok"] = all(checks.values()) and len(checks) == 18
     return out
+
+
+def _cli(addr, *argv, timeout: float = 300.0):
+    """``python -m ray_tpu_torch --address H:P <argv>`` in a process of
+    its own, from this checkout: (exit code, stdout, stderr, seconds)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    path = [root] + [p for p in os.environ.get("PYTHONPATH", "").split(
+        os.pathsep) if p]
+    t = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "ray_tpu_torch", "--address",
+         f"{addr[0]}:{addr[1]}", *argv], capture_output=True, text=True,
+        timeout=timeout, cwd=root,
+        env={**os.environ, "PYTHONPATH": os.pathsep.join(path)})
+    return (proc.returncode, proc.stdout, proc.stderr,
+            time.perf_counter() - t)
+
+
+def _serve_cli(addr, deployment: str, requests: int):
+    """The CLI's subcommands, each in its own process, then the dashboard
+    in this one, against the cluster serving ``deployment``: the seconds
+    of each subcommand and route, and the checks of what each shows."""
+    import tempfile
+    import urllib.request
+
+    from ray_tpu_torch import dashboard
+
+    out, runs = {"seconds": {}, "exit": {}}, {}
+    tmp = tempfile.mkdtemp(prefix="smoke_cli_")
+    trace_path = os.path.join(tmp, "timeline.json")
+    for key, argv in (("status", ["status"]),
+                      ("list nodes", ["list", "nodes"]),
+                      ("list actors", ["list", "actors"]),
+                      ("memory", ["memory"]), ("metrics", ["metrics"]),
+                      ("doctor", ["doctor", "--interval", "2", "--json"]),
+                      ("timeline", ["timeline", "--serve", "-o",
+                                    trace_path])):
+        rc, stdout, stderr, secs = _cli(addr, *argv)
+        runs[key] = stdout
+        out["seconds"][key] = secs
+        out["exit"][key] = rc
+        if rc:
+            out.setdefault("stderr", {})[key] = stderr[-2000:]
+    checks = {"cli_exit_0": all(rc == 0 for rc in out["exit"].values())}
+    checks["cli_status_gpu_1"] = "'GPU': 1.0" in runs["status"]
+    checks["cli_list_actors_names_replica"] = any(
+        "ReplicaActor" in line and "ALIVE" in line
+        for line in runs["list actors"].splitlines())
+    counts = [int(m.group(1)) for m in re.finditer(
+        r"serve_ttft_s\{deployment=" + re.escape(deployment)
+        + r"\}\s+n=(\d+)", runs["metrics"])]
+    out["metrics_ttft_count"] = counts[0] if counts else None
+    checks["cli_metrics_deployment_count"] = bool(counts) and \
+        counts[0] >= requests
+    try:
+        with open(trace_path) as f:
+            trace = json.load(f)
+    except (OSError, ValueError):
+        trace = []
+    steps = [e for e in trace if e.get("cat") == "engine-step"]
+    out["timeline_events"], out["timeline_engine_steps"] = (
+        len(trace), len(steps))
+    checks["cli_timeline_engine_steps"] = bool(steps) and all(
+        str(e.get("pid", "")).startswith(f"engine:{deployment}")
+        for e in steps)
+    try:
+        findings = json.loads(runs["doctor"])
+    except ValueError:
+        findings = None
+    out["doctor_findings"] = ([f["signature"] for f in findings]
+                              if findings is not None else None)
+    checks["cli_doctor_json_no_slo_burn"] = findings is not None and not [
+        f for f in findings if f["signature"] == "slo-burn"]
+    # The dashboard, started in this process.
+    server, (host, port) = dashboard.start(addr)
+    codes, bodies = {}, {}
+    try:
+        for route in ("/", "/api/nodes", "/api/actors", "/api/serve",
+                      "/api/core", "/metrics"):
+            t = time.perf_counter()
+            try:
+                with urllib.request.urlopen(f"http://{host}:{port}{route}",
+                                            timeout=60) as resp:
+                    codes[route], bodies[route] = resp.status, resp.read()
+            except Exception as e:  # a failed route fails the check
+                codes[route], bodies[route] = repr(e), b""
+            out["seconds"][f"dashboard {route}"] = time.perf_counter() - t
+    finally:
+        server._history.stop()
+        server.shutdown()
+        server.server_close()
+    out["dashboard_codes"] = codes
+    checks["dashboard_routes_200"] = all(c == 200 for c in codes.values())
+    try:
+        serve_view = json.loads(bodies["/api/serve"])
+    except ValueError:
+        serve_view = {}
+    checks["dashboard_serve_names_deployment"] = deployment in serve_view
+    return out, checks
 
 
 # ----------------------------------------------------------------- gang
@@ -6783,11 +6899,12 @@ def phase_pipeline(cfg, device="cuda") -> dict:
     b["seconds"] = time.perf_counter() - t
     out["b"] = b
 
-    # (c) two stages, the last one killed after step 2
+    # (c) two stages, the last one killed after step 2; then the doctor's
+    # post-mortem, through the CLI, against the live cluster
     t = time.perf_counter()
-    c = _pipe_virtual_slice(lambda: _pipe_run(
+    c = _pipe_virtual_slice(lambda: _pipe_post_mortem(_pipe_run(
         cfg, params, steps, device, 2, "smoke-pipe-kill", PIPE_SHARE,
-        snapshot_every=1, kill_after=2), device)
+        snapshot_every=1, kill_after=2), "smoke-pipe-kill"), device)
     c["chain_losses"] = chain2
     c["seconds"] = time.perf_counter() - t
     out["c"] = c
@@ -6839,6 +6956,11 @@ def phase_pipeline(cfg, device="cuda") -> dict:
         c["report"] == {"inflight_refs_dropped": 0, "ledger_refs": 0,
                         "steps_completed": n_steps}
         and c["registry_after"] is None)
+    pm = c["post_mortem"]
+    checks["c_post_mortem_names_killed_stage"] = (
+        pm["exit"] == 0 and pm["first_dying"] == c["killed"]["member"]
+        and pm["stage"] == "pipeline 'smoke-pipe-kill' stage s"
+        + c["killed"]["member"][len("host-"):])
     # The kernels line counts (a)'s and (b)'s launches, read in the stages.
     out["launches"] = {k: a["launches"][k] + b["launches"][k]
                        for k in KERNELS}
@@ -6853,8 +6975,32 @@ def phase_pipeline(cfg, device="cuda") -> dict:
     out["checks"] = checks
     if cuda:
         out["device"] = smi_line()
-    out["ok"] = all(checks.values()) and len(checks) == 24
+    out["ok"] = all(checks.values()) and len(checks) == 25
     return out
+
+
+def _pipe_post_mortem(run: dict, name: str) -> dict:
+    """``doctor --post-mortem --json`` through the CLI against the live
+    cluster, after the surviving processes' flight recorders flushed: the
+    gang-death finding of ``name``'s gang, beside ``run``."""
+    from ray_tpu_torch.core.runtime import get_core_worker
+
+    time.sleep(1.5)  # the recorders' background flush
+    rc, stdout, stderr, secs = _cli(get_core_worker().controller_addr,
+                                    "doctor", "--post-mortem", "--json")
+    pm = {"exit": rc, "seconds": secs, "first_dying": None, "stage": None}
+    try:
+        findings = json.loads(stdout)
+    except ValueError:
+        findings, pm["stderr"] = [], stderr[-2000:]
+    pm["signatures"] = sorted({f["signature"] for f in findings})
+    for f in findings:
+        if (f["signature"] == "gang-death"
+                and f["source"] == f"group:{name}-gang"):
+            pm.update(first_dying=f["evidence"]["first_dying"],
+                      stage=f["evidence"]["stage"], summary=f["summary"])
+    run["post_mortem"] = pm
+    return run
 
 
 def _pipe_virtual_slice(fn, device):

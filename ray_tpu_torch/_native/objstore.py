@@ -11,6 +11,7 @@ from __future__ import annotations
 import ctypes
 import mmap
 import os
+import threading
 from typing import Optional
 
 from ray_tpu_torch._native.build import build_library
@@ -120,13 +121,25 @@ class ShmPin:
             pass
 
 
+class StoreClosedError(RuntimeError):
+    """A write reached a store that ``close()`` already released."""
+
+
 class ShmStore:
     """One per process per store file; all methods thread-safe (locking lives
-    in the C++ layer)."""
+    in the C++ layer).
+
+    Every call that hands the C library the store handle takes
+    ``self._lock``, which ``close()`` takes too, and checks the handle under
+    it: after ``close`` no call reaches the library with a null or freed
+    handle. Reads and deletes then return their empty value (``None``,
+    ``False``, 0); writes raise :class:`StoreClosedError`. Payload copies
+    run outside the lock."""
 
     def __init__(self, path: str):
         self._lib = _load()
         self.path = path
+        self._lock = threading.Lock()
         self._handle = self._lib.shm_store_open(path.encode())
         if not self._handle:
             raise OSError(f"cannot open shm store at {path}")
@@ -146,6 +159,20 @@ class ShmStore:
             raise OSError(f"shm_store_create({path}) failed: {rc}")
         return ShmStore(path)
 
+    def _call(self, fn, *args, closed=None):
+        """``fn(handle, *args)`` under the lock, or ``closed`` once the
+        store is closed."""
+        with self._lock:
+            if not self._handle:
+                return closed
+            return fn(self._handle, *args)
+
+    def _write_call(self, fn, *args):
+        with self._lock:
+            if not self._handle:
+                raise StoreClosedError(f"shm store {self.path} is closed")
+            return fn(self._handle, *args)
+
     # ------------------------------------------------------------ writer
 
     def put_bytes(self, object_id: bytes, payload, pin: bool = False):
@@ -153,16 +180,16 @@ class ShmStore:
         otherwise True, or a ShmPin when ``pin`` (the primary-copy pin the
         owner must hold until the object is freed)."""
         n = len(payload)
-        off = self._lib.shm_create(self._handle, object_id, n)
+        off = self._write_call(self._lib.shm_create, object_id, n)
         if off == 0:
             return None
         self._mv[off:off + n] = payload
-        self._lib.shm_seal2(self._handle, object_id, 1 if pin else 0)
+        self._write_call(self._lib.shm_seal2, object_id, 1 if pin else 0)
         return ShmPin(self, object_id) if pin else True
 
     def create_buffer(self, object_id: bytes, size: int):
         """Reserve a writable buffer; caller fills it then calls seal()."""
-        off = self._lib.shm_create(self._handle, object_id, size)
+        off = self._write_call(self._lib.shm_create, object_id, size)
         if off == 0:
             return None
         return self._mv[off:off + size]
@@ -171,45 +198,58 @@ class ShmStore:
         """Seal a buffer created via create_buffer; with ``pin`` the primary
         copy stays unevictable and the returned ShmPin must be held."""
         if pin:
-            self._lib.shm_seal2(self._handle, object_id, 1)
+            self._write_call(self._lib.shm_seal2, object_id, 1)
             return ShmPin(self, object_id)
-        self._lib.shm_seal(self._handle, object_id)
+        self._write_call(self._lib.shm_seal, object_id)
         return None
 
     # ------------------------------------------------------------ reader
 
     def get_view(self, object_id: bytes) -> Optional[ShmView]:
         size = ctypes.c_uint64()
-        off = self._lib.shm_get(self._handle, object_id,
-                                ctypes.byref(size), 1)
-        if off == 0:
-            return None
-        return ShmView(self, object_id, self._mv[off:off + size.value])
+        with self._lock:
+            if not self._handle:
+                return None
+            off = self._lib.shm_get(self._handle, object_id,
+                                    ctypes.byref(size), 1)
+            if off == 0:
+                return None
+            # Sliced under the lock: close() releases ``_mv``.
+            mv = self._mv[off:off + size.value]
+        return ShmView(self, object_id, mv)
 
     def contains(self, object_id: bytes) -> bool:
-        return bool(self._lib.shm_contains(self._handle, object_id))
+        return bool(self._call(self._lib.shm_contains, object_id,
+                               closed=0))
 
     def _unpin(self, object_id: bytes) -> None:
-        self._lib.shm_unpin(self._handle, object_id)
+        self._call(self._lib.shm_unpin, object_id)
 
     def delete(self, object_id: bytes) -> bool:
-        return self._lib.shm_delete(self._handle, object_id) == 0
+        return self._call(self._lib.shm_delete, object_id, closed=-1) == 0
 
     # ------------------------------------------------------------- stats
 
     def used_bytes(self) -> int:
-        return self._lib.shm_used_bytes(self._handle)
+        return self._call(self._lib.shm_used_bytes, closed=0)
 
     def capacity(self) -> int:
-        return self._lib.shm_capacity(self._handle)
+        return self._call(self._lib.shm_capacity, closed=0)
 
     def num_objects(self) -> int:
-        return self._lib.shm_num_objects(self._handle)
+        return self._call(self._lib.shm_num_objects, closed=0)
 
     def close(self) -> None:
-        if self._handle:
+        with self._lock:
+            if not self._handle:
+                return
+            handle, self._handle = self._handle, None
+            self._lib.shm_store_close(handle)
             self._mv.release()
-            self._map.close()
+            try:
+                self._map.close()
+            except BufferError:
+                # A live view still exports the mapping; it unmaps when
+                # the last view goes.
+                pass
             os.close(self._fd)
-            self._lib.shm_store_close(self._handle)
-            self._handle = None

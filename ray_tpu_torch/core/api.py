@@ -175,6 +175,13 @@ def shutdown() -> None:
             logger.debug("final log drain failed", exc_info=True)
         _log_streamer.stop()
         _log_streamer = None
+    try:
+        # Local-only usage report (reference phones home; we never do).
+        from ray_tpu_torch import usage as _usage
+
+        _usage.write_report()
+    except Exception:  # graftlint: disable=swallowed-exception (local usage report is optional)
+        pass
     if _config_snapshot is not None:
         # _system_config overrides are scoped to the init()..shutdown() span;
         # restore so a later init() in the same process starts clean.

@@ -596,8 +596,10 @@ def form_torch_runtime(actors: List[Any], torch_config, *, group_id: str,
     ``join_gang_runtime`` remote methods — TrainWorker does): the
     lowest-ranked member hosts the tcp rendezvous, every member enters
     the bootstrap-fingerprint barrier, then joins with its rank on its
-    card (``local_ranks[rank]``, its index among the gang's members on
-    its node). Returns the coordinator address."""
+    card (``local_ranks[rank]``, the card's index in the member's own
+    process: 0 for a member whose ``GPU`` lease narrowed
+    ``CUDA_VISIBLE_DEVICES`` to its cards). Returns the coordinator
+    address."""
     import ray_tpu_torch
 
     local_ranks = local_ranks or [0] * len(actors)
@@ -1108,7 +1110,8 @@ class HostGroup:
         disjoint chip mask covering the sub-slice and the same group
         geometry (a member that drives its host's cards holds their
         ``GPU`` lease through ``worker_options``, e.g. ``{"num_gpus":
-        1}``: the node hides the card from every other worker); any
+        1}``: the node starts it with ``CUDA_VISIBLE_DEVICES`` narrowed
+        to the leased cards and hides them from CPU workers); any
         failure kills whatever spawned. Appends into
         ``members`` (the caller's list) rather than returning so the
         lease locals in ``_form`` stay subscript-read borrows."""

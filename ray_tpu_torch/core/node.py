@@ -5,8 +5,18 @@ GPU leases follow the JAX package's rule for TPU leases: a lease holding a
 ``GPU`` resource always gets a freshly spawned interpreter (``Popen``),
 never a fork of the warm template, so no worker inherits a parent's CUDA
 state; CPU-leased workers and the template run with ``accel_env_vars``
-(``CUDA_VISIBLE_DEVICES``) emptied, so they cannot see the card. The node
-pins no card to a lease: a GPU worker sees every card of the node.
+(``CUDA_VISIBLE_DEVICES``) emptied, so they cannot see the card.
+
+A GPU lease names its cards, by upstream Ray's ``CUDA_VISIBLE_DEVICES`` rule
+(``python/ray/_private/accelerators/nvidia_gpu.py``): the node keeps its
+``GPU`` indices (mapped through its own ``CUDA_VISIBLE_DEVICES`` when that
+names enough cards; a node that declares more ``GPU`` than the machine shows
+is a test setup, and its indices reach the environment unchanged) and what
+is free of each. A lease of whole cards takes whole free cards; a fractional
+lease packs onto the fullest card it fits. The worker starts with
+``CUDA_VISIBLE_DEVICES`` narrowed to those cards, so its ``cuda:0`` is the
+first card it holds; the shares go back when the lease ends, and a pooled
+GPU worker is reused only by a lease on the same cards.
 
 Analogue of the reference's raylet (``src/ray/raylet/node_manager.h:119`` +
 ``worker_pool.h:159``): grants *worker leases* against the node's resource
@@ -28,6 +38,7 @@ inline RPC methods so they always make progress while lease calls wait.
 from __future__ import annotations
 
 import logging
+import math
 import os
 import pickle
 import select
@@ -66,6 +77,21 @@ def spill_dir(node_id: NodeID) -> str:
 
 def spill_file(node_id: NodeID, oid_bytes: bytes) -> str:
     return os.path.join(spill_dir(node_id), oid_bytes.hex() + ".bin")
+
+
+CARD_ENV = "CUDA_VISIBLE_DEVICES"
+
+
+def node_card_ids(count: int, env: Optional[Dict[str, str]] = None
+                  ) -> List[str]:
+    """The ids of a node's ``count`` cards: the first ``count`` entries of
+    its ``CUDA_VISIBLE_DEVICES`` (``env`` first, then this process's) when
+    that names as many, else ``0 .. count-1``."""
+    visible = (env or {}).get(CARD_ENV, os.environ.get(CARD_ENV))
+    ids = [x.strip() for x in (visible or "").split(",") if x.strip()]
+    if len(ids) < count:
+        return [str(i) for i in range(count)]
+    return ids[:count]
 
 
 def _runtime_env_hash(runtime_env: Optional[Dict[str, Any]]) -> str:
@@ -226,13 +252,37 @@ class _LeaseWaiter:
     waiter can be starved by lock-acquisition races (raylets queue tasks the
     same way: leases dispatch in order per scheduling class)."""
 
-    __slots__ = ("resources", "bundle", "event", "granted")
+    __slots__ = ("resources", "bundle", "event", "granted", "cards")
 
     def __init__(self, resources: Dict[str, float], bundle):
         self.resources = resources
         self.bundle = bundle
         self.event = threading.Event()
         self.granted = False
+        self.cards: List[Tuple[str, float]] = []  # (card id, share) granted
+
+
+class _InFlight:
+    """Counts RPC handlers that are using the node's store, so ``stop`` can
+    close it after they finish (the handler pool is shut without waiting)."""
+
+    def __init__(self):
+        self._cv = threading.Condition()
+        self._n = 0
+
+    def __enter__(self):
+        with self._cv:
+            self._n += 1
+
+    def __exit__(self, *exc):
+        with self._cv:
+            self._n -= 1
+            if self._n == 0:
+                self._cv.notify_all()
+
+    def wait_idle(self, timeout: float) -> bool:
+        with self._cv:
+            return self._cv.wait_for(lambda: self._n == 0, timeout)
 
 
 class WorkerHandle:
@@ -244,6 +294,7 @@ class WorkerHandle:
         self.idle = False
         self.dedicated = False  # actor workers are never pooled
         self.gpu = False        # spawned with the card visible (see _fork_worker)
+        self.cards: List[str] = []  # its CUDA_VISIBLE_DEVICES, for life
         self.env_hash = ""      # runtime-env identity for pool matching
         self.env_dirs: List[str] = []  # cache dirs pinned against env GC
         self.tasks_received = 0        # worker-reported (worker_ping)
@@ -262,6 +313,7 @@ class WorkerHandle:
         # (on lease return, worker kill, or death-reap — whichever first).
         self.lease_resources: Optional[Dict[str, float]] = None
         self.lease_bundle = None
+        self.lease_cards: List[Tuple[str, float]] = []  # card shares held
         # Lease-time task metadata ({"retriable": bool, "owner": str}) used
         # by the memory monitor's worker-killing policies.
         self.task_meta: Optional[Dict[str, Any]] = None
@@ -303,6 +355,9 @@ class Node:
         self.total_resources = dict(resources)
         self.labels = dict(labels or {})
         self._extra_env = dict(env or {})
+        self._card_ids = node_card_ids(
+            int(math.ceil(resources.get("GPU", 0))), self._extra_env)
+        self._card_free = {c: 1.0 for c in self._card_ids}
 
         # Per-node shared-memory object store (plasma equivalent). The path
         # is derived from the node id so every process on the node can open
@@ -314,6 +369,7 @@ class Node:
 
         self._shm = ShmStore.create(self.store_path,
                                     config.object_store_memory_bytes)
+        self._store_users = _InFlight()
 
         self._lock = threading.Lock()
         self._available = dict(resources)
@@ -468,6 +524,7 @@ class Node:
                     return {"error": "lease timeout"}
         needs_gpu = resources.get("GPU", 0) > 0
         env_hash = _runtime_env_hash(runtime_env)
+        cards = [c for c, _ in waiter.cards]
         try:
             if dedicated:
                 # Actors claim a warm pooled worker ONLY when the
@@ -484,12 +541,13 @@ class Node:
                 if handle is None:
                     handle = self._fork_worker(dedicated=True,
                                                needs_gpu=needs_gpu,
-                                               runtime_env=runtime_env)
+                                               runtime_env=runtime_env,
+                                               cards=cards)
             else:
                 handle = self._take_or_fork_worker(needs_gpu, runtime_env,
-                                                   env_hash)
+                                                   env_hash, cards)
         except Exception as e:
-            self._credit(resources, bundle)
+            self._credit(resources, bundle, waiter.cards)
             from ray_tpu_torch.runtime_env import RuntimeEnvBuildError
 
             # Permanent = the same spec fails identically on every node
@@ -500,6 +558,7 @@ class Node:
         with self._lock:
             handle.lease_resources = dict(resources)
             handle.lease_bundle = bundle
+            handle.lease_cards = waiter.cards
             handle.task_meta = dict(task_meta) if task_meta else None
             handle.last_used = time.monotonic()
             handle.lease_ts = time.monotonic()
@@ -508,11 +567,13 @@ class Node:
         return {"worker_id": handle.worker_id.binary(), "addr": handle.addr,
                 "lease_seq": lease_seq, "lease_ts": handle.lease_ts}
 
-    def _credit(self, resources: Dict[str, float], bundle) -> None:
+    def _credit(self, resources: Dict[str, float], bundle,
+                cards: List[Tuple[str, float]] = ()) -> None:
         with self._lock:
             pool = self._pool_for(bundle)
             if pool is not None:
                 resmath.credit(pool, resources)
+            self._return_cards_locked(cards)
             self._drain_waiters_locked()
 
     def _credit_lease_locked(self, handle: WorkerHandle) -> None:
@@ -521,8 +582,38 @@ class Node:
         pool = self._pool_for(handle.lease_bundle)
         if pool is not None:
             resmath.credit(pool, handle.lease_resources)
+        self._return_cards_locked(handle.lease_cards)
         handle.lease_resources = None
         handle.lease_bundle = None
+        handle.lease_cards = []
+
+    def _take_cards_locked(self, amount: float
+                           ) -> Optional[List[Tuple[str, float]]]:
+        """Card shares for a lease of ``amount`` GPU, or None when none
+        fit: whole free cards for a whole lease, the fullest card with room
+        for a fractional one."""
+        eps = 1e-9
+        if amount <= 0:
+            return []
+        if amount < 1:
+            fits = [c for c in self._card_ids
+                    if self._card_free[c] >= amount - eps]
+            if not fits:
+                return None
+            card = min(fits, key=lambda c: self._card_free[c])
+            self._card_free[card] -= amount
+            return [(card, amount)]
+        free = [c for c in self._card_ids if self._card_free[c] >= 1 - eps]
+        need = int(math.ceil(amount - eps))
+        if len(free) < need:
+            return None
+        for c in free[:need]:
+            self._card_free[c] = 0.0
+        return [(c, 1.0) for c in free[:need]]
+
+    def _return_cards_locked(self, cards) -> None:
+        for card, share in cards:
+            self._card_free[card] = min(1.0, self._card_free[card] + share)
 
     def _drain_waiters_locked(self) -> None:
         """Grant queued leases FIFO per resource pool. A blocked head only
@@ -536,7 +627,14 @@ class Node:
                 still_waiting.append(waiter)
                 continue
             pool = self._pool_for(waiter.bundle)
-            if pool is not None and resmath.take(pool, waiter.resources):
+            cards = (self._take_cards_locked(waiter.resources.get("GPU", 0))
+                     if pool is not None else None)
+            if cards is not None and not resmath.take(pool,
+                                                      waiter.resources):
+                self._return_cards_locked(cards)
+                cards = None
+            if cards is not None:
+                waiter.cards = cards
                 waiter.granted = True
                 waiter.event.set()
             else:
@@ -573,8 +671,8 @@ class Node:
             self._drain_waiters_locked()
 
     def _take_idle_worker(self, needs_gpu: bool, env_hash: str,
-                          claim_dedicated: bool = False
-                          ) -> Optional[WorkerHandle]:
+                          claim_dedicated: bool = False,
+                          cards: List[str] = ()) -> Optional[WorkerHandle]:
         with self._lock:
             kept: List[WorkerHandle] = []
             found = None
@@ -583,6 +681,7 @@ class Node:
                 if handle.proc.poll() is not None:
                     self._remove_worker_locked(handle)
                 elif (found is None and handle.gpu == needs_gpu
+                        and handle.cards == list(cards)
                         and handle.env_hash == env_hash):
                     handle.idle = False
                     # Claimed-for-actor transition happens UNDER the lock:
@@ -599,17 +698,18 @@ class Node:
 
     def _take_or_fork_worker(self, needs_gpu: bool = False,
                              runtime_env: Optional[Dict[str, Any]] = None,
-                             env_hash: str = "") -> WorkerHandle:
-        found = self._take_idle_worker(needs_gpu, env_hash)
+                             env_hash: str = "",
+                             cards: List[str] = ()) -> WorkerHandle:
+        found = self._take_idle_worker(needs_gpu, env_hash, cards=cards)
         if found is not None:
             return found
         return self._fork_worker(needs_gpu=needs_gpu,
-                                 runtime_env=runtime_env)
+                                 runtime_env=runtime_env, cards=cards)
 
     def _fork_worker(self, dedicated: bool = False,
                      needs_gpu: bool = False,
-                     runtime_env: Optional[Dict[str, Any]] = None
-                     ) -> WorkerHandle:
+                     runtime_env: Optional[Dict[str, Any]] = None,
+                     cards: List[str] = ()) -> WorkerHandle:
         if (config.worker_forkserver_enabled and not needs_gpu
                 and not runtime_env):
             try:
@@ -640,7 +740,8 @@ class Node:
             if built["python"]:
                 python_exe = built["python"]
         env = self._spawn_env(hide_accel=not needs_gpu,
-                              extra_vars=extra_vars)
+                              extra_vars=extra_vars,
+                              cards=cards if needs_gpu else None)
         front = ([workdir] if workdir else []) + env_paths
         if front:
             # working_dir + py_modules go FIRST so they shadow base-env
@@ -685,6 +786,7 @@ class Node:
         handle = WorkerHandle(worker_id, proc)
         handle.dedicated = dedicated
         handle.gpu = needs_gpu
+        handle.cards = list(cards) if needs_gpu else []
         handle.env_hash = _runtime_env_hash(runtime_env)
         handle.env_dirs = env_dirs
         if env_dirs:
@@ -721,8 +823,8 @@ class Node:
                     f"worker {worker_id.hex()} failed to register")
 
     def _spawn_env(self, hide_accel: bool,
-                   extra_vars: Optional[Dict[str, str]] = None
-                   ) -> Dict[str, str]:
+                   extra_vars: Optional[Dict[str, str]] = None,
+                   cards: Optional[List[str]] = None) -> Dict[str, str]:
         """Base environment for worker AND template processes: node extras,
         optionally the card hidden, user runtime-env vars, then repo +
         sys.path merged onto PYTHONPATH.
@@ -731,7 +833,8 @@ class Node:
         they fork from) get every ``accel_env_vars`` entry set to the
         empty string, so ``CUDA_VISIBLE_DEVICES=""`` keeps them off the
         card: no CUDA context, no device memory, whatever the task's
-        code calls. GPU-resourced leases keep the node's values.
+        code calls. ``cards``: a GPU lease's worker sees only the cards
+        it holds (``CUDA_VISIBLE_DEVICES`` narrowed to them).
 
         ``extra_vars`` land BEFORE the PYTHONPATH merge, so a
         user-supplied PYTHONPATH joins the inherited tail instead of
@@ -743,6 +846,8 @@ class Node:
             for var in config.accel_env_vars.split(","):
                 if var.strip():
                     env[var.strip()] = ""
+        if cards is not None:
+            env[CARD_ENV] = ",".join(cards)
         if extra_vars:
             env.update(extra_vars)
         pkg_root = os.path.dirname(os.path.dirname(os.path.dirname(
@@ -1208,12 +1313,13 @@ class Node:
         a remote reader — the small-object node-to-node path (reference:
         ObjectManager Push/Pull, object_manager.h:117). Large objects go
         through read_shm_chunk."""
-        view = self._shm.get_view(oid_bytes)
-        if view is not None:
-            try:
-                return bytes(view.data)
-            finally:
-                view.release()
+        with self._store_users:
+            view = self._shm.get_view(oid_bytes)
+            if view is not None:
+                try:
+                    return bytes(view.data)
+                finally:
+                    view.release()
         return self._read_spill(oid_bytes)
 
     def read_shm_chunk(self, oid_bytes: bytes, offset: int,
@@ -1223,18 +1329,19 @@ class Node:
         not spilled). The object is pinned only for the duration of the copy,
         so a many-chunk pull never wedges eviction (reference: 64 MiB chunked
         pulls, object_manager.h:117 / pull_manager.h:52)."""
-        view = self._shm.get_view(oid_bytes)
-        if view is not None:
-            try:
-                total = len(view.data)
-                # One defensive copy (the view is released before the RPC
-                # reply ships), wrapped as a PickleBuffer so the transport
-                # sends it out-of-band — no further pickle copy on either
-                # end (PEP 574 framing in rpc.py).
-                chunk = bytes(view.data[offset:offset + length])
-            finally:
-                view.release()
-            return total, pickle.PickleBuffer(chunk)
+        with self._store_users:
+            view = self._shm.get_view(oid_bytes)
+            if view is not None:
+                try:
+                    total = len(view.data)
+                    # One defensive copy (the view is released before the
+                    # RPC reply ships), wrapped as a PickleBuffer so the
+                    # transport sends it out-of-band — no further pickle
+                    # copy on either end (PEP 574 framing in rpc.py).
+                    chunk = bytes(view.data[offset:offset + length])
+                finally:
+                    view.release()
+                return total, pickle.PickleBuffer(chunk)
         path = spill_file(self.node_id, oid_bytes)
         try:
             total = os.path.getsize(path)
@@ -1256,7 +1363,8 @@ class Node:
         file (reference: FreeObjects in node_manager.proto; with automatic
         ref counting the owner calls this when the cluster-wide handle count
         hits zero)."""
-        self._shm.delete(oid_bytes)
+        with self._store_users:
+            self._shm.delete(oid_bytes)
         try:
             os.unlink(spill_file(self.node_id, oid_bytes))
         except OSError:
@@ -1352,6 +1460,10 @@ class Node:
             pass
         self._controller.close()
         self._server.stop()
+        # The server shuts its handler pool without waiting: let handlers
+        # that are reading or freeing objects finish before the store
+        # closes (a later one finds it closed and returns empty).
+        self._store_users.wait_idle(timeout=10.0)
         try:
             self._shm.close()
             os.unlink(self.store_path)

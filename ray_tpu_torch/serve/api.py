@@ -29,6 +29,9 @@ def run(app: Deployment, name: Optional[str] = None,
     ``mesh_shape`` of more than one rank is refused here, before the
     controller reserves a sub-slice: the port's replica is one process on
     one card, and a larger mesh needs one process a rank."""
+    from ray_tpu_torch import usage as _usage
+
+    _usage.record_feature("serve.run")
     cfg = app.config_dict()
     mesh = cfg["mesh_shape"]
     if mesh and int(mesh[0]) * int(mesh[1]) > 1:

@@ -80,6 +80,9 @@ class TorchTrainer:
                 for rank in range(n)]
 
     def fit(self) -> Result:
+        from ray_tpu_torch import usage as _usage
+
+        _usage.record_feature("train.TorchTrainer")
         max_failures = self.run_config.failure_config.max_failures
         attempts = 0
         latest_checkpoint: Optional[str] = None

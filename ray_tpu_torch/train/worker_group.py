@@ -10,10 +10,11 @@ driver by polling.
 
 One worker drives one card (or ``gpus_per_worker`` of them): its
 ``local_rank`` is its index among the gang's workers on its node, read from
-the placement group's bundles, and its card is ``cuda:local_rank`` (times
-``gpus_per_worker``). A GPU lease sees every card of its node, and the
-current CUDA device is per thread, so the runner thread that calls the
-user's loop sets it again.
+the placement group's bundles. Its card comes from its ``GPU`` lease: the
+node starts the worker with ``CUDA_VISIBLE_DEVICES`` narrowed to the cards
+the lease holds (``core/node.py``), so the worker drives ``cuda:0``, the
+first of them. The current CUDA device is per thread, so the runner thread
+that calls the user's loop sets it again.
 """
 
 from __future__ import annotations
@@ -68,8 +69,8 @@ class TrainWorker:
                 import torch
 
                 if card is not None and torch.cuda.is_available():
-                    # The current device is per thread: without this the
-                    # loop would run on cuda:0 whatever its local rank.
+                    # The current device is per thread: the loop's
+                    # thread sets the card its lease names.
                     torch.cuda.set_device(card)
                 if config is None:
                     fn()
@@ -207,8 +208,6 @@ class WorkerGroup:
                 f"(placement strategy {placement_strategy})")
         self.workers: List[Any] = []
         self.local_ranks: List[int] = []
-        # Each worker's first card: its local rank times its share.
-        self.cards: List[int] = []
         self._torch_bootstrapped = False
         self._gang_id: Optional[str] = None
 
@@ -219,7 +218,6 @@ class WorkerGroup:
         actor_cls = ray_tpu_torch.remote(TrainWorker)
         self.local_ranks = local_ranks(self.pg, self.num_workers)
         gpus = self.resources.get("GPU", 0)
-        self.cards = [int(lr * (gpus or 1)) for lr in self.local_ranks]
         for rank in range(self.num_workers):
             world = {"world_rank": rank, "world_size": self.num_workers,
                      "local_rank": self.local_ranks[rank]}
@@ -231,7 +229,7 @@ class WorkerGroup:
                 scheduling_strategy=PlacementGroupSchedulingStrategy(
                     self.pg, rank),
             ).remote(world, storage_path, experiment_name,
-                     latest_checkpoint, self.cards[rank] if gpus else None,
+                     latest_checkpoint, 0 if gpus else None,
                      shards))
         if self.torch_config is not None and self.torch_config.distributed:
             self._bootstrap_torch()
@@ -253,8 +251,7 @@ class WorkerGroup:
         # live process groups and still need cooperative teardown.
         self._torch_bootstrapped = True
         multihost.form_torch_runtime(self.workers, self.torch_config,
-                                     group_id=self._gang_id, epoch=epoch,
-                                     local_ranks=self.cards)
+                                     group_id=self._gang_id, epoch=epoch)
 
     def _leave_torch_distributed(self) -> None:
         """Cooperative teardown: killing the gang with live NCCL

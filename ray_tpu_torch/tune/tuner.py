@@ -234,6 +234,9 @@ class Tuner:
     # ------------------------------------------------------------- fit
 
     def fit(self) -> ResultGrid:
+        from ray_tpu_torch import usage as _usage
+
+        _usage.record_feature("tune.Tuner")
         tc = self.tune_config
         scheduler = tc.scheduler or FIFOScheduler()
         searcher = tc.search_alg

@@ -13,6 +13,7 @@ import time
 import pytest
 
 import ray_tpu_torch as rt
+from ray_tpu_torch.core.node import node_card_ids
 
 
 @pytest.fixture
@@ -67,8 +68,10 @@ def test_custom_resource_routing(torch_cluster):
 
 def test_gpu_node_leases_see_the_card_cpu_leases_do_not(torch_cluster):
     """The port's card-holding node: ``num_gpus=1`` lands on the node
-    ``add_node`` gave ``GPU``, in a spawned worker that keeps the
-    driver's ``CUDA_VISIBLE_DEVICES``; a CPU task there sees it empty."""
+    ``add_node`` gave ``GPU``, in a spawned worker whose
+    ``CUDA_VISIBLE_DEVICES`` names the one card its lease holds (the
+    driver's first card, or index 0 where the driver names none); a CPU
+    task there sees it empty."""
     cluster = torch_cluster
     cluster.add_node(num_cpus=2)
     gpu = cluster.add_node(num_cpus=2, resources={"GPU": 1},
@@ -85,7 +88,7 @@ def test_gpu_node_leases_see_the_card_cpu_leases_do_not(torch_cluster):
 
     node, visible = rt.get(seen.options(num_gpus=1).remote(), timeout=120)
     assert node == gpu.node_id.hex()
-    assert visible == os.environ.get("CUDA_VISIBLE_DEVICES")
+    assert visible == node_card_ids(1)[0]
     on_gpu_node = rt.get([seen.options(
         scheduling_strategy={"kind": "node_label",
                              "labels": {"gpu_name": "test card"}}).remote()

@@ -1,12 +1,13 @@
 """The port's ``HostGroup`` (``ray_tpu_torch.core.multihost``) on the CPU:
-a counterpart of eight of ``tests/test_multihost_group.py``'s nine cases
+a counterpart of all nine of ``tests/test_multihost_group.py``'s cases
 (same names and settings; the chaos marks kept), on one module-scoped
 ``init(num_cpus=8)`` whose node advertises a virtual multi-host slice
 (``RAY_TPU_VIRTUAL_SLICE=4x4/4``: a 4x4 grid, 4 chips per host = 4
-virtual hosts). ``test_doctor_names_gang_hang_straggler`` waits for the
-doctor's port (ROADMAP.md queue 1, item 6); the coordinator failover's
-post-mortem half reads the flight recorder's merged dump directly (the
-evidence the doctor reads) instead.
+virtual hosts). ``test_doctor_names_gang_hang_straggler`` and the
+coordinator failover's post-mortem half assert the port's doctor's
+verdicts (``ray_tpu_torch.doctor``, ROADMAP.md queue 1, item 4, the CLI,
+dashboard and doctor), the failover beside the flight recorder's merged
+dump that the doctor reads.
 
 Plus what the port adds: ``form_mesh`` forms one gloo process group
 across the members of a virtual slice (an ``all_reduce`` crosses the
@@ -256,6 +257,21 @@ def test_coordinator_failover_and_stale_epoch_fence(mh_cluster,
         assert has(lambda pid, e: e.get("ev") == "gang.form"
                    and e.get("group") == "coord-gang"
                    and e.get("epoch") == 2)
+        # The same death explained post-mortem, from the dumps alone:
+        # the killed coordinator is the first-dying member, and the
+        # surviving gang's epoch is on record.
+        from ray_tpu_torch import doctor
+
+        deaths = [x for x in doctor.post_mortem(dump)
+                  if x["signature"] == "gang-death"
+                  and x["source"] == "group:coord-gang"]
+        assert deaths
+        d = deaths[0]
+        assert d["evidence"]["first_dying"] == "host-0"
+        assert d["evidence"]["surviving_epoch"] == 2
+        assert d["evidence"]["injected"] is True
+        assert "host-0" in d["summary"] and "epoch 2" in d["summary"]
+        assert "SIGKILL" in d["summary"]
     finally:
         g.shutdown()
 
@@ -389,6 +405,58 @@ def test_form_mesh_joins_one_gloo_group(mh_cluster):
     finally:
         g.shutdown()
     assert _reservations() == {}
+
+
+# ------------------------------------------- doctor: gang-hang
+
+
+def _agg(source="n1/node/pid1"):
+    from ray_tpu_torch.util.metrics import _Registry
+
+    return {source: _Registry.get().snapshot()}
+
+
+@pytest.mark.chaos
+def test_doctor_names_gang_hang_straggler(mh_cluster, faults_path):
+    """One member's barrier entry is delayed (faultinject at
+    multihost.barrier) -> its barrier-entered gauge stays 0 while the
+    rest of the gang parks at 1 across the whole window, and the
+    doctor names the straggler host."""
+    from ray_tpu_torch import doctor
+
+    g = HostGroup(2, name="hang-gang").start()
+    refs = []
+    try:
+        with Faults(faults_path) as f:
+            f.add("multihost.barrier.hang-gang.host-1", "delay",
+                  delay_s=4.0)
+            refs = [m.program_barrier.remote("stuck-step", "h", 25.0)
+                    for m in g.members]
+            # host-0 is parked in the barrier; host-1 is sleeping at
+            # the injection point and never arrived.
+            assert _wait_for(lambda: (multihost.registry_state(
+                "hang-gang")["barriers"].get("stuck-step", {})
+                .get("arrived") == ["host-0"]), timeout=10.0)
+            before = _agg()
+            time.sleep(1.2)
+            after = _agg()
+        findings = doctor.diagnose(before, after, 1.2)
+        hangs = [x for x in findings if x["signature"] == "gang-hang"
+                 and "hang-gang" in x["source"]]
+        assert hangs, findings
+        assert hangs[0]["severity"] == "critical"
+        assert "host-1" in hangs[0]["summary"]  # the straggler, named
+        assert "host-0" in hangs[0]["summary"]  # who is parked
+        # The delay elapses, the straggler arrives, the barrier
+        # completes: the "hang" resolves without any intervention...
+        assert all(set(p.values()) == {"h"}
+                   for p in rt.get(refs, timeout=60.0))
+        # ...and the signature clears (entered gauges uniform again).
+        snap = _agg()
+        assert [x for x in doctor.diagnose(snap, snap, 1.0)
+                if x["signature"] == "gang-hang"] == []
+    finally:
+        g.shutdown()
 
 
 # ------------------------------- formation fence verdict (no cluster)

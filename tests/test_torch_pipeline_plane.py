@@ -13,13 +13,12 @@ Where the reference differs:
   train step, not the plane; their counterparts are
   ``tests/test_torch_mesh_train.py::test_zero1_state_bytes_and_parity``
   and ``::test_zero1_rejects_a_model_rules_table``.
-- The doctor's straggler case and the post-mortem case read the evidence
-  the doctor reads (the ``pipeline_stage_idle_s`` gauges, the flight
-  recorder's merged dump); the doctor's own verdict waits for the port of
-  the CLI, dashboard and doctor (ROADMAP.md queue 1).
-- The trace case reads the port's task events through the JAX package's
-  ``scripts.train_trace_summary`` / ``build_chrome_trace`` (pure functions
-  over the event list; the port has no CLI yet).
+- The doctor's straggler case and the post-mortem case assert the port's
+  doctor's verdicts (``ray_tpu_torch.doctor``) beside the evidence it
+  reads (the ``pipeline_stage_idle_s`` gauges, the flight recorder's
+  merged dump).
+- The trace case reads the port's task events through the port's
+  ``scripts.train_trace_summary`` / ``build_chrome_trace``.
 
 Added: a tier-1 2-stage case whose losses equal the port's own 2-stage
 chain exactly, lie within the reference's ``rtol=2e-4`` of the port's
@@ -387,6 +386,12 @@ def _stage_idle(name):
             and row["tags"].get("pipeline") == name}
 
 
+def _agg(source="n1/node/pid1"):
+    """The driver's registry as a one-source cluster aggregation (the
+    doctor's input)."""
+    return {source: _Registry.get().snapshot()}
+
+
 def _split_stall(idle, floor=0.5, ratio=0.3):
     """The doctor's rule: (busy, starved) once the most idle stage passed
     ``floor``; a stage within ``ratio`` of that is busy."""
@@ -402,11 +407,11 @@ def _split_stall(idle, floor=0.5, ratio=0.3):
 def test_doctor_names_pipeline_stall_straggler(pipe_cluster, faults_path):
     """Delay stage 1's forward (faultinject at the pipeline.stage site)
     mid-step: stage 1 stays busy while stage 0 idles through the whole
-    window in both gauge snapshots (the divergence the doctor's
-    pipeline-stall signature names s1 from; the verdict itself waits for
-    the doctor's port), and the flight recorder holds the injected delay
+    window in both gauge snapshots, the doctor names s1 as the straggler
+    (``pipeline-stall``), and the flight recorder holds the injected delay
     at s1's forward site. The delay elapses, the step completes, and the
-    divergence clears."""
+    divergence and the signature clear."""
+    from ray_tpu_torch import doctor
     from ray_tpu_torch.train.pipeline_plane import PipelinePlane
     from ray_tpu_torch.util import flightrec
 
@@ -429,18 +434,30 @@ def test_doctor_names_pipeline_stall_straggler(pipe_cluster, faults_path):
             t = threading.Thread(target=run_step, daemon=True)
             t.start()
             time.sleep(1.2)
-            before = _stage_idle("stall-pipe")
+            before, agg_before = _stage_idle("stall-pipe"), _agg()
             time.sleep(1.0)
-            after = _stage_idle("stall-pipe")
+            after, agg_after = _stage_idle("stall-pipe"), _agg()
         busy_b, idle_b = _split_stall(before)
         busy_a, idle_a = _split_stall(after)
         assert busy_a & busy_b == {"s1"}, (before, after)
         assert idle_a & idle_b == {"s0"}, (before, after)
+        findings = doctor.diagnose(agg_before, agg_after, 1.0)
+        stalls = [x for x in findings
+                  if x["signature"] == "pipeline-stall"
+                  and "stall-pipe" in x["source"]]
+        assert stalls, findings
+        assert stalls[0]["severity"] == "critical"
+        assert "s1" in stalls[0]["evidence"]["stragglers"]
+        assert "s0" in stalls[0]["evidence"]["starved"]
+        assert "s1" in stalls[0]["summary"]
         t.join(timeout=60.0)
         assert not t.is_alive() and not errs, errs
         assert len(result) == 1
         # Stall over: no stage is a straggler any more.
         assert _split_stall(_stage_idle("stall-pipe")) == (set(), set())
+        snap = _agg()
+        assert [x for x in doctor.diagnose(snap, snap, 1.0)
+                if x["signature"] == "pipeline-stall"] == []
         dump = flightrec.cluster_dump()
         events = [e for src in dump.values() for e in src["events"]]
         assert any(e.get("ev") == "fault.fired"
@@ -537,7 +554,8 @@ def test_train_trace_rows_bubble_and_step_breakdown(pipe_cluster):
     breakdown: stage-seconds split across fwd/bwd/apply/allgather/idle
     that adds up to stages x wall, surfaced through
     core_summary.pipeline with the MFU estimate gauge."""
-    from ray_tpu.scripts import build_chrome_trace, train_trace_summary
+    from ray_tpu_torch.scripts import (build_chrome_trace,
+                                       train_trace_summary)
     from ray_tpu_torch.train.pipeline_plane import PipelinePlane
 
     cfg, params, steps = _setup(n_steps=2, n_micro=8, batch=16)
@@ -620,10 +638,10 @@ def test_post_mortem_names_killed_stage_from_dumps(pipe_cluster,
                                                    faults_path):
     """SIGKILL a StageActor (faultinject die at its member beat site), let
     the gang reconcile and training resume — then the flight recorder's
-    merged dump (what ``doctor.post_mortem`` reads; its verdict waits for
-    the doctor's port) names the killed member, its stage and the
-    surviving gang's epoch, from the live dump and from the files
-    alone."""
+    merged dump names the killed member, its stage and the surviving
+    gang's epoch, and ``doctor.post_mortem`` over it names them too, from
+    the live dump and from the files alone."""
+    from ray_tpu_torch import doctor
     from ray_tpu_torch.train.pipeline_plane import PipelinePlane
     from ray_tpu_torch.util import flightrec
 
@@ -671,6 +689,16 @@ def test_post_mortem_names_killed_stage_from_dumps(pipe_cluster,
             assert has(lambda pid, e: e.get("ev") == "gang.form"
                        and e.get("group") == "pm-pipe-gang"
                        and e.get("epoch") == 2)
+            deaths = [x for x in doctor.post_mortem(dumps)
+                      if x["signature"] == "gang-death"
+                      and x["source"] == "group:pm-pipe-gang"]
+            assert deaths, dumps
+            d = deaths[0]
+            assert d["evidence"]["first_dying"] == "host-1"
+            assert d["evidence"]["surviving_epoch"] == 2
+            assert d["evidence"]["injected"] is True
+            assert "host-1" in d["summary"] and "epoch 2" in d["summary"]
+            assert "s1" in d["summary"]  # the killed STAGE, by name
     finally:
         plane.stop()
 

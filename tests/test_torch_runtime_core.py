@@ -134,10 +134,10 @@ def test_gpu_detection_without_a_context(monkeypatch):
 
 
 def test_not_ported_surfaces_raise():
-    """The CLI and ``num_tpus`` still refuse (the CLI names its ROADMAP
-    item); ``cluster_utils.Cluster``, client mode and a non-empty
-    runtime_env work: a two-node cluster, a thin client on it, and a
-    spec normalized as the JAX package's."""
+    """``num_tpus`` still refuses; ``cluster_utils.Cluster``, the CLI,
+    client mode and a non-empty runtime_env work: a two-node cluster,
+    ``python -m ray_tpu_torch status`` against it, a thin client on it,
+    and a spec normalized as the JAX package's."""
     import subprocess
     import sys
 
@@ -148,10 +148,6 @@ def test_not_ported_surfaces_raise():
     from ray_tpu_torch.core.remote_function import (_normalized_env,
                                                     _resources_from_options)
 
-    cli = subprocess.run([sys.executable, "-m", "ray_tpu_torch", "status"],
-                         capture_output=True, text=True, timeout=60)
-    assert cli.returncode == 2 and "item 4, the CLI" in cli.stderr
-
     spec = {"env_vars": {"A": 1}, "working_dir": "/w"}
     assert _normalized_env({"runtime_env": spec}) == jre.normalize(spec) == {
         "env_vars": {"A": "1"}, "working_dir": "/w"}
@@ -161,6 +157,13 @@ def test_not_ported_surfaces_raise():
         cluster.add_node(num_cpus=1, resources={"GPU": 1})
         cluster.wait_for_nodes()
         rt.init(address=cluster.address)
+        host, port = cluster.address
+        cli = subprocess.run([sys.executable, "-m", "ray_tpu_torch",
+                              "--address", f"{host}:{port}", "status"],
+                             capture_output=True, text=True, timeout=60)
+        assert cli.returncode == 0, cli.stderr
+        assert "nodes: 2 alive / 2 total" in cli.stdout
+        assert "'GPU': 1.0" in cli.stdout
         server = client_mod.ClientServer(host="127.0.0.1")
         try:
             client = rt.init(address=f"ray-tpu://{server.address[0]}:"
