@@ -2,8 +2,8 @@
 runtime's serve plane, a one-host gang and a thin client on a two-node
 cluster among them), training (Llama, through the runtime's train and
 tune planes, fed by its Dataset API and through its pipeline plane too,
-and ViT), RL (its distributed plane too) and mesh paths on one NVIDIA
-GPU.
+and ViT), RL (its distributed plane too), mesh and compiled-DAG paths on
+one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -280,9 +280,11 @@ Phases, one JSON line each (``{"phase": ..., "ok": ...}``):
 17. rl_dist: the RL distributed plane with the learner on the card
    (``rt.init()``; its node must advertise ``GPU: 1``); it prints whether
    ``gymnasium`` is found and installs nothing. (a) The policy inference
-   service on the card: for CartPole's shapes (MLP 64x64, 2 actions) and
-   the Nature torso's (84x84x4 uint8, 6 actions), in categorical and in
-   epsilon-greedy mode, a ``WeightFanout`` publishes version 1 (params
+   service on the card: for CartPole's shapes (MLP 64x64, 2 actions) in
+   categorical mode and the Nature torso's (84x84x4 uint8, 6 actions) in
+   epsilon-greedy mode (two services, two fresh GPU processes; it ran
+   each shape in both modes before this cut), a ``WeightFanout``
+   publishes version 1 (params
    from one CPU generator, seed 1; epsilon 0.5 in the greedy service), a
    ``PolicyInference`` actor takes the ``GPU`` lease, and eight CPU
    actors each send 50 ``infer((obs, seed))`` requests of 4 seeded rows,
@@ -403,13 +405,53 @@ Phases, one JSON line each (``{"phase": ..., "ok": ...}``):
    against the live cluster must name ``gang-death`` for the killed
    member and the stage it hosted. The in-process baselines are freed
    before each plane starts.
+21. dag: one ``rt.init()``. (a) Llama-2-7B (``PRESETS["7b"]``, full
+   width and all 32 layers, flash, bf16, random weights from seed 0)
+   split 16/16 by ``split_llama_stages`` into two stage functions, each
+   bound with ``num_gpus=0.5`` (two stages share the card) and run by
+   ``experimental_compile(max_in_flight=4)``: two stage actors joined by
+   a mutable shared-memory channel. Each stage draws the whole model from
+   seed 0 on the card at its first call and keeps its own 16 layers (no
+   weights travel in its function). This process first runs the
+   reference on the card: the same two stage functions chained, and
+   ``llama.forward``, on the same items. Then two warm-up items, the
+   window (six (1, 512) microbatches, whose 4 MiB hidden state fits the
+   8 MiB slot, and two (2, 1024), whose 16 MiB take the RPC push; which
+   path an item takes is ``serialization.build_frame(item)[0]`` against
+   the slot, the rule ``_PipeStage`` applies), all in flight at once,
+   then the same items one at a time. Checks: the logits equal to the
+   last bit to the chained stage functions (both runs) and within
+   ``DAG_FORWARD_REL_TOL`` of ``llama.forward``; 16 flash forward
+   launches in each stage's process for each item of the window, read
+   there by the stage functions around each call, all on wgmma, and
+   none in this process; each stage in its own process, every call of
+   the channel's reader on one thread; the stages' windows interleave
+   (stage 0 starts item i+1 before stage 1 ends item i, for some i, in
+   the window and never one at a time: the ordering half of
+   ``tests/test_dag.py``'s proof, since two processes time-sliced on one
+   card do not compute at once); both paths carry items, and the
+   channel's own header counts the items it carried; no ``.chan`` file
+   left after ``teardown()``. Prints items/s pipelined and one at a
+   time, compile to the first result, each stage's first-call setup and
+   ms an item, and the bytes that took each path. (b) A durable workflow
+   on CPU workers: three steps and a continuation under a temp dir, its
+   third step raising on its first run (a marker file guards it), then
+   ``resume``: no finished step runs again (marker-file counts) and the
+   result equals an uninterrupted run's. (c) ``ActorPool.map`` and
+   ``get_next_unordered`` over 4 CPU actors, a ``Queue(maxsize=4)``
+   between a producer task and a consumer task, and ``allreduce``,
+   ``allgather``, ``broadcast`` and ``barrier`` over 4 CPU actors on a
+   1 MiB array, each checked and timed. Then no process, store or
+   channel file left.
 
 Depth, steps and schedule cut to keep the smoke near half its 1200 s
 limit: the pipeline and train_runtime run the 1B width at 4 layers
 (they ran (a), (b) and train_runtime at the full 22), data_train's ViT
 half takes 4 batches (it took 8), and the tune sweep of train_runtime
 runs one trial at a time (its second trial waited out a refused 60 s
-reservation). Every width, check and kernel of each path stays.
+reservation). rl_dist starts two inference services, not four, to pay
+for the dag phase's two stage processes. Every width and kernel of each
+path stays.
 
 Serve, serve_paged, serve_spec and train also read the forward's C
 entry's own launch count of each of its kernels over the same window:
@@ -419,7 +461,10 @@ taken a wgmma kernel.
 
 Each main path (splash, serve, serve_paged, serve_spec, serve_disagg,
 serve_runtime, serve_mesh, train, train_runtime, data_train, mesh, gang,
-cluster, pipeline) must have launched each of its kernels at least once. Then a
+cluster, pipeline, dag) must have launched each of its kernels at least
+once. Every phase line carries ``gpu_processes_started``: the GPU worker
+processes the runtime spawned during it (``count_gpu_processes``), and a
+``{"gpu_processes": ...}`` line sums them. Then a
 ``{"kernels": [...]}`` line with all seven kernels (the six attention
 kernels with their main-path launches by kernel, and each with its ptxas
 lines: registers, shared memory and spills of each instantiation), the
@@ -447,6 +492,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
+# The bounds' peaks: H100 SXM (NVIDIA data sheet). MFU reads the card's
+# own bf16 peak from ``ray_tpu_torch.gpu`` (``_mfu_peak``).
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
 PEAK_F32_FLOPS = 67e12     # H100 SXM float32 outside the tensor cores
@@ -460,6 +507,13 @@ REQUEST_TIMEOUT_S = 300.0
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def _mfu_peak() -> float:
+    """The card's dense bf16 peak, by its name (``gpu.py``'s table)."""
+    from ray_tpu_torch import gpu
+
+    return gpu.peak_flops_per_chip(torch.cuda.get_device_name(0))
 
 
 def smi_line() -> str:
@@ -549,6 +603,7 @@ PATH_KERNELS = {
     "cluster": ["flash_fwd"],
     "pipeline": ["flash_fwd", "flash_bwd_dkv", "flash_bwd_dq",
                  "attention_delta"],
+    "dag": ["flash_fwd"],
 }
 # The sources to build: one library (and one nvcc) per .cu file.
 SOURCES = sorted({Path(k["source"]).stem for k in KERNELS.values()})
@@ -3103,7 +3158,7 @@ def phase_train(cfg, device="cuda", batch=8, seq=2048, steps=4,
         out["steady_step_s"] = step_s
         out["tokens_per_s"] = tokens / step_s
         out["mfu_bf16_peak"] = (llama.flops_per_token(cfg, seq) * tokens
-                                / (step_s * PEAK_BF16_FLOPS))
+                                / (step_s * _mfu_peak()))
         out["peak_memory_bytes"] = peak
     if grad_check:
         check = _grad_check(cfg, device, check_batch, check_seq)
@@ -3717,7 +3772,7 @@ def phase_vit(cfg, device="cuda", batch=None, steps=None,
         out["steady_step_s"] = step_s
         out["images_per_s"] = batch / step_s
         out["mfu_bf16_peak"] = (vit.flops_per_image(cfg) * batch
-                                / (step_s * PEAK_BF16_FLOPS))
+                                / (step_s * _mfu_peak()))
         out["placed_steady_step_s"] = placed_s
         out["placed_images_per_s"] = batch / placed_s
         out["steady_prefetch_wait_s_mean"] = _steady(waits)
@@ -4680,6 +4735,9 @@ def _rl_gym(device, have_gym: bool):
 RL_DIST = dict(callers=8, requests=50, rows=4, flip_after=100, shards=4,
                T=64, N=4, impala_iters=100, impala_bar=100.0, dqn_iters=3)
 RL_DIST_SHAPES = {"mlp": ((4,), 2), "cnn": ((84, 84, 4), 6)}
+# The inference services (a) starts, each a fresh GPU process: each shape
+# in one mode, so each shape and each mode is served once.
+RL_DIST_SERVICES = (("mlp", "categorical"), ("cnn", "epsilon_greedy"))
 # The greedy check compares actions where the CPU's top-2 Q margin
 # exceeds this (float32 on both sides, TF32 off).
 RL_DIST_MARGIN = 1e-4
@@ -4834,11 +4892,11 @@ def _rel_to_max(got, want) -> float:
 
 
 def _rl_dist_inference(device, gpus):
-    """(a) For each shape (CartPole's MLP, the Nature torso) and mode
-    (categorical, epsilon-greedy): a ``PolicyInference`` actor holding
-    the ``GPU`` lease, ``RL_DIST["callers"]`` CPU callers, version 2
-    published mid-run (epsilon 0 in the greedy service), every reply held
-    against a CPU forward of the version's params."""
+    """(a) For CartPole's MLP in categorical mode and the Nature torso in
+    epsilon-greedy mode (``RL_DIST_SERVICES``): a ``PolicyInference``
+    actor holding the ``GPU`` lease, ``RL_DIST["callers"]`` CPU callers,
+    version 2 published mid-run (epsilon 0 in the greedy service), every
+    reply held against a CPU forward of the version's params."""
     import ray_tpu_torch as rt
     from ray_tpu_torch.rl.distributed import WeightFanout, new_plane_key
     from ray_tpu_torch.rl.models import build_policy, take_logp
@@ -4850,131 +4908,131 @@ def _rl_dist_inference(device, gpus):
     callers = [caller_cls.remote() for _ in range(RL_DIST["callers"])]
     res, checks = {}, {}
     try:
-        for shape, (obs_shape, n_actions) in RL_DIST_SHAPES.items():
+        for shape, mode in RL_DIST_SERVICES:
+            obs_shape, n_actions = RL_DIST_SHAPES[shape]
             init_fn, forward = build_policy(obs_shape, n_actions)
             params = {v: init_fn(torch.Generator().manual_seed(v))
                       for v in (1, 2)}
-            for mode in ("categorical", "epsilon_greedy"):
-                name = f"{shape}_{mode}"
-                greedy = mode == "epsilon_greedy"
-                key = new_plane_key(f"smoke-{name}")
-                fan = WeightFanout(key)
-                fan.publish(params[1], {"epsilon": 0.5} if greedy else {})
+            name = f"{shape}_{mode}"
+            greedy = mode == "epsilon_greedy"
+            key = new_plane_key(f"smoke-{name}")
+            fan = WeightFanout(key)
+            fan.publish(params[1], {"epsilon": 0.5} if greedy else {})
+            t = time.perf_counter()
+            svc = rt.remote(_inference_cls()).options(
+                num_cpus=0, num_gpus=1,
+                max_concurrency=RL_DIST["callers"] + 1).remote(
+                    obs_shape, n_actions, key, mode, (64, 64), device)
+            try:
+                probe0 = rt.get(svc.probe.remote(), timeout=300)
+                start_s = time.perf_counter() - t
+                held = _poll_until(
+                    lambda: rt.available_resources().get("GPU"),
+                    lambda v: v == gpus - 1)
+                halves = [[(c * 1000 + j) for j in range(n)]
+                          for c in range(len(callers))]
                 t = time.perf_counter()
-                svc = rt.remote(_inference_cls()).options(
-                    num_cpus=0, num_gpus=1,
-                    max_concurrency=RL_DIST["callers"] + 1).remote(
-                        obs_shape, n_actions, key, mode, (64, 64), device)
-                try:
-                    probe0 = rt.get(svc.probe.remote(), timeout=300)
-                    start_s = time.perf_counter() - t
-                    held = _poll_until(
-                        lambda: rt.available_resources().get("GPU"),
-                        lambda v: v == gpus - 1)
-                    halves = [[(c * 1000 + j) for j in range(n)]
-                              for c in range(len(callers))]
-                    t = time.perf_counter()
-                    first = [c.run.remote(svc, obs_shape, s[:n // 2], rows)
-                             for c, s in zip(callers, halves)]
-                    _poll_until(lambda: rt.get(svc.stats.remote())[
-                        "requests"], lambda v: v >= flip, 60.0)
-                    fan.publish(params[2], {"epsilon": 0.0} if greedy
-                                else {})
-                    replies = rt.get(first, timeout=REQUEST_TIMEOUT_S)
-                    second = [c.run.remote(svc, obs_shape, s[n // 2:], rows)
-                              for c, s in zip(callers, halves)]
-                    replies = [a + b for a, b in zip(
-                        replies, rt.get(second, timeout=REQUEST_TIMEOUT_S))]
-                    wall = time.perf_counter() - t
-                    stats = rt.get(svc.stats.remote())
-                    probe = rt.get(svc.probe.remote())
-                finally:
-                    rt.kill(svc)
-                    fan.close()
-                lat = sorted(r["s"] for rs in replies for r in rs)
-                flat = [r for rs in replies for r in rs]
-                # The CPU's forward of each version's params on the same
-                # rows, in chunks.
-                logp_err = value_err = 0.0
-                compared = greedy_rows = mismatched = 0
-                for v in (1, 2):
-                    mine = [r for r in flat if r["version"] == v]
-                    for i in range(0, len(mine), 256):
-                        chunk = mine[i:i + 256]
-                        obs = torch.from_numpy(np.concatenate(
-                            [_rl_dist_obs(obs_shape, rows, r["seed"])
-                             for r in chunk]))
-                        with torch.no_grad():
-                            q, value = forward(params[v], obs)
-                        act = torch.from_numpy(np.concatenate(
-                            [np.asarray(r["action"]) for r in chunk]))
-                        got_v = np.concatenate([r["value"] for r in chunk])
-                        got_l = np.concatenate([r["logp"] for r in chunk])
-                        if greedy:
-                            value_err = max(value_err, _rel_to_max(
-                                got_v, q.max(-1).values.numpy()))
-                            logp_err = max(logp_err, float(np.abs(
-                                got_l).max()))
-                            if v == 2:
-                                top2 = torch.topk(q, 2).values
-                                clear = (top2[:, 0] - top2[:, 1]
-                                         ) > RL_DIST_MARGIN
-                                greedy_rows += len(act)
-                                compared += int(clear.sum())
-                                mismatched += int((act[clear] != q.argmax(
-                                    -1)[clear]).sum())
-                        else:
-                            value_err = max(value_err, _rel_to_max(
-                                got_v, value.numpy()))
-                            want_l = take_logp(torch.log_softmax(q, -1),
-                                               act)
-                            logp_err = max(logp_err, _rel_to_max(
-                                got_l, want_l.numpy()))
-                versions = [[r["version"] for r in rs] for rs in replies]
-                row = {"service_start_s": start_s, "wall_s": wall,
-                       "requests": stats["requests"],
-                       "forward_calls": stats["forward_calls"],
-                       "max_batch": stats["max_batch"],
-                       "mean_batch": stats["requests"]
-                       / max(1, stats["forward_calls"]),
-                       "request_ms_p50": 1e3 * lat[len(lat) // 2],
-                       "request_ms_p99": 1e3 * lat[
-                           min(len(lat) - 1, int(0.99 * len(lat)))],
-                       "replies_v1": sum(v == 1 for vs in versions
-                                         for v in vs),
-                       "replies_v2": sum(v == 2 for vs in versions
-                                         for v in vs),
-                       "logp_max_rel_diff": logp_err,
-                       "value_max_rel_diff": value_err,
-                       "service": {k: probe0[k] for k in
-                                   ("device", "pid", "cuda_visible")},
-                       "gpu_available_while_serving": held}
-                if cuda:
-                    row["forward_ms_median"] = _median(probe["forward_ms"])
-                    row["forward_ms_max"] = max(probe["forward_ms"])
-                if greedy:
-                    row["greedy_rows"] = greedy_rows
-                    row["greedy_rows_compared"] = compared
-                    row["greedy_rows_mismatched"] = mismatched
-                res[name] = row
-                checks[f"{name}_coalesced"] = (
-                    stats["max_batch"] >= 2
-                    and stats["forward_calls"] < stats["requests"]
-                    == len(flat))
-                checks[f"{name}_versions_monotonic"] = all(
-                    a <= b for vs in versions for a, b in zip(vs, vs[1:]))
-                checks[f"{name}_both_versions"] = (
-                    row["replies_v1"] > 0 and row["replies_v2"] > 0)
-                checks[f"{name}_matches_cpu"] = (
-                    value_err <= RL_LOSS_REL_TOL
-                    and logp_err <= RL_LOSS_REL_TOL)
-                checks[f"{name}_holds_gpu_lease"] = (
-                    held == gpus - 1 and probe0["pid"] != os.getpid()
-                    and probe0["device"].startswith(
-                        torch.device(device).type))
-                if greedy:
-                    checks[f"{name}_greedy_actions"] = (
-                        mismatched == 0 and compared >= greedy_rows // 2)
+                first = [c.run.remote(svc, obs_shape, s[:n // 2], rows)
+                         for c, s in zip(callers, halves)]
+                _poll_until(lambda: rt.get(svc.stats.remote())[
+                    "requests"], lambda v: v >= flip, 60.0)
+                fan.publish(params[2], {"epsilon": 0.0} if greedy
+                            else {})
+                replies = rt.get(first, timeout=REQUEST_TIMEOUT_S)
+                second = [c.run.remote(svc, obs_shape, s[n // 2:], rows)
+                          for c, s in zip(callers, halves)]
+                replies = [a + b for a, b in zip(
+                    replies, rt.get(second, timeout=REQUEST_TIMEOUT_S))]
+                wall = time.perf_counter() - t
+                stats = rt.get(svc.stats.remote())
+                probe = rt.get(svc.probe.remote())
+            finally:
+                rt.kill(svc)
+                fan.close()
+            lat = sorted(r["s"] for rs in replies for r in rs)
+            flat = [r for rs in replies for r in rs]
+            # The CPU's forward of each version's params on the same
+            # rows, in chunks.
+            logp_err = value_err = 0.0
+            compared = greedy_rows = mismatched = 0
+            for v in (1, 2):
+                mine = [r for r in flat if r["version"] == v]
+                for i in range(0, len(mine), 256):
+                    chunk = mine[i:i + 256]
+                    obs = torch.from_numpy(np.concatenate(
+                        [_rl_dist_obs(obs_shape, rows, r["seed"])
+                         for r in chunk]))
+                    with torch.no_grad():
+                        q, value = forward(params[v], obs)
+                    act = torch.from_numpy(np.concatenate(
+                        [np.asarray(r["action"]) for r in chunk]))
+                    got_v = np.concatenate([r["value"] for r in chunk])
+                    got_l = np.concatenate([r["logp"] for r in chunk])
+                    if greedy:
+                        value_err = max(value_err, _rel_to_max(
+                            got_v, q.max(-1).values.numpy()))
+                        logp_err = max(logp_err, float(np.abs(
+                            got_l).max()))
+                        if v == 2:
+                            top2 = torch.topk(q, 2).values
+                            clear = (top2[:, 0] - top2[:, 1]
+                                     ) > RL_DIST_MARGIN
+                            greedy_rows += len(act)
+                            compared += int(clear.sum())
+                            mismatched += int((act[clear] != q.argmax(
+                                -1)[clear]).sum())
+                    else:
+                        value_err = max(value_err, _rel_to_max(
+                            got_v, value.numpy()))
+                        want_l = take_logp(torch.log_softmax(q, -1),
+                                           act)
+                        logp_err = max(logp_err, _rel_to_max(
+                            got_l, want_l.numpy()))
+            versions = [[r["version"] for r in rs] for rs in replies]
+            row = {"service_start_s": start_s, "wall_s": wall,
+                   "requests": stats["requests"],
+                   "forward_calls": stats["forward_calls"],
+                   "max_batch": stats["max_batch"],
+                   "mean_batch": stats["requests"]
+                   / max(1, stats["forward_calls"]),
+                   "request_ms_p50": 1e3 * lat[len(lat) // 2],
+                   "request_ms_p99": 1e3 * lat[
+                       min(len(lat) - 1, int(0.99 * len(lat)))],
+                   "replies_v1": sum(v == 1 for vs in versions
+                                     for v in vs),
+                   "replies_v2": sum(v == 2 for vs in versions
+                                     for v in vs),
+                   "logp_max_rel_diff": logp_err,
+                   "value_max_rel_diff": value_err,
+                   "service": {k: probe0[k] for k in
+                               ("device", "pid", "cuda_visible")},
+                   "gpu_available_while_serving": held}
+            if cuda:
+                row["forward_ms_median"] = _median(probe["forward_ms"])
+                row["forward_ms_max"] = max(probe["forward_ms"])
+            if greedy:
+                row["greedy_rows"] = greedy_rows
+                row["greedy_rows_compared"] = compared
+                row["greedy_rows_mismatched"] = mismatched
+            res[name] = row
+            checks[f"{name}_coalesced"] = (
+                stats["max_batch"] >= 2
+                and stats["forward_calls"] < stats["requests"]
+                == len(flat))
+            checks[f"{name}_versions_monotonic"] = all(
+                a <= b for vs in versions for a, b in zip(vs, vs[1:]))
+            checks[f"{name}_both_versions"] = (
+                row["replies_v1"] > 0 and row["replies_v2"] > 0)
+            checks[f"{name}_matches_cpu"] = (
+                value_err <= RL_LOSS_REL_TOL
+                and logp_err <= RL_LOSS_REL_TOL)
+            checks[f"{name}_holds_gpu_lease"] = (
+                held == gpus - 1 and probe0["pid"] != os.getpid()
+                and probe0["device"].startswith(
+                    torch.device(device).type))
+            if greedy:
+                checks[f"{name}_greedy_actions"] = (
+                    mismatched == 0 and compared >= greedy_rows // 2)
     finally:
         for c in callers:
             rt.kill(c)
@@ -7024,6 +7082,554 @@ def _pipe_virtual_slice(fn, device):
             os.environ["RAY_TPU_VIRTUAL_SLICE"] = saved
 
 
+# ------------------------------------------------------------------- dag
+
+# Llama-2-7B at full width and depth through a compiled DAG of two stage
+# actors that share the card (each holds half of the GPU lease, as the
+# pipeline phase's two stages do), 16 layers a stage. Two warm-up items,
+# then the window: microbatches of (1, 512) tokens, whose 4 MiB bf16
+# hidden state fits the channel's 8 MiB slot, and of (2, 1024), whose
+# 16 MiB take the RPC push. The phase runs on the card only; the CPU
+# tests (``tests/test_torch_dag.py``) cover both paths at small shapes.
+DAG = dict(n_stages=2, max_in_flight=4, warmup=2, n_small=6, n_big=2,
+           seed=0, data_seed=22)
+DAG_SHAPES = {"small": (1, 512), "big": (2, 1024)}
+# The pipelined logits against ``llama.forward`` in this process on the
+# same weights: max |difference| over max |value|. Both run the same bf16
+# layers in the same order; the stage cut hands a bf16 hidden state
+# across unchanged, so they differ only where the whole model's forward
+# and the stage chain launch other kernels for the same sum (2^-7 is one
+# bf16 rounding of the largest logit). The chained stage functions in
+# this process must equal the pipelined logits to the last bit.
+DAG_FORWARD_REL_TOL = 2.0 ** -7
+# (b)'s workflow and (c)'s collectives.
+DAG_COLLECTIVE_BYTES = 1 << 20
+DAG_WORKERS = 4
+
+
+def _dag_stage(cfg, index: int, n_stages: int, seed: int, device: str):
+    """Stage ``index`` of the dag phase's pipeline, as its stage actor
+    hosts it. At its first call it draws the whole model from ``seed`` on
+    its card (13.5 GB at the 7B's peak), keeps its stage's layers
+    (cloned, so the rest is freed) and wraps them in
+    ``make_stage_worker``: its weights never travel in the stage's
+    function blob. Takes the tokens (stage 0) or the previous stage's
+    ``(tensor, meta)``; returns ``(its output, meta)`` with this call's
+    window (monotonic clock, card-synced), flash launches (the wrapper's
+    and the C entry's by kernel), thread and process."""
+    state = {}
+
+    def stage(x):
+        import os
+        import threading
+
+        import torch
+
+        from ray_tpu_torch.models import llama
+        from ray_tpu_torch.ops.flash_attention import flash_attention
+        from ray_tpu_torch.ops.optim import tree_map
+        from ray_tpu_torch.parallel.pipeline import (make_stage_worker,
+                                                     split_llama_stages)
+
+        meta = {}
+        if index > 0:
+            x, meta = x
+        first = "call" not in state
+        setup = time.monotonic()
+        if first:
+            full = llama.init_params(cfg, device=device, seed=seed)
+            part, _fn = split_llama_stages(full, cfg, n_stages)[index]
+            part = tree_map(lambda t: t.clone(), part)
+            del full, _fn
+            gc.collect()
+            if torch.device(device).type == "cuda":
+                torch.cuda.empty_cache()
+            state["call"] = make_stage_worker(cfg, index, n_stages, part,
+                                              device=device)
+        _sync(device)
+        n0, k0 = flash_attention.launches, fwd_kernel_counts(device)
+        t0 = time.monotonic()
+        out = state["call"](x)
+        _sync(device)
+        t1 = time.monotonic()
+        meta = {**meta, f"s{index}": {
+            "window": (t0, t1), "first": first, "setup_s": t0 - setup,
+            "launches": flash_attention.launches - n0,
+            "by_kernel": fwd_kernels_since(k0, device),
+            "thread": threading.get_ident(), "pid": os.getpid(),
+            "grad": out.requires_grad, "device": str(out.device)}}
+        return out, meta
+
+    return stage
+
+
+def _dag_tokens(cfg, shape, seed: int) -> torch.Tensor:
+    return torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, shape))
+
+
+def _dag_reference(cfg, items, device) -> dict:
+    """This process's reference on the card, before the stages start:
+    the two stage functions chained (``split_llama_stages`` +
+    ``make_stage_worker``, as the stages build them) and ``llama.forward``
+    on the same weights, logits kept on the host; and the frame bytes of
+    each item the first stage hands on (``build_frame``, the rule
+    ``_PipeStage`` applies against the slot). The weights are freed
+    after."""
+    from ray_tpu_torch.core import serialization
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.parallel.pipeline import (make_stage_worker,
+                                                 split_llama_stages)
+
+    params = llama.init_params(cfg, device=device, seed=DAG["seed"])
+    workers = [make_stage_worker(cfg, i, DAG["n_stages"], p, device=device)
+               for i, (p, _fn) in enumerate(split_llama_stages(
+                   params, cfg, DAG["n_stages"]))]
+    chain, forward, frames = [], [], []
+    with torch.no_grad():
+        for seq, tokens in enumerate(items):
+            h = workers[0](tokens)
+            chain.append(workers[1](h).cpu())
+            forward.append(llama.forward(
+                params, torch.as_tensor(tokens, device=device), cfg).cpu())
+            frames.append(serialization.build_frame(
+                (seq, (h.cpu(), {})))[0])
+    del params, workers, h
+    gc.collect()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    return {"chain": chain, "forward": forward, "frames": frames}
+
+
+def _dag_interleaved(metas) -> list:
+    """For each consecutive pair: did stage 0 start item i+1 before stage
+    1 finished item i? That is the ordering half of
+    ``tests/test_dag.py``'s structural proof; its other half (stage 1
+    started item i before stage 0 finished item i+1) asks the two windows
+    to run at once, which two processes time-sliced on one card do not
+    (their card-synced windows abut). Items one at a time never
+    interleave: stage 0 gets item i+1 after item i's result is back."""
+    return [b["s0"]["window"][0] < a["s1"]["window"][1]
+            for a, b in zip(metas, metas[1:])]
+
+
+def phase_dag(cfg) -> dict:
+    """(a) Llama-2-7B through a compiled DAG of two stages sharing the
+    card, (b) a workflow on CPU workers, (c) ActorPool, Queue and the
+    host collectives, under one ``rt.init()``. See the module
+    docstring."""
+    import ray_tpu_torch as rt
+
+    device = "cuda"
+    gc.collect()
+    torch.cuda.empty_cache()
+    _runtime_init(device)
+    try:
+        return _dag(cfg, device)
+    finally:
+        if rt.is_initialized():  # a failure before the phase's teardown
+            rt.shutdown()
+
+
+def _dag(cfg, device) -> dict:
+    import tempfile
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.core.config import config
+    from ray_tpu_torch.core.node import shm_store_path
+    from ray_tpu_torch.core.runtime import get_core_worker
+
+    core = get_core_worker()
+    node_hex, store = core.node_id.hex(), shm_store_path(core.node_id)
+    out, checks = {}, {}
+    a, a_checks = _dag_pipeline(cfg, device)
+    out["a"] = a
+    checks.update({f"a_{k}": v for k, v in a_checks.items()})
+    with tempfile.TemporaryDirectory(prefix="rtt_smoke_wf_") as tmp:
+        b, b_checks = _dag_workflow(tmp)
+    out["b"] = b
+    checks.update({f"b_{k}": v for k, v in b_checks.items()})
+    c, c_checks = _dag_util()
+    out["c"] = c
+    checks.update({f"c_{k}": v for k, v in c_checks.items()})
+    out["launches"] = a.pop("launches")
+    out["flash_fwd_by_kernel"] = a.pop("flash_fwd_by_kernel")
+    chan_dir = os.path.join(config.object_store_fallback_dir,
+                            "ray_tpu_torch", "channels")
+    rt.shutdown()
+    out["store_file_left"] = os.path.exists(store)
+    out["processes_left"] = _poll_until(lambda: _live_node_pids(node_hex),
+                                        lambda v: not v, 15.0)
+    out["channel_files_left"] = sorted(
+        f for f in (os.listdir(chan_dir) if os.path.isdir(chan_dir) else [])
+        if f.startswith(a["run_id"]))
+    checks["teardown_clean"] = (not out["store_file_left"]
+                                and not out["processes_left"]
+                                and not out["channel_files_left"])
+    out["config"] = {"n_layers": cfg.n_layers, "dim": cfg.dim,
+                     "attention_impl": cfg.attention_impl, **DAG}
+    out["checks"] = checks
+    out["device"] = smi_line()
+    out["ok"] = all(checks.values()) and len(checks) == 22
+    return out
+
+
+def _dag_pipeline(cfg, device):
+    """(a): the reference in this process, then the DAG: compile, the
+    warm-up items, the pipelined window, the same items one at a time,
+    the channel's own count of the items it carried, ``teardown()``."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import dag
+    from ray_tpu_torch.core.channel import MutableChannel
+    from ray_tpu_torch.core.config import config
+
+    shapes = DAG_SHAPES
+    n_small, n_big, n_warm = DAG["n_small"], DAG["n_big"], DAG["warmup"]
+    warm = [_dag_tokens(cfg, shapes["small"], DAG["data_seed"] + i)
+            for i in range(n_warm)]
+    # The window interleaves the kinds: small, small, small, big, ...
+    kinds = ["small"] * (n_small // 2) + ["big"] + \
+        ["small"] * (n_small - n_small // 2) + ["big"] * (n_big - 1)
+    window = [_dag_tokens(cfg, shapes[k], DAG["data_seed"] + 100 + i)
+              for i, k in enumerate(kinds)]
+    t = time.perf_counter()
+    ref = _dag_reference(cfg, window, device)
+    res = {"reference_s": time.perf_counter() - t, "kinds": kinds,
+           "shapes": {k: list(v) for k, v in shapes.items()}}
+    capacity = config.dag_channel_capacity_bytes
+    res["slot_bytes"] = capacity
+    res["frame_bytes"] = ref["frames"]
+    fits = [f <= capacity for f in ref["frames"]]
+    res["bytes_by_path"] = {
+        "channel": sum(f for f, ok in zip(ref["frames"], fits) if ok),
+        "rpc": sum(f for f, ok in zip(ref["frames"], fits) if not ok)}
+    stage_fns = [rt.remote(_dag_stage(
+        cfg, i, DAG["n_stages"], DAG["seed"], device)).options(**PIPE_SHARE)
+        for i in range(DAG["n_stages"])]
+    reset_counts()
+    driver0 = fwd_kernel_counts(device)
+    t_compile = time.perf_counter()
+    with dag.InputNode() as inp:
+        node = inp
+        for fn in stage_fns:
+            node = fn.bind(node)
+    pipe = node.experimental_compile(max_in_flight=DAG["max_in_flight"])
+    res["compile_s"] = time.perf_counter() - t_compile
+    res["run_id"] = os.path.basename(pipe._channel_paths[0]).split("-e")[0] \
+        if pipe._channel_paths else ""
+    try:
+        futs = [pipe.execute(x) for x in warm]
+        warm_out = [futs[0].result(timeout=600)]
+        res["compile_to_first_result_s"] = time.perf_counter() - t_compile
+        warm_out += [f.result(timeout=600) for f in futs[1:]]
+        # The window, pipelined: every item in flight at once.
+        t = time.perf_counter()
+        futs = [pipe.execute(x) for x in window]
+        piped = [f.result(timeout=600) for f in futs]
+        res["pipelined_s"] = time.perf_counter() - t
+        driver_launches = launch_counts()
+        driver_kernels = fwd_kernels_since(driver0, device)
+        # The same items, one at a time through the same DAG.
+        t = time.perf_counter()
+        serial = [pipe.execute(x).result(timeout=600) for x in window]
+        res["serial_s"] = time.perf_counter() - t
+        chan = MutableChannel(pipe._channel_paths[0])
+        res["channel_items"] = chan.write_seq
+        chan.close()
+        paths = list(pipe._channel_paths)
+    finally:
+        pipe.teardown()
+    res["channel_files_left"] = [p for p in paths if os.path.exists(p)]
+    n = len(window)
+    res["items_per_s"] = {"pipelined": n / res["pipelined_s"],
+                          "one_at_a_time": n / res["serial_s"]}
+    res["speedup"] = res["serial_s"] / res["pipelined_s"]
+    metas = [m for _o, m in piped]
+    stages = [f"s{i}" for i in range(DAG["n_stages"])]
+    res["stage_ms"] = {s: [1e3 * (m[s]["window"][1] - m[s]["window"][0])
+                           for m in metas] for s in stages}
+    res["first_call_s"] = {s: [(m[s]["setup_s"],
+                                m[s]["window"][1] - m[s]["window"][0])
+                               for _o, m in warm_out if m[s]["first"]]
+                           for s in stages}
+    res["interleaved"] = {"pipelined": _dag_interleaved(metas),
+                          "one_at_a_time": _dag_interleaved(
+                              [m for _o, m in serial])}
+    t_first = min(m["s0"]["window"][0] for m in metas)
+    res["windows_ms"] = {s: [[round(1e3 * (w - t_first), 3)
+                              for w in m[s]["window"]] for m in metas]
+                         for s in stages}
+    all_metas = [m for _o, m in warm_out + piped + serial]
+    res["threads"] = {s: len({m[s]["thread"] for m in all_metas})
+                      for s in stages}
+    res["pids"] = {s: sorted({m[s]["pid"] for m in all_metas})
+                   for s in stages}
+    per_item = [[m[s]["launches"] for s in stages] for m in metas]
+    by_kernel = {}
+    for m in metas:
+        for s in stages:
+            for k, v in m[s]["by_kernel"].items():
+                by_kernel[k] = by_kernel.get(k, 0) + v
+    flash = sum(sum(x) for x in per_item)
+    res["launches"] = {**{k: 0 for k in KERNELS}, "flash_fwd": flash}
+    res["flash_fwd_by_kernel"] = by_kernel
+    res["driver_launches"] = driver_launches
+    # Compared after the one-at-a-time run: the window's results must
+    # outlive their objects while later items take the store's bytes.
+    logits = [o for o, _m in piped]
+    res["forward_max_rel"] = [_max_rel(g.float(), w.float()) for g, w in
+                              zip(logits, ref["forward"])]
+    layers = cfg.n_layers // DAG["n_stages"]
+    checks = {
+        "equal_to_chain": all(torch.equal(g, w) for g, w in
+                              zip(logits, ref["chain"])),
+        "one_at_a_time_equal": all(torch.equal(g, w) for (g, _m), w in
+                                   zip(serial, ref["chain"])),
+        "within_forward": all(e <= DAG_FORWARD_REL_TOL
+                              for e in res["forward_max_rel"]),
+        "finite_shapes": all(
+            bool(torch.isfinite(o).all()) and tuple(o.shape)
+            == tuple(shapes[k]) + (cfg.vocab_size,)
+            for o, k in zip(logits, kinds)),
+        "flash_per_stage_item": all(x == [layers] * DAG["n_stages"]
+                                    for x in per_item),
+        "flash_on_wgmma": all_on_wgmma(by_kernel, flash, device),
+        "no_kernel_in_driver": (not any(driver_launches.values())
+                                and not any(driver_kernels.values())),
+        "stages_own_processes": (
+            all(len(p) == 1 for p in res["pids"].values())
+            and len({p[0] for p in res["pids"].values()})
+            == DAG["n_stages"]
+            and os.getpid() not in {p[0] for p in res["pids"].values()}),
+        "stages_on_device": all(
+            m[s]["device"].startswith(torch.device(device).type)
+            and not m[s]["grad"] for m in all_metas for s in stages),
+        "drain_thread_runs_every_call": res["threads"]["s1"] == 1,
+        "windows_interleave": (any(res["interleaved"]["pipelined"])
+                               and not any(
+                                   res["interleaved"]["one_at_a_time"])),
+        "both_paths_carry_items": (
+            any(fits) and not all(fits)
+            and all(f == (k == "small") for f, k in zip(fits, kinds))),
+        "channel_counted_its_items": res["channel_items"]
+        == n_warm + 2 * sum(fits),
+        "no_channel_file_left": not res["channel_files_left"],
+    }
+    return res, checks
+
+
+def _wf_count(marks: str, name: str) -> int:
+    """One more run of step ``name``, counted in a marker file."""
+    path = os.path.join(marks, name)
+    n = int(open(path).read()) if os.path.exists(path) else 0
+    with open(path, "w") as f:
+        f.write(str(n + 1))
+    return n + 1
+
+
+def _wf_load(n, marks):
+    _wf_count(marks, "load")
+    return list(range(n))
+
+
+def _wf_square(xs, marks):
+    _wf_count(marks, "square")
+    return [x * x for x in xs]
+
+
+def _wf_total(xs, marks, fail_once):
+    """Fails on its first run when ``fail_once`` (the marker file guards
+    it), as a crash mid-workflow."""
+    if _wf_count(marks, "total") == 1 and fail_once:
+        raise RuntimeError("interrupted")
+    return sum(xs)
+
+
+def _wf_plan(total, marks):
+    """A dynamic step: the rest of the workflow is a continuation."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import workflow
+
+    _wf_count(marks, "plan")
+    return workflow.continuation(rt.remote(_wf_label).bind(total, marks))
+
+
+def _wf_label(total, marks):
+    _wf_count(marks, "label")
+    return {"total": total}
+
+
+def _dag_workflow(tmp: str):
+    """(b): three steps and a continuation, stored under ``tmp``. The
+    third step raises on its first run; ``resume`` finishes the workflow.
+    The same workflow uninterrupted gives the reference result."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import workflow
+    from ray_tpu_torch.dag import InputNode
+
+    def build(marks, fail_once):
+        os.makedirs(marks)
+        step = rt.remote(max_retries=0)
+        with InputNode() as inp:
+            xs = step(_wf_load).bind(inp, marks)
+            sq = step(_wf_square).bind(xs, marks)
+            tot = step(_wf_total).bind(sq, marks, fail_once)
+            return step(_wf_plan).bind(tot, marks)
+
+    def runs(marks):
+        return {n: int(open(os.path.join(marks, n)).read())
+                for n in sorted(os.listdir(marks))}
+
+    res = {}
+    storage, marks = os.path.join(tmp, "store"), os.path.join(tmp, "marks")
+    wf = build(marks, fail_once=True)
+    t = time.perf_counter()
+    try:
+        workflow.run(wf, workflow_id="smoke", storage=storage, args=100)
+        res["interrupted"] = False
+    except Exception as e:  # noqa: BLE001 - the interruption is the point
+        res["interrupted"] = "interrupted" in str(e)
+    res["run_s"] = time.perf_counter() - t
+    res["status_after_failure"] = workflow.get_status("smoke",
+                                                      storage=storage)
+    res["runs_after_failure"] = runs(marks)
+    t = time.perf_counter()
+    res["result"] = workflow.resume("smoke", storage=storage)
+    res["resume_s"] = time.perf_counter() - t
+    res["status"] = workflow.get_status("smoke", storage=storage)
+    res["again"] = workflow.resume("smoke", storage=storage)
+    res["runs"] = runs(marks)
+    ref_marks = os.path.join(tmp, "ref_marks")
+    t = time.perf_counter()
+    res["uninterrupted"] = workflow.run(
+        build(ref_marks, fail_once=False), workflow_id="smoke-ref",
+        storage=os.path.join(tmp, "ref_store"), args=100)
+    res["uninterrupted_s"] = time.perf_counter() - t
+    want = {"total": sum(x * x for x in range(100))}
+    checks = {
+        "interrupted_then_failed": (res["interrupted"] is True
+                                    and res["status_after_failure"]
+                                    == "FAILED"),
+        "resumed_equals_uninterrupted": (res["result"] == res["again"]
+                                         == res["uninterrupted"] == want
+                                         and res["status"] == "SUCCEEDED"),
+        # The failed step ran again; no finished step did.
+        "no_finished_step_rerun": (
+            res["runs_after_failure"] == {"load": 1, "square": 1,
+                                          "total": 1}
+            and res["runs"] == {"label": 1, "load": 1, "plan": 1,
+                                "square": 1, "total": 2}),
+    }
+    return res, checks
+
+
+class _DagSquarer:
+    def square(self, x):
+        time.sleep(0.002 * (x % 3))  # finish out of order
+        return x * x
+
+
+class _DagMember:
+    """One rank of (c)'s host collective group."""
+
+    def __init__(self, name: str, world: int, rank: int):
+        from ray_tpu_torch.util import collective
+
+        self.group = collective.init_collective_group(name, world, rank)
+        self.rank = rank
+
+    def run(self, nbytes: int) -> dict:
+        g = self.group
+        x = np.full(nbytes // 4, self.rank + 1, np.float32)
+        g.barrier()  # every member up before the timed ops
+        out, times = {}, {}
+        for op, fn in (
+                ("allreduce", lambda: g.allreduce(x, "sum")),
+                ("allgather", lambda: g.allgather(x)),
+                ("broadcast", lambda: g.broadcast(
+                    x * 10 if self.rank == 0 else None, src_rank=0)),
+                ("barrier", g.barrier)):
+            t = time.perf_counter()
+            val = fn()
+            times[op] = time.perf_counter() - t
+            if op == "allreduce":
+                out[op] = bool((val == sum(range(1, g.world_size + 1))).all())
+            elif op == "allgather":
+                out[op] = [float(v[0]) for v in val] == [
+                    float(r + 1) for r in range(g.world_size)] and all(
+                    v.nbytes == nbytes for v in val)
+            elif op == "broadcast":
+                out[op] = bool((val == 10.0).all())
+        return {"ok": out, "s": times}
+
+
+def _dag_produce(q, n: int) -> int:
+    for i in range(n):
+        q.put(i, timeout=60)
+    return n
+
+
+def _dag_consume(q, n: int) -> list:
+    return [q.get(timeout=60) for _ in range(n)]
+
+
+def _dag_util():
+    """(c): ``ActorPool`` over 4 CPU actors, a ``Queue(maxsize=4)``
+    between a producer task and a consumer task, and the host collectives
+    over 4 CPU actors on a 1 MiB array."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.util import ActorPool, Queue, collective
+
+    res, checks = {}, {}
+    n = DAG_WORKERS
+    actors = [rt.remote(_DagSquarer).options(num_cpus=0).remote()
+              for _ in range(n)]
+    rt.get([a.square.remote(0) for a in actors], timeout=120)  # started
+    pool = ActorPool(actors)
+    t = time.perf_counter()
+    got = list(pool.map(lambda a, v: a.square.remote(v), range(32)))
+    res["map_s"] = time.perf_counter() - t
+    checks["pool_map_in_order"] = got == [v * v for v in range(32)]
+    t = time.perf_counter()
+    unordered, pending = [], list(range(32))
+    while pending or pool.has_next():
+        while pending and pool.has_free():
+            pool.submit(lambda a, v: a.square.remote(v), pending.pop(0))
+        unordered.append(pool.get_next_unordered(timeout=60))
+    res["unordered_s"] = time.perf_counter() - t
+    res["unordered_in_order"] = unordered == [v * v for v in range(32)]
+    checks["pool_unordered_complete"] = sorted(unordered) == \
+        [v * v for v in range(32)]
+    for a in actors:
+        rt.kill(a)
+
+    q = Queue(maxsize=4)
+    t = time.perf_counter()
+    # Two tasks of one resource shape share a worker lease, so the second
+    # would wait for the first to end: the consumer takes another shape.
+    prod = rt.remote(_dag_produce).remote(q, 64)
+    cons = rt.remote(_dag_consume).options(num_cpus=2).remote(q, 64)
+    got = rt.get(cons, timeout=120)
+    res["queue_s"] = time.perf_counter() - t
+    checks["queue_fifo_between_tasks"] = (got == list(range(64))
+                                          and rt.get(prod, timeout=60) == 64)
+
+    collective.create_collective_group("smoke", n)
+    members = [rt.remote(_DagMember).options(num_cpus=0).remote(
+        "smoke", n, r) for r in range(n)]
+    t = time.perf_counter()
+    outs = rt.get([m.run.remote(DAG_COLLECTIVE_BYTES) for m in members],
+                  timeout=300)
+    res["collectives_s"] = time.perf_counter() - t
+    res["collective_op_s"] = {op: max(o["s"][op] for o in outs)
+                              for op in outs[0]["s"]}
+    checks["collectives_correct"] = all(all(o["ok"].values())
+                                        and len(o["ok"]) == 3 for o in outs)
+    for m in members:
+        rt.kill(m)
+    return res, checks
+
+
 def _poll_until(fn, done, timeout_s: float = 20.0):
     """``fn()`` once ``done`` holds for it, or its last value at the
     deadline."""
@@ -7038,6 +7644,28 @@ def _poll_until(fn, done, timeout_s: float = 20.0):
 def _sync(device) -> None:
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize()
+
+
+def count_gpu_processes() -> list:
+    """Record every GPU worker process the runtime starts from here on:
+    each worker handle a node's ``_fork_worker`` returns with ``gpu`` set
+    (the node's own mark of a fresh interpreter spawned with its leased
+    cards visible) adds its pid to the returned list. Nodes live in this
+    process (``rt.init()`` and ``cluster_utils.Cluster``), so every GPU
+    lease of every phase passes here."""
+    from ray_tpu_torch.core.node import Node
+
+    started: list = []
+    fork = Node._fork_worker
+
+    def counted(self, *args, **kwargs):
+        handle = fork(self, *args, **kwargs)
+        if handle.gpu:
+            started.append(handle.proc.pid)
+        return handle
+
+    Node._fork_worker = counted
+    return started
 
 
 # ----------------------------------------------------------------- main
@@ -7056,6 +7684,8 @@ def main() -> int:
     paths: dict = {}
     by_kernel: dict = {}
     bwd_by_kernel: dict = {}
+    started = count_gpu_processes()
+    gpu_by_phase: dict = {}
     serve_cfg = replace(llama.PRESETS["7b"], attention_impl="flash")
     train_cfg = replace(llama.PRESETS["1b"], attention_impl="flash",
                         remat=True, remat_policy="full", loss_chunk=512)
@@ -7087,16 +7717,20 @@ def main() -> int:
                      ("cluster", lambda: phase_cluster(
                          serve_cfg,
                          results["serve_runtime"]["handle_streams"])),
-                     ("pipeline", lambda: phase_pipeline(train_cfg))):
+                     ("pipeline", lambda: phase_pipeline(train_cfg)),
+                     ("dag", lambda: phase_dag(serve_cfg))):
         t0 = time.perf_counter()
+        n_started = len(started)
         try:
             res = fn()
         except Exception:
             emit({"phase": name, "ok": False,
                   "error": traceback.format_exc()})
             return 1
+        gpu_by_phase[name] = len(started) - n_started
         res = {"phase": name, "ok": res.pop("ok", True),
-               "seconds": time.perf_counter() - t0, **res}
+               "seconds": time.perf_counter() - t0,
+               "gpu_processes_started": gpu_by_phase[name], **res}
         emit(res)
         if not res["ok"]:
             return 1
@@ -7126,6 +7760,8 @@ def main() -> int:
     for name, prefix in (("flash_bwd_dkv", "dkv_"), ("flash_bwd_dq", "dq_")):
         record[name]["launches_by_kernel"] = {
             k: n for k, n in bwd_by_kernel.items() if k.startswith(prefix)}
+    emit({"gpu_processes": {"by_phase": gpu_by_phase,
+                            "total": len(started)}})
     emit({"kernels": [
         {"name": k, **KERNELS[k], "launches": launches[k], **record[k]}
         for k in KERNELS]})

@@ -798,25 +798,27 @@ class RpcClient:
                 if call is not None:
                     call.complete(msg)
         except (ConnectionError, OSError):
-            # Guard against a stale reader (pre-redial socket) failing the
-            # fresh connection's in-flight calls. The unlocked _sock read
-            # is the point: an identity probe against whatever socket is
-            # current — a racing re-dial makes the comparison fail and
-            # this stale reader exit silently, which is the desired
-            # outcome.
-            # graftlint: disable=unguarded-field-access
-            if sock is self._sock:
-                self._fail_all(RpcError(f"connection to {self.addr} lost"))
+            # A stale reader (of a socket that a re-dial has replaced)
+            # must not fail the fresh connection's calls: ``_fail_all``
+            # checks under ``_lifecycle_lock``, which the re-dial holds,
+            # that ``sock`` is still the current one.
+            self._fail_all(RpcError(f"connection to {self.addr} lost"),
+                           sock)
 
-    def _fail_all(self, err: Exception) -> None:
-        # _closed writes go through _lifecycle_lock (like close/_evict/
-        # _ensure_open): an unlocked write here could interleave with
-        # _ensure_open's re-dial sequence and publish a half-built
-        # open-but-closed state (graftlint: unguarded-field-access).
+    def _fail_all(self, err: Exception,
+                  sock: Optional[socket.socket] = None) -> None:
+        """Close the client and fail every pending call; with ``sock``,
+        only while ``sock`` is still the client's socket. The check, the
+        close and taking the pending calls are one step under
+        ``_lifecycle_lock`` (like close/_evict/_ensure_open): a reader
+        that saw its socket current and then failed the calls a re-dial
+        had already registered would lose a retried call."""
         with self._lifecycle_lock:
+            if sock is not None and sock is not self._sock:
+                return
             self._closed = True
-        with self._pending_lock:
-            pending, self._pending = self._pending, {}
+            with self._pending_lock:
+                pending, self._pending = self._pending, {}
         for call in pending.values():
             call.fail(err)
 

@@ -72,6 +72,25 @@ _core_worker_lock = threading.Lock()
 _GAP_WAIT_S = 30.0
 
 
+class _PinnedFrame:
+    """A frame that lives in the store, exported as a buffer together with
+    the ``ObjectRef`` it was read for. The arrays and tensors that
+    ``deserialize`` builds over the frame hold views of it, and through
+    them the reference: the owner frees an object only after its last
+    reference has gone, so the store cannot hand the bytes under a live
+    value to another object (the reference's plasma keeps a buffer's
+    object until the buffer is released)."""
+
+    __slots__ = ("_view", "_ref")
+
+    def __init__(self, view: memoryview, ref: ObjectRef):
+        self._view = view
+        self._ref = ref
+
+    def __buffer__(self, flags: int) -> memoryview:
+        return self._view
+
+
 def _dump_stacks() -> str:
     from ray_tpu_torch.util.tracing import dump_stacks
 
@@ -530,9 +549,17 @@ class CoreWorker:
                     max_workers=8, thread_name_prefix="chunk-pull")
             return self._chunk_pool_inst
 
+    def _value_frame(self, ref: ObjectRef, timeout: Optional[float]):
+        """``_get_frame``, with a view of the store tied to ``ref`` (see
+        :class:`_PinnedFrame`)."""
+        frame = self._get_frame(ref, timeout)
+        if isinstance(frame, memoryview):
+            return memoryview(_PinnedFrame(frame, ref))
+        return frame
+
     def _get_one(self, ref: ObjectRef, timeout: Optional[float]):
         if not config.core_metrics_enabled:
-            frame = self._get_frame(ref, timeout)
+            frame = self._value_frame(ref, timeout)
             value = serialization.deserialize(frame)
             if isinstance(value, TaskError):
                 raise value
@@ -541,7 +568,7 @@ class CoreWorker:
         t0_wall = time.time()
         local = (ref.owner_addr in (None, self.addr)
                  or self.store.is_ready(ref.id))
-        frame = self._get_frame(ref, timeout)
+        frame = self._value_frame(ref, timeout)
         value = serialization.deserialize(frame)
         from ray_tpu_torch.core import coremetrics as cmx
 
