@@ -396,11 +396,11 @@ Phases, one JSON line each (``{"phase": ..., "ok": ...}``):
    after them: each run launches the flash forward 3 times per layer and
    microbatch (the stage forward, the backward's forward and its remat
    recompute) and each backward kernel and delta once, all on wgmma,
-   and nothing in the driver. (c) Two stages sharing the card,
-   ``snapshot_every=1``: the last stage's process is SIGKILLed after step
+   and nothing in the driver. (c) One stage on the card's own slice, as
+   (a), ``snapshot_every=1``: the stage's process is SIGKILLed after step
    2 commits; the gang reconciles under epoch 2, the registry's epoch
    bumps, step 3 replays, the losses equal the uninterrupted in-process
-   chain's (b's), and ``stop()`` leaves no ref and no record; then
+   chain's (a's), and ``stop()`` leaves no ref and no record; then
    ``python -m ray_tpu_torch --address H:P doctor --post-mortem --json``
    against the live cluster must name ``gang-death`` for the killed
    member and the stage it hosted. The in-process baselines are freed
@@ -443,6 +443,31 @@ Phases, one JSON line each (``{"phase": ..., "ok": ...}``):
    ``allgather``, ``broadcast`` and ``barrier`` over 4 CPU actors on a
    1 MiB array, each checked and timed. Then no process, store or
    channel file left.
+22. launcher_mesh: the launcher and autopilot family and the mesh
+   replica, as an operator runs them. ``python -m ray_tpu_torch up`` on a
+   fake_multinode cluster YAML (``LAUNCH_YAML``: a CPU head, one ``gpu``
+   node type of ``{CPU: 4, GPU: 1}``, min 0, max 1, idle 15 s) parks in a
+   process of its own, which holds the controller, the head and every
+   node the autoscaler adds. This process joins it
+   (``rt.init(address=...)``) and ``serve.run``s the serve phase's 7B
+   (``_replica_cls``, 4 slots x 2048) with ``mesh_shape=(1, 1)`` and
+   ``num_gpus=1``: the sub-slice reservation is refused until the
+   autoscaler, seeing the ``{chips: 1}`` demand, launches the ``gpu``
+   node, whose one card is a one-chip slice; the serve controller then
+   spawns the replica's one rank, which joins an NCCL world of one. The
+   serve phase's six requests go through the HTTP proxy one at a time and
+   must equal serve_runtime's streams token for token; the replica's
+   process reads flash #1's launches (32 a full prefill wave, all on
+   wgmma). Then ``serve/trace_demo.py``'s ``run_demo(init=False)`` with
+   its two debug replicas on CPU workers (the trace must validate),
+   ``autopilot --dry-run`` (its plan printed, nothing applied) and
+   ``autopilot --status``, ``serve.delete`` (the idle ``gpu`` node must be
+   terminated) and ``python -m ray_tpu_torch down`` on the YAML, which
+   stops the ``up`` process. Prints ``up``, the ``gpu`` node's launch,
+   the replica's start, ``serve.run`` to the first streamed token, the
+   demo, the autopilot's two commands, the node's termination and
+   ``down``, in seconds. Its GPU process is counted by the card files
+   the ``up`` process's children hold.
 
 Depth, steps and schedule cut to keep the smoke near half its 1200 s
 limit: the pipeline and train_runtime run the 1B width at 4 layers
@@ -450,8 +475,10 @@ limit: the pipeline and train_runtime run the 1B width at 4 layers
 half takes 4 batches (it took 8), and the tune sweep of train_runtime
 runs one trial at a time (its second trial waited out a refused 60 s
 reservation). rl_dist starts two inference services, not four, to pay
-for the dag phase's two stage processes. Every width and kernel of each
-path stays.
+for the dag phase's two stage processes, and the pipeline's (c) kills and
+resumes one stage, not one of two (which re-formed both: four processes,
+now two), to pay for launcher_mesh's replica. Every width and kernel of
+each path stays.
 
 Serve, serve_paged, serve_spec and train also read the forward's C
 entry's own launch count of each of its kernels over the same window:
@@ -461,7 +488,7 @@ taken a wgmma kernel.
 
 Each main path (splash, serve, serve_paged, serve_spec, serve_disagg,
 serve_runtime, serve_mesh, train, train_runtime, data_train, mesh, gang,
-cluster, pipeline, dag) must have launched each of its kernels at least
+cluster, pipeline, dag, launcher_mesh) must have launched each of its kernels at least
 once. Every phase line carries ``gpu_processes_started``: the GPU worker
 processes the runtime spawned during it (``count_gpu_processes``), and a
 ``{"gpu_processes": ...}`` line sums them. Then a
@@ -604,6 +631,7 @@ PATH_KERNELS = {
     "pipeline": ["flash_fwd", "flash_bwd_dkv", "flash_bwd_dq",
                  "attention_delta"],
     "dag": ["flash_fwd"],
+    "launcher_mesh": ["flash_fwd"],
 }
 # The sources to build: one library (and one nvcc) per .cu file.
 SOURCES = sorted({Path(k["source"]).stem for k in KERNELS.values()})
@@ -6905,8 +6933,8 @@ def phase_pipeline(cfg, device="cuda") -> dict:
     """The pipeline plane on the runtime, ``cfg`` cut to its first
     ``PIPELINE["layers"]`` layers at full width: (a) one stage on the
     card's own slice, (b) two stages sharing the card on a virtual
-    two-host slice, (c) two stages, one killed and resumed. See the module
-    docstring."""
+    two-host slice, (c) one stage on the card's own slice, killed and
+    resumed. See the module docstring."""
     import ray_tpu_torch as rt
     from ray_tpu_torch.models import llama
     from ray_tpu_torch.train.pipeline_plane import host_copies
@@ -6957,13 +6985,17 @@ def phase_pipeline(cfg, device="cuda") -> dict:
     b["seconds"] = time.perf_counter() - t
     out["b"] = b
 
-    # (c) two stages, the last one killed after step 2; then the doctor's
-    # post-mortem, through the CLI, against the live cluster
+    # (c) one stage on the card's own slice, killed after step 2; then the
+    # doctor's post-mortem, through the CLI, against the live cluster
     t = time.perf_counter()
-    c = _pipe_virtual_slice(lambda: _pipe_post_mortem(_pipe_run(
-        cfg, params, steps, device, 2, "smoke-pipe-kill", PIPE_SHARE,
-        snapshot_every=1, kill_after=2), "smoke-pipe-kill"), device)
-    c["chain_losses"] = chain2
+    _runtime_init(device)
+    try:
+        c = _pipe_post_mortem(_pipe_run(
+            cfg, params, steps, device, 1, "smoke-pipe-kill", None,
+            snapshot_every=1, kill_after=2), "smoke-pipe-kill")
+    finally:
+        rt.shutdown()
+    c["chain_losses"] = chain1
     c["seconds"] = time.perf_counter() - t
     out["c"] = c
 
@@ -7080,6 +7112,282 @@ def _pipe_virtual_slice(fn, device):
             os.environ.pop("RAY_TPU_VIRTUAL_SLICE", None)
         else:
             os.environ["RAY_TPU_VIRTUAL_SLICE"] = saved
+
+
+# ------------------------------------------------------- launcher_mesh
+
+# The cluster YAML the phase launches (fake_multinode: the head and every
+# node the autoscaler adds live in the ``up`` process): a CPU head, and
+# one ``gpu`` node type of 4 CPUs and the card, launched on demand and
+# torn down when idle for 15 s. Written as JSON, which is YAML too.
+LAUNCH_YAML = dict(
+    cluster_name="smoke-launch", provider={"type": "fake_multinode"},
+    min_workers=0, max_workers=1, idle_timeout_minutes=0.25,
+    head={"resources": {"CPU": 8}},
+    worker={"resources": {"CPU": 4, "GPU": 1}, "labels": {"pool": "gpu"}})
+LAUNCH_TIMEOUT_S = 600.0
+
+
+def _descendants(pid: int) -> list:
+    """Every live process below ``pid`` (read from ``/proc``)."""
+    parents = {}
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as f:
+                fields = f.read().rsplit(")", 1)[1].split()
+        except OSError:
+            continue
+        if fields[0] != "Z":
+            parents.setdefault(int(fields[1]), []).append(int(entry))
+    out, todo = [], [pid]
+    while todo:
+        kids = parents.get(todo.pop(), [])
+        out += kids
+        todo += kids
+    return out
+
+
+def _alive(pid: int) -> bool:
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except OSError:
+        return False
+
+
+class _UpProcess:
+    """``python -m ray_tpu_torch up <yaml>`` from this checkout, its output
+    read on a thread (kept whole, so the pipe never fills)."""
+
+    def __init__(self, path: str):
+        root = os.path.dirname(os.path.abspath(__file__))
+        pypath = [root] + [p for p in os.environ.get(
+            "PYTHONPATH", "").split(os.pathsep) if p]
+        self.lines: list = []
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "ray_tpu_torch", "up", path],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            cwd=root, env={**os.environ,
+                           "PYTHONPATH": os.pathsep.join(pypath)})
+        self._reader = threading.Thread(target=self._read, daemon=True)
+        self._reader.start()
+
+    def _read(self):
+        for line in self.proc.stdout:
+            self.lines.append(line.rstrip("\n"))
+
+    def wait_for(self, marker: str, timeout: float) -> str:
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            for line in list(self.lines):
+                if marker in line:
+                    return line
+            if self.proc.poll() is not None:
+                break
+            time.sleep(0.05)
+        raise RuntimeError(f"{marker!r} not printed by up; its output "
+                           f"ends: {self.lines[-20:]}")
+
+    def stop(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self.proc.wait(timeout=30)
+        self._reader.join(10)
+
+
+def phase_launcher_mesh(cfg, want: dict, device="cuda") -> dict:
+    """The launcher and autopilot family, and the mesh replica through its
+    spawn path, driven as an operator drives them: ``up`` on a
+    fake_multinode YAML, a ``(1, 1)`` mesh deployment of the 7B whose
+    demand makes the autoscaler launch the ``gpu`` node, the serve cell's
+    requests through the HTTP proxy, the trace demo, ``autopilot``, then
+    ``serve.delete`` and ``down``. See the module docstring."""
+    import shutil
+    import tempfile
+
+    import ray_tpu_torch as rt
+
+    gc.collect()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="launcher_mesh_")
+    path = os.path.join(tmp, "cluster.yaml")
+    with open(path, "w") as f:
+        json.dump(LAUNCH_YAML, f, indent=2)
+    t = time.perf_counter()
+    up = _UpProcess(path)
+    try:
+        return _launcher_mesh(cfg, want, device, path, up, t)
+    finally:
+        if rt.is_initialized():  # a failure before the phase's teardown
+            rt.shutdown()
+        up.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _launcher_mesh(cfg, want, device, path, up, t_up) -> dict:
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.serve.trace_demo import run_demo
+
+    out, checks = {}, {}
+    line = up.wait_for("cluster up; controller at", LAUNCH_TIMEOUT_S)
+    host, _, port = line.split()[-1].rpartition(":")
+    addr = (host, int(port))
+    up.wait_for("autoscaling", LAUNCH_TIMEOUT_S)
+    out["up_s"] = time.perf_counter() - t_up
+    out["up_actions"] = [ln.strip() for ln in up.lines
+                         if ln.startswith("  ")]
+    rt.init(address=addr)
+
+    def gpu_nodes():
+        return [n for n in rt.nodes()
+                if n["alive"] and n["resources"].get("GPU")]
+
+    checks["no_gpu_node_before_demand"] = not gpu_nodes()
+    # The mesh replica's GPU demand: its sub-slice reservation is refused
+    # until the autoscaler's gpu node registers with its one-card slice.
+    geo = dict(config=cfg, slots=4, capacity=2048, seed=0)
+    t = time.perf_counter()
+    serve.run(serve.deployment(_replica_cls(), mesh_shape=(1, 1)).options(
+        ray_actor_options={"num_gpus": 1}, max_concurrency=8).bind(
+            **geo, device=device), name="llm_mesh", ready_timeout_s=900.0)
+    nodes = _poll_until(gpu_nodes, bool, LAUNCH_TIMEOUT_S)
+    out["gpu_node_s"] = time.perf_counter() - t
+    out["gpu_node"] = [{"node_id": n["node_id"][:8],
+                        "resources": n["resources"],
+                        "labels": n["labels"]} for n in nodes]
+    checks["autoscaler_launched_gpu_node"] = (
+        len(nodes) == 1
+        and nodes[0]["labels"].get("provider_node_id", "").startswith(
+            "fake-")
+        and nodes[0]["labels"].get("pool") == "gpu")
+    _poll_until(lambda: serve.status()["llm_mesh"]["replicas"],
+                lambda v: v == 1, LAUNCH_TIMEOUT_S)
+    h = serve.get_deployment_handle("llm_mesh")
+    window = h.options(method_name="flash_window", timeout_s=900.0)
+    w0 = window.remote(True).result(timeout=900)
+    out["replica_start_s"] = time.perf_counter() - t
+    tree = _descendants(up.proc.pid)
+    gpu_pids = [p for p in tree if _nvidia_fds(p)]
+    out["up_gpu_pids"] = gpu_pids
+    out["replica"] = {k: w0[k] for k in ("device", "pid", "cuda_visible",
+                                         "card")}
+    kind = torch.device(device).type
+    checks["replica_on_the_launched_node_and_card"] = (
+        w0["pid"] in tree and w0["device"].startswith(kind)
+        and w0["cuda_visible"] != ""
+        and (kind != "cuda"
+             or (bool(w0["card"]) and gpu_pids == [w0["pid"]])))
+    addr_http = serve.start_http()
+    plan = _serve_plan(cfg)
+    got, ttft = {}, {}
+    for i, name in enumerate(plan):
+        toks, n, _ = plan[name]
+        t_req = time.perf_counter()
+        got[name], ttft[name], _ = _http_stream(
+            addr_http, "llm_mesh", {"tokens": toks, "max_new_tokens": n},
+            REQUEST_TIMEOUT_S)
+        if i == 0:  # serve.run to the first streamed token
+            out["scale_up_to_first_token_s"] = t_req - t + ttft[name]
+    out["client_ttft_s"] = ttft
+    mismatch = {name: _first_difference({name: got[name]},
+                                        {name: want[name]})[name]
+                for name in plan if got[name] != want[name]}
+    out["mismatch"] = mismatch
+    checks["streams_equal_serve_runtime"] = not mismatch
+    w1 = window.remote(False).result(timeout=60)
+    launches = w1["launches"]
+    waves = w1["prefill_waves"] - w0["prefill_waves"]
+    by_kernel = {k: n - w0["by_kernel"].get(k, 0)
+                 for k, n in w1["by_kernel"].items()}
+    out.update({"launches": {"flash_fwd": launches},
+                "flash_fwd_by_kernel": by_kernel,
+                "replica_full_prefill_waves": waves})
+    checks["flash_launches_32_per_full_wave"] = (
+        waves > 0 and launches == cfg.n_layers * waves)
+    checks["flash_fwd_on_wgmma"] = all_on_wgmma(by_kernel, launches, device)
+    st = serve.status()["llm_mesh"]
+    topo = (st.get("replica_topology") or [{}])[0]
+    out["status"] = {"replicas": st["replicas"],
+                     "chips_in_use": st["chips_in_use"], "topology": topo}
+    checks["mesh_status"] = (
+        st["replicas"] == 1 and topo.get("chips") == 1
+        and topo.get("mesh_shape") == [1, 1]
+        and (topo.get("sub_slice") or {}).get("shape") == [1, 1]
+        and str(topo.get("slice_id", "")).startswith("gpu-"))
+
+    # The trace demo against the same cluster, its debug replicas on CPU
+    # workers.
+    t = time.perf_counter()
+    report = run_demo(init=False, replicas=2, requests=3, device="cpu")
+    out["demo_s"] = time.perf_counter() - t
+    out["trace"] = {k: report[k] for k in ("events", "spans",
+                                           "engine_slices")}
+    out["trace"]["span_processes"] = len(report["span_pids"])
+    out["trace"]["cross_process_links"] = len(
+        report["cross_process_links"])
+    checks["trace_validated"] = (len(report["span_pids"]) >= 3
+                                 and bool(report["cross_process_links"])
+                                 and report["engine_slices"] >= 1)
+
+    # The autopilot: one dry-run pass (its plan printed, nothing applied),
+    # then its status.
+    t = time.perf_counter()
+    rc, stdout, stderr, _s = _cli(addr, "autopilot", "--dry-run",
+                                  "--interval", "1.0")
+    plan_records = json.loads(stdout) if rc == 0 else None
+    rc2, stdout2, stderr2, _s2 = _cli(addr, "autopilot", "--status")
+    status = json.loads(stdout2) if rc2 == 0 else None
+    out["autopilot_s"] = time.perf_counter() - t
+    out["autopilot_plan"] = plan_records
+    out["autopilot_status"] = status
+    if rc or rc2:
+        out["autopilot_stderr"] = (stderr or stderr2)[-2000:]
+    checks["autopilot_dry_run_zero_actions"] = (
+        isinstance(plan_records, list)
+        and not any(r.get("outcome") == "applied" for r in plan_records))
+    checks["autopilot_status"] = (
+        isinstance(status, dict) and status.get("enabled") is False
+        and status.get("audit") == [])
+    checks["replica_untouched_by_autopilot"] = (
+        serve.status()["llm_mesh"]["replicas"] == 1)
+
+    # Delete: the idle gpu node goes; then down stops the up process.
+    t = time.perf_counter()
+    serve.delete("llm_mesh")
+    left = _poll_until(gpu_nodes, lambda v: not v, LAUNCH_TIMEOUT_S)
+    out["gpu_node_terminated_s"] = time.perf_counter() - t
+    checks["idle_gpu_node_terminated"] = not left
+    serve.shutdown()
+    rt.shutdown()
+    t = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    down = subprocess.run(
+        [sys.executable, "-m", "ray_tpu_torch", "down", path],
+        capture_output=True, text=True, timeout=120, cwd=root,
+        env={**os.environ, "PYTHONPATH": os.pathsep.join(
+            [root] + [p for p in os.environ.get("PYTHONPATH", "").split(
+                os.pathsep) if p])})
+    up_rc = up.proc.wait(timeout=60)
+    out["down_s"] = time.perf_counter() - t
+    out["down"] = {"rc": down.returncode, "stdout": down.stdout.strip(),
+                   "up_rc": up_rc}
+    checks["down_stopped_up"] = (
+        down.returncode == 0 and up_rc == 0
+        and f"terminated up process {up.proc.pid}" in down.stdout)
+    # The up process's children while it served (the node's forkserver
+    # and workers) are gone with it.
+    out["processes_left"] = _poll_until(
+        lambda: [p for p in tree if _alive(p)], lambda v: not v, 15.0)
+    checks["teardown_clean"] = not out["processes_left"]
+    out["checks"] = checks
+    if kind == "cuda":
+        out["device"] = smi_line()
+    out["ok"] = all(checks.values()) and len(checks) == 14
+    return out
 
 
 # ------------------------------------------------------------------- dag
@@ -7718,7 +8026,10 @@ def main() -> int:
                          serve_cfg,
                          results["serve_runtime"]["handle_streams"])),
                      ("pipeline", lambda: phase_pipeline(train_cfg)),
-                     ("dag", lambda: phase_dag(serve_cfg))):
+                     ("dag", lambda: phase_dag(serve_cfg)),
+                     ("launcher_mesh", lambda: phase_launcher_mesh(
+                         serve_cfg,
+                         results["serve_runtime"]["handle_streams"]))):
         t0 = time.perf_counter()
         n_started = len(started)
         try:
@@ -7727,6 +8038,9 @@ def main() -> int:
             emit({"phase": name, "ok": False,
                   "error": traceback.format_exc()})
             return 1
+        # GPU workers of a cluster whose nodes live in another process
+        # (launcher_mesh's ``up``), found by the card files they hold.
+        started.extend(res.get("up_gpu_pids", []))
         gpu_by_phase[name] = len(started) - n_started
         res = {"phase": name, "ok": res.pop("ok", True),
                "seconds": time.perf_counter() - t0,

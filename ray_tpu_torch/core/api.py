@@ -203,10 +203,12 @@ def shutdown() -> None:
     # Reset per-process caches so a fresh init() starts clean.
     from ray_tpu_torch.core import actor as _actor
     from ray_tpu_torch.core import remote_function as _rf
+    from ray_tpu_torch.util.metrics import _Registry
 
     _rf._exported_keys.clear()
     _actor._seq_counters.clear()
     _actor._inflight.clear()
+    _Registry.get().clear_series()
 
 
 def _client():

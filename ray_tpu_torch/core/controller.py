@@ -22,12 +22,14 @@ from __future__ import annotations
 import logging
 import threading
 import time
+from collections import deque
 from typing import Any, Dict, List, Optional, Tuple
 
 from ray_tpu_torch.core import resources as resmath
 from ray_tpu_torch.core.config import config
 from ray_tpu_torch.core.ids import ActorID, NodeID, PlacementGroupID
-from ray_tpu_torch.core.pubsub import Pubsub
+from ray_tpu_torch.core.pubsub import (DEAD_HOLDERS_CHANNEL, DEAD_HOLDERS_KEY,
+                                       Pubsub)
 from ray_tpu_torch.core.rpc import ClientPool, RpcServer
 from ray_tpu_torch.core.rpc_stubs import CoreWorkerStub, NodeStub
 from ray_tpu_torch.util.ratelimit import log_every
@@ -159,6 +161,12 @@ class Controller:
         from ray_tpu_torch.core.topology import TopologyView
 
         self._topology = TopologyView()
+        # Worker processes (host, port, pid) each node reported started
+        # and not yet gone, and the newest notices of gone ones published
+        # on the dead-holder channel (``report_workers``).
+        self._node_workers: Dict[NodeID, set] = {}
+        self._dead_holders: deque = deque(maxlen=1024)
+        self._dead_stamp = 0
         self._clients = ClientPool()
         self._stopped = threading.Event()
         # Long-poll notification hub (reference: src/ray/pubsub/publisher.h
@@ -191,6 +199,7 @@ class Controller:
                 "list_actors": self.list_actors,
                 "get_named_actor": self.get_named_actor,
                 "report_actor_failure": self.report_actor_failure,
+                "report_workers": self.report_workers,
                 "kill_actor": self.kill_actor,
                 "kv_put": self.kv_put,
                 "kv_get": self.kv_get,
@@ -671,9 +680,41 @@ class Controller:
         for actor_id in victims:
             self.pubsub.drop("actors", actor_id.hex())
 
+    def report_workers(self, node_id_bytes: bytes, started: List,
+                       dead: List) -> None:
+        """A node's reaper reports the worker processes it started and the
+        ones it found gone; the gone ones are published so that every
+        owner drops the handle counts they held (reference: the owner
+        dropping a dead borrower's references on its death notice)."""
+        node_id = NodeID(node_id_bytes)
+        with self._lock:
+            live = self._node_workers.setdefault(node_id, set())
+            live.update(tuple(w) for w in started)
+            live.difference_update(tuple(w) for w in dead)
+        self._publish_dead_holders(dead)
+
+    def _publish_dead_holders(self, holders) -> None:
+        if not holders:
+            return
+        now_us = int(time.time() * 1e6)
+        with self._lock:
+            for h in holders:
+                self._dead_stamp = max(self._dead_stamp + 1, now_us)
+                self._dead_holders.append((self._dead_stamp, tuple(h)))
+            notices = list(self._dead_holders)
+        # A wall-clock floor keeps the owners' version clocks monotonic
+        # across a controller restart.
+        self.pubsub.publish(DEAD_HOLDERS_CHANNEL, DEAD_HOLDERS_KEY, notices,
+                            min_version=now_us // 1000)
+
     def _on_node_dead(self, node_id: NodeID) -> None:
         """Fail (and maybe restart) actors on a dead node (reference:
-        GcsActorManager node-death handling, gcs_actor_manager.h:88)."""
+        GcsActorManager node-death handling, gcs_actor_manager.h:88).
+        Its worker processes died with it: they are published as dead
+        holders."""
+        with self._lock:
+            gone = self._node_workers.pop(node_id, set())
+        self._publish_dead_holders(sorted(gone))
         # Topology: a slice whose last live host died drops from the
         # view with its sub-slice reservations (the replicas holding
         # them died with the hosts; serve's reconcile re-reserves).

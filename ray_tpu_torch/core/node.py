@@ -54,6 +54,7 @@ from ray_tpu_torch.core import resources as resmath
 from ray_tpu_torch.core.config import config
 from ray_tpu_torch.core.ids import NodeID, WorkerID
 from ray_tpu_torch.core.rpc import ClientPool, ReconnectingClient, RpcServer
+from ray_tpu_torch.core.rpc_stubs import ControllerStub
 from ray_tpu_torch.util.ratelimit import log_every
 
 logger = logging.getLogger(__name__)
@@ -290,6 +291,7 @@ class WorkerHandle:
         self.worker_id = worker_id
         self.proc = proc
         self.addr: Optional[Addr] = None
+        self.pid: Optional[int] = None  # the worker's own, at registration
         self.registered = threading.Event()
         self.idle = False
         self.dedicated = False  # actor workers are never pooled
@@ -380,6 +382,15 @@ class Node:
         self._queue_len = 0
         self._general_queue_len = 0  # waiters on the general (non-PG) pool
         self._death_causes: Dict[bytes, str] = {}
+        # Worker processes (address and pid) started and gone since the
+        # last report to the controller, which tells every owner to drop
+        # the handle counts the gone ones held (``_report_workers``).
+        # A handle leaves the table before its process may have exited
+        # (an owner returns a worker as dead after a missed RPC): it waits
+        # in ``_exit_watch`` until the reaper sees the process gone.
+        self._started_report: List[Tuple[str, int, int]] = []
+        self._dead_report: List[Tuple[str, int, int]] = []
+        self._exit_watch: List[WorkerHandle] = []
         self._stopped = threading.Event()
         # Worker forkserver (lazy): one pre-imported template process that
         # os.fork()s default-env CPU workers in ~10 ms (worker_pool.h:357
@@ -1047,13 +1058,18 @@ class Node:
             handle = self._workers.get(WorkerID(worker_id_bytes))
             return handle is not None and handle.lease_seq == lease_seq
 
-    def register_worker(self, worker_id_bytes: bytes, addr: Addr) -> Dict[str, Any]:
+    def register_worker(self, worker_id_bytes: bytes, addr: Addr,
+                        pid: Optional[int] = None) -> Dict[str, Any]:
         worker_id = WorkerID(worker_id_bytes)
         with self._lock:
             handle = self._workers.get(worker_id)
+            if handle is not None:
+                handle.addr = tuple(addr)
+                handle.pid = pid
+                if pid is not None:
+                    self._started_report.append((*handle.addr, pid))
         if handle is None:
             return {"error": "unknown worker"}
-        handle.addr = tuple(addr)
         handle.registered.set()
         return {"ok": True}
 
@@ -1093,7 +1109,9 @@ class Node:
             return self._death_causes.get(worker_id_bytes)
 
     def _remove_worker_locked(self, handle: WorkerHandle) -> None:
-        self._workers.pop(handle.worker_id, None)
+        if (self._workers.pop(handle.worker_id, None) is not None
+                and handle.addr is not None and handle.pid is not None):
+            self._exit_watch.append(handle)
         if handle in self._idle:
             self._idle.remove(handle)
         if handle.env_dirs:
@@ -1231,6 +1249,38 @@ class Node:
                         keep.append(handle)
                 self._idle = keep
                 self._drain_waiters_locked()
+                # Only a process that has exited is a dead holder: a live
+                # one keeps its handle counts however it left the table.
+                running = []
+                for handle in self._exit_watch:
+                    if handle.proc.poll() is None:
+                        running.append(handle)
+                    else:
+                        self._dead_report.append((*handle.addr, handle.pid))
+                self._exit_watch = running
+            self._report_workers()
+
+    def _report_workers(self) -> None:
+        """Tell the controller which worker processes started and which
+        exited since the last report (the reaper's finding, never a
+        missed RPC). It publishes the gone ones, and every owner drops the
+        handle counts they held; the started ones let it publish a whole
+        node's workers when the node dies."""
+        with self._lock:
+            started, self._started_report = self._started_report, []
+            dead, self._dead_report = self._dead_report, []
+        if not (started or dead):
+            return
+        try:
+            ControllerStub(self._controller).report_workers(
+                self.node_id.binary(), started, dead,
+                timeout=config.ctrl_call_timeout_s)
+        except Exception:
+            with self._lock:  # the next tick retries
+                self._started_report[:0] = started
+                self._dead_report[:0] = dead
+            log_every("node.report_workers", 15.0, logger,
+                      "worker report to controller failed", exc_info=True)
 
     def _reclaim_undelivered_leases(self, now: float) -> None:
         """Reclaim leases orphaned by a lossy network. Two shapes, both

@@ -208,7 +208,8 @@ class _RefTracker:
                 if owner == core.addr:
                     core.apply_ref_updates(deltas)
                 else:
-                    core.clients.get(owner).notify("ref_update", deltas)
+                    core.clients.get(owner).notify("ref_update", deltas,
+                                                   core.holder_id)
                 self._send_failures.pop(owner, None)
             except RpcConnectError:
                 # The owner process cannot even be dialed: it is gone,

@@ -21,7 +21,8 @@ from ray_tpu_torch.core.ids import ObjectID
 
 class _Entry:
     __slots__ = ("event", "data", "shm_ref", "shm_view", "shm_pin", "error",
-                 "freed", "owned", "refcount", "zero_since", "nested")
+                 "freed", "owned", "refcount", "holders", "zero_since",
+                 "nested")
 
     def __init__(self):
         self.event = threading.Event()
@@ -33,6 +34,10 @@ class _Entry:
         self.freed = False
         self.owned = False        # True: this process owns the object
         self.refcount = 0         # cluster-wide handle count (owner-side)
+        # The same count split by the process that sent it (its RPC
+        # address): refcount is their sum, and a holder that dies has its
+        # share dropped (drop_holder).
+        self.holders: Dict[Any, int] = {}
         self.zero_since: Optional[float] = None  # when refcount hit <= 0
         # ObjectRefs nested inside this entry's serialized frame: held as
         # live handles so the inner objects can't be freed while the frame
@@ -90,9 +95,11 @@ class MemoryStore:
             entry.nested = None
             entry.event.clear()
 
-    def apply_ref_update(self, oid: ObjectID, delta: int) -> None:
+    def apply_ref_update(self, oid: ObjectID, delta: int,
+                         sender=None) -> None:
         """Owner-side handle-count update from a borrower process (or this
-        process's own tracker)."""
+        process's own tracker); ``sender`` is the RPC address of the
+        process whose handles the delta counts."""
         with self._lock:
             entry = self._entries.get(oid)
             if entry is None:
@@ -101,13 +108,39 @@ class MemoryStore:
                 entry = _Entry()
                 self._entries[oid] = entry
             entry.refcount += delta
-            # delta == 0 means a handle lived and died within one tracker
-            # flush window: the touch still (re)arms the zero clock.
-            if entry.refcount <= 0:
-                if entry.zero_since is None:
-                    entry.zero_since = time.monotonic()
+            key = tuple(sender) if sender is not None else None
+            n = entry.holders.get(key, 0) + delta
+            if n:
+                entry.holders[key] = n
             else:
-                entry.zero_since = None
+                entry.holders.pop(key, None)
+            self._arm_zero_clock(entry)
+
+    @staticmethod
+    def _arm_zero_clock(entry: _Entry) -> None:
+        # delta == 0 means a handle lived and died within one tracker
+        # flush window: the touch still (re)arms the zero clock.
+        if entry.refcount <= 0:
+            if entry.zero_since is None:
+                entry.zero_since = time.monotonic()
+        else:
+            entry.zero_since = None
+
+    def drop_holder(self, addr) -> int:
+        """Forget every handle the process at ``addr`` held: it died, so it
+        will never send their decrements (reference: the owner's
+        ReferenceCounter dropping a dead borrower's references). Returns
+        how many entries it held."""
+        key = tuple(addr)
+        hit = 0
+        with self._lock:
+            for entry in self._entries.values():
+                n = entry.holders.pop(key, 0)
+                if n:
+                    hit += 1
+                    entry.refcount -= n
+                    self._arm_zero_clock(entry)
+        return hit
 
     def sweep_dead_refs(self, grace_s: float):
         """Collect owned, ready objects whose handle count has been zero for

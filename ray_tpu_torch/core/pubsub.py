@@ -24,6 +24,13 @@ from typing import Any, Dict, List, Optional, Tuple
 
 logger = logging.getLogger(__name__)
 
+# The controller's notices of dead worker processes: one key whose value
+# is the newest ``[stamp, (host, port, pid)]`` pairs, oldest first. Every
+# owner drops the handle counts those processes held (core/runtime.py
+# ``_drop_dead_holders``).
+DEAD_HOLDERS_CHANNEL = "dead_holders"
+DEAD_HOLDERS_KEY = "recent"
+
 
 class Pubsub:
     def __init__(self):

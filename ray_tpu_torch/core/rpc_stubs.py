@@ -263,6 +263,11 @@ class ControllerStub(_StubBase):
         return self._call('remove_placement_group', pg_id_bytes,
                           timeout=timeout)
 
+    def report_workers(self, node_id_bytes, started, dead, *,
+                       timeout=_UNSET):
+        return self._call('report_workers', node_id_bytes, started, dead,
+                          timeout=timeout)
+
     def report_actor_failure(self, actor_id_bytes, reason=_UNSET, *,
                              timeout=_UNSET):
         return self._call('report_actor_failure', actor_id_bytes,
@@ -340,8 +345,9 @@ class CoreWorkerStub(_StubBase):
     def reconstruct_object(self, oid_bytes, *, timeout=_UNSET):
         return self._call('reconstruct_object', oid_bytes, timeout=timeout)
 
-    def ref_update(self, deltas, *, timeout=_UNSET):
-        return self._call('ref_update', deltas, timeout=timeout)
+    def ref_update(self, deltas, sender=_UNSET, *, timeout=_UNSET):
+        return self._call('ref_update', deltas, sender=sender,
+                          timeout=timeout)
 
     def shutdown_worker(self, *, timeout=_UNSET):
         return self._call('shutdown_worker', timeout=timeout)
@@ -394,9 +400,10 @@ class NodeStub(_StubBase):
     def read_shm_object(self, oid_bytes, *, timeout=_UNSET):
         return self._call('read_shm_object', oid_bytes, timeout=timeout)
 
-    def register_worker(self, worker_id_bytes, addr, *, timeout=_UNSET):
+    def register_worker(self, worker_id_bytes, addr, pid=_UNSET, *,
+                        timeout=_UNSET):
         return self._call('register_worker', worker_id_bytes, addr,
-                          timeout=timeout)
+                          pid=pid, timeout=timeout)
 
     def release_bundle(self, pg_id, index, *, timeout=_UNSET):
         return self._call('release_bundle', pg_id, index, timeout=timeout)

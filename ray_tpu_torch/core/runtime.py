@@ -54,6 +54,8 @@ from ray_tpu_torch.core.errors import (
 from ray_tpu_torch.core.ids import ActorID, NodeID, ObjectID, TaskID, WorkerID
 from ray_tpu_torch.core.object_ref import ObjectRef
 from ray_tpu_torch.core.object_store import MemoryStore, wait_any
+from ray_tpu_torch.core.pubsub import DEAD_HOLDERS_CHANNEL, DEAD_HOLDERS_KEY
+from ray_tpu_torch.core.rpc_stubs import ControllerStub
 from ray_tpu_torch.core.rpc import (
     ClientPool,
     ReconnectingClient,
@@ -61,6 +63,13 @@ from ray_tpu_torch.core.rpc import (
     RpcError,
     RpcServer,
 )
+
+# How often an owner that holds counts from other processes reads the
+# controller's dead-holder notices (core/pubsub.py DEAD_HOLDERS_CHANNEL).
+_DEAD_HOLDER_POLL_S = 1.0
+# The poll's own RPC deadline, and the pause after a failed poll.
+_DEAD_HOLDER_POLL_TIMEOUT_S = 1.0
+_DEAD_HOLDER_BACKOFF_S = 5.0
 
 Addr = Tuple[str, int]
 
@@ -231,6 +240,17 @@ class CoreWorker:
                             "pull_done", "pull_failed", "ping"},
         )
         self.addr: Addr = self.server.addr
+        # Who this process is to the owners it sends handle counts to:
+        # its address and pid (the node reports the same triple when the
+        # process dies, and a later process on a reused port is another
+        # holder).
+        self.holder_id = (*self.addr, os.getpid())
+        self._holders_abroad = False  # some other process sent counts
+        self._dead_version = 0        # dead-holder channel version seen
+        # Notices stamped before this process started name processes that
+        # could never have sent it a count.
+        self._dead_seen = int(time.time() * 1e6)
+        self._dead_polled_at = 0.0
         self.submitter = TaskSubmitter(self)
         # Owner-side task state-transition buffer (reference:
         # TaskEventBuffer, task_event_buffer.h:206): flushed to the
@@ -901,12 +921,49 @@ class CoreWorker:
 
     # -------------------------------------------- distributed ref counting
 
-    def _handle_ref_update(self, deltas: Dict[bytes, int]) -> None:
-        self.apply_ref_updates(deltas)
+    def _handle_ref_update(self, deltas: Dict[bytes, int],
+                           sender=None) -> None:
+        self.apply_ref_updates(deltas, sender)
 
-    def apply_ref_updates(self, deltas: Dict[bytes, int]) -> None:
+    def apply_ref_updates(self, deltas: Dict[bytes, int],
+                          sender=None) -> None:
+        """Apply handle-count deltas that the process ``sender`` (its
+        ``holder_id``; this process when None) counted."""
+        if sender is None:
+            sender = self.holder_id
+        else:
+            sender = tuple(sender)
+            if sender != self.holder_id:
+                self._holders_abroad = True
         for oid_bytes, delta in deltas.items():
-            self.store.apply_ref_update(ObjectID(oid_bytes), delta)
+            self.store.apply_ref_update(ObjectID(oid_bytes), delta, sender)
+
+    def _drop_dead_holders(self) -> None:
+        """Drop the counts of holders that died: the controller publishes
+        each worker process its nodes' reapers found gone (or that died
+        with its node), and this owner forgets the handles they held, so
+        the sweep below frees what only they kept. A holder that is just
+        slow keeps its counts: the evidence is the reaper, never a missed
+        RPC. Polled without parking, and only once some other process
+        has sent counts here."""
+        now = time.monotonic()
+        if (not self._holders_abroad
+                or now - self._dead_polled_at < _DEAD_HOLDER_POLL_S):
+            return
+        self._dead_polled_at = now
+        got = ControllerStub(self.controller).psub_poll(
+            DEAD_HOLDERS_CHANNEL, DEAD_HOLDERS_KEY, self._dead_version,
+            0.0, timeout=_DEAD_HOLDER_POLL_TIMEOUT_S)
+        if not got:
+            return
+        self._dead_version, notices = got
+        newest = self._dead_seen
+        for stamp, holder in notices:
+            holder = tuple(holder)
+            if stamp > self._dead_seen and holder != self.holder_id:
+                self.store.drop_holder(holder)
+            newest = max(newest, stamp)
+        self._dead_seen = newest
 
     def _sweep_loop(self) -> None:
         """Owner-side lifetime sweeper: frees owned objects whose
@@ -929,6 +986,17 @@ class CoreWorker:
                 # never freed — keep the loop alive but leave a trail.
                 log_every("runtime.sweep", 30.0, logger,
                           "ref sweeper pass failed", exc_info=True)
+            if config.ref_counting_enabled:
+                # After the sweep and in a try of its own: a controller
+                # that is slow or restarting only postpones dropping a
+                # dead holder's counts.
+                try:
+                    self._drop_dead_holders()
+                except Exception:
+                    self._dead_polled_at = (time.monotonic()
+                                            + _DEAD_HOLDER_BACKOFF_S)
+                    log_every("runtime.dead_holders", 30.0, logger,
+                              "dead-holder poll failed", exc_info=True)
 
     def record_task_event(self, event: Dict[str, Any]) -> None:
         with self._task_events_lock:

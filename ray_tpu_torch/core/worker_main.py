@@ -10,6 +10,7 @@ their raylet too).
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 import time
 
@@ -33,7 +34,7 @@ def run(node_addr, controller_addr, node_id_hex: str,
 
     node_client = RpcClient(node_addr)
     reply = node_client.call("register_worker", core.worker_id.binary(),
-                             core.addr)
+                             core.addr, os.getpid())
     if "error" in reply:
         print(f"worker registration failed: {reply}", file=sys.stderr)
         return 1

@@ -9,9 +9,10 @@ same RPC the SDK uses; the controller's address comes from ``--address``,
 
 The port's differences: the discovery file lies under the port's own name in
 the temp directory, so a JAX runtime's is never overwritten; ``start`` counts
-the host's cards (``GPU``) where the JAX package counts TPU chips; ``up``,
-``down``, ``autopilot`` and ``submit`` without ``--address`` exit 2 until the
-launcher and autopilot family is ported (ROADMAP.md queue 1). ``status``,
+the host's cards (``GPU``) where the JAX package counts TPU chips; ``up``
+and ``submit`` take the ``gpu_vm`` provider where the JAX CLI takes
+``tpu_vm``, and ``down`` also stops a fake_multinode cluster's parked
+``up``. ``status``,
 ``list``, ``memory``, ``stacks`` and ``doctor`` on a cluster with no serve
 series import neither torch nor JAX.
 """
@@ -274,18 +275,45 @@ def _findings_exit_code(findings: List[Dict[str, Any]],
                     for f in findings) else 1
 
 
-def _not_ported(what: str) -> int:
-    from ray_tpu_torch.core.errors import not_ported
-
-    print(not_ported(what, "item 4, the launcher and autopilot family"),
-          file=sys.stderr)
-    return 2
-
-
 def cmd_autopilot(args) -> int:
-    """The closed-loop remediator's CLI (``ray_tpu/autopilot.py``): not
-    ported yet."""
-    return _not_ported("autopilot (python -m ray_tpu_torch autopilot)")
+    """Inspect or exercise the closed-loop remediator (``autopilot.py``).
+    ``--status`` prints the reconciler view (streaks, buckets, audit ring,
+    live taints); ``--dry-run`` runs ONE live reconcile pass with mutations
+    disabled and prints the actions that WOULD have fired (fences still
+    evaluated); ``--untaint NODE`` lifts a host demotion early
+    (probe-gated — a host that still fails its health probe stays
+    tainted)."""
+    from ray_tpu_torch.autopilot import Autopilot
+    from ray_tpu_torch.core.config import config
+    from ray_tpu_torch.core.rpc_stubs import ControllerStub
+
+    client = _client(args)
+    if args.untaint:
+        res = ControllerStub(client).untaint_host(args.untaint,
+                                                  probe=True)
+        print(json.dumps(res, indent=2, default=str))
+        return 0 if res.get("untainted") else 1
+    if args.dry_run:
+        old_enabled, old_dry = (config.autopilot_enabled,
+                                config.autopilot_dry_run)
+        config.autopilot_enabled = True
+        config.autopilot_dry_run = True
+        # Dry-run must see past the hysteresis damper — the point is
+        # "what would the autopilot do about THIS window".
+        old_hyst = config.autopilot_hysteresis_windows
+        config.autopilot_hysteresis_windows = 1
+        try:
+            pilot = Autopilot(client=client)
+            records = pilot.run_once(interval_s=args.interval)
+        finally:
+            config.autopilot_enabled = old_enabled
+            config.autopilot_dry_run = old_dry
+            config.autopilot_hysteresis_windows = old_hyst
+        print(json.dumps(records, indent=2, default=str))
+        return 0
+    pilot = Autopilot(client=client)
+    print(json.dumps(pilot.status(), indent=2, default=str))
+    return 0
 
 
 def build_chrome_trace(events: List[Dict[str, Any]],
@@ -665,27 +693,73 @@ def cmd_job(args) -> int:
 
 
 def cmd_up(args) -> int:
-    """``up cluster.yaml`` (reference: ``ray up``): the cluster launcher is
-    not ported yet."""
-    return _not_ported("up (python -m ray_tpu_torch up)")
+    """``up cluster.yaml`` (reference: ``ray up``,
+    ``autoscaler/_private/commands.py`` create_or_update_cluster): validate
+    the YAML, boot head + autoscaler, keep provisioning until stopped (a
+    fake_multinode cluster lives in this process; ``down`` stops it)."""
+    from ray_tpu_torch.cluster_launcher import up
+
+    cluster = up(args.config, block=False)
+    for line in cluster.actions:
+        print(f"  {line}")
+    if cluster.address:
+        print(f"cluster up; controller at {cluster.address[0]}:"
+              f"{cluster.address[1]}")
+    if cluster.config.dry_run:
+        print("(dry run: no instances created)")
+        cluster.shutdown()
+        return 0
+    if args.no_block:
+        # Caller manages lifetime (tests); daemons die with this process.
+        return 0
+    from ray_tpu_torch.cluster_launcher import block_until_signal
+
+    print("autoscaling; press Ctrl-C to stop", flush=True)
+    block_until_signal(cluster)
+    return 0
 
 
 def cmd_down(args) -> int:
-    """``down cluster.yaml`` (reference: ``ray down``): not ported yet."""
-    return _not_ported("down (python -m ray_tpu_torch down)")
+    """``down cluster.yaml`` (reference: ``ray down``)."""
+    from ray_tpu_torch.cluster_launcher import down
+
+    for name in down(args.config):
+        print(f"terminated {name}")
+    print("cluster down")
+    return 0
 
 
 def cmd_submit(args) -> int:
     """``submit cluster.yaml 'entrypoint'`` — job submission against the
-    cluster the YAML describes (reference: ``ray submit``). ``--address``
-    names the cluster; finding it from the YAML needs the cluster launcher,
-    which is not ported yet."""
+    cluster the YAML describes (reference: ``ray submit``). --address
+    overrides; otherwise a gpu_vm YAML resolves the head through the
+    Compute API (its controller listens on the launcher's fixed port) and
+    a fake/local YAML falls back to the local discovery file."""
     from ray_tpu_torch.job_submission import JobSubmissionClient
 
-    if not args.address:
-        return _not_ported("submit without --address "
-                           "(python -m ray_tpu_torch submit)")
-    client = JobSubmissionClient(resolve_address(args.address))
+    addr = None
+    if args.address:
+        addr = resolve_address(args.address)
+    else:
+        from ray_tpu_torch.cluster_config import load_config
+
+        cfg = load_config(args.config)
+        if cfg.provider.type == "gpu_vm":
+            from ray_tpu_torch.cluster_launcher import HEAD_PORT
+            from ray_tpu_torch.gpu_vm_api import GpuVmClient
+
+            client_api = GpuVmClient(cfg.provider.project_id,
+                                     cfg.provider.zone, dry_run=cfg.dry_run)
+            head = client_api.get_instance(f"{cfg.cluster_name}-head")
+            host = GpuVmClient.instance_host(head)
+            if not host:
+                raise SystemExit(
+                    f"head instance {cfg.cluster_name}-head not found or "
+                    f"has no address (is the cluster up?)")
+            addr = (host, HEAD_PORT)
+        else:
+            addr = resolve_address(None)
+    client = JobSubmissionClient(addr)
     runtime_env = None
     if args.working_dir:
         from ray_tpu_torch.runtime_env import upload_working_dir

@@ -17,7 +17,6 @@ from typing import Any, Dict, Optional, Tuple
 
 import ray_tpu_torch
 from ray_tpu_torch.core import serialization
-from ray_tpu_torch.core.errors import not_ported
 from ray_tpu_torch.serve.controller import get_or_create_controller
 from ray_tpu_torch.serve.deployment import Deployment, DeploymentHandle, _Router
 
@@ -26,17 +25,12 @@ def run(app: Deployment, name: Optional[str] = None,
         route_prefix: Optional[str] = None,
         ready_timeout_s: float = 60.0) -> DeploymentHandle:
     """Deploy (or redeploy) an application; returns its handle. A
-    ``mesh_shape`` of more than one rank is refused here, before the
-    controller reserves a sub-slice: the port's replica is one process on
-    one card, and a larger mesh needs one process a rank."""
+    deployment with a ``mesh_shape`` gets replicas that span a sub-slice,
+    one process a rank (the serve controller's ``_spawn_mesh``)."""
     from ray_tpu_torch import usage as _usage
 
     _usage.record_feature("serve.run")
     cfg = app.config_dict()
-    mesh = cfg["mesh_shape"]
-    if mesh and int(mesh[0]) * int(mesh[1]) > 1:
-        raise not_ported(f"a deployment with mesh_shape={tuple(mesh)}",
-                         "item 4, the mesh replica")
     name = name or app.name
     controller = get_or_create_controller()
     version = ray_tpu_torch.get(controller.deploy.remote(

@@ -79,9 +79,14 @@ def autoscale_load(stats: Dict[str, Any]) -> float:
 
 class ReplicaRecord:
     def __init__(self, handle, replica_id: str,
-                 sub_slice: Optional[Dict[str, Any]] = None):
+                 sub_slice: Optional[Dict[str, Any]] = None,
+                 ranks: Optional[List[Any]] = None):
         self.handle = handle
         self.replica_id = replica_id
+        # Ranks 1.. of a mesh replica (one process a rank; ``handle`` is
+        # rank 0, the one the router sees). The replica lives and dies as
+        # one unit with them.
+        self.ranks: List[Any] = list(ranks or [])
         self.last_stats: Dict[str, Any] = {}
         # Sub-slice assignment a mesh-parallel replica spans (controller
         # ``reserve_subslice`` result): released when the replica dies.
@@ -215,6 +220,7 @@ class ServeController:
             replicas = [
                 {"replica_id": r.replica_id,
                  "actor_id": r.handle.actor_id.binary(),
+                 "ranks": [h.actor_id.binary() for h in r.ranks],
                  "sub_slice": (dict(r.sub_slice)
                                if r.sub_slice else None)}
                 for r in list(rec.replicas)]
@@ -288,7 +294,10 @@ class ServeController:
         the topology view outlived the controller, so re-reserving
         would double-book chips, and respawning would re-pay prefill
         and weight loading for no reason. Only the dead are replaced
-        (their reservations queue for release), mid-delete deployments
+        (their reservations queue for release; a replica that misses the
+        deadline is dead only if the cluster says so — one still starting
+        is adopted, where the JAX controller replaces it), mid-delete
+        deployments
         finish draining, and every snapshot republishes under the new
         epoch with its persisted version floor so router clocks stay
         monotonic."""
@@ -350,15 +359,26 @@ class ServeController:
                 ray_tpu_torch.get(ref, timeout=max(0.2,
                                              deadline - time.monotonic()))
             except Exception:
+                # A replica still starting (or slow) past the deadline is
+                # not dead: only the cluster's DEAD verdict is, as in the
+                # reconcile loop, which replaces it if that comes later.
+                dead_now = self._actor_dead(handle)
+            else:
+                dead_now = False
+            if dead_now:
                 dead += 1
+                for rank in r.get("ranks") or ():
+                    self._kill_handle(ActorHandle(ActorID(rank)),
+                                      r["replica_id"])
                 sub = r.get("sub_slice")
                 if sub:
                     # The dead replica's reservation releases through
                     # the normal retry queue (idempotent on the head).
                     self._pending_releases.append(sub["reservation_id"])
                 continue
-            rec.replicas.append(
-                ReplicaRecord(handle, r["replica_id"], r.get("sub_slice")))
+            rec.replicas.append(ReplicaRecord(
+                handle, r["replica_id"], r.get("sub_slice"),
+                [ActorHandle(ActorID(a)) for a in r.get("ranks") or ()]))
             adopted += 1
             try:
                 # Adoption handshake: the replica now reports THIS
@@ -582,34 +602,24 @@ class ServeController:
                             rec.cfg.get("max_ongoing_requests", 8))
             init_kwargs = rec.init_kwargs
             if sub is not None:
-                from ray_tpu_torch.core import resources as resmath
-                from ray_tpu_torch.core.placement import (
-                    NodeAffinitySchedulingStrategy)
-
-                # The scalar accounting half of the reservation: the
-                # actor lease holds chips/slice:<id> against the hosting
-                # node, so vector scheduling and the topology grid agree.
-                res = dict(opts.get("resources") or {})
-                for k, v in resmath.chip_resources(
-                        sub["chips"], sub["slice_id"]).items():
-                    res.setdefault(k, v)
-                opts["resources"] = res
-                opts.setdefault("scheduling_strategy",
-                                NodeAffinitySchedulingStrategy(
-                                    sub["nodes"][0]))
                 if "mesh_shape" not in (init_kwargs or {}):
                     init_kwargs = dict(init_kwargs or {})
                     init_kwargs["mesh_shape"] = tuple(mesh_shape)
-            handle = actor_cls.options(**opts).remote(
-                rec.cls_blob, rec.init_args, init_kwargs,
-                replica_id=replica_id, owner_epoch=self._epoch,
-                role=rec.cfg.get("role") or "")
+                handle, ranks = self._spawn_mesh(
+                    rec, replica_id, sub, tuple(mesh_shape), opts,
+                    init_kwargs)
+            else:
+                ranks = []
+                handle = actor_cls.options(**opts).remote(
+                    rec.cls_blob, rec.init_args, init_kwargs,
+                    replica_id=replica_id, owner_epoch=self._epoch,
+                    role=rec.cfg.get("role") or "")
         except Exception:
             if sub is not None:
                 self._release_reservation(sub["reservation_id"],
                                           replica_id)
             raise
-        rec.replicas.append(ReplicaRecord(handle, replica_id, sub))
+        rec.replicas.append(ReplicaRecord(handle, replica_id, sub, ranks))
         if sub is not None:
             try:
                 # Advisory push (fire-and-forget): the replica reports
@@ -632,6 +642,79 @@ class ServeController:
                           replica_id, exc_info=True)
         return True
 
+    def _spawn_mesh(self, rec: DeploymentRecord, replica_id: str,
+                    sub: Dict[str, Any], mesh_shape: tuple,
+                    opts: Dict[str, Any], init_kwargs):
+        """Spawn a mesh replica's ranks, one process a rank: rank 0 a
+        :class:`ReplicaActor` (the one the router sees), ranks 1.. a
+        ``MeshRankActor`` each, all hosting the same deployment. Each rank
+        holds one chip of the sub-slice (and ``num_gpus=1`` on a slice of
+        cards) on the node that hosts it, and joins the mesh's process
+        group through the rendezvous address rank 0 puts in the KV: NCCL
+        on a slice of cards, gloo on a virtual slice of the CPU or for a
+        deployment whose ``device`` is the CPU. A failure spawning any
+        rank kills the ranks already spawned; the caller releases the
+        reservation."""
+        import uuid
+
+        from ray_tpu_torch.core import resources as resmath
+        from ray_tpu_torch.core.placement import (
+            NodeAffinitySchedulingStrategy)
+        from ray_tpu_torch.serve.replica import MeshRankActor, ReplicaActor
+
+        n = mesh_shape[0] * mesh_shape[1]
+        device = str((init_kwargs or {}).get("device") or "")
+        device_type = ("cpu" if sub["slice_id"].startswith("virtual-")
+                       or device.startswith("cpu") else "cuda")
+        key = f"serve:mesh:{replica_id}:{uuid.uuid4().hex[:12]}"
+        nodes = list(sub["nodes"])
+        spawned: List[Any] = []
+        try:
+            for rank in range(n):
+                rank_opts = dict(opts)
+                # The scalar accounting half of the reservation: each
+                # rank's lease holds one chip / slice:<id> against its
+                # node, so vector scheduling and the topology grid agree.
+                rank_opts["resources"] = {
+                    **(opts.get("resources") or {}),
+                    **resmath.chip_resources(1, sub["slice_id"])}
+                if device_type == "cuda":
+                    rank_opts.setdefault("num_gpus", 1)
+                rank_opts["scheduling_strategy"] = (
+                    NodeAffinitySchedulingStrategy(
+                        nodes[min(rank * len(nodes) // n,
+                                  len(nodes) - 1)]))
+                mesh_rank = {"rank": rank, "world": n, "key": key,
+                             "device_type": device_type}
+                if rank == 0:
+                    spawned.append(ray_tpu_torch.remote(ReplicaActor)
+                                   .options(**rank_opts).remote(
+                        rec.cls_blob, rec.init_args, init_kwargs,
+                        replica_id=replica_id, owner_epoch=self._epoch,
+                        role=rec.cfg.get("role") or "",
+                        mesh_rank=mesh_rank))
+                else:
+                    spawned.append(ray_tpu_torch.remote(MeshRankActor)
+                                   .options(**rank_opts).remote(
+                        rec.cls_blob, rec.init_args, init_kwargs,
+                        replica_id, mesh_rank))
+        except Exception:
+            for handle in spawned:
+                self._kill_handle(handle, replica_id)
+            raise
+        return spawned[0], spawned[1:]
+
+    def _kill_handle(self, handle, replica_id: str) -> None:
+        try:
+            ray_tpu_torch.kill(handle)
+        except Exception:
+            # Expected when healing replicas the cluster already declared
+            # DEAD or when the head is briefly unreachable; rate-limited
+            # so a systematic kill failure still surfaces.
+            log_every("serve.kill_replica", 10.0, logger,
+                      "kill of replica %s failed", replica_id,
+                      exc_info=True)
+
     def _remove_replica(self, rec: DeploymentRecord,
                         index: int = -1) -> ReplicaRecord:
         """Pop a replica record. Killing the actor is the caller's job —
@@ -639,15 +722,10 @@ class ServeController:
         return rec.replicas.pop(index)
 
     def _kill_replica(self, replica: ReplicaRecord) -> None:
-        try:
-            ray_tpu_torch.kill(replica.handle)
-        except Exception:
-            # Expected when healing replicas the cluster already declared
-            # DEAD or when the head is briefly unreachable; rate-limited
-            # so a systematic kill failure still surfaces.
-            log_every("serve.kill_replica", 10.0, logger,
-                      "kill of replica %s failed", replica.replica_id,
-                      exc_info=True)
+        """Kill every process of the replica (a mesh replica's ranks
+        too), then release its sub-slice."""
+        for handle in [replica.handle] + replica.ranks:
+            self._kill_handle(handle, replica.replica_id)
         self._release_subslice(replica)
 
     def _release_subslice(self, replica: ReplicaRecord) -> None:
@@ -1229,19 +1307,13 @@ class ServeController:
         # A slow stats reply is NOT death: a replica still initializing or
         # saturated must not be dropped (and certainly not leaked). Only
         # replicas whose ACTOR the cluster declares DEAD are replaced.
-        dead = []
-        for replica in suspect:
-            try:
-                from ray_tpu_torch.core.runtime import get_core_worker
-
-                record = ControllerStub(
-                    get_core_worker().controller).get_actor(
-                        replica.handle.actor_id.binary(),
-                        timeout=config.ctrl_call_timeout_s)
-            except Exception:
-                continue
-            if record is None or record["state"] == "DEAD":
-                dead.append(replica)
+        dead = [replica for replica in suspect
+                if self._actor_dead(replica.handle)]
+        # A mesh replica is one unit: the death of any rank kills the
+        # rest (rank 0 may still answer stats while its lockstep fails).
+        dead += [replica for replica in rec.replicas
+                 if replica not in dead
+                 and any(self._actor_dead(h) for h in replica.ranks)]
         if self._stale(rec):
             return
         to_kill: List[ReplicaRecord] = []
@@ -1342,6 +1414,20 @@ class ServeController:
                     # — possible only in the pre-fencing window): either
                     # way this epoch's snapshot must own the key again.
                     self._publish(rec)
+
+    @staticmethod
+    def _actor_dead(handle) -> bool:
+        """Whether the cluster declares the actor DEAD (an unreachable
+        head is not evidence of death)."""
+        from ray_tpu_torch.core.runtime import get_core_worker
+
+        try:
+            record = ControllerStub(get_core_worker().controller).get_actor(
+                handle.actor_id.binary(),
+                timeout=config.ctrl_call_timeout_s)
+        except Exception:
+            return False
+        return record is None or record["state"] == "DEAD"
 
     def _min_replicas(self, rec: DeploymentRecord) -> int:
         auto = rec.cfg.get("autoscaling")

@@ -113,10 +113,89 @@ def loaded_model_ids(instance) -> List[str]:
     return out
 
 
+def join_mesh(mesh_rank: Dict[str, Any]) -> None:
+    """Make this process rank ``mesh_rank["rank"]`` of a mesh replica's
+    ``mesh_rank["world"]`` ranks: the default process group, before the
+    deployment builds its engine. Rank 0 reserves the rendezvous address
+    (a free port on its host) and publishes it under ``mesh_rank["key"]``
+    in the cluster KV; the other ranks wait for it. NCCL on cards, gloo on
+    the CPU (``parallel/mesh.py::backend_for``); a rank on a card drives
+    its first leased card."""
+    from ray_tpu_torch.core.config import config
+    from ray_tpu_torch.core.rpc_stubs import ControllerStub
+    from ray_tpu_torch.core.runtime import get_core_worker
+    from ray_tpu_torch.parallel.mesh import init_distributed
+
+    rank, world = int(mesh_rank["rank"]), int(mesh_rank["world"])
+    device_type = mesh_rank["device_type"]
+    local_rank = 0 if device_type == "cuda" else None
+    if world == 1:
+        init_distributed(0, 1, None, device_type, local_rank=local_rank)
+        return
+    core = get_core_worker()
+    kv = ControllerStub(core.controller)
+    key = mesh_rank["key"]
+    if rank == 0:
+        import socket
+
+        host = core.addr[0]
+        with socket.socket() as sock:
+            sock.bind((host, 0))
+            port = sock.getsockname()[1]
+        url = f"tcp://{host}:{port}"
+        kv.kv_put(key, url.encode(), timeout=config.ctrl_call_timeout_s)
+    else:
+        deadline = time.monotonic() + mesh_rank.get("timeout_s", 120.0)
+        while True:
+            got = kv.kv_get(key, timeout=config.ctrl_call_timeout_s)
+            if got:
+                url = bytes(got).decode()
+                break
+            if time.monotonic() > deadline:
+                raise TimeoutError(
+                    f"rank {rank} of mesh replica found no rendezvous "
+                    f"address under {key!r}")
+            time.sleep(0.05)
+    init_distributed(rank, world, url, device_type,
+                     timeout_s=mesh_rank.get("timeout_s", 120.0),
+                     local_rank=local_rank)
+    if rank == 0:
+        # Every rank has joined the group, so none reads the key again.
+        kv.kv_del(key, timeout=config.ctrl_call_timeout_s)
+
+
+def _host_identity(replica_id: str) -> None:
+    # Before the user class runs: its __init__ may build the engine that
+    # reads this identity for metric labels.
+    _replica_ident["replica_id"] = replica_id
+    _replica_ident["deployment"] = replica_id.rsplit("#", 1)[0]
+
+
+class MeshRankActor:
+    """Rank 1.. of a mesh replica: hosts the same deployment as rank 0's
+    :class:`ReplicaActor` and follows its control messages
+    (``serve/spmd.py::Lockstep``). The router never sees it and it answers
+    no request; rank 0's ``shutdown`` stops it, and the serve controller
+    stops every rank of a replica together."""
+
+    def __init__(self, cls_blob: bytes, args: tuple, kwargs: dict,
+                 replica_id: str, mesh_rank: Dict[str, Any]):
+        from ray_tpu_torch.core import serialization
+
+        _host_identity(replica_id)
+        join_mesh(mesh_rank)
+        cls = serialization.loads_function(cls_blob)
+        self._instance = cls(*args, **kwargs)
+
+
 class ReplicaActor:
     def __init__(self, cls_blob: bytes, args: tuple, kwargs: dict,
                  replica_id: str = "", owner_epoch: int = 0,
-                 role: str = ""):
+                 role: str = "",
+                 mesh_rank: Optional[Dict[str, Any]] = None):
+        """``mesh_rank`` makes this actor rank 0 of a mesh replica that
+        spans one process a rank (``join_mesh``); the other ranks are
+        ``MeshRankActor`` actors."""
         from ray_tpu_torch.core import serialization
 
         # Disaggregated posture ("prefill" / "decode" / "" = colocated):
@@ -125,10 +204,9 @@ class ReplicaActor:
         # identical either way — role never changes engine behavior.
         self._role = role
         if replica_id:
-            # Before the user class runs: its __init__ may build the
-            # engine that reads this identity for metric labels.
-            _replica_ident["replica_id"] = replica_id
-            _replica_ident["deployment"] = replica_id.rsplit("#", 1)[0]
+            _host_identity(replica_id)
+        if mesh_rank is not None:
+            join_mesh(mesh_rank)
         cls = serialization.loads_function(cls_blob)
         self._instance = cls(*args, **kwargs)
         self._sub_slice: Optional[Dict[str, Any]] = None

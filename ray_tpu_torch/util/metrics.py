@@ -153,6 +153,13 @@ class _Registry:
             if self._pusher == owner:
                 self._pusher = None
 
+    def clear_series(self) -> None:
+        """Forget every series recorded so far. A driver's ``shutdown``
+        calls it: what the process recorded for one cluster is never
+        pushed to the next one it joins."""
+        with self._lock:
+            self._metrics.clear()
+
     def snapshot(self, run_collectors: bool = True) -> List[Dict[str, Any]]:
         if run_collectors:
             self._run_collectors()

@@ -7,11 +7,13 @@ of ``tests/test_jobs_and_envs.py`` and ``test_util_state_api`` of
 cases share one module-scoped ``init(num_cpus=4)`` (the references start
 one a test); the two that bring up their own cluster run first.
 
-Plus what the port adds: ``up``, ``down``, ``autopilot`` and ``submit``
-without ``--address`` exit 2 and name their ROADMAP item; ``status``,
+Plus what the port adds: ``up`` and ``down`` of a dry-run gpu_vm YAML,
+``autopilot --status`` and ``submit`` against a fake_multinode cluster
+that ``up`` parks in a process of its own, which ``down`` stops; ``status``,
 ``list``, ``memory``, ``stacks`` and ``doctor`` leave torch and JAX out of
-``sys.modules``; ``usage.collect()`` equals the JAX package's, times and
-paths aside."""
+``sys.modules``, and a driver's ``shutdown()`` empties its metric series
+(run before the shared cluster starts); ``usage.collect()`` equals the
+JAX package's, times and paths aside."""
 
 import io
 import json
@@ -153,18 +155,108 @@ def test_spillback_rejects_deep_queue():
         cluster.shutdown()
 
 
-# ----------------------------------------------- the not-ported family
+def test_shutdown_empties_the_drivers_metric_series():
+    """What a driver recorded for one cluster never reaches the next one
+    it joins: ``shutdown()`` empties its registry's series (the path by
+    which ``serve_*`` series of an earlier session reached a cluster that
+    serves nothing, and made ``doctor`` load torch)."""
+    from ray_tpu_torch.core.runtime import get_core_worker
+    from ray_tpu_torch.util.metrics import Counter, _Registry
+
+    def _probes(series):
+        return [m for m in series if m["name"] == "serve_probe_total"]
+
+    rt.init(num_cpus=1)
+    try:
+        Counter("serve_probe_total", "probe", tag_keys=("deployment",)).inc(
+            tags={"deployment": "earlier"})
+        assert _probes(_Registry.get().snapshot(run_collectors=False))
+    finally:
+        rt.shutdown()
+    assert not _probes(_Registry.get().snapshot(run_collectors=False))
+    rt.init(num_cpus=1)
+    try:
+        assert _Registry.get().flush_now()
+        pushed = get_core_worker().controller.call("list_metrics")
+        assert not any(_probes(ms) for ms in pushed.values())
+    finally:
+        rt.shutdown()
 
 
-@pytest.mark.parametrize("argv", [["up", "c.yaml"], ["down", "c.yaml"],
-                                  ["autopilot", "--status"],
-                                  ["submit", "c.yaml", "true"]])
-def test_launcher_and_autopilot_family_exit_2(argv):
-    proc = subprocess.run([sys.executable, "-m", "ray_tpu_torch"] + argv,
-                          capture_output=True, text=True, timeout=60,
-                          env={**os.environ, "PYTHONPATH": REPO})
-    assert proc.returncode == 2, proc.stderr
-    assert "item 4, the launcher and autopilot family" in proc.stderr
+# --------------------------------------- the launcher and autopilot family
+
+
+@pytest.fixture(scope="module")
+def launched(tmp_path_factory):
+    """``up`` on a fake_multinode YAML, parked in a process of its own (as
+    an operator runs it); ``down`` on the same YAML stops it."""
+    import yaml
+
+    tmp = tmp_path_factory.mktemp("launch")
+    fake = tmp / "fake.yaml"
+    fake.write_text(yaml.safe_dump({
+        "cluster_name": f"cli-fake-{os.getpid()}",
+        "provider": {"type": "fake_multinode"},
+        "min_workers": 0, "max_workers": 0,
+        "head": {"resources": {"CPU": 2}}}))
+    dry = tmp / "dry.yaml"
+    dry.write_text(yaml.safe_dump({
+        "cluster_name": "cli-dry",
+        "provider": {"type": "gpu_vm", "project_id": "p", "zone": "z"},
+        "dry_run": True}))
+    proc = _spawn_daemon(["up", str(fake)])
+    try:
+        line, _ = _read_until(proc, "cluster up; controller at")
+        _read_until(proc, "autoscaling")
+        yield {"proc": proc, "fake": str(fake), "dry": str(dry),
+               "address": line.split()[-1]}
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=20)
+
+
+def _cli_process(argv, env=None):
+    return subprocess.run([sys.executable, "-m", "ray_tpu_torch"] + argv,
+                          capture_output=True, text=True, timeout=120,
+                          env={**os.environ, "PYTHONPATH": REPO,
+                               **(env or {})})
+
+
+@pytest.mark.timeout_s(180)
+@pytest.mark.parametrize("case", ["up", "down", "autopilot", "submit"])
+def test_launcher_and_autopilot_family(launched, case):
+    """``up`` and ``down`` of a dry-run gpu_vm YAML record what they would
+    do; ``autopilot --status`` and ``submit`` (no ``--address``: a
+    fake_multinode YAML falls back to the local discovery, here
+    ``RAY_TPU_ADDRESS``) run against the cluster ``up`` launched."""
+    if case in ("up", "down"):
+        proc = _cli_process([case, launched["dry"]])
+        assert proc.returncode == 0, proc.stderr[-2000:]
+        assert ("dry run" if case == "up" else "cluster down") \
+            in proc.stdout
+        return
+    env = {"RAY_TPU_ADDRESS": launched["address"]}
+    if case == "autopilot":
+        proc = _cli_process(["autopilot", "--status"], env)
+        assert proc.returncode == 0, proc.stderr[-2000:]
+        status = json.loads(proc.stdout)
+        assert status["enabled"] is False and status["audit"] == []
+        assert status["taints"] == {}
+        return
+    proc = _cli_process(["submit", launched["fake"], "echo from-a-job"],
+                        env)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert "from-a-job" in proc.stdout
+    assert "SUCCEEDED" in proc.stdout
+
+
+@pytest.mark.timeout_s(180)
+def test_down_stops_a_parked_fake_multinode_up(launched):
+    proc = _cli_process(["down", launched["fake"]])
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert f"terminated up process {launched['proc'].pid}" in proc.stdout
+    assert launched["proc"].wait(timeout=30) == 0
 
 
 def test_resolve_address_order(tmp_path, monkeypatch):

@@ -2,9 +2,10 @@
 ingest held against the JAX package's on the CPU.
 
 One user program (``torch_data_program``) runs on ``ray_tpu`` and then on
-``ray_tpu_torch``, each in a cluster of its own (init, run, shutdown; never
-both up): ``data_program`` on a node of 4 CPUs holds a result for each of
-``tests/test_data.py``'s one-node cases, and ``store_program`` on a node
+``ray_tpu_torch``, each in a process and a cluster of its own (init, run,
+shutdown; never both up; a run that dies of a signal fails the cases that
+read it, naming the signal): ``data_program`` on a node of 4 CPUs holds
+a result for each of ``tests/test_data.py``'s one-node cases, and ``store_program`` on a node
 of 2 CPUs with a 48 MiB store holds its two ``cluster_utils.Cluster``
 cases, which run again on each package's ``Cluster`` as the JAX tests run
 them (the shuffle on two such nodes). Results are plain values of numpy
@@ -42,26 +43,51 @@ STORE_CASES = ["distributed_shuffle_multinode",
                "shuffle_iterate_larger_than_store_bounded_memory"]
 
 
+class _Died:
+    """The result of a run whose process died of a signal: every case that
+    reads it fails and names the signal."""
+
+    def __init__(self, pkg: str, sig: str, stderr: str):
+        self.message = (f"the {pkg} run of torch_data_program died of {sig}"
+                        f"; its stderr ends:\n{stderr}")
+
+    def __getitem__(self, key):
+        pytest.fail(self.message)
+
+
+def _run_program(pkg: str, tmp: str):
+    """``torch_data_program.main`` for ``pkg`` in a process of its own, so
+    that a crash of one package's runtime cannot take down the test
+    worker that holds the other's results."""
+    import os
+    import pickle
+    import signal
+    import subprocess
+    import sys
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    out = os.path.join(tmp, f"{pkg}.pkl")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [os.path.dirname(here), here]
+        + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+    proc = subprocess.run(
+        [sys.executable, os.path.join(here, "torch_data_program.py"), pkg,
+         tmp, out], env=env, capture_output=True, text=True, timeout=600)
+    if proc.returncode < 0:
+        return _Died(pkg, signal.Signals(-proc.returncode).name,
+                     proc.stderr[-3000:])
+    if proc.returncode != 0:
+        raise RuntimeError(f"the {pkg} run of torch_data_program exited "
+                           f"{proc.returncode}:\n{proc.stderr[-3000:]}")
+    with open(out, "rb") as f:
+        return pickle.load(f)
+
+
 @pytest.fixture(scope="module")
 def results(tmp_path_factory):
-    import importlib
-
     tmp = str(tmp_path_factory.mktemp("data"))
-    out = {}
-    for pkg in RUNS:
-        rt = importlib.import_module(pkg)
-        rt.init(num_cpus=4)
-        try:
-            out[pkg] = prog.data_program(pkg, tmp)
-        finally:
-            rt.shutdown()
-        rt.init(num_cpus=2, _system_config={
-            "object_store_memory_bytes": prog.STORE_BYTES})
-        try:
-            out[pkg].update(prog.store_program(pkg))
-        finally:
-            rt.shutdown()
-    return out
+    return {pkg: _run_program(pkg, tmp) for pkg in RUNS}
 
 
 @pytest.fixture(scope="module")

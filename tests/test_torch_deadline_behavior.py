@@ -1,14 +1,11 @@
-"""The port's deadline-safety contract: 11 of the 12 cases of
+"""The port's deadline-safety contract: the 12 cases of
 ``tests/test_deadline_behavior.py`` under the same names. Each installs
 a faultinject ``drop`` rule on the controller endpoint its subsystem
 calls and proves the caller surfaces the typed ``RpcTimeout`` (or its
-documented degraded result) within the bound.
-
-``test_autopilot_status_taints_degrade_bounded`` is not carried: it
-drives ``ray_tpu.autopilot``, which the port has not ported yet (ROADMAP
-queue 1, part 5). The rules file lives in the temp directory under the
-port's name. One module-scoped cluster (virtual 4-host slice,
-faultinject plumbed in before init) is shared by every test.
+documented degraded result) within the bound. The rules file lives in
+the temp directory under the port's name. One module-scoped cluster
+(virtual 4-host slice, faultinject plumbed in before init) is shared by
+every test.
 """
 
 import os
@@ -193,6 +190,24 @@ def test_pipeline_registry_state_lost_reply_is_typed(short_ctrl_timeout):
         f.add("rpc.server.controller.pipe_state", "drop")
         with pytest.raises(RpcTimeout):
             plane.registry_state()
+    assert time.monotonic() - t0 < _BOUND_S
+
+
+# ------------------------------------------------ autopilot
+
+
+def test_autopilot_status_taints_degrade_bounded(short_ctrl_timeout):
+    """Autopilot.status() against a head that eats taint_state replies:
+    the taints panel degrades to {} within the bound — observability of
+    the autopilot must not hang on the exact outage it watches for."""
+    from ray_tpu_torch.autopilot import Autopilot
+
+    pilot = Autopilot(client=get_core_worker().controller)
+    t0 = time.monotonic()
+    with Faults(_FAULTS) as f:
+        f.add("rpc.server.controller.taint_state", "drop")
+        out = pilot.status()
+    assert out["taints"] == {}
     assert time.monotonic() - t0 < _BOUND_S
 
 

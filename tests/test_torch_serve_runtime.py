@@ -261,23 +261,30 @@ def test_teardown_leaves_no_worker_or_store_file(sides):
     assert t["workers_left"] == []
 
 
-def test_mesh_deployment_of_more_than_one_rank_is_refused(monkeypatch):
+def test_mesh_deployment_of_two_ranks_serves(monkeypatch):
     """On a virtual 2x4 slice, ``serve.run`` of a deployment with
-    ``mesh_shape=(2, 1)`` raises the mesh replica's ``not_ported`` error
-    to its caller and reserves no sub-slice; a ``(1, 1)`` mesh is placed
-    on a one-chip sub-slice and serves."""
+    ``mesh_shape=(2, 1)`` spawns one replica of two rank processes on a
+    two-chip sub-slice (the deployment gets the mesh shape bound into its
+    init kwargs) and serves; ``serve.delete`` releases the sub-slice. A
+    ``(1, 1)`` mesh is placed on a one-chip sub-slice and serves."""
     import ray_tpu_torch as rt
     from ray_tpu_torch import serve
 
     from torch_serve_apps import MeshEcho
 
     monkeypatch.setenv("RAY_TPU_VIRTUAL_SLICE", "2x4")
-    rt.init(num_cpus=2)
+    rt.init(num_cpus=3)
     try:
-        with pytest.raises(NotImplementedError,
-                           match="item 4, the mesh replica"):
-            serve.run(serve.deployment(MeshEcho, mesh_shape=(2, 1)).bind(),
-                      name="mesh2", ready_timeout_s=20)
+        handle = serve.run(serve.deployment(MeshEcho,
+                                            mesh_shape=(2, 1)).bind(),
+                           name="mesh2", ready_timeout_s=60)
+        assert handle.remote({"x": 3}).result(timeout=30) == {
+            "mesh_shape": [2, 1], "x": 3}
+        (owner,) = rt.cluster_topology()["owners"].items()
+        assert owner[1].startswith("mesh2#")
+        (slice_state,) = rt.cluster_topology()["slices"].values()
+        assert slice_state["chips_free"] == 6
+        serve.delete("mesh2")
         assert rt.cluster_topology()["owners"] == {}
         handle = serve.run(serve.deployment(MeshEcho,
                                             mesh_shape=(1, 1)).bind(),

@@ -595,3 +595,32 @@ def bounded_case(pkg: str) -> dict:
         peak_extra < 90 * 1024 * 1024)
     out["peak_extra_rss"] = peak_extra
     return out
+
+
+def main(argv) -> int:
+    """``python torch_data_program.py <pkg> <tmp> <out>``: run
+    ``data_program`` on a node of 4 CPUs, then ``store_program`` on a node
+    of 2 CPUs with a ``STORE_BYTES`` store, each in a cluster of its own,
+    and pickle their results into ``out``."""
+    import pickle
+
+    pkg, tmp, out_path = argv
+    rt = importlib.import_module(pkg)
+    rt.init(num_cpus=4)
+    try:
+        out = data_program(pkg, tmp)
+    finally:
+        rt.shutdown()
+    rt.init(num_cpus=2, _system_config={
+        "object_store_memory_bytes": STORE_BYTES})
+    try:
+        out.update(store_program(pkg))
+    finally:
+        rt.shutdown()
+    with open(out_path, "wb") as f:
+        pickle.dump(out, f)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))
