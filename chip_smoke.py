@@ -12,7 +12,12 @@ Phases, one JSON line each (``{"phase": ..., "ok": ...}``):
 1. env: torch, CUDA and nvcc versions, and the card (nvidia-smi).
 2. build: every kernel of the path from ``ray_tpu_torch/ops/csrc``, one
    nvcc per source, all started together.
-3. kernels: each flash kernel against its plain PyTorch version on the
+3. lint: the port's own analyzer (``python -m ray_tpu_torch.analysis
+   --strict``, every family, in a fresh interpreter that loads no torch)
+   finds no unbaselined finding, runs every family and rule of its
+   tables, and ``--gen-stubs`` reproduces ``core/rpc_stubs.py`` byte for
+   byte. It starts no GPU process and launches no kernel.
+4. kernels: each flash kernel against its plain PyTorch version on the
    card at the main paths' shapes and at edge cases (the forward at the
    7B prefill and 1B training shapes and at the edges of its 128 x 128
    tiles, each case naming the kernel the C entry counted itself
@@ -30,7 +35,7 @@ Phases, one JSON line each (``{"phase": ..., "ok": ...}``):
    version on the shapes and layouts both backward paths hand it (the 1B
    training and splash shapes, S=129, D=64, D=80, float32, a (B, H, S, D)
    view), timed at the 1B and splash shapes beside its bound.
-4. splash: ``splash_attention`` forward and backward at the 1B preset's
+5. splash: ``splash_attention`` forward and backward at the 1B preset's
    attention width (16 q heads on 8 kv heads, head_dim 128), B=1,
    S=8192, bf16, default 256 blocks, on a GQA-aligned head stack (heads
    0-7 ``LocalMask(1024)``, 8-11 ``ChunkedMask(2048)``, 12-13
@@ -50,13 +55,14 @@ Phases, one JSON line each (``{"phase": ..., "ok": ...}``):
    design's),
    and on each head group alone beside the flash kernel on the same
    heads.
-5. serve: Llama-2-7B (``PRESETS["7b"]``, full width and depth, random
+6. serve: Llama-2-7B (``PRESETS["7b"]``, full width and depth, random
    weights from seed 0, ``attention_impl="flash"``) behind
    ``LlamaDecodeDeployment`` answers six requests from several threads,
    one of them a prefix-cache hit. Launch counters are zeroed right before
    and read right after; every kernel of the path must have run. Greedy
    outputs are held against solo runs under the margin rule.
-6. serve_paged: a fresh deployment of the same model and weights with a
+7. serve_paged: a fresh deployment of the same model and weights, cut to
+   its first ``CUT_LAYERS`` layers (as every later serve phase), with a
    paged KV pool (``kv_page_tokens=64``, ``kv_pool_pages=64``: 4096
    tokens of KV for 8 slots of 2048), ``prefill_chunk_tokens=512`` and
    the device sampler answers eight requests sent before the first can
@@ -68,11 +74,11 @@ Phases, one JSON line each (``{"phase": ..., "ok": ...}``):
    this order) before the second, and the sharer before the step after
    the source's first token. It must preempt at least once, run at
    least three prefill chunks, hit the prefix cache, return every page
-   (free or pinned by the prefix index) and launch the flash forward 32
-   times per full prefill wave, all on wgmma. Greedy streams are held
+   (free or pinned by the prefix index) and launch the flash forward once
+   a layer per full prefill wave, all on wgmma. Greedy streams are held
    against solo contiguous runs under the margin rule, and the paged
    paths' logit drift against the contiguous ones must stay under it.
-7. serve_spec: a fresh speculative deployment of the same model and
+8. serve_spec: a fresh speculative deployment of the same model and
    weights with the 1B preset as its draft (random weights from seed 1),
    ``spec_k=4``, 8 slots of 2048 tokens on 128 pages of 64, a draft pool
    of 48 pages (3072 tokens, too few to seat every prompt), the device
@@ -91,25 +97,27 @@ Phases, one JSON line each (``{"phase": ..., "ok": ...}``):
    the greedy prompts) against a plain paged engine: accept rate at
    least 0.5, at most half the plain engine's steps in rounds, streams
    under the margin rule.
-8. serve_disagg: two deployments of the same model, prefill and decode,
+9. serve_disagg: two deployments of the same model, prefill and decode,
    seven requests through the handoff (prefill, capture, lease, adopt),
    the payloads through the runtime's object store (``rt.init()`` for the
    phase, each put and get timed). The prefix sharer goes once the
    source's descriptor is back, the long prompt once the sharer's is.
-9. serve_runtime: ``rt.init()`` on the host (its node must advertise
+10. serve_runtime: ``rt.init()`` on the host (its node must advertise
    ``GPU: 1``), the median host latency of 200 noop tasks and of 200
    actor method round trips, the store's put and get rates for a 1 GiB
    bf16 tensor on the card and a 256 MB one passed as a task argument;
    then ``serve.run`` of a ``LlamaDecodeDeployment`` subclass at the
-   7B preset with ``attention_impl="flash"`` (full width and depth,
-   ``slots=4``, ``capacity=2048``, seed 0) holding ``num_gpus=1`` in a
+   7B preset with ``attention_impl="flash"`` (full width, its first
+   ``CUT_LAYERS`` layers, ``slots=4``, ``capacity=2048``, seed 0;
+   every later runtime phase serves this config) holding ``num_gpus=1`` in a
    replica actor of its own process, its start time, the serve phase's
    six prompts one at a time through ``handle.remote``, ``handle.stream``
    and the HTTP proxy (each equal, token for token, to an in-process
    deployment on the same seed and config replaying the same order), a
    burst of the six over HTTP at once (client TTFT p50 / p99 and tokens/s
    beside the replica's ``slo_summary``), flash #1's launches read in the
-   replica's process (32 per full prefill wave, all on wgmma), and a
+   replica's process (one a layer per full prefill wave, all on wgmma),
+   and a
    teardown that leaves no process of the node and no store file. Before
    the teardown, against the live cluster: ``python -m ray_tpu_torch
    --address H:P`` with ``status`` (``GPU`` 1.0), ``list nodes``, ``list
@@ -121,7 +129,7 @@ Phases, one JSON line each (``{"phase": ..., "ok": ...}``):
    ``dashboard.start`` in this process, whose ``/``, ``/api/nodes``,
    ``/api/actors``, ``/api/serve`` (naming the deployment), ``/api/core``
    and ``/metrics`` must answer 200, each timed.
-10. serve_mesh: the serve_paged geometry and requests served by one
+11. serve_mesh: the serve_paged geometry and requests served by one
    ``DecodeEngine`` replica over a (1, 1) decode mesh at world size 1
    (one NCCL process group of one rank, in process) beside the mesh-less
    engine on the same weights from seed 0, both driven through
@@ -129,10 +137,10 @@ Phases, one JSON line each (``{"phase": ..., "ok": ...}``):
    prefix sharer after the source's first token) so both see the same
    waves. Every stream must equal the mesh-less engine's token for
    token, the waves, chunks and steps must be the same, and each run
-   must launch the flash forward 32 times per full prefill wave, all on
-   wgmma. Prints each run's mean and decode step time, tokens/s, TTFT
+   must launch the flash forward once a layer per full prefill wave, all
+   on wgmma. Prints each run's mean and decode step time, tokens/s, TTFT
    and ``slo_summary``, and the lockstep's control messages.
-11. train: the 1B Llama (``PRESETS["1b"]``, full width and depth, fp32
+12. train: the 1B Llama (``PRESETS["1b"]``, full width and depth, fp32
    masters from seed 0, ``attention_impl="flash"``, full remat,
    ``loss_chunk=512``) takes four AdamW steps through ``build_train_step``
    with two microbatches of 4 x 2048 tokens. Launch counters are zeroed
@@ -141,7 +149,7 @@ Phases, one JSON line each (``{"phase": ..., "ok": ...}``):
    and the forward twice (the remat recompute). Losses must be finite
    and falling. A 2-layer model of the same width then holds the flash
    gradients against the plain-attention ones.
-12. train_runtime: the train phase's model cut to its first
+13. train_runtime: the train phase's model cut to its first
    ``TRAIN_RUNTIME["layers"]`` (4) layers at full width, with its tokens
    and steps, through the train and tune planes. First the train phase's
    setup at that depth in this process (``phase_train``: the reference
@@ -173,7 +181,7 @@ Phases, one JSON line each (``{"phase": ..., "ok": ...}``):
    on the CPU.) Teardown: no gang record, no process
    of the node, no store file and no checkpoint directory left, ``GPU``
    available again.
-13. vit: ViT-B/16 (``vit.PRESETS["vit_b16"]``, full width and depth, fp32
+14. vit: ViT-B/16 (``vit.PRESETS["vit_b16"]``, full width and depth, fp32
    masters from seed 0, bf16 compute, full remat) takes six AdamW(3e-4,
    weight decay 0.1) steps through ``build_train_step`` at batch 256, fed
    by ``device_prefetch(prefetch=2)`` from seeded numpy batches of float32
@@ -189,7 +197,7 @@ Phases, one JSON line each (``{"phase": ..., "ok": ...}``):
    size in float32 (random head), ``pad_tokens_to=256`` logits equal the
    unpadded ones at B=4, and none of the seven hand-written kernels
    launched (ViT attention is the plain path, as in the JAX package).
-14. data_train: the Dataset API on the runtime feeding both train steps
+15. data_train: the Dataset API on the runtime feeding both train steps
    (``rt.init()``; its node must advertise ``GPU: 1``). (a) The train
    phase's tokens, drawn as it draws them ((8, 2049) from a generator
    seeded 0 on the card), copied to the host and repeated for its 4
@@ -216,7 +224,7 @@ Phases, one JSON line each (``{"phase": ..., "ok": ...}``):
    kernel launched. It prints images/s from the second step on beside
    the vit phase's and the consumer's wait for each step. Teardown: no
    process of the node, no store file, ``GPU`` available again.
-15. rl: the RL plane with the learner on the card (``rt.init()``; its node
+16. rl: the RL plane with the learner on the card (``rt.init()``; its node
    must advertise ``GPU: 1``); it prints whether ``gymnasium`` and
    ``pyarrow`` are found and installs nothing. (a) Multi-agent PPO through
    its entry point: ``MultiAgentPPOConfig(seed=0, num_env_runners=2,
@@ -250,7 +258,7 @@ Phases, one JSON line each (``{"phase": ..., "ok": ...}``):
    without it the phase prints ``"gymnasium": false`` and what it
    skipped. No hand-written kernel may launch; teardown leaves no process
    of the node, no store file, and ``GPU`` available again.
-16. mesh: the mesh plane at world size 1: one NCCL process group of one
+17. mesh: the mesh plane at world size 1: one NCCL process group of one
    rank, rendezvoused in process (``parallel.mesh.init_distributed``).
    The train phase's 1B setup (2 steps of 2 microbatches of 4 x 2048)
    mesh-less, then through ``build_train_step`` on
@@ -277,7 +285,7 @@ Phases, one JSON line each (``{"phase": ..., "ok": ...}``):
    visible hops; the 6 dead hops launch nothing), and each is timed
    beside the full call. Its hops' shapes (B=1, 2048, 16 on 8 heads,
    full and causal, with an lse cotangent) are kernel cases too.
-17. rl_dist: the RL distributed plane with the learner on the card
+18. rl_dist: the RL distributed plane with the learner on the card
    (``rt.init()``; its node must advertise ``GPU: 1``); it prints whether
    ``gymnasium`` is found and installs nothing. (a) The policy inference
    service on the card: for CartPole's shapes (MLP 64x64, 2 actions) in
@@ -318,26 +326,27 @@ Phases, one JSON line each (``{"phase": ..., "ok": ...}``):
    without it the phase prints ``"gymnasium": false`` and what it
    skipped. No hand-written kernel may launch; teardown leaves no
    process of the node, no store file, and ``GPU`` available again.
-18. gang: ``HostGroup(1, worker_options={"num_gpus": 1})`` on
+19. gang: ``HostGroup(1, worker_options={"num_gpus": 1})`` on
    ``rt.init()``, whose node advertises a one-host slice of its one card.
    (a) Formation (timed): the member is process 0 of 1 with one chip a
    host and holds the ``GPU`` lease, ``form_mesh()`` forms a one-rank
    NCCL group (``[1]``), a program barrier passes. (b) Through
    ``broadcast`` the member builds the serve phase's engine on its card
-   (``PRESETS["7b"]``, full width and depth, bf16, seed 0, ``slots=4``,
-   ``capacity=2048``, flash) and serves the serve phase's six requests
-   one at a time: the streams must equal serve_runtime's sequential
-   handle streams (the same engine, requests and order) token for token;
-   flash #1's launches, read in the member, must be 32 per full prefill
-   wave, all on wgmma. Prints TTFT, decode tokens/s per request and
-   tokens/s. (c) The member is killed: the monitor reconciles the gang
+   (``PRESETS["7b"]``, full width, ``CUT_LAYERS`` layers, bf16,
+   seed 0, ``slots=4``, ``capacity=2048``, flash) and serves the serve
+   phase's six requests one at a time: the streams must equal
+   serve_runtime's sequential handle streams (the same engine, requests
+   and order) token for token; flash #1's launches, read in the member,
+   must be one a layer per full prefill wave, all on wgmma. Prints TTFT,
+   decode tokens/s per request and tokens/s. (c) The member is killed:
+   the monitor reconciles the gang
    under the next epoch, releasing the sub-slice once; the ``GPU`` lease
    passes to the new member, a new coordinator is elected, and the
    re-formed member serves the first request again with the same
    stream. Prints the time from the kill to ``ALIVE`` and to the first
    token. (d) Shutdown leaves no reservation, no group record, ``GPU``
    available, no process of the node and no store file.
-19. cluster: two nodes on this machine through
+20. cluster: two nodes on this machine through
    ``cluster_utils.Cluster(initialize_head=False)``: a CPU node
    (``add_node(num_cpus=4)``) and a node holding the card
    (``add_node(num_cpus=2, resources={"GPU": 1}, labels={"gpu_name":
@@ -349,8 +358,9 @@ Phases, one JSON line each (``{"phase": ..., "ok": ...}``):
    with ``num_gpus=1`` and a ``runtime_env`` of a marker variable and a
    working_dir holding a module the actor imports by name. The actor
    builds serve_runtime's deployment in its constructor
-   (``LlamaDecodeDeployment`` at ``PRESETS["7b"]``, full width and depth,
-   flash, seed 0, ``slots=4``, ``capacity=2048``) and serves the serve
+   (``LlamaDecodeDeployment`` at ``PRESETS["7b"]``, full width,
+   ``CUT_LAYERS`` layers, flash, seed 0, ``slots=4``,
+   ``capacity=2048``) and serves the serve
    phase's six requests one at a time; the client uploads 256 MiB of
    seeded random bytes, which the actor copies to its card and sums, then
    disconnects and prints whether it created a CUDA context. (b) A task
@@ -371,7 +381,7 @@ Phases, one JSON line each (``{"phase": ..., "ok": ...}``):
    the job ``SUCCEEDED``; after the kill, the actor's process and then
    every process of both nodes gone. Prints the upload's and the pull's
    GB/s, the actor's start, the TTFTs and each step's seconds.
-20. pipeline: the train phase's model and weights cut to their first
+21. pipeline: the train phase's model and weights cut to their first
    ``PIPELINE["layers"]`` (4) layers at full width (``PRESETS["1b"]``,
    flash, full remat, fp32 masters from seed 0, kept on the host) through
    the pipeline plane
@@ -380,7 +390,7 @@ Phases, one JSON line each (``{"phase": ..., "ok": ...}``):
    through the RPCs), Adam at lr 3e-4, 3 steps, each on the same batch
    of 4 microbatches of 2 x 2048 numpy-seeded tokens (so a falling loss
    reads learning, not another batch's noise). (a) One stage on the card's own one-host
-   slice (``rt.init()``, ``snapshot_every=0``, the member holding
+   slice (``rt.init()``, ``snapshot_every=5``, the member holding
    ``num_gpus=1``): losses equal to the last bit to
    ``single_process_baseline(n_stages=1)`` run in this process on the
    card, and within ``PIPELINE_FULL_REL_TOL`` of the full model's
@@ -396,22 +406,25 @@ Phases, one JSON line each (``{"phase": ..., "ok": ...}``):
    after them: each run launches the flash forward 3 times per layer and
    microbatch (the stage forward, the backward's forward and its remat
    recompute) and each backward kernel and delta once, all on wgmma,
-   and nothing in the driver. (c) One stage on the card's own slice, as
-   (a), ``snapshot_every=1``: the stage's process is SIGKILLed after step
-   2 commits; the gang reconciles under epoch 2, the registry's epoch
-   bumps, step 3 replays, the losses equal the uninterrupted in-process
-   chain's (a's), and ``stop()`` leaves no ref and no record; then
+   and nothing in the driver. (c) (a)'s plane, once (a)'s counts are
+   read, trains the 3 steps again: its stage's process is SIGKILLed
+   after the second of them commits (the fifth step, the plane's one
+   snapshot); the gang reconciles under epoch 2,
+   the registry's epoch bumps, the third replays, the losses equal the
+   uninterrupted in-process chain's (its steps 4-6), and ``stop()``
+   leaves no ref and no record after all 6 steps; then
    ``python -m ray_tpu_torch --address H:P doctor --post-mortem --json``
    against the live cluster must name ``gang-death`` for the killed
    member and the stage it hosted. The in-process baselines are freed
    before each plane starts.
-21. dag: one ``rt.init()``. (a) Llama-2-7B (``PRESETS["7b"]``, full
-   width and all 32 layers, flash, bf16, random weights from seed 0)
-   split 16/16 by ``split_llama_stages`` into two stage functions, each
+22. dag: one ``rt.init()``. (a) Llama-2-7B (``PRESETS["7b"]``, full
+   width and its first ``CUT_LAYERS`` layers, flash, bf16, random
+   weights from seed 0) split in half by ``split_llama_stages`` into two
+   stage functions, each
    bound with ``num_gpus=0.5`` (two stages share the card) and run by
    ``experimental_compile(max_in_flight=4)``: two stage actors joined by
    a mutable shared-memory channel. Each stage draws the whole model from
-   seed 0 on the card at its first call and keeps its own 16 layers (no
+   seed 0 on the card at its first call and keeps its own half (no
    weights travel in its function). This process first runs the
    reference on the card: the same two stage functions chained, and
    ``llama.forward``, on the same items. Then two warm-up items, the
@@ -421,8 +434,8 @@ Phases, one JSON line each (``{"phase": ..., "ok": ...}``):
    the slot, the rule ``_PipeStage`` applies), all in flight at once,
    then the same items one at a time. Checks: the logits equal to the
    last bit to the chained stage functions (both runs) and within
-   ``DAG_FORWARD_REL_TOL`` of ``llama.forward``; 16 flash forward
-   launches in each stage's process for each item of the window, read
+   ``DAG_FORWARD_REL_TOL`` of ``llama.forward``; a flash forward launch
+   a layer in each stage's process for each item of the window, read
    there by the stage functions around each call, all on wgmma, and
    none in this process; each stage in its own process, every call of
    the channel's reader on one thread; the stages' windows interleave
@@ -443,13 +456,13 @@ Phases, one JSON line each (``{"phase": ..., "ok": ...}``):
    ``allgather``, ``broadcast`` and ``barrier`` over 4 CPU actors on a
    1 MiB array, each checked and timed. Then no process, store or
    channel file left.
-22. launcher_mesh: the launcher and autopilot family and the mesh
+23. launcher_mesh: the launcher and autopilot family and the mesh
    replica, as an operator runs them. ``python -m ray_tpu_torch up`` on a
    fake_multinode cluster YAML (``LAUNCH_YAML``: a CPU head, one ``gpu``
-   node type of ``{CPU: 4, GPU: 1}``, min 0, max 1, idle 15 s) parks in a
+   node type of ``{CPU: 4, GPU: 1}``, min 0, max 1, idle 6 s) parks in a
    process of its own, which holds the controller, the head and every
    node the autoscaler adds. This process joins it
-   (``rt.init(address=...)``) and ``serve.run``s the serve phase's 7B
+   (``rt.init(address=...)``) and ``serve.run``s serve_runtime's 7B
    (``_replica_cls``, 4 slots x 2048) with ``mesh_shape=(1, 1)`` and
    ``num_gpus=1``: the sub-slice reservation is refused until the
    autoscaler, seeing the ``{chips: 1}`` demand, launches the ``gpu``
@@ -457,11 +470,11 @@ Phases, one JSON line each (``{"phase": ..., "ok": ...}``):
    spawns the replica's one rank, which joins an NCCL world of one. The
    serve phase's six requests go through the HTTP proxy one at a time and
    must equal serve_runtime's streams token for token; the replica's
-   process reads flash #1's launches (32 a full prefill wave, all on
-   wgmma). Then ``serve/trace_demo.py``'s ``run_demo(init=False)`` with
-   its two debug replicas on CPU workers (the trace must validate),
-   ``autopilot --dry-run`` (its plan printed, nothing applied) and
-   ``autopilot --status``, ``serve.delete`` (the idle ``gpu`` node must be
+   process reads flash #1's launches (one a layer a full prefill wave,
+   all on wgmma). Then ``serve/trace_demo.py``'s ``run_demo(init=False)``
+   with its two debug replicas on CPU workers (the trace must validate)
+   and, beside it, ``autopilot --dry-run`` (its plan printed, nothing
+   applied) and ``autopilot --status``, ``serve.delete`` (the idle ``gpu`` node must be
    terminated) and ``python -m ray_tpu_torch down`` on the YAML, which
    stops the ``up`` process. Prints ``up``, the ``gpu`` node's launch,
    the replica's start, ``serve.run`` to the first streamed token, the
@@ -530,6 +543,13 @@ PEAK_F32_FLOPS = 67e12     # H100 SXM float32 outside the tensor cores
 # any drift reaches it.
 MARGIN_TOL = 0.1
 REQUEST_TIMEOUT_S = 300.0
+# Every serve phase after the first (serve_paged, serve_spec, serve_disagg,
+# serve_mesh) and the runtime phases (serve_runtime, gang, cluster, dag,
+# launcher_mesh) serve the 7B at full width and its first 4 of 32 layers:
+# their checks read the engine's paths, the kernels' launches and the
+# runtime's host paths, none of which needs the depth, and their time is
+# fresh processes and decode steps. The serve phase keeps all 32 layers.
+CUT_LAYERS = 4
 
 
 def emit(obj) -> None:
@@ -746,6 +766,97 @@ def phase_build() -> dict:
     for name in SOURCES:
         out[f"{name}_ptxas"] = cuda_build_rows(cuda_build, name)
     return out
+
+
+# ----------------------------------------------------------------- lint
+
+
+class LintRun:
+    """The port's analyzer over this checkout in two subprocesses (a strict
+    run of every family; the RPC stubs regenerated into a temporary file),
+    started before the kernel build so that they run beside it, and read
+    by the lint phase right after it."""
+
+    def __init__(self):
+        import tempfile
+
+        self.root = Path(__file__).resolve().parent
+        self.tmp = tempfile.TemporaryDirectory()
+        self.stats_path = Path(self.tmp.name) / "stats.json"
+        self.stubs_path = Path(self.tmp.name) / "rpc_stubs.py"
+        env = {**os.environ, "PYTHONPATH": str(self.root)}
+        cmd = [sys.executable, "-m", "ray_tpu_torch.analysis"]
+        self.t0 = time.perf_counter()
+        self.procs = {
+            "strict": subprocess.Popen(
+                cmd + ["--strict", "--format", "json", "--stats-json",
+                       str(self.stats_path)],
+                cwd=self.root, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True),
+            "stubs": subprocess.Popen(
+                cmd + ["--gen-stubs", str(self.stubs_path)],
+                cwd=self.root, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True)}
+
+    def wait(self) -> dict:
+        """{name: (exit code, stdout, stderr, seconds since the start)}."""
+        out = {}
+        for name, proc in self.procs.items():
+            stdout, stderr = proc.communicate(timeout=300)
+            out[name] = (proc.returncode, stdout, stderr,
+                         time.perf_counter() - self.t0)
+        return out
+
+    def close(self) -> None:
+        for proc in self.procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        self.tmp.cleanup()
+
+
+def phase_lint(lint: LintRun) -> dict:
+    """The analyzer's verdicts: no unbaselined finding, every family and
+    rule of its tables run, the checked-in stubs reproduced."""
+    from ray_tpu_torch.analysis import rules
+
+    t0 = time.perf_counter()
+    done = lint.wait()
+    waited_s = time.perf_counter() - t0
+    rc, stdout, stderr, lint_s = done["strict"]
+    gen_rc, _gen_out, gen_err, stubs_s = done["stubs"]
+    report = json.loads(stdout) if stdout.startswith("{") else {}
+    stats = json.loads(lint.stats_path.read_text()) \
+        if lint.stats_path.exists() else {}
+    stubs_equal = gen_rc == 0 and lint.stubs_path.read_bytes() == (
+        lint.root / rules.RPC_STUBS_PATH).read_bytes()
+    lint.close()
+    family_rules = {r for fam in rules.FAMILIES.values() for r in fam}
+    families_ran = sorted(stats.get("sites", {}))
+    checks = {
+        "strict_exit_0": rc == 0,
+        "no_unbaselined_findings": report.get("findings") == [],
+        "no_stale_baseline_entries":
+            report.get("stale_baseline_entries") == 0,
+        "every_family_ran": families_ran == sorted(rules.FAMILIES),
+        "every_rule_counted": sorted(stats.get("rules", {}))
+            == sorted(rules.ALL_RULES),
+        "families_cover_all_rules":
+            family_rules | {rules.STALE_PRAGMA} == set(rules.ALL_RULES),
+        "stubs_reproduced": stubs_equal,
+    }
+    return {"ok": all(checks.values()), "checks": checks,
+            "families": len(families_ran), "rules": len(rules.ALL_RULES),
+            "files": stats.get("files"),
+            # seconds from the start (before the build) until each exit
+            # was read, and what this phase waited after the build
+            "lint_s": round(lint_s, 3), "stubs_s": round(stubs_s, 3),
+            "waited_s": round(waited_s, 3),
+            "analysis_total_s": stats.get("total_s"),
+            "analysis_cpu_s": stats.get("cpu_s"),
+            "sites": stats.get("sites"),
+            "findings": report.get("findings"),
+            "stderr": (stderr + gen_err)[-2000:]}
 
 
 # -------------------------------------------------------------- kernels
@@ -2958,8 +3069,8 @@ def phase_serve_mesh(cfg, device="cuda") -> dict:
     turns (``MESH_RUN_ORDER``). Every stream must equal the first
     mesh-less run's token for token (the mesh's functions run on local
     shards, which at (1, 1) are the whole weights: the same launches);
-    every run launches the flash forward 32 times per full prefill wave,
-    all on wgmma. Prints each run's mean and decode step time, tokens/s
+    every run launches the flash forward once a layer per full prefill
+    wave, all on wgmma. Prints each run's mean and decode step time, tokens/s
     and ``slo_summary``, and the mesh's lockstep messages; the path's
     launches are the first mesh run's."""
     import torch.distributed as dist
@@ -5997,6 +6108,7 @@ def _serve_runtime(cfg, device, init_s) -> dict:
     checks.update(cli_checks)
     # The solo in-process engine on the same seed and config, replaying
     # the sequential order one request at a time.
+    t_solo = time.perf_counter()
     solo = LlamaDecodeDeployment(**geo, device=device)
     try:
         for path, name in order:
@@ -6013,16 +6125,19 @@ def _serve_runtime(cfg, device, init_s) -> dict:
         solo.shutdown()
         del solo
         gc.collect()
+    out["solo_replay_s"] = time.perf_counter() - t_solo
     checks["streams_equal_solo_engine"] = "mismatch" not in out
     # The gang phase's member replays these, on a fresh engine, in order.
     out["handle_streams"] = {name: got["handle", name] for name in plan}
     checks["token_counts"] = all(len(got[k]) == plan[k[1]][1]
                                  for k in order)
+    t_down = time.perf_counter()
     serve.shutdown()
     rt.shutdown()
     out["store_file_left"] = os.path.exists(store)
     out["processes_left"] = _poll_until(lambda: _live_node_pids(node_hex),
                                       lambda v: not v, 15.0)
+    out["teardown_s"] = time.perf_counter() - t_down
     checks["teardown_clean"] = (not out["store_file_left"]
                                 and not out["processes_left"])
     out["checks"] = checks
@@ -6060,14 +6175,29 @@ def _serve_cli(addr, deployment: str, requests: int):
     out, runs = {"seconds": {}, "exit": {}}, {}
     tmp = tempfile.mkdtemp(prefix="smoke_cli_")
     trace_path = os.path.join(tmp, "timeline.json")
+    done = {}
+
+    def run(key, argv):
+        done[key] = _cli(addr, *argv)
+
+    # The light subcommands one at a time; then doctor (two snapshots
+    # 2 s apart) and the serve timeline, the two that load torch, at
+    # once: each is a process of its own, timed from its own start.
     for key, argv in (("status", ["status"]),
                       ("list nodes", ["list", "nodes"]),
                       ("list actors", ["list", "actors"]),
-                      ("memory", ["memory"]), ("metrics", ["metrics"]),
-                      ("doctor", ["doctor", "--interval", "2", "--json"]),
-                      ("timeline", ["timeline", "--serve", "-o",
-                                    trace_path])):
-        rc, stdout, stderr, secs = _cli(addr, *argv)
+                      ("memory", ["memory"]), ("metrics", ["metrics"])):
+        run(key, argv)
+    pair = [threading.Thread(target=run, args=(key, argv)) for key, argv in (
+        ("doctor", ["doctor", "--interval", "2", "--json"]),
+        ("timeline", ["timeline", "--serve", "-o", trace_path]))]
+    for th in pair:
+        th.start()
+    for th in pair:
+        th.join()
+    for key in ("status", "list nodes", "list actors", "memory", "metrics",
+                "doctor", "timeline"):
+        rc, stdout, stderr, secs = done[key]
         runs[key] = stdout
         out["seconds"][key] = secs
         out["exit"][key] = rc
@@ -6847,16 +6977,14 @@ def _pipe_baseline(cfg, params, steps, device, n_stages) -> list:
 
 
 def _pipe_run(cfg, params, steps, device, n_stages, name, worker_options,
-              snapshot_every=0, kill_after=None) -> dict:
+              snapshot_every=0, resumed=None) -> dict:
     """One plane on the runtime: formation, ``steps`` train steps (each
     timed, with every stage's busy seconds), the launch counts read in the
-    stages' processes, ``stop()``. ``kill_after``: SIGKILL the last
-    stage's process once that many steps committed."""
-    import signal
-
+    stages' processes, ``stop()``. ``resumed``: after ``steps`` and their
+    counts, the same plane trains these further steps, the last stage's
+    process SIGKILLed once two of them committed; their record is
+    ``out["resumed"]``."""
     from ray_tpu_torch.train.pipeline_plane import PipelinePlane
-    from ray_tpu_torch.util import flightrec
-    from ray_tpu_torch.util import metrics as um
 
     out = {"n_stages": n_stages, "worker_options": worker_options}
     t = time.perf_counter()
@@ -6870,57 +6998,30 @@ def _pipe_run(cfg, params, steps, device, n_stages, name, worker_options,
         before = plane.group.broadcast(_pipe_member_counts, device, True,
                                        timeout=120.0)
         reset_counts()
-        walls, busy, breakdowns = [], [], []
-        for i, mbs in enumerate(steps):
-            if kill_after is not None and i == kill_after:
-                infos = plane.group.call_all("member_info", timeout=60.0)
-                victim = infos[-1]
-                out["killed"] = {"member": victim["member"],
-                                 "pid": victim["pid"]}
-                os.kill(victim["pid"], signal.SIGKILL)
-            busy0 = plane.stats()["stage_busy_s"]
-            t = time.perf_counter()
-            plane.train_step(mbs)
-            walls.append(time.perf_counter() - t)
-            st = plane.stats()
-            busy.append([b - a for a, b in zip(busy0, st["stage_busy_s"])])
-            breakdowns.append(st["step_breakdown"])
+        record = _pipe_steps_timed(plane, steps, n_stages)
         out["driver_launches"] = launch_counts()
-        if kill_after is None:
-            after = plane.group.broadcast(_pipe_member_counts, device,
-                                          False, timeout=120.0)
-            out["stage_pids"] = [a["pid"] for a in after]
-            out["launches"] = {k: sum(a["launches"][k] for a in after)
-                               for k in KERNELS}
-            out["stage_launches"] = [a["launches"] for a in after]
-            for key, field in (("flash_fwd_by_kernel", "fwd_by_kernel"),
-                               ("flash_bwd_by_kernel", "bwd_by_kernel")):
-                out[key] = {k: sum(a[field].get(k, 0) - b[field].get(k, 0)
-                                   for a, b in zip(after, before))
-                            for k in after[0][field]}
-        st = plane.stats()
-        out["losses"] = plane.losses()
-        out["step_s"] = walls
-        out["stage_busy_s"] = busy
-        out["bubble"] = [1.0 - sum(b) / (n_stages * w)
-                         for b, w in zip(busy, walls)]
-        out["model_tflops"] = [bd["model_tflops"] for bd in breakdowns]
-        out["step_breakdown"] = breakdowns[-1]
-        out["tensor_bytes_moved"] = st["tensor_bytes_moved"]
-        out["ledger_refs"] = st["ledger_refs"]
-        out["gang_epoch"], out["epoch"] = st["gang_epoch"], st["epoch"]
-        out["restarts"] = st["group"]["restarts"]
-        out["registry"] = plane.registry_state()
-        snap = {"local": um._Registry.get().snapshot()}
-        entry = um.merge_histograms(snap, "pipeline_desc_bytes").get(
-            (("pipeline", name),))
-        out["desc_bytes_p99"] = (um.histogram_quantile(entry, 0.99)
-                                 if entry else None)
-        out["desc_count"] = entry["count"] if entry else 0
-        out["disrupted_steps"] = [
-            e["step"] for e in flightrec.dump()
-            if e.get("ev") == "pipe.disrupted"
-            and e.get("pipeline") == name]
+        after = plane.group.broadcast(_pipe_member_counts, device,
+                                      False, timeout=120.0)
+        out["stage_pids"] = [a["pid"] for a in after]
+        out["launches"] = {k: sum(a["launches"][k] for a in after)
+                           for k in KERNELS}
+        out["stage_launches"] = [a["launches"] for a in after]
+        for key, field in (("flash_fwd_by_kernel", "fwd_by_kernel"),
+                           ("flash_bwd_by_kernel", "bwd_by_kernel")):
+            out[key] = {k: sum(a[field].get(k, 0) - b[field].get(k, 0)
+                               for a, b in zip(after, before))
+                        for k in after[0][field]}
+        out.update(_pipe_record(plane, name, record))
+        if resumed is not None:
+            infos = plane.group.call_all("member_info", timeout=60.0)
+            victim = infos[-1]
+            killed = {"member": victim["member"], "pid": victim["pid"]}
+            rec = _pipe_steps_timed(plane, resumed, n_stages,
+                                    kill=(2, victim["pid"]))
+            out["resumed"] = {"killed": killed,
+                              **_pipe_record(plane, name, rec)}
+            out["resumed"]["losses"] = \
+                out["resumed"]["losses"][len(steps):]
     finally:
         t = time.perf_counter()
         out["report"] = plane.stop()
@@ -6929,12 +7030,61 @@ def _pipe_run(cfg, params, steps, device, n_stages, name, worker_options,
     return out
 
 
+def _pipe_steps_timed(plane, steps, n_stages, kill=None) -> dict:
+    """Train ``steps`` on ``plane``: each step's wall and the stages'
+    busy seconds. ``kill``: (i, pid), SIGKILL ``pid`` before step i."""
+    import signal
+
+    walls, busy, breakdowns = [], [], []
+    for i, mbs in enumerate(steps):
+        if kill is not None and i == kill[0]:
+            os.kill(kill[1], signal.SIGKILL)
+        busy0 = plane.stats()["stage_busy_s"]
+        t = time.perf_counter()
+        plane.train_step(mbs)
+        walls.append(time.perf_counter() - t)
+        st = plane.stats()
+        busy.append([b - a for a, b in zip(busy0, st["stage_busy_s"])])
+        breakdowns.append(st["step_breakdown"])
+    return {"walls": walls, "busy": busy, "breakdowns": breakdowns,
+            "n_stages": n_stages}
+
+
+def _pipe_record(plane, name, rec) -> dict:
+    """The plane's state after some steps: losses, timings, bubble, the
+    registry and the descriptor histogram."""
+    from ray_tpu_torch.util import flightrec
+    from ray_tpu_torch.util import metrics as um
+
+    walls, busy, n = rec["walls"], rec["busy"], rec["n_stages"]
+    st = plane.stats()
+    out = {"losses": plane.losses(), "step_s": walls, "stage_busy_s": busy,
+           "bubble": [1.0 - sum(b) / (n * w) for b, w in zip(busy, walls)],
+           "model_tflops": [bd["model_tflops"] for bd in rec["breakdowns"]],
+           "step_breakdown": rec["breakdowns"][-1],
+           "tensor_bytes_moved": st["tensor_bytes_moved"],
+           "ledger_refs": st["ledger_refs"],
+           "gang_epoch": st["gang_epoch"], "epoch": st["epoch"],
+           "restarts": st["group"]["restarts"],
+           "registry": plane.registry_state()}
+    snap = {"local": um._Registry.get().snapshot()}
+    entry = um.merge_histograms(snap, "pipeline_desc_bytes").get(
+        (("pipeline", name),))
+    out["desc_bytes_p99"] = (um.histogram_quantile(entry, 0.99)
+                             if entry else None)
+    out["desc_count"] = entry["count"] if entry else 0
+    out["disrupted_steps"] = [
+        e["step"] for e in flightrec.dump()
+        if e.get("ev") == "pipe.disrupted" and e.get("pipeline") == name]
+    return out
+
+
 def phase_pipeline(cfg, device="cuda") -> dict:
     """The pipeline plane on the runtime, ``cfg`` cut to its first
     ``PIPELINE["layers"]`` layers at full width: (a) one stage on the
-    card's own slice, (b) two stages sharing the card on a virtual
-    two-host slice, (c) one stage on the card's own slice, killed and
-    resumed. See the module docstring."""
+    card's own slice, then (c) the same plane's stage killed and resumed,
+    (b) two stages sharing the card on a virtual two-host slice. See the
+    module docstring."""
     import ray_tpu_torch as rt
     from ray_tpu_torch.models import llama
     from ray_tpu_torch.train.pipeline_plane import host_copies
@@ -6960,21 +7110,35 @@ def phase_pipeline(cfg, device="cuda") -> dict:
     steps = _pipe_steps(cfg, torch.device(device).type)
     out["init_s"] = time.perf_counter() - t0
 
-    # (a) one stage
+    # (a) one stage on the card's own slice, snapshotting every step;
+    # (c) the same plane, after (a)'s steps and counts, trains the steps
+    # again with its stage's process SIGKILLed after the second commits;
+    # then the doctor's post-mortem, through the CLI, against the live
+    # cluster
     t = time.perf_counter()
-    chain1 = _pipe_baseline(cfg, params, steps, device, 1)
+    chain1 = _pipe_baseline(cfg, params, steps + steps, device, 1)
     full = _pipe_baseline(cfg, params, steps, device, None)
     out["baseline_s"] = time.perf_counter() - t
     _runtime_init(device)
     try:
-        a = _pipe_run(cfg, params, steps, device, 1, "smoke-pipe-1", None)
+        # One snapshot, after the fifth step: the state the kill before
+        # the sixth resumes from.
+        a = _pipe_post_mortem(_pipe_run(
+            cfg, params, steps, device, 1, "smoke-pipe-kill", None,
+            snapshot_every=2 * len(steps) - 1, resumed=steps),
+            "smoke-pipe-kill")
     finally:
         rt.shutdown()
-    a["chain_losses"], a["full_losses"] = chain1, full
+    c = a.pop("resumed")
+    c["post_mortem"] = a.pop("post_mortem")
+    for key in ("report", "stop_s", "registry_after"):
+        c[key] = a[key]
+    a["chain_losses"], a["full_losses"] = chain1[:len(steps)], full
+    c["chain_losses"] = chain1[len(steps):]
     a["full_rel_diff"] = [abs(x - y) / abs(y) for x, y in zip(a["losses"],
                                                             full)]
-    a["seconds"] = time.perf_counter() - t
-    out["a"] = a
+    a["seconds"] = c["seconds"] = time.perf_counter() - t
+    out["a"], out["c"] = a, c
 
     # (b) two stages sharing the card
     t = time.perf_counter()
@@ -6985,20 +7149,6 @@ def phase_pipeline(cfg, device="cuda") -> dict:
     b["seconds"] = time.perf_counter() - t
     out["b"] = b
 
-    # (c) one stage on the card's own slice, killed after step 2; then the
-    # doctor's post-mortem, through the CLI, against the live cluster
-    t = time.perf_counter()
-    _runtime_init(device)
-    try:
-        c = _pipe_post_mortem(_pipe_run(
-            cfg, params, steps, device, 1, "smoke-pipe-kill", None,
-            snapshot_every=1, kill_after=2), "smoke-pipe-kill")
-    finally:
-        rt.shutdown()
-    c["chain_losses"] = chain1
-    c["seconds"] = time.perf_counter() - t
-    out["c"] = c
-
     n_steps, n_micro = PIPELINE["steps"], PIPELINE["n_micro"]
     want = {**{k: 0 for k in KERNELS},
             "flash_fwd": 3 * cfg.n_layers * n_micro * n_steps,
@@ -7006,8 +7156,11 @@ def phase_pipeline(cfg, device="cuda") -> dict:
             "flash_bwd_dq": cfg.n_layers * n_micro * n_steps,
             "attention_delta": cfg.n_layers * n_micro * n_steps}
     out["launches_want_per_run"] = want
+    # (a)'s plane ran (c)'s steps too before it stopped
+    steps_run = {"a": 2 * n_steps, "b": n_steps}
     for key, run in (("a", a), ("b", b)):
-        checks[f"{key}_losses_equal_chain"] = run["losses"] ==             run["chain_losses"]
+        checks[f"{key}_losses_equal_chain"] = run["losses"] == \
+            run["chain_losses"]
         checks[f"{key}_finite_and_falling"] = (
             all(math.isfinite(x) for x in run["losses"])
             and run["losses"][-1] < run["losses"][0])
@@ -7025,7 +7178,7 @@ def phase_pipeline(cfg, device="cuda") -> dict:
             and len(set(run["stage_pids"])) == run["n_stages"])
         checks[f"{key}_clean_stop"] = (
             run["report"] == {"inflight_refs_dropped": 0, "ledger_refs": 0,
-                              "steps_completed": n_steps}
+                              "steps_completed": steps_run[key]}
             and run["registry_after"] is None and run["ledger_refs"] == 0)
     checks["a_within_full_baseline"] = all(
         d <= PIPELINE_FULL_REL_TOL for d in a["full_rel_diff"])
@@ -7037,14 +7190,16 @@ def phase_pipeline(cfg, device="cuda") -> dict:
         c["gang_epoch"] == 2 and c["restarts"] == 1)
     checks["c_registry_epoch_bumped"] = (
         c["registry"]["epoch"] == 2 and c["registry"]["last_step"]
-        == n_steps - 1)
-    checks["c_step_3_replayed"] = (bool(c["disrupted_steps"])
-                                   and set(c["disrupted_steps"]) == {2})
+        == 2 * n_steps - 1)
+    # (c)'s third step is the plane's (n_steps + 3)-th (index n_steps + 2)
+    checks["c_step_3_replayed"] = (
+        bool(c["disrupted_steps"])
+        and set(c["disrupted_steps"]) == {n_steps + 2})
     checks["c_losses_equal_uninterrupted"] = c["losses"] == \
         c["chain_losses"]
     checks["c_clean_stop"] = (
         c["report"] == {"inflight_refs_dropped": 0, "ledger_refs": 0,
-                        "steps_completed": n_steps}
+                        "steps_completed": 2 * n_steps}
         and c["registry_after"] is None)
     pm = c["post_mortem"]
     checks["c_post_mortem_names_killed_stage"] = (
@@ -7119,10 +7274,10 @@ def _pipe_virtual_slice(fn, device):
 # The cluster YAML the phase launches (fake_multinode: the head and every
 # node the autoscaler adds live in the ``up`` process): a CPU head, and
 # one ``gpu`` node type of 4 CPUs and the card, launched on demand and
-# torn down when idle for 15 s. Written as JSON, which is YAML too.
+# torn down when idle for 6 s. Written as JSON, which is YAML too.
 LAUNCH_YAML = dict(
     cluster_name="smoke-launch", provider={"type": "fake_multinode"},
-    min_workers=0, max_workers=1, idle_timeout_minutes=0.25,
+    min_workers=0, max_workers=1, idle_timeout_minutes=0.1,
     head={"resources": {"CPU": 8}},
     worker={"resources": {"CPU": 4, "GPU": 1}, "labels": {"pool": "gpu"}})
 LAUNCH_TIMEOUT_S = 600.0
@@ -7256,6 +7411,10 @@ def _launcher_mesh(cfg, want, device, path, up, t_up) -> dict:
             **geo, device=device), name="llm_mesh", ready_timeout_s=900.0)
     nodes = _poll_until(gpu_nodes, bool, LAUNCH_TIMEOUT_S)
     out["gpu_node_s"] = time.perf_counter() - t
+    # Ingress on every node (the new one too) while the replica starts.
+    t_http = time.perf_counter()
+    addr_http = serve.start_http()
+    out["start_http_s"] = time.perf_counter() - t_http
     out["gpu_node"] = [{"node_id": n["node_id"][:8],
                         "resources": n["resources"],
                         "labels": n["labels"]} for n in nodes]
@@ -7281,7 +7440,6 @@ def _launcher_mesh(cfg, want, device, path, up, t_up) -> dict:
         and w0["cuda_visible"] != ""
         and (kind != "cuda"
              or (bool(w0["card"]) and gpu_pids == [w0["pid"]])))
-    addr_http = serve.start_http()
     plan = _serve_plan(cfg)
     got, ttft = {}, {}
     for i, name in enumerate(plan):
@@ -7319,10 +7477,28 @@ def _launcher_mesh(cfg, want, device, path, up, t_up) -> dict:
         and (topo.get("sub_slice") or {}).get("shape") == [1, 1]
         and str(topo.get("slice_id", "")).startswith("gpu-"))
 
+    # The autopilot (CLI processes) beside the trace demo (this process):
+    # one dry-run pass, its plan printed and nothing applied, then its
+    # status.
+    pilot = {}
+
+    def autopilot():
+        t = time.perf_counter()
+        pilot["dry_run"] = _cli(addr, "autopilot", "--dry-run",
+                                "--interval", "1.0")
+        pilot["status"] = _cli(addr, "autopilot", "--status")
+        pilot["seconds"] = time.perf_counter() - t
+
+    pilot_thread = threading.Thread(target=autopilot)
+    pilot_thread.start()
     # The trace demo against the same cluster, its debug replicas on CPU
     # workers.
     t = time.perf_counter()
-    report = run_demo(init=False, replicas=2, requests=3, device="cpu")
+    try:
+        report = run_demo(init=False, replicas=2, requests=3,
+                          device="cpu")
+    finally:
+        pilot_thread.join()
     out["demo_s"] = time.perf_counter() - t
     out["trace"] = {k: report[k] for k in ("events", "spans",
                                            "engine_slices")}
@@ -7333,15 +7509,11 @@ def _launcher_mesh(cfg, want, device, path, up, t_up) -> dict:
                                  and bool(report["cross_process_links"])
                                  and report["engine_slices"] >= 1)
 
-    # The autopilot: one dry-run pass (its plan printed, nothing applied),
-    # then its status.
-    t = time.perf_counter()
-    rc, stdout, stderr, _s = _cli(addr, "autopilot", "--dry-run",
-                                  "--interval", "1.0")
+    rc, stdout, stderr, _s = pilot["dry_run"]
     plan_records = json.loads(stdout) if rc == 0 else None
-    rc2, stdout2, stderr2, _s2 = _cli(addr, "autopilot", "--status")
+    rc2, stdout2, stderr2, _s2 = pilot["status"]
     status = json.loads(stdout2) if rc2 == 0 else None
-    out["autopilot_s"] = time.perf_counter() - t
+    out["autopilot_s"] = pilot["seconds"]
     out["autopilot_plan"] = plan_records
     out["autopilot_status"] = status
     if rc or rc2:
@@ -7392,9 +7564,10 @@ def _launcher_mesh(cfg, want, device, path, up, t_up) -> dict:
 
 # ------------------------------------------------------------------- dag
 
-# Llama-2-7B at full width and depth through a compiled DAG of two stage
-# actors that share the card (each holds half of the GPU lease, as the
-# pipeline phase's two stages do), 16 layers a stage. Two warm-up items,
+# Llama-2-7B at full width (CUT_LAYERS layers) through a compiled DAG
+# of two stage actors that share the card (each holds half of the GPU
+# lease, as the pipeline phase's two stages do), half the layers a stage.
+# Two warm-up items,
 # then the window: microbatches of (1, 512) tokens, whose 4 MiB bf16
 # hidden state fits the channel's 8 MiB slot, and of (2, 1024), whose
 # 16 MiB take the RPC push. The phase runs on the card only; the CPU
@@ -7980,13 +8153,21 @@ def count_gpu_processes() -> list:
 
 
 def main() -> int:
-    from ray_tpu_torch.models import llama, vit
-
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    lint = LintRun()
+    try:
+        return _run_phases(lint)
+    finally:
+        lint.close()
+
+
+def _run_phases(lint: LintRun) -> int:
+    from ray_tpu_torch.models import llama, vit
+
     record: dict = {}
     results: dict = {}
     paths: dict = {}
@@ -7995,19 +8176,22 @@ def main() -> int:
     started = count_gpu_processes()
     gpu_by_phase: dict = {}
     serve_cfg = replace(llama.PRESETS["7b"], attention_impl="flash")
+    # The later serve and runtime phases' 7B: its first CUT_LAYERS layers.
+    cut_cfg = replace(serve_cfg, n_layers=CUT_LAYERS)
     train_cfg = replace(llama.PRESETS["1b"], attention_impl="flash",
                         remat=True, remat_policy="full", loss_chunk=512)
     for name, fn in (("env", phase_env), ("build", phase_build),
+                     ("lint", lambda: phase_lint(lint)),
                      ("kernels", lambda: phase_kernels(record)),
                      ("splash", lambda: phase_splash(record)),
                      ("serve", lambda: phase_serve(serve_cfg)),
-                     ("serve_paged", lambda: phase_serve_paged(serve_cfg)),
-                     ("serve_spec", lambda: phase_serve_spec(serve_cfg)),
+                     ("serve_paged", lambda: phase_serve_paged(cut_cfg)),
+                     ("serve_spec", lambda: phase_serve_spec(cut_cfg)),
                      ("serve_disagg",
-                      lambda: phase_serve_disagg(serve_cfg)),
+                      lambda: phase_serve_disagg(cut_cfg)),
                      ("serve_runtime",
-                      lambda: phase_serve_runtime(serve_cfg)),
-                     ("serve_mesh", lambda: phase_serve_mesh(serve_cfg)),
+                      lambda: phase_serve_runtime(cut_cfg)),
+                     ("serve_mesh", lambda: phase_serve_mesh(cut_cfg)),
                      ("train", lambda: phase_train(train_cfg)),
                      ("train_runtime",
                       lambda: phase_train_runtime(train_cfg)),
@@ -8020,15 +8204,15 @@ def main() -> int:
                      ("mesh", lambda: phase_mesh(train_cfg)),
                      ("rl_dist", phase_rl_dist),
                      ("gang", lambda: phase_gang(
-                         serve_cfg,
+                         cut_cfg,
                          results["serve_runtime"]["handle_streams"])),
                      ("cluster", lambda: phase_cluster(
-                         serve_cfg,
+                         cut_cfg,
                          results["serve_runtime"]["handle_streams"])),
                      ("pipeline", lambda: phase_pipeline(train_cfg)),
-                     ("dag", lambda: phase_dag(serve_cfg)),
+                     ("dag", lambda: phase_dag(cut_cfg)),
                      ("launcher_mesh", lambda: phase_launcher_mesh(
-                         serve_cfg,
+                         cut_cfg,
                          results["serve_runtime"]["handle_streams"]))):
         t0 = time.perf_counter()
         n_started = len(started)

@@ -35,6 +35,10 @@ def build_library(name: str, sources: list, extra_flags: list = ()) -> str:
         with open(out[:-3] + ".lock", "w") as lock:
             fcntl.flock(lock, fcntl.LOCK_EX)
             if not _fresh(out, srcs):
+                # Compiling under _LOCK is deliberate: one build per
+                # process, the other threads wait for the .so instead of
+                # racing g++ on the same output.
+                # graftlint: disable=lock-held-blocking
                 _compile(out, srcs, extra_flags)
     return out
 

@@ -263,15 +263,14 @@ class ControllerStub(_StubBase):
         return self._call('remove_placement_group', pg_id_bytes,
                           timeout=timeout)
 
-    def report_workers(self, node_id_bytes, started, dead, *,
-                       timeout=_UNSET):
-        return self._call('report_workers', node_id_bytes, started, dead,
-                          timeout=timeout)
-
     def report_actor_failure(self, actor_id_bytes, reason=_UNSET, *,
                              timeout=_UNSET):
         return self._call('report_actor_failure', actor_id_bytes,
                           reason=reason, timeout=timeout)
+
+    def report_workers(self, node_id_bytes, started, dead, *, timeout=_UNSET):
+        return self._call('report_workers', node_id_bytes, started, dead,
+                          timeout=timeout)
 
     def reserve_subslice(self, owner, chips, shape=_UNSET, *, timeout=_UNSET):
         return self._call('reserve_subslice', owner, chips, shape=shape,
@@ -402,8 +401,8 @@ class NodeStub(_StubBase):
 
     def register_worker(self, worker_id_bytes, addr, pid=_UNSET, *,
                         timeout=_UNSET):
-        return self._call('register_worker', worker_id_bytes, addr,
-                          pid=pid, timeout=timeout)
+        return self._call('register_worker', worker_id_bytes, addr, pid=pid,
+                          timeout=timeout)
 
     def release_bundle(self, pg_id, index, *, timeout=_UNSET):
         return self._call('release_bundle', pg_id, index, timeout=timeout)

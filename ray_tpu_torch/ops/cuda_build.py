@@ -93,6 +93,9 @@ def build(names: Iterable[str], csrc: Path = CSRC) -> List[Path]:
             tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
             cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
                    str(Path(csrc) / f"{name}.cu")]
+            # Starting nvcc under _lock is deliberate: one build of each
+            # kernel per process, the other threads wait for its library.
+            # graftlint: disable=lock-held-blocking
             proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                     stderr=subprocess.STDOUT, text=True)
             pending.append((name, out, tmp, proc))

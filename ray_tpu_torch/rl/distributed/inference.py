@@ -106,6 +106,9 @@ class PolicyInference:
         if self._serving[1] is None:
             with self._initial:
                 if self._serving[1] is None:
+                    # Waiting on the hub under _initial is the point: a
+                    # receiver hands a version to one caller only.
+                    # graftlint: disable=lock-held-blocking
                     self._apply(self._receiver.wait_initial())
             return
         got = self._receiver.poll(0.0)

@@ -439,8 +439,13 @@ class ServeController:
             self._deployments[name] = rec
         if drain_old:
             self._drain(old)
-        with rec.lock:
-            doomed = self._settle(rec)
+        orphans: List[tuple] = []
+        try:
+            with rec.lock:
+                doomed = self._settle(rec, orphans)
+        finally:
+            # A failed mesh spawn's ranks are killed OUTSIDE rec.lock.
+            self._kill_orphans(orphans)
         # Kill downscaled replicas OUTSIDE rec.lock: ray_tpu_torch.kill is a
         # controller RPC, and holding the record lock across it would
         # stall every reconcile tick on this deployment behind a dead
@@ -535,17 +540,20 @@ class ServeController:
                            auto["min_replicas"]))
         return rec.cfg.get("num_replicas", 1)
 
-    def _settle(self, rec: DeploymentRecord) -> List[ReplicaRecord]:
+    def _settle(self, rec: DeploymentRecord,
+                orphans: List[tuple]) -> List[ReplicaRecord]:
         """Converge the replica count toward target under rec.lock.
         Returns the replicas a downscale removed — the caller kills them
-        after releasing the lock. A replica that cannot be PLACED (no
-        ICI-contiguous sub-slice free for its mesh) stops the upscale:
-        the deployment stays below target and the reconcile loop retries
-        when topology frees up — it is never placed on a fragment."""
+        after releasing the lock, as it kills ``orphans`` (the ranks of a
+        mesh spawn that failed, see :meth:`_add_replica`). A replica that
+        cannot be PLACED (no ICI-contiguous sub-slice free for its mesh)
+        stops the upscale: the deployment stays below target and the
+        reconcile loop retries when topology frees up — it is never
+        placed on a fragment."""
         target = self._target_replicas(rec)
         doomed: List[ReplicaRecord] = []
         while len(rec.replicas) < target:
-            if not self._add_replica(rec):
+            if not self._add_replica(rec, orphans):
                 break
         while len(rec.replicas) > target:
             doomed.append(self._remove_replica(rec))
@@ -561,7 +569,12 @@ class ServeController:
         ms = ServeController._mesh_shape(rec)
         return ms[0] * ms[1] if ms else 1
 
-    def _add_replica(self, rec: DeploymentRecord) -> bool:
+    def _add_replica(self, rec: DeploymentRecord,
+                     orphans: List[tuple]) -> bool:
+        """Spawn one replica under rec.lock. A mesh spawn that fails
+        leaves the ranks it started in ``orphans`` as (handle, replica
+        id) pairs: the caller kills them with :meth:`_kill_orphans` after
+        releasing rec.lock (a kill is a controller RPC)."""
         from ray_tpu_torch.serve.replica import ReplicaActor
 
         replica_id = f"{rec.name}#{rec.next_replica_ord}"
@@ -607,7 +620,7 @@ class ServeController:
                     init_kwargs["mesh_shape"] = tuple(mesh_shape)
                 handle, ranks = self._spawn_mesh(
                     rec, replica_id, sub, tuple(mesh_shape), opts,
-                    init_kwargs)
+                    init_kwargs, orphans)
             else:
                 ranks = []
                 handle = actor_cls.options(**opts).remote(
@@ -644,7 +657,8 @@ class ServeController:
 
     def _spawn_mesh(self, rec: DeploymentRecord, replica_id: str,
                     sub: Dict[str, Any], mesh_shape: tuple,
-                    opts: Dict[str, Any], init_kwargs):
+                    opts: Dict[str, Any], init_kwargs,
+                    orphans: List[tuple]):
         """Spawn a mesh replica's ranks, one process a rank: rank 0 a
         :class:`ReplicaActor` (the one the router sees), ranks 1.. a
         ``MeshRankActor`` each, all hosting the same deployment. Each rank
@@ -653,7 +667,8 @@ class ServeController:
         group through the rendezvous address rank 0 puts in the KV: NCCL
         on a slice of cards, gloo on a virtual slice of the CPU or for a
         deployment whose ``device`` is the CPU. A failure spawning any
-        rank kills the ranks already spawned; the caller releases the
+        rank puts the ranks already spawned in ``orphans`` for the caller
+        to kill once rec.lock is released; the caller releases the
         reservation."""
         import uuid
 
@@ -699,10 +714,15 @@ class ServeController:
                         rec.cls_blob, rec.init_args, init_kwargs,
                         replica_id, mesh_rank))
         except Exception:
-            for handle in spawned:
-                self._kill_handle(handle, replica_id)
+            orphans.extend((handle, replica_id) for handle in spawned)
             raise
         return spawned[0], spawned[1:]
+
+    def _kill_orphans(self, orphans: List[tuple]) -> None:
+        """Kill the ranks of failed mesh spawns (never under rec.lock)."""
+        for handle, replica_id in orphans:
+            self._kill_handle(handle, replica_id)
+        orphans.clear()
 
     def _kill_handle(self, handle, replica_id: str) -> None:
         try:
@@ -1317,21 +1337,25 @@ class ServeController:
         if self._stale(rec):
             return
         to_kill: List[ReplicaRecord] = []
-        with rec.lock:
-            if self._stale(rec):
-                return
-            for replica in dead:
-                try:
-                    rec.replicas.remove(replica)
-                except ValueError:
-                    continue
-                to_kill.append(replica)
-                changed = True
-            while (len(rec.replicas) < self._min_replicas(rec)
-                   and not self._stale(rec)):
-                if not self._add_replica(rec):
-                    break  # unplaceable (no contiguous sub-slice): retry
-                changed = True  # next tick, never spawn on a fragment
+        orphans: List[tuple] = []
+        try:
+            with rec.lock:
+                if self._stale(rec):
+                    return
+                for replica in dead:
+                    try:
+                        rec.replicas.remove(replica)
+                    except ValueError:
+                        continue
+                    to_kill.append(replica)
+                    changed = True
+                while (len(rec.replicas) < self._min_replicas(rec)
+                       and not self._stale(rec)):
+                    if not self._add_replica(rec, orphans):
+                        break  # unplaceable (no contiguous sub-slice):
+                    changed = True  # retry next tick, never on a fragment
+        finally:
+            self._kill_orphans(orphans)
         # Idempotent cleanup kills happen after rec.lock is released —
         # an RPC under the record lock would stall deploy/settle on this
         # deployment (graftlint: lock-held-blocking).
@@ -1344,37 +1368,42 @@ class ServeController:
         auto = rec.cfg.get("autoscaling")
         if auto:
             downscaled: Optional[ReplicaRecord] = None
-            with rec.lock:
-                # Replica load = max(HTTP concurrency, replica-reported
-                # backlog): a decode engine with a full pending queue and
-                # every slot busy must scale OUT even when each request
-                # occupies only one "ongoing" call slot. autoscale_load
-                # additionally inflates speculative replicas' signal by
-                # their verify overhead at the observed accept rate, so
-                # spec engines don't over-report headroom.
-                ongoing = sum(autoscale_load(r.last_stats)
-                              for r in rec.replicas)
-                # A mesh-parallel replica is chips-many units of
-                # capacity, not one: load per CHIP drives the count, so
-                # an 8-chip replica absorbs 8x the target before a
-                # second replica (and its whole sub-slice) spawns.
-                cap = max(1e-9, auto["target_ongoing_requests"]
-                          * self._mesh_chips(rec))
-                desired = max(auto["min_replicas"],
-                              min(auto["max_replicas"],
-                                  math.ceil(ongoing / cap)))
-                now = time.monotonic()
-                if (desired > len(rec.replicas)
-                        and now - rec.last_scale > auto["upscale_delay_s"]):
-                    if self._add_replica(rec):
+            orphans: List[tuple] = []
+            try:
+                with rec.lock:
+                    # Replica load = max(HTTP concurrency, replica-reported
+                    # backlog): a decode engine with a full pending queue and
+                    # every slot busy must scale OUT even when each request
+                    # occupies only one "ongoing" call slot. autoscale_load
+                    # additionally inflates speculative replicas' signal by
+                    # their verify overhead at the observed accept rate, so
+                    # spec engines don't over-report headroom.
+                    ongoing = sum(autoscale_load(r.last_stats)
+                                  for r in rec.replicas)
+                    # A mesh-parallel replica is chips-many units of
+                    # capacity, not one: load per CHIP drives the count, so
+                    # an 8-chip replica absorbs 8x the target before a
+                    # second replica (and its whole sub-slice) spawns.
+                    cap = max(1e-9, auto["target_ongoing_requests"]
+                              * self._mesh_chips(rec))
+                    desired = max(auto["min_replicas"],
+                                  min(auto["max_replicas"],
+                                      math.ceil(ongoing / cap)))
+                    now = time.monotonic()
+                    if (desired > len(rec.replicas)
+                            and now - rec.last_scale >
+                            auto["upscale_delay_s"]):
+                        if self._add_replica(rec, orphans):
+                            rec.last_scale = now
+                            changed = True
+                    elif (desired < len(rec.replicas)
+                            and now - rec.last_scale >
+                            auto["downscale_delay_s"]):
+                        downscaled = self._remove_replica(rec)
                         rec.last_scale = now
                         changed = True
-                elif (desired < len(rec.replicas)
-                        and now - rec.last_scale >
-                        auto["downscale_delay_s"]):
-                    downscaled = self._remove_replica(rec)
-                    rec.last_scale = now
-                    changed = True
+            finally:
+                self._kill_orphans(orphans)
             if downscaled is not None:
                 self._kill_replica(downscaled)
         # Model residency changes also need a push (multiplex routing).

@@ -508,9 +508,17 @@ class DecodeEngine:
         if self._pages.free_count < n and self.prefix is not None:
             self.prefix.reclaim(n - self._pages.free_count)
         got = self._pages.alloc(n)
-        if got is not None and self.steplog.enabled:
-            self.steplog.event("page-alloc", n=n,
-                               free=self._pages.free_count)
+        if got is None:
+            return None
+        try:
+            if self.steplog.enabled:
+                self.steplog.event("page-alloc", n=n,
+                                   free=self._pages.free_count)
+        except BaseException:
+            # An event-recording failure hands the pages back: the
+            # caller never saw them, so nothing else would free them.
+            self._pages.free(got)
+            raise
         return got
 
     def _set_slot_pages(self, slot: int, pages: List[int]) -> None:
@@ -2090,7 +2098,10 @@ class DecodeEngine:
             self._fail_all(f"decode loop failed: {type(e).__name__}: {e}")
             raise
         finally:
-            self._looping = False
+            # Under the lock: ``shutdown`` decides under it whether a
+            # loop is left to send rank 0's stop.
+            with self._sync_lock:
+                self._looping = False
 
     def _has_work(self) -> bool:
         return bool(self._active or self._prefilling or self._requeue

@@ -67,6 +67,7 @@ def _count_suppressed(key: str) -> None:
     # The one place that cannot log its failure: log_every is the logging
     # path, and recursing into it from its own metrics hook (or at
     # interpreter teardown) must never take down the caller.
+    # graftlint: disable=swallowed-exception
     except Exception:
         pass
 

@@ -81,6 +81,27 @@ def test_import_loads_no_jax_and_builds_nothing():
     assert after == built
 
 
+def test_analyzer_loads_neither_torch_nor_jax_and_reads_its_own_baseline():
+    """``ray_tpu_torch.analysis`` is pure stdlib: a run in a fresh
+    interpreter loads no torch, no JAX and nothing of ``ray_tpu``, and its
+    baseline is the port's own file."""
+    code = ("import sys\n"
+            "from ray_tpu_torch.analysis import DEFAULT_BASELINE, "
+            "run_analysis\n"
+            "run_analysis(select=['rpc-stub-drift'])\n"
+            "assert 'torch' not in sys.modules, 'torch imported'\n"
+            "assert 'jax' not in sys.modules, 'jax imported'\n"
+            "assert not any(k == 'ray_tpu' or k.startswith('ray_tpu.') "
+            "for k in sys.modules), 'ray_tpu imported'\n"
+            "print(DEFAULT_BASELINE)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert Path(proc.stdout.strip()) == PORT / "analysis" / "baseline.json"
+
+
 def test_models_package_imports_its_families_without_a_context():
     """In a fresh interpreter ``import ray_tpu_torch.models`` resolves
     ``models.llama`` and ``models.vit``, as ``ray_tpu.models`` does, and
