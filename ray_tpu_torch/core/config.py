@@ -323,7 +323,21 @@ _FLAG_DEFS: Dict[str, tuple] = {
         "chunk, decode, draft, verify), batch occupancy and page "
         "alloc/free, preempt, spec-draftless and jit-compile events, "
         "read through engine.timeline() and stats(). 0 disables the "
-        "recorder."),
+        "recorder. A phase's host times end where the host got past it: "
+        "prefill, suffix-prefill, decode and draft end in a copy to the "
+        "host and so wait for the card; prefill-chunk, draft-prefill, "
+        "an adopted handoff and verify's closing cursor writes end at a "
+        "launch (the enqueue). With trace_device_spans on, every phase "
+        "also carries dev_ms, its device time."),
+    "trace_device_spans": (bool, False,
+        "Device-timed spans (util/tracing.py device_span): CUDA event "
+        "pairs, from a pool, around the engine's step phases, the decode "
+        "and verify attention of each layer, the train step's forward, "
+        "backward and optimizer and its LM head with cross entropy, read "
+        "back as dev_ms, attn_ms and lm_head_ce_ms in the step timelines "
+        "once the events have completed (no span synchronises). Off, a "
+        "span site costs one module-global read and makes no CUDA call. "
+        "util.tracing.set_device_spans() switches it at run time."),
     "metrics_flush_interval_s": (float, 5.0,
         "Period of the per-process metrics flusher pushing registry "
         "snapshots to the cluster controller. Snapshots are CUMULATIVE, "

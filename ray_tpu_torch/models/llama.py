@@ -20,7 +20,9 @@ device) they are no-ops, and under it, on the DTensors of the mesh train
 step, each one redistributes. Attention runs on local shards there
 (``_attention``); ``attention_impl="ring"`` is ``ring_attention`` over the
 context's mesh. With ``moe_experts`` each layer's MLP is ``ops.moe.moe_ffn``
-and ``loss_fn`` adds its load-balance term.
+and ``loss_fn`` adds its load-balance term. With device spans on
+(``util.tracing``) the LM head and cross entropy of each chunk are
+``lm_head_ce`` spans, forward and backward (``_ce_timed``).
 """
 
 from __future__ import annotations
@@ -49,6 +51,7 @@ from ray_tpu_torch.parallel.sharding import (
     shard_map,
     spec_for,
 )
+from ray_tpu_torch.util import tracing
 
 Params = Dict[str, Any]
 
@@ -661,6 +664,79 @@ def _ce_sum(x: torch.Tensor, targets: torch.Tensor,
     return (logz - gold).sum()
 
 
+class _BackwardSpan:
+    """The ``lm_head_ce`` span of one chunk's backward: opened where the
+    gradient reaches the chunk's output (:class:`_SpanIn`), closed where
+    the gradients leave its inputs (:class:`_SpanOut`). It nests under
+    the span open on the forward's thread when the backward runs (the
+    train step's ``backward`` phase), whichever thread autograd runs it
+    on."""
+
+    def __init__(self, device):
+        self.device = device
+        self.stack = tracing.current_span_stack()
+        self.span = None
+
+    def open(self) -> None:
+        parent = self.stack[-1] if self.stack else None
+        self.span = tracing.device_span("lm_head_ce", self.device, parent)
+        self.span.open()
+
+    def close(self) -> None:
+        if self.span is not None:
+            self.span.close()
+            self.span = None
+
+
+class _SpanIn(torch.autograd.Function):
+    """Identity on a chunk's output; its backward opens the span."""
+
+    @staticmethod
+    def forward(ctx, box, y):
+        ctx.box = box
+        return y.view_as(y)
+
+    @staticmethod
+    def backward(ctx, g):
+        ctx.box.open()
+        return None, g
+
+
+class _SpanOut(torch.autograd.Function):
+    """Identity on a chunk's hidden states and LM head; its backward
+    closes the span."""
+
+    @staticmethod
+    def forward(ctx, box, x, w):
+        ctx.box = box
+        return x.view_as(x), w.view_as(w)
+
+    @staticmethod
+    def backward(ctx, gx, gw):
+        ctx.box.close()
+        return (None, gx if ctx.needs_input_grad[1] else None,
+                gw if ctx.needs_input_grad[2] else None)
+
+
+def _ce_timed(x: torch.Tensor, targets: torch.Tensor, lm_head: torch.Tensor,
+              remat: bool) -> torch.Tensor:
+    """``_ce_sum`` of one chunk, under ``checkpoint`` with ``remat``. With
+    device spans on, the call is an ``lm_head_ce`` span and, when a
+    gradient is to flow, so is its backward (the recompute included),
+    bracketed by identities on its inputs and its output."""
+    if not tracing.device_spans_on:
+        return (checkpoint(_ce_sum, x, targets, lm_head, use_reentrant=False)
+                if remat else _ce_sum(x, targets, lm_head))
+    box = None
+    if torch.is_grad_enabled() and (x.requires_grad or lm_head.requires_grad):
+        box = _BackwardSpan(x.device)
+        x, lm_head = _SpanOut.apply(box, x, lm_head)
+    with tracing.device_span("lm_head_ce", x.device):
+        out = (checkpoint(_ce_sum, x, targets, lm_head, use_reentrant=False)
+               if remat else _ce_sum(x, targets, lm_head))
+    return out if box is None else _SpanIn.apply(box, out)
+
+
 def loss_fn(params: Params, batch: Dict[str, torch.Tensor],
             config: LlamaConfig) -> torch.Tensor:
     """Next-token cross entropy, a scalar fp32 tensor. ``batch``:
@@ -684,12 +760,11 @@ def loss_fn(params: Params, batch: Dict[str, torch.Tensor],
         grad = torch.is_grad_enabled() and x.requires_grad
         total = 0.0
         for i in range(0, s, chunk):
-            args = (x[:, i:i + chunk], targets[:, i:i + chunk], lm_head)
-            total = total + (checkpoint(_ce_sum, *args, use_reentrant=False)
-                             if grad else _ce_sum(*args))
+            total = total + _ce_timed(x[:, i:i + chunk],
+                                      targets[:, i:i + chunk], lm_head, grad)
         loss = total / (b * s)
     else:
-        loss = _ce_sum(x, targets, lm_head) / (b * s)
+        loss = _ce_timed(x, targets, lm_head, False) / (b * s)
     if c.moe_experts:
         loss = loss + c.moe_aux_coef * aux / c.n_layers
     return loss

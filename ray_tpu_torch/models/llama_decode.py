@@ -30,6 +30,10 @@ evenly when the batch axis divides them, and gathers each layer's new K/V
 over "batch" before writing it, so every copy of the pool stays whole.
 Logits come back whole on every rank. Without ``local_shards`` nothing
 here communicates.
+
+With device spans on (``util.tracing``), each layer's cache read or page
+gather plus its masked attention in ``decode_step`` and the paged decode,
+verify, draft and chunk functions is one ``attn`` span.
 """
 
 from __future__ import annotations
@@ -50,6 +54,7 @@ from ray_tpu_torch.parallel.sharding import (KV_ROW_AXES, POOL_AXES,
                                              decode_rules,
                                              decode_state_shardings,
                                              shard_local, tree_shardings)
+from ray_tpu_torch.util.tracing import device_span
 
 Cache = Dict[str, torch.Tensor]
 _NEG_INF = -1e30
@@ -314,7 +319,8 @@ def decode_step(params, cache: Cache, tokens: torch.Tensor,
         kc, vc = cache["k"][i], cache["v"][i]
         kc[w_rows, w_pos] = k_new[w_rows, 0].to(kc.dtype)
         vc[w_rows, w_pos] = v_new[w_rows, 0].to(vc.dtype)
-        att = _masked_attention(q, kc[:, :lim], vc[:, :lim], valid, c)
+        with device_span("attn", dev):
+            att = _masked_attention(q, kc[:, :lim], vc[:, :lim], valid, c)
         x = mlp(layer, x + out_proj(layer, att.to(x.dtype)), c)
     cache["length"] += 1
     x = rms_norm(x, params["final_norm"], c.norm_eps)
@@ -466,8 +472,10 @@ def _paged_forward(params, tokens: torch.Tensor, pool: Cache,
         q = apply_rope(q, cos, sin, positions=rope_pos)
         k_new = apply_rope(k_new, cos, sin, positions=rope_pos)
         _write_pages(pool, i, pages, offs, k_new, v_new, B)
-        att = _masked_attention(q, _gather_pages(pool["k"][i], bt),
-                                _gather_pages(pool["v"][i], bt), valid, c)
+        with device_span("attn", dev):
+            att = _masked_attention(q, _gather_pages(pool["k"][i], bt),
+                                    _gather_pages(pool["v"][i], bt), valid,
+                                    c)
         x = mlp(layer, x + out_proj(layer, att.to(x.dtype)), c)
     return rms_norm(x, params["final_norm"], c.norm_eps)
 
@@ -535,8 +543,10 @@ def paged_decode_step(params, pool: Cache, block_tables: torch.Tensor,
         q = apply_rope(q, cos, sin, positions=rope_pos)
         k_new = apply_rope(k_new, cos, sin, positions=rope_pos)
         _write_pages(pool, i, page, off, k_new[:, 0], v_new[:, 0], B)
-        att = _masked_attention(q, _gather_pages(pool["k"][i], bt),
-                                _gather_pages(pool["v"][i], bt), valid, c)
+        with device_span("attn", dev):
+            att = _masked_attention(q, _gather_pages(pool["k"][i], bt),
+                                    _gather_pages(pool["v"][i], bt), valid,
+                                    c)
         x = mlp(layer, x + out_proj(layer, att.to(x.dtype)), c)
     x = rms_norm(x, params["final_norm"], c.norm_eps)
     logits = _gather_batch(logits_f32(params, x[:, 0]), B)

@@ -19,10 +19,19 @@ placements, and the update runs on each rank's shards. ZeRO-1
 optimizer state over the ``data`` axis: the gradients are reduce-scattered
 onto the state's shards, each rank updates its shard, and the update is
 all-gathered once a step into the replicated params.
+
+The step keeps a step timeline (``serve.steplog.StepTimeline``, the
+engine's class): with device spans on (``util.tracing``) one row a step,
+its phases ``forward`` and ``backward`` a microbatch and ``optimizer``
+(the gradient norm and the update), each with ``dev_ms``, and on the row
+``lm_head_ce_ms``, the LM head and cross entropy forward, recompute and
+backward. ``step.timeline()`` dumps it.
 """
 
 from __future__ import annotations
 
+import itertools
+import time
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
@@ -43,8 +52,13 @@ from ray_tpu_torch.parallel.sharding import (
     spec_for,
     tree_shardings,
 )
+from ray_tpu_torch.serve.steplog import StepTimeline
+from ray_tpu_torch.util import tracing
 
 Params = Dict[str, Any]
+# Rows of a train step's timeline.
+_TIMELINE_ROWS = 256
+_PHASES = ("forward", "backward", "optimizer")
 
 
 def _is_dtensor(t) -> bool:
@@ -118,11 +132,14 @@ def value_and_grad(loss_fn, params: Params, batch) -> Tuple[torch.Tensor,
     in its param's dtype (as ``jax.value_and_grad``)."""
     with torch.enable_grad():
         live = tree_map(lambda p: p.detach().requires_grad_(), params)
-        loss = loss_fn(live, batch)
+        leaves = tree_leaves(live)
+        with tracing.device_span("forward", leaves[0].device):
+            loss = loss_fn(live, batch)
         # A param the loss does not use (the MoE tree's dense w_down) gets
         # zeros, as in JAX.
-        grads = torch.autograd.grad(loss, tree_leaves(live),
-                                    allow_unused=True, materialize_grads=True)
+        with tracing.device_span("backward", leaves[0].device):
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                        materialize_grads=True)
     it = iter(grads)
     return loss.detach(), tree_map(lambda _: next(it), params)
 
@@ -223,8 +240,10 @@ def _build_step(loss_fn, optimizer, mesh, rules, extra_metrics, accum_steps,
             grads = tree_map(_redistribute, grads, grad_shardings)
         else:
             grads = tree_map(_like, grads, params)
-        metrics = {"loss": _full(loss), "grad_norm": _full(global_norm(grads))}
-        opt_state = optimizer.update(grads, opt_state, params)
+        with tracing.device_span("optimizer", tree_leaves(params)[0].device):
+            metrics = {"loss": _full(loss),
+                       "grad_norm": _full(global_norm(grads))}
+            opt_state = optimizer.update(grads, opt_state, params)
         del grads
         if extra_metrics is not None:
             with torch.no_grad():
@@ -234,7 +253,7 @@ def _build_step(loss_fn, optimizer, mesh, rules, extra_metrics, accum_steps,
     if mesh is None:
         if out_shardings is not None:
             raise ValueError("out_shardings needs a mesh")
-        return _body
+        return _timed(_body)
 
     def step(params, opt_state, batch):
         from torch.distributed.tensor.experimental import implicit_replication
@@ -250,7 +269,39 @@ def _build_step(loss_fn, optimizer, mesh, rules, extra_metrics, accum_steps,
                 opt_state = _pin(opt_state, out_shardings[1])
         return params, opt_state, metrics
 
-    return step
+    return _timed(step)
+
+
+def _timed(run):
+    """``run`` with a step timeline: while device spans are on, each call
+    is one row of ``forward`` / ``backward`` / ``optimizer`` phases (the
+    spans ``run`` opens), read through ``timed.timeline()``."""
+    timeline = StepTimeline(_TIMELINE_ROWS)
+    count = itertools.count()
+
+    def timed(params, opt_state, batch):
+        if not tracing.device_spans_on:
+            return run(params, opt_state, batch)
+        t0 = time.time()
+        with tracing.device_span("step", tree_leaves(params)[0].device) as row:
+            out = run(params, opt_state, batch)
+        phases, spans, forwards = [], [], 0
+        for span in row.children:
+            if span.name not in _PHASES:
+                continue
+            phase = {"phase": span.name, "t0": span.t0, "t1": span.t1}
+            forwards += span.name == "forward"
+            if span.name != "optimizer":
+                phase["microbatch"] = forwards - 1
+            phases.append(phase)
+            spans.append((phase, span))
+        timeline.record(next(count), t0, time.time(), phases,
+                        active=len(tree_leaves(batch)[0]), prefilling=0,
+                        queued=0, spans=spans, row_span=row)
+        return out
+
+    timed.timeline = timeline.dump
+    return timed
 
 
 def _like(g, p):

@@ -44,7 +44,10 @@ handoff).
   pools' cursors and tail pages roll back over the rejected rest.
 * The step timeline (``serve.steplog``) keeps one row a step: its phases
   and batch occupancy, with page, preemption, demotion, handoff and
-  first-dispatch events.
+  first-dispatch events. With device spans on (``util.tracing``) each
+  phase also carries its device time, decode and verify their attention's,
+  prefill phases their prompt tokens, and the host-only ``admit`` and
+  ``emit`` phases are recorded.
 * SLO metrics (``serve.metrics``) are observed per REQUEST only: the
   shed and expired-deadline outcomes at submit, queue wait at first
   admission, preemptions, and at the terminal step the outcome, TTFT,
@@ -378,6 +381,11 @@ class DecodeEngine:
             rt_config.decode_step_timeline
             if step_timeline is None else step_timeline)
         self._step_phases: List[Dict[str, Any]] = []  # this step's phases
+        # With device spans on: this step's (phase, span) pairs, the
+        # phase span open now, and the admit phase's start while open.
+        self._step_spans: List[Tuple[Dict[str, Any], Any]] = []
+        self._span = None
+        self._admit_t0: Optional[float] = None
         self._compiled: set = set()  # program keys dispatched once
         # SLO metrics are per REQUEST (submit, admission, preemption,
         # terminal): nothing here touches the per-token or per-step path.
@@ -1146,7 +1154,7 @@ class DecodeEngine:
         self._set_slot_pages(slot, pages)
         req.prefix_pages, req.prefix_len = [], 0
         req.prefilled = clen
-        t0 = time.time()
+        t0 = self._phase_start()
         self._mark_compile(("adopt_pages", len(pages)))
         ids = self._dev(pages)
         for name in ("k", "v"):
@@ -1198,7 +1206,7 @@ class DecodeEngine:
             slots = [r.slot for r in group]
             lengths = self._dev([len(r.tokens) for r in group])
             self.prefill_waves += 1
-            t0 = time.time()
+            t0 = self._phase_start()
             self._mark_compile(("paged_prefill", len(group), bucket))
             logits, _ = ld.paged_prefill(
                 self.params, self._dev(rows), self.cache,
@@ -1206,7 +1214,9 @@ class DecodeEngine:
                 lengths=lengths)
             self.cache["length"][self._dev(slots)] = lengths.to(torch.int32)
             logits = logits.cpu().numpy()
-            self._phase("prefill", t0, n=len(group), bucket=bucket)
+            self._phase("prefill", t0, n=len(group), bucket=bucket,
+                        **self._prompt_tokens(sum(len(r.tokens)
+                                                  for r in group)))
             self._wave_span("prefill", t0, group, n=len(group),
                             bucket=bucket)
             self._post_admit(group, slots, logits)
@@ -1227,7 +1237,7 @@ class DecodeEngine:
             slots = [r.slot for r in group]
             lengths = self._dev([len(r.tokens) for r in group])
             self.suffix_waves += 1
-            t0 = time.time()
+            t0 = self._phase_start()
             self._mark_compile(("paged_suffix", len(group), bucket, width))
             logits, _ = ld.paged_prefill_suffix(
                 self.params, self._dev(rows), self.cache,
@@ -1235,7 +1245,9 @@ class DecodeEngine:
                 self._dev([r.prefix_len for r in group]), lengths)
             self.cache["length"][self._dev(slots)] = lengths.to(torch.int32)
             logits = logits.cpu().numpy()
-            self._phase("suffix-prefill", t0, n=len(group), bucket=bucket)
+            self._phase("suffix-prefill", t0, n=len(group), bucket=bucket,
+                        **self._prompt_tokens(sum(
+                            len(r.tokens) - r.prefix_len for r in group)))
             self._wave_span("suffix-prefill", t0, group, n=len(group),
                             bucket=bucket)
             self._post_admit(group, slots, logits)
@@ -1269,7 +1281,7 @@ class DecodeEngine:
         rows[0, :step_tok] = req.tokens[req.prefilled:
                                         req.prefilled + step_tok]
         end = req.prefilled + step_tok
-        t0 = time.time()
+        t0 = self._phase_start()
         self._mark_compile(("paged_suffix", 1, bucket, width))
         logits, _ = ld.paged_prefill_suffix(
             self.params, self._dev(rows), self.cache,
@@ -1306,13 +1318,14 @@ class DecodeEngine:
                 rows[i, :len(req.tokens)] = req.tokens
             lengths = [len(r.tokens) for r in group]
             self.prefill_waves += 1
-            t0 = time.time()
+            t0 = self._phase_start()
             self._mark_compile(("prefill", len(group), bucket))
             logits, self.cache = ld.prefill(
                 self.params, self._dev(rows), self.cache, self.config,
                 lengths=self._dev(lengths), rows=self._dev(slots))
             logits = logits.cpu().numpy()
-            self._phase("prefill", t0, n=len(group), bucket=bucket)
+            self._phase("prefill", t0, n=len(group), bucket=bucket,
+                        **self._prompt_tokens(sum(lengths)))
             self._wave_span("prefill", t0, group, n=len(group),
                             bucket=bucket)
             self._post_admit(group, slots, logits)
@@ -1334,14 +1347,16 @@ class DecodeEngine:
             ld.prefix_splice(self.cache, self._pool, slot_ids,
                              self._dev([r.prefix_entry for r in group]))
             self.suffix_waves += 1
-            t0 = time.time()
+            t0 = self._phase_start()
             self._mark_compile(("suffix", len(group), bucket))
             logits, self.cache = ld.prefill_suffix(
                 self.params, self._dev(rows), self.cache, self.config,
                 self._dev([r.prefix_len for r in group]),
                 self._dev([len(r.tokens) for r in group]), rows=slot_ids)
             logits = logits.cpu().numpy()
-            self._phase("suffix-prefill", t0, n=len(group), bucket=bucket)
+            self._phase("suffix-prefill", t0, n=len(group), bucket=bucket,
+                        **self._prompt_tokens(sum(
+                            len(r.tokens) - r.prefix_len for r in group)))
             self._wave_span("suffix-prefill", t0, group, n=len(group),
                             bucket=bucket)
             for req in group:
@@ -1406,7 +1421,7 @@ class DecodeEngine:
         input). The copy to pageable host memory returns once the bytes
         are there. On a mesh every rank gathers the kv heads over "model"
         and rank 0 alone copies them to the host."""
-        t0 = time.time()
+        t0 = self._phase_start()
         ids = self._dev(self._slot_pages[slot])
         k, v = (self._whole_heads(self.cache[name][:, ids])
                 for name in ("k", "v"))
@@ -1477,7 +1492,7 @@ class DecodeEngine:
                      self.capacity)
         rows = np.zeros((1, bucket), np.int32)
         rows[0, :len(seq)] = seq
-        t0 = time.time()
+        t0 = self._phase_start()
         self._mark_compile(("draft_prefill", 1, bucket))
         with local_shards(self._draft_shards):
             ld.paged_prefill(
@@ -1751,6 +1766,9 @@ class DecodeEngine:
     def _step_logged(self) -> int:
         t0 = time.time()
         self._step_phases = []
+        self._step_spans = []
+        self._drop_span()
+        self._admit_t0 = t0 if self._spans_on() else None
         with local_shards(self._shards):
             stepped = self._step()
         self._steplog_row(t0)
@@ -1761,6 +1779,7 @@ class DecodeEngine:
         self._admit()
         if self.paged:
             self._prefill_tick()
+        self._close_admit()
         if not self._active:
             return 0
         if self._spec_ready():
@@ -1783,8 +1802,8 @@ class DecodeEngine:
                 return 0
             chunk = min(chunk, self._pick_chunk())
         stepped = len(self._active)
-        t0 = time.time()
         if chunk > 1:
+            t0 = self._phase_start()
             tokens = self._dev(self._tokens)
             self._mark_compile(("decode_k", chunk))
             if self.paged:
@@ -1798,20 +1817,25 @@ class DecodeEngine:
             self._phase("decode", t0, batch=stepped, k=chunk)
             self.steps += chunk
             self._tokens_dev = None
+            te = self._host_mark()
             for slot in list(self._active):
                 for i in range(chunk):
                     if self._advance(slot, int(toks[i, slot])):
                         break
+            self._host_phase("emit", te)
             return stepped
         if self._device_sampler:
             return self._sampled_step()
+        t0 = self._phase_start()
         self._mark_compile(("decode",))
         logits = self._decode_logits(self._dev(self._tokens)).cpu().numpy()
         self._phase("decode", t0, batch=stepped, k=1)
         self.steps += 1
+        te = self._host_mark()
         for slot in list(self._active):
             self._advance(slot, self._sample_host(logits[slot],
                                                   self._active[slot]))
+        self._host_phase("emit", te)
         return stepped
 
     def _sampled_step(self) -> int:
@@ -1825,7 +1849,7 @@ class DecodeEngine:
             temps[slot] = max(0.0, req.temperature)
         tokens = (self._tokens_dev if self._tokens_dev is not None
                   else self._dev(self._tokens))
-        t0 = time.time()
+        t0 = self._phase_start()
         self._mark_compile(("decode_sampled",))
         logits = self._decode_logits(tokens)
         self._generator.manual_seed(self.steps)
@@ -1834,8 +1858,10 @@ class DecodeEngine:
         self._phase("decode", t0, batch=stepped, k=1, sampler="device")
         self.steps += 1
         self._tokens_dev = toks_dev  # _finish drops it below
+        te = self._host_mark()
         for slot in list(self._active):
             self._advance(slot, int(toks[slot]))
+        self._host_phase("emit", te)
         return stepped
 
     # ----------------------------------------------- speculative rounds
@@ -1880,7 +1906,7 @@ class DecodeEngine:
             for j in range(cl):
                 catchup[slot, j] = self._token_at(req, D + j)
             clens[slot] = cl
-        t0 = time.time()
+        t0 = self._phase_start()
         self._mark_compile(("spec_draft", k))
         with local_shards(self._draft_shards):
             toks_d, _ = ld.paged_spec_draft(
@@ -1896,7 +1922,7 @@ class DecodeEngine:
         for slot in self._active:
             rows[slot, 0] = self._tokens[slot]
             rows[slot, 1:] = toks_d[slot]
-        t0 = time.time()
+        t0 = self._phase_start()
         self._mark_compile(("spec_verify", k))
         logits, _ = ld.paged_verify(
             self.params, self._dev(rows), self.cache,
@@ -1907,6 +1933,7 @@ class DecodeEngine:
         self.steps += 1
         self.spec_rounds += 1
         self._tokens_dev = None  # host token writes below
+        te = self._host_mark()
         accepted = 0
         upd: List[Tuple[int, int, int]] = []   # (slot, L', D')
         for slot in list(self._active):
@@ -1937,6 +1964,7 @@ class DecodeEngine:
             self._rollback_pages(slot, committed)
             upd.append((slot, committed,
                         max(0, self._draft_committed[slot])))
+        self._host_phase("emit", te)
         if upd:
             ids = self._dev([u[0] for u in upd])
             self.cache["length"][ids] = self._dev(
@@ -1958,17 +1986,74 @@ class DecodeEngine:
                 self.steplog.event("jit-compile", key="/".join(
                     str(k) for k in key))
 
+    def _spans_on(self) -> bool:
+        """Device spans are on and the step timeline records them."""
+        return tracing.device_spans_on and self.steplog.enabled
+
+    def _phase_start(self) -> float:
+        """Host time a timed phase starts at, taken before its first
+        launch. With device spans on this also closes the step's admit
+        phase and opens the phase's device span (an event on the current
+        stream), which ``_phase`` closes."""
+        t0 = time.time()
+        if self._spans_on():
+            self._close_admit(t0)
+            self._span = tracing.device_span("phase", self.device)
+            self._span.open()
+        return t0
+
     def _phase(self, name: str, t0: float, **attrs: Any) -> None:
-        """Close one timed phase of the current step (host wall clock)."""
+        """Close one timed phase of the current step (host wall clock),
+        with its device span if one is open."""
         if self.steplog.enabled:
+            phase = {"phase": name, "t0": t0, "t1": time.time(), **attrs}
+            if self._span is not None:
+                self._span.close()
+                self._step_spans.append((phase, self._span))
+                self._span = None
+            self._step_phases.append(phase)
+
+    def _drop_span(self) -> None:
+        """Close and forget a phase span a raised step left open."""
+        if self._span is not None:
+            self._span.close()
+            self._span = None
+
+    def _prompt_tokens(self, n: int) -> Dict[str, int]:
+        """A prefill phase's prompt-token count, with device spans on."""
+        if self._spans_on():
+            return {"tokens": int(n)}
+        return {}
+
+    def _host_mark(self) -> Optional[float]:
+        """Start of a host-only phase, with device spans on."""
+        if self._spans_on():
+            return time.time()
+        return None
+
+    def _host_phase(self, name: str, t0: Optional[float]) -> None:
+        if t0 is not None:
             self._step_phases.append(
-                {"phase": name, "t0": t0, "t1": time.time(), **attrs})
+                {"phase": name, "t0": t0, "t1": time.time()})
+
+    def _close_admit(self, t1: Optional[float] = None) -> None:
+        """End the admit phase (reaping and admission, host only) at the
+        step's first launch or at the end of admission."""
+        if self._admit_t0 is not None:
+            self._step_phases.append(
+                {"phase": "admit", "t0": self._admit_t0,
+                 "t1": time.time() if t1 is None else t1})
+            self._admit_t0 = None
 
     def _steplog_row(self, t0: float) -> None:
         """Close the step's timeline row; an idle step with no phases and
         no pending events records nothing (an idle engine must not churn
-        useful rows out of the bounded ring)."""
+        useful rows out of the bounded ring). An admit phase alone is no
+        work."""
         phases, self._step_phases = self._step_phases, []
+        spans, self._step_spans = self._step_spans, []
+        if len(phases) == 1 and phases[0]["phase"] == "admit":
+            phases = []
         if not self.steplog.enabled or not (phases
                                             or self.steplog.pending_events):
             return
@@ -1977,7 +2062,8 @@ class DecodeEngine:
             active=len(self._active), prefilling=len(self._prefilling),
             queued=max(0, self._pending.qsize() + len(self._requeue)
                        - self._queued_cancelled),
-            pages_free=self._pages.free_count if self.paged else None)
+            pages_free=self._pages.free_count if self.paged else None,
+            spans=spans)
 
     def timeline(self) -> Dict[str, Any]:
         """The step-timeline dump with the engine's shape."""

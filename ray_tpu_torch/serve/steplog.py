@@ -15,29 +15,56 @@ token). The ring is host memory only; ``engine.timeline()`` dumps it and
 
 Timestamps are host wall clock (``time.time``). On a card a phase's
 ``t1`` is when the host got past it: a phase that ends in a device-to-host
-copy has waited for the card, one that ends in a launch has not.
+copy has waited for the card, one that ends in a launch has not. In the
+engine, ``prefill``, ``suffix-prefill``, ``decode``, ``draft`` and a
+published ``handoff`` end in a copy to the host; ``prefill-chunk``,
+``draft-prefill`` and an adopted ``handoff`` end at a launch, and
+``verify`` after its closing cursor writes (launches). So a chunk's device
+time lands in the host times of the phase whose copy follows it.
+
+With device spans on (``util/tracing.py``, the ``trace_device_spans``
+flag) a row records the card's time too. Each timed phase carries
+``dev_ms``: the device time between a CUDA event recorded just before its
+first launch and one just after its last, the token copy included. A
+phase whose work holds ``attn`` spans (``decode``, ``verify``, ``draft``,
+``prefill-chunk``, a paged ``suffix-prefill``: each layer's page gather
+and masked attention) carries
+``attn_ms``, their sum, and every prefill phase carries ``tokens``, the
+real prompt tokens it processed. The host-only phases ``admit`` (reaping
+and admission up to the step's first launch) and ``emit`` (the loop over
+slots after the token copy) time the host between launches. The train
+step (``parallel/train_step.py``) keeps rows of its own: ``forward`` and
+``backward`` a microbatch and ``optimizer``, each with ``dev_ms``, and
+``lm_head_ce_ms`` on the row. A phase's keys appear once its end event
+has completed: at a later row's close or at ``dump()``; nothing waits for
+the card. With device spans off, rows hold only host times.
 """
 
 from __future__ import annotations
 
+import threading
 import time
 from collections import deque
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 
 class StepTimeline:
     """Bounded per-engine step recorder. Not thread-safe by design: only
-    the engine's decode-loop thread touches it; ``dump()`` snapshots with
-    ``list()``, enough for a diagnostic read from another thread (rows are
-    never changed once appended)."""
+    the engine's decode-loop thread records; ``dump()`` may read from
+    another thread. A row changes after it is appended only as its device
+    spans resolve, under ``_lock``, and ``dump()`` copies the rows and
+    their phases under it."""
 
-    __slots__ = ("capacity", "_rows", "_events", "dropped")
+    __slots__ = ("capacity", "_rows", "_events", "dropped", "_spans",
+                 "_lock")
 
     def __init__(self, capacity: int = 256):
         self.capacity = max(0, int(capacity))
         self._rows: deque = deque(maxlen=self.capacity or None)
         self._events: List[Dict[str, Any]] = []  # pending, next row's
         self.dropped = 0
+        self._spans: List[Tuple[Dict[str, Any], Any]] = []  # unresolved
+        self._lock = threading.Lock()
 
     @property
     def enabled(self) -> bool:
@@ -63,10 +90,16 @@ class StepTimeline:
 
     def record(self, step: int, t0: float, t1: float, phases:
                List[Dict[str, Any]], active: int, prefilling: int,
-               queued: int, pages_free: Optional[int] = None) -> None:
+               queued: int, pages_free: Optional[int] = None,
+               spans: Sequence[Tuple[Dict[str, Any], Any]] = (),
+               row_span: Any = None) -> None:
         """One engine step: ``phases`` are the step's timed sub-slices
         ([{phase, t0, t1, ...attrs}]); occupancy is sampled at the step
-        boundary; queued events ride along and clear."""
+        boundary; queued events ride along and clear. ``spans`` pairs
+        phases with the closed device spans (``util.tracing.DeviceSpan``)
+        that timed them, ``row_span`` times the whole row: each phase (or
+        the row) gains ``dev_ms`` and ``<name>_ms`` for the summed spans
+        of each name nested in it once they resolve."""
         if not self.capacity:
             self._events.clear()
             return
@@ -81,10 +114,34 @@ class StepTimeline:
             row["events"] = self._events
             self._events = []
         self._rows.append(row)
+        if spans or row_span is not None or self._spans:
+            with self._lock:
+                self._spans.extend(spans)
+                if row_span is not None:
+                    self._spans.append((row, row_span))
+                self._settle()
+
+    def _settle(self) -> None:
+        """Write the times of the spans whose events have completed, in
+        order, up to the first still running (spans complete in stream
+        order). Holds ``_lock``."""
+        done = 0
+        for target, span in self._spans:
+            if not span.resolve():
+                break
+            target["dev_ms"] = span.dev_ms
+            for name, ms in span.totals().items():
+                target[f"{name}_ms"] = ms
+            done += 1
+        del self._spans[:done]
 
     def dump(self) -> Dict[str, Any]:
+        with self._lock:
+            self._settle()
+            rows = [dict(r, phases=[dict(p) for p in r["phases"]])
+                    for r in list(self._rows)]
         return {"capacity": self.capacity, "dropped": self.dropped,
-                "rows": list(self._rows)}
+                "rows": rows}
 
 
 def timeline_chrome_events(dump: Dict[str, Any], pid: str
